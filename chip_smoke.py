@@ -1,0 +1,525 @@
+"""Proof that the PyTorch port runs on one NVIDIA H100.
+
+    python3 chip_smoke.py
+
+Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``,
+holds each against its plain PyTorch version at the shapes of the main
+path and at edge cases, times kernel, plain version and a PyTorch library
+call beside the roofline bound, then drives the main path through the
+public entry points: ``LVLM.generate`` and a chunked ``LVLM.serve`` on
+qwen2-vl at smoke size (card against CPU, float32) and at the full
+published width (bfloat16, random weights from seed 0). Each phase prints
+one JSON line; the last two lines are the kernel summary and
+``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero
+before that line. Needs one CUDA device of compute capability 9.0.
+"""
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+
+# published H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, dense FLOP/s
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+# float32 kernels repeat the plain arithmetic up to summation order; the
+# bfloat16 flash kernel rounds its probabilities to bf16 for the
+# tensor-core product, and both round the output to bf16 (one bf16 ulp
+# at |x| ~ 2 is 1.6e-2)
+TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
+SMOKE_LOGIT_TOL = 1e-3          # card vs CPU, float32 smoke model
+
+
+def emit(phase: str, **fields) -> None:
+    print(json.dumps({"phase": phase, **fields}), flush=True)
+
+
+def check(cond: bool, what: str) -> None:
+    if not cond:
+        raise AssertionError(what)
+
+
+def time_ms(fn, flush: torch.Tensor, n: int = 20) -> float:
+    """Device time of one ``fn`` with the 50 MB L2 flushed before it (the
+    main path meets its K/V cold: 28 layers of cache do not fit L2).
+
+    Two back-to-back loops between CUDA events, flush+fn and flush alone;
+    their difference over ``n`` is fn's time. Back to back, the device
+    queue stays full, so host time spent enqueueing is not counted."""
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+
+    def loop(with_fn: bool) -> float:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(n):
+            flush.zero_()
+            if with_fn:
+                fn()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end)
+    return (loop(True) - loop(False)) / n
+
+
+def bound(nbytes: float, flops: float, dtype) -> tuple:
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = flops / PEAK_FLOPS[dtype]
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def randn(rng, shape, dtype):
+    return torch.from_numpy(rng.standard_normal(shape).astype(np.float32)
+                            ).to("cuda", dtype)
+
+
+def max_err(a, b) -> float:
+    return float((a.float() - b.float()).abs().max().item())
+
+
+# ---------------------------------------------------------------- phases --
+
+def phase_env() -> dict:
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, check=True,
+        timeout=60).stdout.strip().splitlines()[0]
+    name = torch.cuda.get_device_name(0)
+    cap = torch.cuda.get_device_capability(0)
+    emit("env", nvidia_smi=smi, device=name, capability=list(cap),
+         torch=torch.__version__, cuda=torch.version.cuda,
+         device_count=torch.cuda.device_count())
+    check(cap == (9, 0), f"needs compute capability 9.0, found {cap}")
+    # float32 products in full float32 (the card check is tight)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return {"smi": smi, "name": name}
+
+
+def phase_build() -> None:
+    from repro_torch.kernels import build
+    t0 = time.perf_counter()
+    res = build.build_all()
+    emit("build", seconds=time.perf_counter() - t0,
+         kernels={k: {"seconds": v["seconds"], "cached": v["cached"],
+                      # ptxas -v: registers of each instantiation
+                      "ptxas": [ln.split(": ", 1)[1] for ln in
+                                v["log"].splitlines() if "Used" in ln]}
+                  for k, v in res.items()})
+
+
+def _flash_cases():
+    """Main-path shape (qwen2-vl-2b prefill of 1024 visual + 32 text
+    tokens), then the edge cases."""
+    main = dict(b=1, h=12, kvh=2, sq=1056, sk=1056, d=128)
+    return main, [
+        ("main", main, {}),
+        ("sq_not_tile_multiple", dict(main, sq=1000, sk=1000), {}),
+        ("kv_len_lt_sk", dict(main, sq=64, sk=1104), dict(kv_len=1072)),
+        ("q_offset", dict(main, sq=16, sk=1104),
+         dict(kv_len=1056, q_offset=1000)),
+        ("window", main, dict(window=256)),
+        ("head_dim_64", dict(main, h=4, kvh=2, d=64, sq=300, sk=300), {}),
+        ("keyless_rows", dict(main, sq=200, sk=200), dict(q_offset=-30)),
+    ]
+
+
+def phase_kernels(flush) -> dict:
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import paged_attention as pa
+    rng = np.random.default_rng(0)
+    out = {}
+
+    # ---- flash (prefill) ----
+    main, cases = _flash_cases()
+    errs = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        for name, c, kw in cases:
+            q = randn(rng, (c["b"], c["h"], c["sq"], c["d"]), dtype)
+            k = randn(rng, (c["b"], c["kvh"], c["sk"], c["d"]), dtype)
+            v = randn(rng, (c["b"], c["kvh"], c["sk"], c["d"]), dtype)
+            got = fa.flash_attention(q, k, v, **kw)
+            torch.cuda.synchronize()
+            e = max_err(got, fa.flash_attention_plain(q, k, v, **kw))
+            errs[f"{name}/{str(dtype)[6:]}"] = e
+            check(e <= TOL[dtype], f"flash {name} {dtype}: err {e}")
+    dtype = torch.bfloat16
+    q = randn(rng, (1, main["h"], main["sq"], main["d"]), dtype)
+    k = randn(rng, (1, main["kvh"], main["sk"], main["d"]), dtype)
+    v = randn(rng, (1, main["kvh"], main["sk"], main["d"]), dtype)
+    sq, d, h = main["sq"], main["d"], main["h"]
+    elt = q.element_size()
+    nbytes = elt * (2 * q.numel() + k.numel() + v.numel())
+    flops = 4 * d * h * sq * (sq + 1) / 2           # causal: valid keys only
+    b_ms, b_by = bound(nbytes, flops, dtype)
+    out["flash_attention"] = {
+        "name": "flash_attention", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:83",
+        "max_abs_err": errs["main/bfloat16"],
+        "ms": time_ms(lambda: fa.flash_attention(q, k, v), flush),
+        "plain_ms": time_ms(lambda: fa.flash_attention_plain(q, k, v), flush),
+        "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True, enable_gqa=True), flush),
+    }
+    emit("kernels", kernel="flash_attention", shape=main, errors=errs,
+         tolerance={"float32": TOL[torch.float32],
+                    "bfloat16": TOL[torch.bfloat16]},
+         **{k_: out["flash_attention"][k_] for k_ in
+            ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")})
+
+    # ---- paged (decode) ----
+    b, h, kvh, d, length, page = 4, 12, 2, 128, 1104, 16
+    pps = length // page
+    seqs = torch.tensor([1060, 1100, 40, 1103], dtype=torch.int32,
+                        device="cuda")
+    ident = torch.arange(b * pps, dtype=torch.int32,
+                         device="cuda").view(b, pps)
+    perm = torch.from_numpy(rng.permutation(b * pps).astype(np.int32)
+                            ).to("cuda").view(b, pps)
+    zero_seq = torch.tensor([0, 5, 0, 1103], dtype=torch.int32,
+                            device="cuda")
+    errs = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        qd = randn(rng, (b, h, d), dtype)
+        kp = randn(rng, (b * pps, page, kvh, d), dtype)
+        vp = randn(rng, (b * pps, page, kvh, d), dtype)
+        for name, table, sl in (("identity_table", ident, seqs),
+                                ("permuted_table", perm, seqs),
+                                ("seq_len_0", perm, zero_seq)):
+            got = pa.paged_attention(qd, kp, vp, table, sl)
+            torch.cuda.synchronize()
+            e = max_err(got, pa.paged_attention_plain(qd, kp, vp, table, sl))
+            errs[f"{name}/{str(dtype)[6:]}"] = e
+            check(e <= TOL[dtype], f"paged {name} {dtype}: err {e}")
+    dtype = torch.bfloat16
+    qd = randn(rng, (b, h, d), dtype)
+    cache_k = randn(rng, (b, length, kvh, d), dtype)
+    cache_v = randn(rng, (b, length, kvh, d), dtype)
+    kp = cache_k.view(b * pps, page, kvh, d)
+    vp = cache_v.view(b * pps, page, kvh, d)
+    elt = qd.element_size()
+    n_tok = int(seqs.sum().item())
+    nbytes = elt * (2 * qd.numel() + 2 * n_tok * kvh * d) \
+        + 4 * (ident.numel() + b)
+    flops = 4 * h * d * n_tok
+    b_ms, b_by = bound(nbytes, flops, dtype)
+    # the library yardstick: SDPA over the same slot cache seen densely,
+    # masked to each request's valid positions (identity table only)
+    mask = (torch.arange(length, device="cuda")[None]
+            < seqs[:, None])[:, None, None, :]
+    qs, ks, vs = qd[:, :, None], cache_k.transpose(1, 2), \
+        cache_v.transpose(1, 2)
+    out["paged_attention"] = {
+        "name": "paged_attention", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
+        "replaces": "src/repro/kernels/paged_attention.py:68",
+        "max_abs_err": errs["identity_table/bfloat16"],
+        "ms": time_ms(lambda: pa.paged_attention(qd, kp, vp, ident, seqs),
+                      flush),
+        "plain_ms": time_ms(lambda: pa.paged_attention_plain(
+            qd, kp, vp, ident, seqs), flush),
+        "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
+            qs, ks, vs, attn_mask=mask, enable_gqa=True), flush),
+    }
+    emit("kernels", kernel="paged_attention",
+         shape=dict(b=b, h=h, kvh=kvh, d=d, cache_len=length, page=page,
+                    seq_lens=seqs.tolist()),
+         errors=errs, tolerance={"float32": TOL[torch.float32],
+                                 "bfloat16": TOL[torch.bfloat16]},
+         **{k_: out["paged_attention"][k_] for k_ in
+            ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")})
+    return out
+
+
+class CallTimer:
+    """Wraps a model's prefill/extend/decode_step on the instance: counts
+    calls and wall seconds (synchronized), for the main-path report."""
+
+    def __init__(self, model):
+        self.calls = {"prefill": 0, "extend": 0, "decode_step": 0}
+        self.seconds = dict.fromkeys(self.calls, 0.0)
+        for name in self.calls:
+            setattr(model, name, self._wrap(name, getattr(model, name)))
+
+    def _wrap(self, name, fn):
+        def timed(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = fn(*a, **kw)
+            torch.cuda.synchronize()
+            self.seconds[name] += time.perf_counter() - t0
+            self.calls[name] += 1
+            return res
+        return timed
+
+
+def _reset_counts():
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import paged_attention as pa
+    fa.flash_attention.launches = 0
+    pa.paged_attention.launches = 0
+
+
+def _counts() -> dict:
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import paged_attention as pa
+    return {"flash_attention": fa.flash_attention.launches,
+            "paged_attention": pa.paged_attention.launches}
+
+
+def _requests(Request, prompts, ves, max_new):
+    return [Request(rid=i, tokens=list(p), max_new_tokens=max_new,
+                    visual_embeds=ve) for i, (p, ve) in enumerate(zip(prompts,
+                                                                     ves))]
+
+
+def phase_main_path_smoke() -> None:
+    """qwen2-vl smoke config in float32: the port on the card (kernels)
+    against the port on the CPU (plain versions), same weights."""
+    from repro_torch.api import EngineConfig, GenerationConfig, LVLM, Request
+    cpu = LVLM.from_pretrained("qwen2-vl-2b", smoke=True, seed=0,
+                               device="cpu")
+    card = cpu.with_params(_tree_to(cpu.params, "cuda"))
+    cfg = cpu.cfg
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(0, cfg.vocab_size, n).tolist()
+               for n in (12, 40, 12, 7)]
+    ves = [rng.standard_normal((cfg.num_visual_tokens, cfg.d_model)
+                               ).astype(np.float32), None,
+           rng.standard_normal((cfg.num_visual_tokens, cfg.d_model)
+                               ).astype(np.float32), None]
+    # logits: prefill, one decode step
+    toks = torch.tensor([prompts[0]])
+    batch = {"tokens": toks, "visual_embeds": torch.from_numpy(ves[0])[None]}
+    lc, cc = cpu.model.prefill(cpu.params, batch, cache_len=64)
+    lg, cg = card.model.prefill(card.params, _tree_to(batch, "cuda"),
+                                cache_len=64)
+    e_pre = max_err(lg.cpu(), lc)
+    nxt = torch.tensor([[3]])
+    pos = torch.tensor([len(prompts[0]) + cfg.num_visual_tokens])
+    dc, _ = cpu.model.decode_step(cpu.params, cc, nxt, pos)
+    dg, _ = card.model.decode_step(card.params, cg, nxt.cuda(), pos.cuda())
+    e_dec = max_err(dg.cpu(), dc)
+    check(e_pre <= SMOKE_LOGIT_TOL and e_dec <= SMOKE_LOGIT_TOL,
+          f"smoke logits card vs CPU: prefill {e_pre}, decode {e_dec}")
+    gen = GenerationConfig(max_new_tokens=8, decoder="greedy")
+    _reset_counts()
+    tc = [r.tokens for r in cpu.generate(prompts, gen, visual_embeds=ves)]
+    tg = [r.tokens for r in card.generate(prompts, gen, visual_embeds=ves)]
+    ec = EngineConfig(max_batch=4, cache_len=80, scheduler="chunked",
+                      chunk_size=16, token_budget=64)
+    sc = cpu.serve(_requests(Request, prompts, ves, 8), ec, gen)
+    sg = card.serve(_requests(Request, prompts, ves, 8), ec, gen)
+    counts = _counts()
+    same_gen = tc == tg
+    same_serve = ({r.rid: r.generated for r in sc.requests}
+                  == {r.rid: r.generated for r in sg.requests})
+    emit("main_path_smoke", config=cfg.name, dtype=cfg.dtype,
+         prefill_logit_err=e_pre, decode_logit_err=e_dec,
+         tolerance=SMOKE_LOGIT_TOL, generate_tokens_equal=same_gen,
+         chunked_serve_tokens_equal=same_serve, launches=counts)
+    check(same_gen and same_serve, "smoke greedy tokens card != CPU")
+    check(all(counts.values()), f"a kernel was not launched: {counts}")
+
+
+def _tree_to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, device) for k, v in tree.items()}
+    return tree.to(device)
+
+
+def phase_main_path_full() -> dict:
+    """qwen2-vl-2b at full width, bfloat16, random weights (seed 0)."""
+    from repro_torch.api import EngineConfig, GenerationConfig, LVLM, Request
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    lvlm = LVLM.from_pretrained("qwen2-vl-2b", seed=0)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    cfg = lvlm.cfg
+    check(lvlm.device.type == "cuda", "from_pretrained did not land on cuda")
+    rng = np.random.default_rng(2)
+    n_text, n_new = 32, 32
+    prompts = [rng.integers(0, cfg.vocab_size, n_text).tolist()
+               for _ in range(4)]
+    ves = [rng.standard_normal((cfg.num_visual_tokens, cfg.d_model)
+                               ).astype(np.float32), None,
+           rng.standard_normal((cfg.num_visual_tokens, cfg.d_model)
+                               ).astype(np.float32), None]
+    # one full-width prefill: finite logits of the expected shape
+    logits, _ = lvlm.model.prefill(
+        lvlm.params, {"tokens": torch.tensor([prompts[0]], device="cuda"),
+                      "visual_embeds": torch.from_numpy(ves[0]
+                                                        ).cuda()[None]},
+        last_only=True)
+    check(tuple(logits.shape) == (1, 1, cfg.vocab_size)
+          and bool(torch.isfinite(logits).all()), "bad full-width logits")
+
+    timer = CallTimer(lvlm.model)
+    gen = GenerationConfig(max_new_tokens=n_new, decoder="greedy")
+    _reset_counts()
+    t0 = time.perf_counter()
+    res = lvlm.generate(prompts, gen, visual_embeds=ves)
+    torch.cuda.synchronize()
+    gen_wall = time.perf_counter() - t0
+    gen_counts = _counts()
+    gen_calls = dict(timer.calls)
+    gen_secs = dict(timer.seconds)
+    toks = [r.tokens for r in res]
+    check(all(len(t) == n_new and all(0 <= x < cfg.vocab_size for x in t)
+              for t in toks), "generate returned malformed tokens")
+    L = cfg.num_layers
+    check(gen_counts["flash_attention"] >= L * gen_calls["prefill"] > 0,
+          f"flash launches {gen_counts} vs prefills {gen_calls}")
+    check(gen_counts["paged_attention"] >= L * gen_calls["decode_step"] > 0,
+          f"paged launches {gen_counts} vs decode steps {gen_calls}")
+    decode_tokens = sum(len(t) - 1 for t in toks)
+
+    timer.calls = dict.fromkeys(timer.calls, 0)
+    timer.seconds = dict.fromkeys(timer.seconds, 0.0)
+    ec = EngineConfig(max_batch=4, cache_len=LVLM._cache_len(
+        _requests(Request, prompts, ves, n_new), gen), scheduler="chunked",
+        chunk_size=16, token_budget=2048)
+    _reset_counts()
+    t0 = time.perf_counter()
+    rep = lvlm.serve(_requests(Request, prompts, ves, n_new), ec, gen)
+    torch.cuda.synchronize()
+    serve_wall = time.perf_counter() - t0
+    serve_counts = _counts()
+    serve_calls = dict(timer.calls)
+    check(len(rep.requests) == 4 and all(len(r.generated) == n_new
+                                         for r in rep.requests),
+          "chunked serve did not finish every request")
+    check(serve_calls["extend"] > 0, "chunked serve ran no extend")
+    check(serve_counts["flash_attention"]
+          >= L * (serve_calls["prefill"] + serve_calls["extend"]),
+          f"flash launches {serve_counts} vs calls {serve_calls}")
+    check(serve_counts["paged_attention"] >= L * serve_calls["decode_step"]
+          > 0, f"paged launches {serve_counts} vs calls {serve_calls}")
+    serve_tokens = {r.rid: r.generated for r in rep.requests}
+    agree = float(np.mean([a == b for r, t in zip(res, toks)
+                           for a, b in zip(t, serve_tokens[r.request.rid])]))
+    emit("main_path_full", config=cfg.name, dtype=cfg.dtype,
+         layers=L, init_seconds=init_s,
+         generate={"wall_seconds": gen_wall,
+                   "prefill_wall_seconds": gen_secs["prefill"],
+                   "prefills": gen_calls["prefill"],
+                   "decode_steps": gen_calls["decode_step"],
+                   "decode_wall_seconds": gen_secs["decode_step"],
+                   "decode_tokens": decode_tokens,
+                   "decode_tokens_per_s":
+                       decode_tokens / gen_secs["decode_step"],
+                   "launches": gen_counts},
+         serve_chunked={"wall_seconds": serve_wall,
+                        "calls": serve_calls,
+                        "seconds": dict(timer.seconds),
+                        "virtual_ttft_mean_s": rep.stats.get("ttft_mean"),
+                        "launches": serve_counts,
+                        "token_agreement_with_generate": agree},
+         peak_memory_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+    return {k: gen_counts[k] + serve_counts[k] for k in gen_counts}, \
+        (lvlm, prompts, ves)
+
+
+def _device_ms(evt) -> float:
+    return getattr(evt, "self_device_time_total",
+                   getattr(evt, "self_cuda_time_total", 0.0)) / 1e3
+
+
+def _kernel_events(prof):
+    """Device-side events only (kernels, memcpy/memset): the operator
+    events above them carry the same device time again."""
+    from torch.autograd import DeviceType
+    return [e for e in prof.key_averages()
+            if getattr(e, "device_type", None) == DeviceType.CUDA
+            and _device_ms(e) > 0]
+
+
+def phase_profile(lvlm, prompts, ves) -> None:
+    """Where the time goes at full width: one prefill of the 1056-token
+    visual prompt and decode steps of a 4-slot pool, under torch.profiler
+    (device time by kernel; busy share = device time / wall time)."""
+    from torch.profiler import ProfilerActivity, profile
+    model, params = lvlm.model, lvlm.params
+    cls = type(model)               # bypass the CallTimer wrappers
+    batch = {"tokens": torch.tensor([prompts[0]], device="cuda"),
+             "visual_embeds": torch.from_numpy(ves[0]).cuda()[None]}
+    n_ctx = len(prompts[0]) + len(ves[0])
+    pool = model.init_cache(4, 1104, device="cuda")
+    toks = torch.zeros((4, 1), dtype=torch.long, device="cuda")
+    pos = torch.tensor([n_ctx, n_ctx + 4, 40, 44], device="cuda")
+    runs = {
+        "prefill_1056": (lambda: cls.prefill(model, params, batch,
+                                             cache_len=1104,
+                                             last_only=True), 3),
+        "decode_step_b4": (lambda: cls.decode_step(model, params, pool, toks,
+                                                   pos), 10),
+    }
+    for name, (fn, n) in runs.items():
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3 / n
+        evts = _kernel_events(prof)
+        busy_ms = sum(_device_ms(e) for e in evts) / n
+        top = sorted(evts, key=_device_ms, reverse=True)[:8]
+        emit("profile", run=name, wall_ms_per_call=wall_ms,
+             device_busy_ms_per_call=busy_ms if evts else None,
+             idle_share=(1 - busy_ms / wall_ms) if evts else None,
+             top_kernels=[{"name": e.key[:60], "ms_per_call":
+                           _device_ms(e) / n, "count_per_call": e.count / n}
+                          for e in top])
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this check runs on the GPU",
+              file=sys.stderr)
+        return 1
+    sys.path.insert(0, os.path.join(HERE, "src"))
+    import repro_torch  # noqa: F401  (fails outside a checkout)
+    t_start = time.perf_counter()
+    env = phase_env()
+    phase_build()
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device="cuda")
+    kernels = phase_kernels(flush)
+    del flush
+    phase_main_path_smoke()
+    launches, full = phase_main_path_full()
+    phase_profile(*full)
+    for name, n in launches.items():
+        check(n > 0, f"kernel {name} was not launched on the main path")
+        kernels[name]["launches"] = n
+    emit("done", seconds=time.perf_counter() - t_start)
+    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    print(env["smi"])
+    print(json.dumps({"kernels": [{k: kv[k] for k in keys}
+                                  for kv in kernels.values()]}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": env["name"],
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -18,6 +18,10 @@ def pytest_configure(config):
         "markers",
         "slow: long jit-heavy equivalence / subprocess tests (the CI "
         'smoke job deselects them with -m "not slow")')
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs a CUDA device (the port's kernels have no CPU mode); "
+        "skips without one")
 
 
 @pytest.fixture(scope="session")
