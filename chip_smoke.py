@@ -46,29 +46,42 @@ def check(cond: bool, what: str) -> None:
         raise AssertionError(what)
 
 
-def time_ms(fn, flush: torch.Tensor, n: int = 20) -> float:
+def time_ms(fn, flush: torch.Tensor, n: int = 20, reps: int = 3) -> float:
     """Device time of one ``fn`` with the 50 MB L2 flushed before it (the
     main path meets its K/V cold: 28 layers of cache do not fit L2).
 
-    Two back-to-back loops between CUDA events, flush+fn and flush alone;
-    their difference over ``n`` is fn's time. Back to back, the device
-    queue stays full, so host time spent enqueueing is not counted."""
+    Two loops, flush+fn and flush alone, each ``n`` times, are captured as
+    CUDA graphs and replayed between CUDA events, in turns, ``reps`` times;
+    the difference of the fastest replays over ``n`` is fn's time. Graph
+    replay keeps the host's enqueue time out of the reading: a wrapper's
+    Python takes longer than a small kernel runs, and timed eagerly the
+    card would wait on the host."""
     for _ in range(2):
         fn()
     torch.cuda.synchronize()
+    graphs = []
+    for with_fn in (True, False):
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g):
+            for _ in range(n):
+                flush.zero_()
+                if with_fn:
+                    fn()
+        graphs.append(g)
 
-    def loop(with_fn: bool) -> float:
+    def replay(g) -> float:
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        for _ in range(n):
-            flush.zero_()
-            if with_fn:
-                fn()
+        g.replay()
         end.record()
         torch.cuda.synchronize()
         return start.elapsed_time(end)
-    return (loop(True) - loop(False)) / n
+    best = [float("inf")] * 2
+    for _ in range(reps):
+        for i, g in enumerate(graphs):
+            best[i] = min(best[i], replay(g))
+    return (best[0] - best[1]) / n
 
 
 def bound(nbytes: float, flops: float, dtype) -> tuple:
@@ -106,16 +119,51 @@ def phase_env() -> dict:
     return {"smi": smi, "name": name}
 
 
+def _ptxas_report(log: str) -> list:
+    """Per kernel instantiation, what ``ptxas -v`` said: registers,
+    spills and static shared memory."""
+    out, cur = [], None
+    for ln in log.splitlines():
+        if "Compiling entry function" in ln:
+            cur = {"entry": ln.split("'")[1]}
+            out.append(cur)
+        elif cur is not None and "spill" in ln:
+            cur["spills"] = ln.strip()
+        elif cur is not None and "Used" in ln:
+            cur["used"] = ln.split(": ", 1)[1].strip()
+    return out
+
+
 def phase_build() -> None:
+    """Build both kernels from the checkout's sources (one nvcc each, in
+    parallel); print ptxas's registers and spills, each kernel's dynamic
+    shared memory and the count of HGMMA (wgmma) instructions in the flash
+    library's SASS, which must not be 0."""
     from repro_torch.kernels import build
     t0 = time.perf_counter()
     res = build.build_all()
-    emit("build", seconds=time.perf_counter() - t0,
+    seconds = time.perf_counter() - t0
+    smem = {}
+    for name in build.KERNELS:
+        fn = getattr(build.load(name), f"{name}_smem_bytes")
+        smem[name] = {f"{dt}/d{d}": fn(code, d)
+                      for dt, code in (("float32", 0), ("bfloat16", 1))
+                      for d in (64, 128)}
+    cuobjdump = os.path.join(os.path.dirname(build.nvcc_path()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass",
+                           str(build.library_path("flash_attention"))],
+                          capture_output=True, text=True, check=True,
+                          timeout=120).stdout
+    hgmma = sum("HGMMA" in ln for ln in sass.splitlines())
+    emit("build", seconds=seconds, flash_sass_hgmma=hgmma,
          kernels={k: {"seconds": v["seconds"], "cached": v["cached"],
-                      # ptxas -v: registers of each instantiation
-                      "ptxas": [ln.split(": ", 1)[1] for ln in
-                                v["log"].splitlines() if "Used" in ln]}
+                      "dynamic_smem_bytes": smem[k],
+                      "ptxas": _ptxas_report(v["log"]),
+                      "warnings": [ln.strip() for ln in v["log"].splitlines()
+                                   if "warning" in ln.lower()
+                                   or "Performance Loss" in ln]}
                   for k, v in res.items()})
+    check(hgmma > 0, "the flash library's SASS has no HGMMA instruction")
 
 
 def _flash_cases():
@@ -131,7 +179,23 @@ def _flash_cases():
         ("window", main, dict(window=256)),
         ("head_dim_64", dict(main, h=4, kvh=2, d=64, sq=300, sk=300), {}),
         ("keyless_rows", dict(main, sq=200, sk=200), dict(q_offset=-30)),
+        ("sq_sk_2048", dict(main, sq=2048, sk=2048), {}),
+        ("strided_views", dict(main, sq=80, sk=1104, views=True),
+         dict(kv_len=1056, q_offset=976)),
     ]
+
+
+def _flash_inputs(rng, c, dtype):
+    """q, k, v of a flash case; with ``views`` they are the model's
+    layout, q [B,S,H,D] and a [B,L,K,D] cache prefix, passed transposed."""
+    if not c.get("views"):
+        return (randn(rng, (c["b"], c["h"], c["sq"], c["d"]), dtype),
+                randn(rng, (c["b"], c["kvh"], c["sk"], c["d"]), dtype),
+                randn(rng, (c["b"], c["kvh"], c["sk"], c["d"]), dtype))
+    q = randn(rng, (c["b"], c["sq"], c["h"], c["d"]), dtype)
+    cache = randn(rng, (2, c["b"], c["sk"] + 64, c["kvh"], c["d"]), dtype)
+    return (q.transpose(1, 2), cache[0, :, :c["sk"]].transpose(1, 2),
+            cache[1, :, :c["sk"]].transpose(1, 2))
 
 
 def phase_kernels(flush) -> dict:
@@ -146,12 +210,15 @@ def phase_kernels(flush) -> dict:
     errs = {}
     for dtype in (torch.float32, torch.bfloat16):
         for name, c, kw in cases:
-            q = randn(rng, (c["b"], c["h"], c["sq"], c["d"]), dtype)
-            k = randn(rng, (c["b"], c["kvh"], c["sk"], c["d"]), dtype)
-            v = randn(rng, (c["b"], c["kvh"], c["sk"], c["d"]), dtype)
+            q, k, v = _flash_inputs(rng, c, dtype)
             got = fa.flash_attention(q, k, v, **kw)
             torch.cuda.synchronize()
             e = max_err(got, fa.flash_attention_plain(q, k, v, **kw))
+            if c.get("views"):      # the layout must not change the result
+                same = fa.flash_attention(q.contiguous(), k.contiguous(),
+                                          v.contiguous(), **kw)
+                check(torch.equal(got, same),
+                      f"flash {name} {dtype}: views != contiguous copies")
             errs[f"{name}/{str(dtype)[6:]}"] = e
             check(e <= TOL[dtype], f"flash {name} {dtype}: err {e}")
     dtype = torch.bfloat16
@@ -191,6 +258,13 @@ def phase_kernels(flush) -> dict:
                             ).to("cuda").view(b, pps)
     zero_seq = torch.tensor([0, 5, 0, 1103], dtype=torch.int32,
                             device="cuda")
+    # around the kernel's split boundaries (its split at this shape)
+    split = pa.split_tokens(b, kvh, length,
+                            torch.cuda.get_device_properties(0)
+                            .multi_processor_count)
+    straddle = torch.tensor([split - 1, split, split + 1, 2 * split + 1],
+                            dtype=torch.int32, device="cuda")
+    full = torch.tensor([length], dtype=torch.int32, device="cuda")
     errs = {}
     for dtype in (torch.float32, torch.bfloat16):
         qd = randn(rng, (b, h, d), dtype)
@@ -198,10 +272,13 @@ def phase_kernels(flush) -> dict:
         vp = randn(rng, (b * pps, page, kvh, d), dtype)
         for name, table, sl in (("identity_table", ident, seqs),
                                 ("permuted_table", perm, seqs),
-                                ("seq_len_0", perm, zero_seq)):
-            got = pa.paged_attention(qd, kp, vp, table, sl)
+                                ("seq_len_0", perm, zero_seq),
+                                ("split_boundaries", perm, straddle),
+                                ("b1_full_table", perm[:1], full)):
+            got = pa.paged_attention(qd[:len(table)], kp, vp, table, sl)
             torch.cuda.synchronize()
-            e = max_err(got, pa.paged_attention_plain(qd, kp, vp, table, sl))
+            e = max_err(got, pa.paged_attention_plain(qd[:len(table)], kp,
+                                                      vp, table, sl))
             errs[f"{name}/{str(dtype)[6:]}"] = e
             check(e <= TOL[dtype], f"paged {name} {dtype}: err {e}")
     dtype = torch.bfloat16
@@ -222,6 +299,15 @@ def phase_kernels(flush) -> dict:
             < seqs[:, None])[:, None, None, :]
     qs, ks, vs = qd[:, :, None], cache_k.transpose(1, 2), \
         cache_v.transpose(1, 2)
+    # the policy's split size beside its neighbours at this shape
+    policy, split_ms = pa.split_tokens, {}
+    try:
+        for st in (32, 64, 128):
+            pa.split_tokens = lambda *_, st=st: st
+            split_ms[st] = time_ms(lambda: pa.paged_attention(
+                qd, kp, vp, ident, seqs), flush)
+    finally:
+        pa.split_tokens = policy
     out["paged_attention"] = {
         "name": "paged_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
@@ -237,7 +323,8 @@ def phase_kernels(flush) -> dict:
     }
     emit("kernels", kernel="paged_attention",
          shape=dict(b=b, h=h, kvh=kvh, d=d, cache_len=length, page=page,
-                    seq_lens=seqs.tolist()),
+                    seq_lens=seqs.tolist(), split_tokens=split),
+         split_ms=split_ms,
          errors=errs, tolerance={"float32": TOL[torch.float32],
                                  "bfloat16": TOL[torch.bfloat16]},
          **{k_: out["paged_attention"][k_] for k_ in

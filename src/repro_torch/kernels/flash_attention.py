@@ -7,7 +7,11 @@ CUDA tensor the wrapper launches that kernel or raises; on a CPU tensor it
 runs ``flash_attention_plain``, the same function in plain PyTorch.
 
 Prefill attention is bounded by operations; the kernel visits only the key
-tiles a q tile can see and runs its bfloat16 products on the tensor cores.
+tiles a q tile can see and runs its bfloat16 products on Hopper's tensor
+cores (``wgmma``), fed by TMA. q, k and v may be strided ``[B, N, S, D]``
+views (for example ``x.transpose(1, 2)`` of a ``[B, S, N, D]`` tensor): the
+last dimension must be contiguous and every other stride a multiple of 16
+bytes, which TMA requires.
 """
 from __future__ import annotations
 
@@ -48,9 +52,30 @@ def _lib():
     fn = build.load("flash_attention").flash_attention_fwd
     if fn.argtypes is None:
         fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 11 \
-            + [ctypes.c_void_p]
+            + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
+
+
+def _strides(name: str, t) -> list:
+    """Element strides (b, head, seq) of a [B, N, S, D] view for the
+    kernel, or raise: the last dimension must be contiguous, the base
+    16-byte aligned and each other stride a positive multiple of 16 bytes
+    (a dimension of size 1 has no stride that matters; it is given one)."""
+    elt = t.element_size()
+    if t.stride(3) != 1 or t.data_ptr() % 16:
+        raise ValueError(f"flash_attention kernel: {name} needs a contiguous "
+                         f"last dimension and a 16-byte aligned base, got "
+                         f"strides {t.stride()}")
+    out = []
+    for dim in range(3):
+        st = t.stride(dim) if t.shape[dim] > 1 else t.shape[3]
+        if st <= 0 or (st * elt) % 16:
+            raise ValueError(f"flash_attention kernel: {name} stride "
+                             f"{t.stride(dim)} of dim {dim} is not a positive "
+                             f"multiple of 16 bytes")
+        out.append(st)
+    return out
 
 
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
@@ -61,7 +86,10 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     absolute position of q[..., 0, :] for the causal and window masks,
     with the Pallas wrapper's default. A CPU tensor takes the plain
     version; a CUDA tensor takes the kernel (float32 or bfloat16, D in
-    {64, 128}, contiguous) or raises.
+    {64, 128}, views with a contiguous last dimension and other strides
+    that are multiples of 16 bytes) or raises. The result has q's strides
+    when q is a dense view, so ``flash_attention(q.transpose(1, 2), ...)``
+    transposes back to a contiguous tensor.
     """
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, window=window,
@@ -83,17 +111,16 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     if d not in HEAD_DIMS:
         raise ValueError(f"flash_attention kernel takes head dim "
                          f"{HEAD_DIMS}, not {d}")
-    if not all(t.is_contiguous() and t.data_ptr() % 16 == 0
-               for t in (q, k, v)):
-        raise ValueError("flash_attention kernel needs contiguous, 16-byte "
-                         "aligned q/k/v")
     if sq == 0 or sk == 0:
         raise ValueError("flash_attention kernel needs Sq, Sk >= 1")
+    out = torch.empty_like(q)          # q's strides when q is dense
+    strides = [x for name, t in (("q", q), ("k", k), ("v", v), ("out", out))
+               for x in _strides(name, t)]
     kv_len, q_offset = resolve_offsets(sq, sk, causal, kv_len, q_offset)
-    out = torch.empty_like(q)
     err = _lib()(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                  b, h, kvh, sq, sk, d, kv_len, q_offset, int(causal),
                  int(window), _DTYPES[q.dtype],
+                 (ctypes.c_longlong * 12)(*strides),
                  torch.cuda.current_stream(q.device).cuda_stream)
     if err:
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA "

@@ -7,19 +7,24 @@ CUDA tensor the wrapper launches that kernel or raises; on a CPU tensor it
 runs ``paged_attention_plain``, the same function in plain PyTorch.
 
 Decode attention is bounded by bytes: each request's K/V rows are read
-once and shared by the query heads of their kv head.
+once and shared by the query heads of their kv head. The kernel splits each
+request's tokens over many CTAs and merges their partial softmaxes
+(``paged_attention_split_plain`` is that algorithm in plain PyTorch).
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.ref import paged_attention_ref
+from repro_torch.kernels.ref import NEG_INF, paged_attention_ref
 
 HEAD_DIMS = (64, 128)
 MAX_GROUP = 16
+CHUNK = 32              # tokens the kernel stages per cp.async chunk
+CTAS_PER_SM = 4
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 #: The kernel's function in plain PyTorch: it visits every page, so a
@@ -27,10 +32,66 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 paged_attention_plain = paged_attention_ref
 
 
+def split_tokens(batch: int, kv_heads: int, tokens: int, sms: int) -> int:
+    """Tokens per CTA of the split kernel, from host integers only: one
+    chunk (32) unless batch * kv_heads * ceil(tokens / 32) CTAs would put
+    more than ``CTAS_PER_SM`` on each of ``sms`` SMs; then the multiple of
+    32 that brings them under."""
+    per_row = max(1, CTAS_PER_SM * sms // (batch * kv_heads))
+    return CHUNK * max(1, -(-tokens // (CHUNK * per_row)))
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def paged_attention_split_plain(q, k_pages, v_pages, block_table, seq_lens,
+                                split_tokens: int):
+    """The kernel's algorithm in plain PyTorch: each run of
+    ``split_tokens`` tokens gives a partial (m, l, acc) with the kernel's
+    masks (a request with seq_len > 0 reads its first seq_len tokens, one
+    with seq_len 0 every slot of its table at the -1e30 sentinel; a split
+    past them is empty: m = -inf, l = 0), and the partials merge as
+    sum_s e^(m_s - M) acc_s / sum_s e^(m_s - M) l_s. Same arguments and
+    result as ``paged_attention_plain``."""
+    b, h, d = q.shape
+    _, page, kvh, _ = k_pages.shape
+    g = h // kvh
+    n_tok = block_table.shape[1] * page
+    n_split = -(-n_tok // split_tokens)
+    pad = n_split * split_tokens - n_tok
+    bt = block_table.long()
+    k_log = k_pages[bt].reshape(b, n_tok, kvh, d).float()
+    v_log = v_pages[bt].reshape(b, n_tok, kvh, d).float()
+    qf = q.reshape(b, kvh, g, d).float() / (d ** 0.5)
+    s = torch.einsum("bkgd,bckd->bkgc", qf, k_log)
+    seq = seq_lens.to(q.device).long()
+    pos = torch.arange(n_tok, device=q.device)
+    read = pos[None] < torch.where(seq > 0, seq, n_tok)[:, None]   # [B, T]
+    s = torch.where((seq > 0)[:, None, None, None], s,
+                    torch.full_like(s, NEG_INF))
+    s = torch.where(read[:, None, None], s, torch.full_like(s, -torch.inf))
+    s = torch.nn.functional.pad(s, (0, pad), value=-torch.inf)
+    v_log = torch.nn.functional.pad(v_log, (0, 0, 0, 0, 0, pad))
+    s = s.reshape(b, kvh, g, n_split, split_tokens)
+    m = s.amax(-1)                                          # [B,K,G,S]
+    empty = m == -torch.inf
+    p = torch.exp(s - torch.where(empty, 0.0, m)[..., None])
+    l = p.sum(-1)
+    acc = torch.einsum("bkgst,bstkd->bkgsd", p,
+                       v_log.reshape(b, n_split, split_tokens, kvh, d))
+    m_max = m.amax(-1, keepdim=True)
+    w = torch.where(empty, 0.0, torch.exp(m - m_max))
+    out = (w[..., None] * acc).sum(-2) / torch.clamp(
+        (w * l).sum(-1), min=1e-30)[..., None]
+    return out.reshape(b, h, d).to(q.dtype)
+
+
 def _lib():
     fn = build.load("paged_attention").paged_attention_fwd
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 \
+        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 \
             + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
@@ -84,15 +145,21 @@ def paged_attention(q, k_pages, v_pages, block_table, seq_lens):
             or k_pages.data_ptr() % 16 or v_pages.data_ptr() % 16:
         raise ValueError("paged_attention kernel needs contiguous inputs and "
                          "16-byte aligned pages")
+    split = split_tokens(b, kvh, pps * page, _sm_count(q.device.index or 0))
+    n_split = -(-pps * page // split)
     out = torch.empty_like(q)
+    # float32 partials: acc [B*H, n_split, D], then (m, l) [B*H, n_split, 2]
+    part = torch.empty(b * h * n_split * (d + 2), dtype=torch.float32,
+                       device=q.device)
     err = _lib()(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
                  block_table.data_ptr(), seq_lens.data_ptr(), out.data_ptr(),
-                 b, h, kvh, d, page, pps, _DTYPES[q.dtype],
+                 part.data_ptr(), part[b * h * n_split * d:].data_ptr(), b, h,
+                 kvh, d, page, pps, split, _DTYPES[q.dtype],
                  torch.cuda.current_stream(q.device).cuda_stream)
     if err:
         raise RuntimeError(f"paged_attention kernel launch failed: CUDA "
                            f"error {err}")
-    paged_attention.launches += 1
+    paged_attention.launches += 1     # the split and merge kernels: one call
     return out
 
 

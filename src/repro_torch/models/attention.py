@@ -149,17 +149,14 @@ def out_proj(p, o):
                         p["wo"].reshape(-1, p["wo"].shape[-1])).to(o.dtype)
 
 
-def _heads_first(t):
-    """[B,S,N,D] -> contiguous [B,N,S,D] (the kernels' layout)."""
-    return t.transpose(1, 2).contiguous()
-
-
 def _prompt_attention(q, k, v, cfg, *, causal, window, positions):
     """Attention of a fresh prompt over itself: the flash kernel at the
-    default positions, the plain blockwise path otherwise (CPU only)."""
+    default positions, the plain blockwise path otherwise (CPU only). The
+    kernel takes the [B,N,S,D] views of q, k, v as they are (no copy)."""
     if positions is None:
-        o = ops.flash_attention(_heads_first(q), _heads_first(k),
-                                _heads_first(v), causal=causal, window=window)
+        o = ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                                v.transpose(1, 2), causal=causal,
+                                window=window)
         return o.transpose(1, 2)
     _off_kernel(q, "attention at caller-supplied positions")
     return blockwise_sdpa(_grouped(q, cfg.num_kv_heads), k, v, q_pos=positions,
@@ -317,10 +314,10 @@ def append_attention(p, x, cos, sin, cfg, cache, start, *, window=0):
     if not windowed and not per_row:
         start = int(start)
         kv_len = start + s_new
-        o = ops.flash_attention(
-            _heads_first(q), _heads_first(cache["k"][:, :kv_len]),
-            _heads_first(cache["v"][:, :kv_len]), causal=True, window=window,
-            kv_len=kv_len, q_offset=start)
+        o = ops.flash_attention(   # views of q and of the cache prefix
+            q.transpose(1, 2), cache["k"][:, :kv_len].transpose(1, 2),
+            cache["v"][:, :kv_len].transpose(1, 2), causal=True,
+            window=window, kv_len=kv_len, q_offset=start)
         return out_proj(p, o.transpose(1, 2)), cache
     _off_kernel(x, "a windowed cache" if windowed else "per-row [B] starts")
     k_pos = (cache["slot_pos"] if windowed

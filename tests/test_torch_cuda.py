@@ -41,6 +41,7 @@ def _randn(rng, shape, dtype, dev):
     dict(b=1, h=4, kvh=1, sq=33, sk=200, d=128, kv_len=150),
     dict(b=1, h=2, kvh=1, sq=70, sk=64, d=64, causal=False, kv_len=40),
     dict(b=1, h=2, kvh=1, sq=90, sk=64, d=64, q_offset=-20),  # keyless rows
+    dict(b=1, h=4, kvh=2, sq=2048, sk=2048, d=128),     # 32 q and key tiles
 ])
 def test_flash_kernel_matches_plain(dev, dtype, case):
     rng = np.random.default_rng(0)
@@ -79,6 +80,52 @@ def test_paged_kernel_matches_plain(dev, dtype, d, h, kvh, page):
     assert err <= TOL[dtype], err
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_takes_strided_views(dev, dtype):
+    """The model's layout: q [B,S,H,D] and a cache prefix [B,:kv_len,K,D],
+    both passed transposed; the result equals the contiguous copies' and
+    comes back with q's strides."""
+    rng = np.random.default_rng(2)
+    q = _randn(rng, (2, 100, 6, 128), dtype, dev)
+    cache = _randn(rng, (2, 256, 2, 128), dtype, dev)
+    qv, kv, vv = q.transpose(1, 2), cache[:, :180].transpose(1, 2), \
+        cache[:, 50:230].transpose(1, 2)
+    got = fa.flash_attention(qv, kv, vv, kv_len=180, q_offset=80)
+    want = fa.flash_attention(qv.contiguous(), kv.contiguous(),
+                              vv.contiguous(), kv_len=180, q_offset=80)
+    torch.cuda.synchronize()
+    assert got.stride() == qv.stride()
+    assert torch.equal(got, want)
+    ref = fa.flash_attention_plain(qv, kv, vv, kv_len=180, q_offset=80)
+    assert (got.float() - ref.float()).abs().max().item() <= TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,seqs", [
+    (1, [1104]),                                # one request, full table
+    (5, [31, 32, 33, 64, 65]),                  # around split boundaries
+])
+def test_paged_kernel_main_table(dev, dtype, b, seqs):
+    """The decode shape of qwen2-vl-2b (12 q / 2 kv heads, D 128, pages of
+    16 over a 1104-slot cache), with seq_lens at and across the kernel's
+    split boundaries."""
+    rng = np.random.default_rng(3)
+    h, kvh, d, page, pps = 12, 2, 128, 16, 1104 // 16
+    q = _randn(rng, (b, h, d), dtype, dev)
+    kp = _randn(rng, (b * pps, page, kvh, d), dtype, dev)
+    vp = _randn(rng, (b * pps, page, kvh, d), dtype, dev)
+    table = torch.from_numpy(rng.permutation(b * pps).reshape(b, pps)
+                             .astype(np.int32)).to(dev)
+    seq = torch.tensor(seqs, dtype=torch.int32, device=dev)
+    n0 = pa.paged_attention.launches
+    out = pa.paged_attention(q, kp, vp, table, seq)
+    torch.cuda.synchronize()
+    assert pa.paged_attention.launches == n0 + 1
+    ref = pa.paged_attention_plain(q, kp, vp, table, seq)
+    err = (out.float() - ref.float()).abs().max().item()
+    assert err <= TOL[dtype], err
+
+
 def test_kernels_refuse_what_they_do_not_take(dev):
     q = torch.zeros(1, 2, 8, 32, device=dev)
     with pytest.raises(ValueError):        # head dim 32 has no kernel
@@ -95,3 +142,16 @@ def test_kernels_refuse_what_they_do_not_take(dev):
     with pytest.raises(ValueError):        # table rows != batch
         pa.paged_attention(qd, pages, pages, table,
                            torch.ones(2, dtype=torch.int32, device=dev))
+    q = torch.zeros(1, 2, 8, 64, device=dev, dtype=torch.bfloat16)
+    rows66 = torch.zeros(1, 2, 8, 66, device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError):        # 132-byte rows: not TMA-able
+        fa.flash_attention(q, rows66[..., :64], q)
+    with pytest.raises(ValueError):        # last dimension not contiguous
+        fa.flash_attention(q, q, q.transpose(2, 3))
+    flat = torch.zeros(1 + q.numel(), device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError):        # base not 16-byte aligned
+        fa.flash_attention(q, flat[1:].view(q.shape), q)
+    with pytest.raises(ValueError):        # non-contiguous pages
+        pa.paged_attention(qd, pages.transpose(0, 1), pages.transpose(0, 1),
+                           table[:2], torch.ones(2, dtype=torch.int32,
+                                                 device=dev))

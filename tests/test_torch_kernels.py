@@ -151,3 +151,32 @@ def test_rmsnorm_ref_matches_reference_oracle():
 def test_ops_shape_checks(bad):
     with pytest.raises(ValueError):
         bad(torch.zeros)
+
+
+def test_flash_views_equal_contiguous_copies():
+    """The model passes [B,S,N,D] tensors and a cache prefix as transposed
+    views; the result must not depend on the layout."""
+    rng = np.random.default_rng(6)
+    q = torch.from_numpy(rng.standard_normal((2, 40, 4, 64)).astype(np.float32))
+    cache = torch.from_numpy(rng.standard_normal((2, 64, 2, 64))
+                             .astype(np.float32))
+    qv, kv = q.transpose(1, 2), cache[:, :50].transpose(1, 2)
+    assert not qv.is_contiguous() and not kv.is_contiguous()
+    got = fa.flash_attention(qv, kv, kv, kv_len=50, q_offset=10)
+    want = fa.flash_attention(qv.contiguous(), kv.contiguous(),
+                              kv.contiguous(), kv_len=50, q_offset=10)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_strides(dtype):
+    """What the card's wrapper hands the kernel: element strides (b, head,
+    seq), checked to be positive multiples of 16 bytes (TMA's rule)."""
+    x = torch.zeros(2, 40, 4, 64, dtype=dtype)
+    assert fa._strides("q", x.transpose(1, 2)) == [40 * 256, 64, 256]
+    assert fa._strides("q", x[:1].transpose(1, 2)) == [64, 64, 256]
+    with pytest.raises(ValueError):                 # last dim not contiguous
+        fa._strides("q", x.transpose(2, 3))
+    odd = torch.zeros(2, 4, 40, 66, dtype=dtype)[..., :64]
+    with pytest.raises(ValueError):                 # 66-element rows
+        fa._strides("k", odd)
