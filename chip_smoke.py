@@ -258,10 +258,8 @@ def phase_kernels(flush) -> dict:
                             ).to("cuda").view(b, pps)
     zero_seq = torch.tensor([0, 5, 0, 1103], dtype=torch.int32,
                             device="cuda")
-    # around the kernel's split boundaries (its split at this shape)
-    split = pa.split_tokens(b, kvh, length,
-                            torch.cuda.get_device_properties(0)
-                            .multi_processor_count)
+    # around the kernel's split boundaries
+    split = pa.CHUNK
     straddle = torch.tensor([split - 1, split, split + 1, 2 * split + 1],
                             dtype=torch.int32, device="cuda")
     full = torch.tensor([length], dtype=torch.int32, device="cuda")
@@ -299,15 +297,8 @@ def phase_kernels(flush) -> dict:
             < seqs[:, None])[:, None, None, :]
     qs, ks, vs = qd[:, :, None], cache_k.transpose(1, 2), \
         cache_v.transpose(1, 2)
-    # the policy's split size beside its neighbours at this shape
-    policy, split_ms = pa.split_tokens, {}
-    try:
-        for st in (32, 64, 128):
-            pa.split_tokens = lambda *_, st=st: st
-            split_ms[st] = time_ms(lambda: pa.paged_attention(
-                qd, kp, vp, ident, seqs), flush)
-    finally:
-        pa.split_tokens = policy
+    split_sweep = _paged_split_sweep(rng, flush, h, kvh, d, length, page,
+                                     seqs.tolist())
     out["paged_attention"] = {
         "name": "paged_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
@@ -324,12 +315,44 @@ def phase_kernels(flush) -> dict:
     emit("kernels", kernel="paged_attention",
          shape=dict(b=b, h=h, kvh=kvh, d=d, cache_len=length, page=page,
                     seq_lens=seqs.tolist(), split_tokens=split),
-         split_ms=split_ms,
+         split_sweep=split_sweep,
          errors=errs, tolerance={"float32": TOL[torch.float32],
                                  "bfloat16": TOL[torch.bfloat16]},
          **{k_: out["paged_attention"][k_] for k_ in
             ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")})
     return out
+
+
+def _paged_split_sweep(rng, flush, h, kvh, d, length, page, seqs) -> dict:
+    """The split kernel at 32 (the wrapper's), 64 and 128 tokens per CTA
+    (one, two and four cp.async chunks), at the main decode shape and
+    batches up to 32 (the engine's default max_batch is 8): each run is
+    held against the plain version in float32 and bfloat16, then timed in
+    bfloat16. seq_lens repeat the main path's; 1060 and 40 end inside the
+    second chunk of a 64- or 128-token split."""
+    from repro_torch.kernels import paged_attention as pa
+    pps = length // page
+    sweep = {}
+    for b in (4, 8, 16, 32):
+        sl = torch.tensor((seqs * b)[:b], dtype=torch.int32, device="cuda")
+        table = torch.arange(b * pps, dtype=torch.int32,
+                             device="cuda").view(b, pps)
+        row = {"ms": {}, "errors": {}}
+        for dtype in (torch.float32, torch.bfloat16):
+            qd = randn(rng, (b, h, d), dtype)
+            kp = randn(rng, (b * pps, page, kvh, d), dtype)
+            vp = randn(rng, (b * pps, page, kvh, d), dtype)
+            want = pa.paged_attention_plain(qd, kp, vp, table, sl)
+            for st in (32, 64, 128):
+                e = max_err(pa._launch(qd, kp, vp, table, sl, st), want)
+                row["errors"][f"{st}/{str(dtype)[6:]}"] = e
+                check(e <= TOL[dtype], f"paged split {st} b={b} {dtype}: "
+                      f"err {e}")
+                if dtype == torch.bfloat16:
+                    row["ms"][st] = time_ms(lambda st=st: pa._launch(
+                        qd, kp, vp, table, sl, st), flush)
+        sweep[f"b{b}"] = row
+    return sweep
 
 
 class CallTimer:
@@ -574,7 +597,13 @@ def phase_profile(lvlm, prompts, ves) -> None:
              idle_share=(1 - busy_ms / wall_ms) if evts else None,
              top_kernels=[{"name": e.key[:60], "ms_per_call":
                            _device_ms(e) / n, "count_per_call": e.count / n}
-                          for e in top])
+                          for e in top],
+             # the port's own kernels, device ms per launch (the profiler's
+             # reading, comparable across timing methods of the kernels phase)
+             port_kernels_ms_per_launch={
+                 k: _device_ms(e) / e.count for e in evts
+                 for k in ("flash_fwd_kernel", "paged_split_kernel",
+                           "paged_combine_kernel") if k in e.key})
 
 
 def main() -> int:

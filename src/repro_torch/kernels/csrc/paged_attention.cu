@@ -19,7 +19,7 @@
 //  1. Grid (splits, KVH, B). A CTA takes the `split` tokens
 //     [s * split, (s + 1) * split) of one (request, kv head). It reads its
 //     own block_table row and gathers those tokens' K and V rows with
-//     16-byte cp.async in chunks of 32 tokens, two chunks in flight, into
+//     16-byte cp.async in chunks of 32 tokens, up to two in flight, into
 //     shared memory in the input dtype (bf16 stays bf16). seq_lens[b], the
 //     first chunk's table entries and q are requested together, so the CTA
 //     waits for one memory latency before its copies start, not three. The
@@ -38,15 +38,16 @@
 //     programmatic dependent launch: it is scheduled while the split kernel
 //     runs and waits (griddepcontrol.wait) for its end, so its launch
 //     latency is hidden.
-// `split` comes from host integers (the wrapper's `split_tokens`), never
-// from reading seq_lens on the host: 32 tokens (one chunk) unless that
-// would put more than 4 CTAs per SM on the card. At the main shape (B = 4,
-// KVH = 2, 1104 cache slots) that is 35 splits per (request, kv head), 280
-// CTAs, of which ~208 hold tokens: every SM gets work, and the partials
-// (3 KB per split) stay small beside the 16 KB of K/V a split reads. The
-// kernel is short and latency-bound at this size, so more, smaller CTAs
-// win: chip_smoke.py times 32, 64 and 128 tokens per split side by side
-// (PERF.md).
+// `split` is a host constant, never read from seq_lens on the host: 32
+// tokens (one chunk) at every batch. At the main shape (B = 4, KVH = 2,
+// 1104 cache slots) that is 35 splits per (request, kv head), 280 CTAs, of
+// which ~208 hold tokens: every SM gets work, and the partials (3 KB per
+// split) stay small beside the 16 KB of K/V a split reads. The kernel is
+// short and latency-bound, so more, smaller CTAs win: chip_smoke.py times
+// 32, 64 and 128 tokens per split at batches 4 to 32, and 32 is fastest
+// at 4 and 8 and within a few percent of 64 at 16 and 32 (PERF.md). A
+// longer split runs its chunks through two cp.async buffers, one chunk in
+// flight while the other is scored.
 //
 // Edges. A request with seq_len > 0 reads its first min(seq_len, table)
 // tokens; a split wholly past them writes m = -inf, l = 0 and no acc, and
@@ -397,12 +398,18 @@ cudaError_t launch(const void* q, const void* kp, const void* vp,
           pps, split, 1.0f / sqrtf((float)D));
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
+  // the merge's weights, one per split, may exceed the default 48 KB
+  const size_t merge_smem = sizeof(float) * n_splits;
+  err = cudaFuncSetAttribute(paged_combine_kernel<T, D>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)merge_smem);
+  if (err != cudaSuccess) return err;
   // programmatic dependent launch: the merge's launch overlaps the split
   // kernel's tail instead of following its end
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(B * H);
   cfg.blockDim = dim3(D * SG);
-  cfg.dynamicSmemBytes = sizeof(float) * n_splits;
+  cfg.dynamicSmemBytes = merge_smem;
   cfg.stream = stream;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
@@ -450,9 +457,10 @@ extern "C" int paged_attention_fwd(const void* q, const void* k_pages,
   const int* sl = static_cast<const int*>(seq_lens);
   float* pa = static_cast<float*>(part_acc);
   float* pm = static_cast<float*>(part_ml);
-  // the merge keeps one weight per split in 48 KB of shared memory
+  // the merge keeps one weight per split in shared memory: at most 192 KB
+  // beside its ~2 KB of static arrays, inside a CTA's 227 KB
   if (H % KVH != 0 || H / KVH > MAXG || split < 1 ||
-      (pps * page + split - 1) / split > 12 * 1024)
+      (pps * page + split - 1) / split > 48 * 1024)
     return (int)cudaErrorInvalidValue;
   if (dtype == repro::kFloat32 && D == 64)
     return launch_g<float, 64>(q, k_pages, v_pages, bt, sl, o, pa, pm, B, H,

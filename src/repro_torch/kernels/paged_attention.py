@@ -14,7 +14,6 @@ request's tokens over many CTAs and merges their partial softmaxes
 from __future__ import annotations
 
 import ctypes
-import functools
 
 import torch
 
@@ -23,27 +22,15 @@ from repro_torch.kernels.ref import NEG_INF, paged_attention_ref
 
 HEAD_DIMS = (64, 128)
 MAX_GROUP = 16
-CHUNK = 32              # tokens the kernel stages per cp.async chunk
-CTAS_PER_SM = 4
+#: Tokens the kernel stages per cp.async chunk, and the tokens of each CTA
+#: of its split kernel: one chunk at every batch (the source's header says
+#: why).
+CHUNK = 32
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 #: The kernel's function in plain PyTorch: it visits every page, so a
 #: request with seq_len 0 gets the mean of V over its table, as the kernel.
 paged_attention_plain = paged_attention_ref
-
-
-def split_tokens(batch: int, kv_heads: int, tokens: int, sms: int) -> int:
-    """Tokens per CTA of the split kernel, from host integers only: one
-    chunk (32) unless batch * kv_heads * ceil(tokens / 32) CTAs would put
-    more than ``CTAS_PER_SM`` on each of ``sms`` SMs; then the multiple of
-    32 that brings them under."""
-    per_row = max(1, CTAS_PER_SM * sms // (batch * kv_heads))
-    return CHUNK * max(1, -(-tokens // (CHUNK * per_row)))
-
-
-@functools.lru_cache(maxsize=None)
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def paged_attention_split_plain(q, k_pages, v_pages, block_table, seq_lens,
@@ -145,7 +132,22 @@ def paged_attention(q, k_pages, v_pages, block_table, seq_lens):
             or k_pages.data_ptr() % 16 or v_pages.data_ptr() % 16:
         raise ValueError("paged_attention kernel needs contiguous inputs and "
                          "16-byte aligned pages")
-    split = split_tokens(b, kvh, pps * page, _sm_count(q.device.index or 0))
+    out = _launch(q, k_pages, v_pages, block_table, seq_lens, CHUNK)
+    paged_attention.launches += 1     # the split and merge kernels: one call
+    return out
+
+
+paged_attention.launches = 0
+
+
+def _launch(q, k_pages, v_pages, block_table, seq_lens, split: int):
+    """The C entry on inputs ``paged_attention`` has checked, with
+    ``split`` tokens per CTA of the split kernel (any value >= 1; more
+    than ``CHUNK`` runs several chunks per CTA, which ``chip_smoke.py``
+    times against the wrapper's one)."""
+    b, h, d = q.shape
+    _, page, kvh, _ = k_pages.shape
+    pps = block_table.shape[1]
     n_split = -(-pps * page // split)
     out = torch.empty_like(q)
     # float32 partials: acc [B*H, n_split, D], then (m, l) [B*H, n_split, 2]
@@ -159,8 +161,4 @@ def paged_attention(q, k_pages, v_pages, block_table, seq_lens):
     if err:
         raise RuntimeError(f"paged_attention kernel launch failed: CUDA "
                            f"error {err}")
-    paged_attention.launches += 1     # the split and merge kernels: one call
     return out
-
-
-paged_attention.launches = 0

@@ -100,30 +100,73 @@ def test_flash_kernel_takes_strided_views(dev, dtype):
     assert (got.float() - ref.float()).abs().max().item() <= TOL[dtype]
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("b,seqs", [
-    (1, [1104]),                                # one request, full table
-    (5, [31, 32, 33, 64, 65]),                  # around split boundaries
-])
-def test_paged_kernel_main_table(dev, dtype, b, seqs):
-    """The decode shape of qwen2-vl-2b (12 q / 2 kv heads, D 128, pages of
-    16 over a 1104-slot cache), with seq_lens at and across the kernel's
-    split boundaries."""
-    rng = np.random.default_rng(3)
+def _main_table(rng, b, seqs, dtype, dev):
+    """Decode inputs at the shape of qwen2-vl-2b: 12 q / 2 kv heads, D 128,
+    pages of 16 over a 1104-slot cache, a permuted table."""
     h, kvh, d, page, pps = 12, 2, 128, 16, 1104 // 16
     q = _randn(rng, (b, h, d), dtype, dev)
     kp = _randn(rng, (b * pps, page, kvh, d), dtype, dev)
     vp = _randn(rng, (b * pps, page, kvh, d), dtype, dev)
     table = torch.from_numpy(rng.permutation(b * pps).reshape(b, pps)
                              .astype(np.int32)).to(dev)
-    seq = torch.tensor(seqs, dtype=torch.int32, device=dev)
+    return q, kp, vp, table, torch.tensor(seqs, dtype=torch.int32, device=dev)
+
+
+# 40 and 360 end inside the second chunk of a 64-token split, 360 and 1060
+# inside the second or third of a 96- or 128-token one
+_MIXED = [40, 360, 1104, 1, 0, 97, 1060, 700]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,seqs", [
+    (1, [1104]),                                # one request, full table
+    (5, [31, 32, 33, 64, 65]),                  # around split boundaries
+    (8, _MIXED),                                # the engine's max_batch
+    (16, _MIXED * 2),
+])
+def test_paged_kernel_main_table(dev, dtype, b, seqs):
+    """The decode shape of qwen2-vl-2b through the wrapper, with seq_lens
+    at and across its split boundaries."""
+    args = _main_table(np.random.default_rng(3), b, seqs, dtype, dev)
     n0 = pa.paged_attention.launches
-    out = pa.paged_attention(q, kp, vp, table, seq)
+    out = pa.paged_attention(*args)
     torch.cuda.synchronize()
     assert pa.paged_attention.launches == n0 + 1
-    ref = pa.paged_attention_plain(q, kp, vp, table, seq)
+    ref = pa.paged_attention_plain(*args)
     err = (out.float() - ref.float()).abs().max().item()
     assert err <= TOL[dtype], err
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("split", [64, 96, 128])
+def test_paged_kernel_multi_chunk_splits(dev, dtype, split):
+    """Splits of two to four 32-token chunks, as chip_smoke.py times them
+    beside the wrapper's one: the two cp.async buffers, the prefetch of
+    chunk c + 2 and the rescale of acc and l across chunks."""
+    args = _main_table(np.random.default_rng(4), 8, _MIXED, dtype, dev)
+    out = pa._launch(*args, split)
+    torch.cuda.synchronize()
+    ref = pa.paged_attention_plain(*args)
+    err = (out.float() - ref.float()).abs().max().item()
+    assert err <= TOL[dtype], err
+
+
+def test_paged_merge_takes_its_most_splits(dev):
+    """The merge keeps one weight per split in shared memory: 48 * 1024
+    splits (one token each) launch and agree; one more is refused."""
+    rng = np.random.default_rng(5)
+    h, kvh, d, page, pps = 2, 1, 128, 16, 48 * 1024 // 16
+    q = _randn(rng, (1, h, d), torch.float32, dev)
+    kp = _randn(rng, (pps + 1, page, kvh, d), torch.float32, dev)
+    vp = _randn(rng, (pps + 1, page, kvh, d), torch.float32, dev)
+    table = torch.arange(pps + 1, dtype=torch.int32, device=dev)[None]
+    seq = torch.tensor([pps * page - 5], dtype=torch.int32, device=dev)
+    out = pa._launch(q, kp, vp, table[:, :pps].contiguous(), seq, 1)
+    torch.cuda.synchronize()
+    ref = pa.paged_attention_plain(q, kp, vp, table[:, :pps], seq)
+    assert (out - ref).abs().max().item() <= TOL[torch.float32]
+    with pytest.raises(RuntimeError):
+        pa._launch(q, kp, vp, table, seq, 1)
 
 
 def test_kernels_refuse_what_they_do_not_take(dev):

@@ -88,14 +88,21 @@ def test_empty_request_is_mean_of_v_after_merge():
                                rtol=0, atol=TOL)
 
 
-@pytest.mark.parametrize("b,kvh,tokens,want", [
-    (4, 2, 1104, 32),       # the main decode shape: 35 splits, 280 CTAs
-    (1, 2, 1104, 32),
-    (64, 2, 1104, 288),     # a large batch: at most 4 CTAs per SM
-    (4, 2, 5, 32),
+@pytest.mark.parametrize("seqs", [
+    [100, 127, 3, 128],          # the main path's mix: long, short, full
+    [31, 32, 33, 65],            # at and across chunk boundaries
+    [0, 64, 0, 97],              # empty requests beside split-aligned ones
+    [1, 1, 1, 1],                # every split but the first is empty
 ])
-def test_split_tokens_policy(b, kvh, tokens, want):
-    got = pa.split_tokens(b, kvh, tokens, 132)
-    assert got == want and got % pa.CHUNK == 0
-    ctas = b * kvh * -(-tokens // got)
-    assert got == pa.CHUNK or ctas <= pa.CTAS_PER_SM * 132
+def test_wrapper_split_at_the_decode_head_layout(seqs):
+    """The split the wrapper gives the kernel (one chunk of ``CHUNK``
+    tokens) at qwen2-vl-2b's head layout (12 q / 2 kv heads, pages of 16),
+    on a permuted 128-token table, against the Pallas kernel."""
+    q, kp, vp, table = _inputs(10, 4, 12, 2, 64, 16, 8, True)
+    seq = np.array(seqs, np.int32)
+    want = np.asarray(jpaged(jnp.asarray(q), jnp.asarray(kp),
+                             jnp.asarray(vp), jnp.asarray(table),
+                             jnp.asarray(seq), interpret=True))
+    got = pa.paged_attention_split_plain(*_torch(q, kp, vp, table, seq),
+                                         pa.CHUNK)
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=TOL)
