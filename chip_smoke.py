@@ -8,10 +8,15 @@ path and at edge cases, times kernel, plain version and a PyTorch library
 call beside the roofline bound, then drives the main path through the
 public entry points: ``LVLM.generate`` and a chunked ``LVLM.serve`` on
 qwen2-vl at smoke size (card against CPU, float32) and at the full
-published width (bfloat16, random weights from seed 0). Each phase prints
-one JSON line; the last two lines are the kernel summary and
-``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero
-before that line. Needs one CUDA device of compute capability 9.0.
+published width (bfloat16, random weights from seed 0). The
+``compression`` phases hold every visual-token compressor on the card
+against the CPU at full width, serve a batch that mixes eight
+compression strategies through both kernels at their compressed prefill
+lengths, and compare the mixed batch's greedy tokens card against CPU on
+the smoke config. Each phase prints one JSON line; the last two lines are
+the kernel summary and ``{"ok": true, "device": {...}}``. Any failure
+raises and exits non-zero before that line. Needs one CUDA device of
+compute capability 9.0.
 """
 from __future__ import annotations
 
@@ -35,6 +40,15 @@ PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 # at |x| ~ 2 is 1.6e-2)
 TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
 SMOKE_LOGIT_TOL = 1e-3          # card vs CPU, float32 smoke model
+# compressed embeddings card vs CPU (float32): gathers are exact, the
+# merges' scatter-adds sum in another order on the card (atomics)
+COMP_TOL = 1e-5
+# one request per strategy in the mixed-compression serve
+MIX = ("none", "fastv-0.5", "sparsevlm-0.5", "l2-0.5", "divprune-0.5",
+       "cdpruner-0.5", "tome-0.5", "framefusion-0.25")
+# its text prompt and new tokens per request, and its slot cache length
+# (LVLM._cache_len of 1024 visual + 32 text + 32 new tokens)
+SERVE_TEXT, SERVE_NEW, SERVE_CACHE_LEN = 32, 32, 1104
 
 
 def emit(phase: str, **fields) -> None:
@@ -166,12 +180,25 @@ def phase_build() -> None:
     check(hgmma > 0, "the flash library's SASS has no HGMMA instruction")
 
 
+def _serve_prompt_lens(nv: int) -> list:
+    """Post-compression prompt length of each request of the mixed serve
+    (MIX order): its prefill length, and its decode seq_lens run from one
+    past it to SERVE_NEW - 1 past it."""
+    from repro_torch.api import compressed_token_count, resolve_compression
+    return [SERVE_TEXT + compressed_token_count(resolve_compression(c), nv)
+            for c in MIX]
+
+
 def _flash_cases():
     """Main-path shape (qwen2-vl-2b prefill of 1024 visual + 32 text
-    tokens), then the edge cases."""
+    tokens), the compressed prefills of the mixed serve (a 0.5 keep and
+    framefusion-0.25: 544 and 288 tokens, not multiples of the 64-row
+    tile), then the edge cases."""
     main = dict(b=1, h=12, kvh=2, sq=1056, sk=1056, d=128)
     return main, [
         ("main", main, {}),
+        ("prefill_0.5", dict(main, sq=544, sk=544), {}),
+        ("prefill_0.25", dict(main, sq=288, sk=288), {}),
         ("sq_not_tile_multiple", dict(main, sq=1000, sk=1000), {}),
         ("kv_len_lt_sk", dict(main, sq=64, sk=1104), dict(kv_len=1072)),
         ("q_offset", dict(main, sq=16, sk=1104),
@@ -279,6 +306,7 @@ def phase_kernels(flush) -> dict:
                                                       vp, table, sl))
             errs[f"{name}/{str(dtype)[6:]}"] = e
             check(e <= TOL[dtype], f"paged {name} {dtype}: err {e}")
+    errs.update(_paged_serve_cases(rng, h, kvh, d, page))
     dtype = torch.bfloat16
     qd = randn(rng, (b, h, d), dtype)
     cache_k = randn(rng, (b, length, kvh, d), dtype)
@@ -323,6 +351,44 @@ def phase_kernels(flush) -> dict:
     return out
 
 
+def _paged_serve_cases(rng, h, kvh, d, page) -> dict:
+    """The wrapper at the mixed-compression serve's decode batch: one slot
+    per strategy of MIX over its SERVE_CACHE_LEN cache, whose seq_lens
+    differ by hundreds of tokens (1056 / 544 / 288 prompts plus the tokens
+    decoded so far), at the first and last decode step and at steps drawn
+    per slot; identity table (the engine's) and a permuted one, float32
+    and bfloat16, each held against the plain version."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import paged_attention as pa
+    b, length = len(MIX), SERVE_CACHE_LEN
+    pps = length // page
+    prompt = np.array(_serve_prompt_lens(
+        get_config("qwen2-vl-2b").num_visual_tokens))
+    steps = {"serve_first_step": prompt + 1,
+             "serve_last_step": prompt + SERVE_NEW - 1,
+             "serve_mixed_steps": prompt + rng.integers(1, SERVE_NEW, b)}
+    ident = torch.arange(b * pps, dtype=torch.int32,
+                         device="cuda").view(b, pps)
+    perm = torch.from_numpy(rng.permutation(b * pps).astype(np.int32)
+                            ).to("cuda").view(b, pps)
+    errs = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        qd = randn(rng, (b, h, d), dtype)
+        kp = randn(rng, (b * pps, page, kvh, d), dtype)
+        vp = randn(rng, (b * pps, page, kvh, d), dtype)
+        for name, lens in steps.items():
+            sl = torch.tensor(lens, dtype=torch.int32, device="cuda")
+            for tname, table in (("identity", ident), ("permuted", perm)):
+                got = pa.paged_attention(qd, kp, vp, table, sl)
+                torch.cuda.synchronize()
+                e = max_err(got, pa.paged_attention_plain(qd, kp, vp,
+                                                          table, sl))
+                errs[f"{name}_{tname}/{str(dtype)[6:]}"] = e
+                check(e <= TOL[dtype], f"paged {name} {tname} {dtype}: "
+                      f"err {e} at seq_lens {lens.tolist()}")
+    return errs
+
+
 def _paged_split_sweep(rng, flush, h, kvh, d, length, page, seqs) -> dict:
     """The split kernel at 32 (the wrapper's), 64 and 128 tokens per CTA
     (one, two and four cp.async chunks), at the main decode shape and
@@ -357,13 +423,18 @@ def _paged_split_sweep(rng, flush, h, kvh, d, length, page, seqs) -> dict:
 
 class CallTimer:
     """Wraps a model's prefill/extend/decode_step on the instance: counts
-    calls and wall seconds (synchronized), for the main-path report."""
+    calls and wall seconds (synchronized), for the main-path report, and
+    the sequence length of each prefill with its seconds."""
 
     def __init__(self, model):
-        self.calls = {"prefill": 0, "extend": 0, "decode_step": 0}
-        self.seconds = dict.fromkeys(self.calls, 0.0)
+        self.reset()
         for name in self.calls:
             setattr(model, name, self._wrap(name, getattr(model, name)))
+
+    def reset(self) -> None:
+        self.calls = {"prefill": 0, "extend": 0, "decode_step": 0}
+        self.seconds = dict.fromkeys(self.calls, 0.0)
+        self.prefills = []          # [(visual + text tokens, seconds)]
 
     def _wrap(self, name, fn):
         def timed(*a, **kw):
@@ -371,8 +442,15 @@ class CallTimer:
             t0 = time.perf_counter()
             res = fn(*a, **kw)
             torch.cuda.synchronize()
-            self.seconds[name] += time.perf_counter() - t0
+            dt = time.perf_counter() - t0
+            self.seconds[name] += dt
             self.calls[name] += 1
+            if name == "prefill":
+                batch = a[1]
+                n = batch["tokens"].shape[1] + (
+                    batch["visual_embeds"].shape[1]
+                    if "visual_embeds" in batch else 0)
+                self.prefills.append((n, dt))
             return res
         return timed
 
@@ -452,7 +530,7 @@ def _tree_to(tree, device):
     return tree.to(device)
 
 
-def phase_main_path_full() -> dict:
+def phase_main_path_full() -> tuple:
     """qwen2-vl-2b at full width, bfloat16, random weights (seed 0)."""
     from repro_torch.api import EngineConfig, GenerationConfig, LVLM, Request
     torch.cuda.reset_peak_memory_stats()
@@ -499,8 +577,7 @@ def phase_main_path_full() -> dict:
           f"paged launches {gen_counts} vs decode steps {gen_calls}")
     decode_tokens = sum(len(t) - 1 for t in toks)
 
-    timer.calls = dict.fromkeys(timer.calls, 0)
-    timer.seconds = dict.fromkeys(timer.seconds, 0.0)
+    timer.reset()
     ec = EngineConfig(max_batch=4, cache_len=LVLM._cache_len(
         _requests(Request, prompts, ves, n_new), gen), scheduler="chunked",
         chunk_size=16, token_budget=2048)
@@ -542,7 +619,259 @@ def phase_main_path_full() -> dict:
                         "token_agreement_with_generate": agree},
          peak_memory_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
     return {k: gen_counts[k] + serve_counts[k] for k in gen_counts}, \
-        (lvlm, prompts, ves)
+        (lvlm, prompts, ves), timer
+
+
+# ------------------------------------------------------------ compression --
+
+def _result_parts(res) -> dict:
+    """A compressor's result as named tensors: the output, the kept
+    indices where it returns them, and the tensors of its info dict."""
+    if isinstance(res, torch.Tensor):
+        return {"out": res}
+    parts = {"out": res[0]}
+    if len(res) == 3 and res[1] is not None:
+        parts["idx"] = res[1]
+    info = res[-1] if isinstance(res[-1], dict) else {}
+    parts.update({f"info/{k}": v for k, v in info.items()
+                  if isinstance(v, torch.Tensor)})
+    return parts
+
+
+def _compressor_cases(x, q, vid, static):
+    """(name, function, tensors, other arguments) of every compressor at
+    full width: the five pruners and two mergers at a 0.5 (framefusion
+    0.25) keep of 1024 tokens, ``compress_visual_tokens`` for each preset
+    the mixed serve runs, and the five video functions on a random and a
+    static video (every frame the same: every score ties)."""
+    from repro_torch.api import resolve_compression
+    from repro_torch.core.token_compression import (merging, policy,
+                                                    pruning, video)
+
+    def fastv(x):
+        return pruning.prune_fastv(
+            x, 512, scores=-torch.linalg.vector_norm(x, dim=-1))
+    cases = [
+        ("prune_fastv", fastv, (x,), {}),
+        ("prune_sparsevlm", pruning.prune_sparsevlm, (x,),
+         {"keep": 512, "query": q}),
+        ("prune_l2", pruning.prune_l2, (x,), {"keep": 512}),
+        ("prune_divprune", pruning.prune_divprune, (x,), {"keep": 512}),
+        ("prune_cdpruner", pruning.prune_cdpruner, (x,),
+         {"keep": 512, "query": q}),
+        ("tome_to_count", merging.tome_to_count, (x,), {"keep": 512}),
+        ("prune_then_merge", merging.prune_then_merge, (x,), {"keep": 256}),
+    ]
+    for preset in MIX:
+        cc = resolve_compression(preset)
+        cases.append((f"compress_visual_tokens/{preset}",
+                      lambda x, q, cc=cc: policy.compress_visual_tokens(
+                          cc, x, query=q), (x, q), {}))
+    for tag, v in (("random", vid), ("static", static)):
+        cases += [
+            (f"frame_similarity/{tag}", video.frame_similarity, (v,), {}),
+            (f"temporal_merge/{tag}", video.temporal_merge, (v,),
+             {"num_segments": 3}),
+            (f"llama_vid_compress/{tag}", video.llama_vid_compress, (v, q),
+             {}),
+            (f"dycoke_ratio/{tag}", video.dycoke_ratio, (v,), {}),
+            (f"dynamic_compress/{tag}", video.dynamic_compress, (v,),
+             {"token_budget": 256}),
+            (f"framefusion/{tag}", video.framefusion, (v,), {"keep": 256}),
+        ]
+    return cases
+
+
+def phase_compressors() -> None:
+    """Every compressor on the card and on the CPU on the same float32
+    inputs (seed 3): kept indices identical, outputs within COMP_TOL, each
+    ``compress_visual_tokens`` output as long as ``compressed_token_count``
+    says; wall ms per call on the card, synchronised (median of 3 after a
+    warm-up call)."""
+    from repro_torch.api import compressed_token_count, resolve_compression
+    rng = np.random.default_rng(3)
+    d = 1536
+    host = {"x": rng.standard_normal((1, 1024, d)).astype(np.float32),
+            "q": rng.standard_normal((1, 32, d)).astype(np.float32),
+            "vid": rng.standard_normal((1, 8, 128, d)).astype(np.float32)}
+    host["static"] = np.repeat(host["vid"][:, :1], 8, axis=1)
+    cpu = {k: torch.from_numpy(v) for k, v in host.items()}
+    card = {k: v.cuda() for k, v in cpu.items()}
+    report = {}
+    for (name, fn, args, kw), (_, cfn, cargs, ckw) in zip(
+            _compressor_cases(**card), _compressor_cases(**cpu)):
+        got = _result_parts(fn(*args, **kw))
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            fn(*args, **kw)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        want = _result_parts(cfn(*cargs, **ckw))
+        check(set(got) == set(want), f"{name}: parts {set(got)} vs "
+              f"{set(want)}")
+        row = {"ms": sorted(times)[1], "shape": list(got["out"].shape)}
+        for part, w in want.items():
+            g = got[part]
+            check(g.device.type == "cuda", f"{name}/{part} left the card")
+            check(tuple(g.shape) == tuple(w.shape),
+                  f"{name}/{part}: shape {tuple(g.shape)} vs "
+                  f"{tuple(w.shape)}")
+            if part == "idx":
+                check(torch.equal(g.cpu(), w),
+                      f"{name}: kept indices differ card vs CPU")
+            else:
+                e = max_err(g.cpu(), w)
+                row[f"{part}_err"] = e
+                check(e <= COMP_TOL, f"{name}/{part}: err {e}")
+        if name.startswith("compress_visual_tokens/"):
+            cc = resolve_compression(name.split("/", 1)[1])
+            check(got["out"].shape[1] == compressed_token_count(cc, 1024),
+                  f"{name}: {got['out'].shape[1]} tokens, count says "
+                  f"{compressed_token_count(cc, 1024)}")
+        report[name] = row
+    emit("compression_compressors", tolerance=COMP_TOL,
+         inputs={"visual": [1, 1024, d], "query": [1, 32, d],
+                 "video": [1, 8, 128, d], "dtype": "float32"},
+         compressors=report)
+
+
+def _mixed_requests(Request, cfg, rng, n_text, n_new):
+    prompts = [rng.integers(0, cfg.vocab_size, n_text).tolist()
+               for _ in MIX]
+    ves = [rng.standard_normal((cfg.num_visual_tokens, cfg.d_model)
+                               ).astype(np.float32) for _ in MIX]
+
+    def make():
+        return [Request(rid=i, tokens=list(p), max_new_tokens=n_new,
+                        visual_embeds=v, compression=c)
+                for i, (p, v, c) in enumerate(zip(prompts, ves, MIX))]
+    return make, prompts, ves
+
+
+def phase_compression_serve(lvlm, timer) -> dict:
+    """qwen2-vl-2b at full width, bf16: ``LVLM.serve`` (continuous,
+    max_batch 8) of 8 requests of 1024 visual + 32 text tokens and 32 new
+    tokens, one per strategy of MIX, then ``generate`` with
+    ``GenerationConfig(compression="fastv-0.5")`` on two of the prompts.
+    Checks every request finished, the exact compression stats and KV
+    reservations, and the launches of both kernels per prefill (at the
+    compressed lengths) and per decode step."""
+    from repro_torch.api import (EngineConfig, GenerationConfig, LVLM,
+                                 Request, compressed_token_count,
+                                 resolve_compression)
+    cfg = lvlm.cfg
+    L, nv = cfg.num_layers, cfg.num_visual_tokens
+    n_text, n_new = SERVE_TEXT, SERVE_NEW
+    make, prompts, ves = _mixed_requests(Request, cfg,
+                                         np.random.default_rng(4),
+                                         n_text, n_new)
+    gen = GenerationConfig(max_new_tokens=n_new, decoder="greedy")
+    ec = EngineConfig(max_batch=8, scheduler="continuous",
+                      cache_len=LVLM._cache_len(make(), gen))
+    check(ec.cache_len == SERVE_CACHE_LEN,
+          f"serve cache_len {ec.cache_len}: the paged kernel was checked "
+          f"at {SERVE_CACHE_LEN}")
+    timer.reset()
+    _reset_counts()
+    t0 = time.perf_counter()
+    rep = lvlm.serve(make(), ec, gen)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _counts()
+    calls, prefills = dict(timer.calls), list(timer.prefills)
+    eng = rep.engine
+    check(len(rep.requests) == len(MIX)
+          and all(len(r.generated) == n_new for r in rep.requests),
+          "the mixed-compression serve did not finish every request")
+    nv_out = {c: compressed_token_count(resolve_compression(c), nv)
+              for c in MIX}
+    check(nv_out["none"] == nv and nv_out["framefusion-0.25"] == nv // 4
+          and all(nv_out[c] == nv // 2 for c in MIX[1:-1]),
+          f"unexpected compressed counts {nv_out}")
+    want = {c: {"visual_tokens_in": nv, "visual_tokens_out": nv_out[c],
+                "prefill_token_reduction": 1.0 - nv_out[c] / nv}
+            for c in MIX}
+    check(eng.compression_stats() == want,
+          f"compression_stats {eng.compression_stats()} != {want}")
+    kv = {r.compression: eng.kv_request_tokens(r) for r in rep.requests}
+    for c in MIX:
+        need = n_text + nv_out[c] + n_new
+        check(kv[c] == -(-need // 16) * 16, f"kv_request_tokens[{c}]")
+    check(all(kv[c] < kv["none"] for c in MIX[1:])
+          and kv["framefusion-0.25"] < kv["fastv-0.5"],
+          f"KV reservations do not shrink with the keep ratio: {kv}")
+    lengths = sorted(n for n, _ in prefills)
+    check(lengths == sorted(n_text + nv_out[c] for c in MIX)
+          == sorted(_serve_prompt_lens(nv)),
+          f"prefill lengths {lengths}")
+    check(counts["flash_attention"] >= L * calls["prefill"] > 0,
+          f"flash launches {counts} vs prefills {calls}")
+    check(counts["paged_attention"] >= L * calls["decode_step"] > 0,
+          f"paged launches {counts} vs decode steps {calls}")
+    by_len = {}
+    for n, dt in prefills:
+        by_len.setdefault(n, []).append(dt * 1e3)
+
+    # the facade's default strategy
+    timer.reset()
+    _reset_counts()
+    gres = lvlm.generate(prompts[:2], GenerationConfig(
+        max_new_tokens=n_new, decoder="greedy", compression="fastv-0.5"),
+        visual_embeds=ves[:2])
+    torch.cuda.synchronize()
+    gcounts, gcalls = _counts(), dict(timer.calls)
+    check(all(len(r.tokens) == n_new and r.request.nv_compressed == nv // 2
+              for r in gres), "generate(compression='fastv-0.5') failed")
+    check(sorted(n for n, _ in timer.prefills) == [n_text + nv // 2] * 2,
+          f"generate prefill lengths {timer.prefills}")
+    check(gcounts["flash_attention"] >= L * gcalls["prefill"] > 0
+          and gcounts["paged_attention"] >= L * gcalls["decode_step"] > 0,
+          f"generate launches {gcounts} vs calls {gcalls}")
+    emit("compression_serve", config=cfg.name, dtype=cfg.dtype,
+         presets=list(MIX), wall_seconds=wall, calls=calls,
+         prefill_wall_ms_by_length=by_len,
+         compression_stats=eng.compression_stats(),
+         kv_request_tokens=kv,
+         virtual_ttft_s={r.compression: r.ttft() for r in rep.requests},
+         slot_seq_lens_at_end=[int(x) for x in eng.slot_pos],
+         launches=counts,
+         generate_fastv={"calls": gcalls, "launches": gcounts,
+                         "nv_compressed": [r.request.nv_compressed
+                                           for r in gres]})
+    return {k: counts[k] + gcounts[k] for k in counts}
+
+
+def phase_compression_smoke() -> None:
+    """The mixed-compression batch on the float32 smoke config: greedy
+    tokens and compression stats of the port on the card equal the port
+    on the CPU (the compressors run on the card there)."""
+    from repro_torch.api import EngineConfig, GenerationConfig, LVLM, Request
+    cpu = LVLM.from_pretrained("qwen2-vl-2b", smoke=True, seed=0,
+                               device="cpu")
+    card = cpu.with_params(_tree_to(cpu.params, "cuda"))
+    make, _, _ = _mixed_requests(Request, cpu.cfg, np.random.default_rng(5),
+                                 12, 8)
+    gen = GenerationConfig(max_new_tokens=8, decoder="greedy")
+    out = {}
+    for sched in ("continuous", "chunked"):
+        ec = EngineConfig(max_batch=4, cache_len=48, scheduler=sched,
+                          chunk_size=8, token_budget=32)
+        _reset_counts()
+        sc = cpu.serve(make(), ec, gen)
+        sg = card.serve(make(), ec, gen)
+        counts = _counts()
+        same = ({r.rid: r.generated for r in sc.requests}
+                == {r.rid: r.generated for r in sg.requests})
+        same_stats = (sc.engine.compression_stats()
+                      == sg.engine.compression_stats())
+        out[sched] = {"tokens_equal": same, "stats_equal": same_stats,
+                      "finished": len(sg.requests), "launches": counts}
+        check(same and same_stats and len(sg.requests) == len(MIX),
+              f"mixed-compression smoke card != CPU under {sched}")
+        check(all(counts.values()), f"a kernel was not launched: {counts}")
+    emit("compression_smoke", config=cpu.cfg.name, presets=list(MIX), **out)
 
 
 def _device_ms(evt) -> float:
@@ -561,23 +890,34 @@ def _kernel_events(prof):
 
 def phase_profile(lvlm, prompts, ves) -> None:
     """Where the time goes at full width: one prefill of the 1056-token
-    visual prompt and decode steps of a 4-slot pool, under torch.profiler
-    (device time by kernel; busy share = device time / wall time)."""
+    visual prompt, of the lengths a 0.5 and a 0.25 keep of its 1024
+    visual tokens leave (544 and 288: the dimension-1 saving), and decode
+    steps of a 4-slot pool with two long and two short requests, before
+    and after the same compressions, under torch.profiler (device time by
+    kernel; busy share = device time / wall time)."""
     from torch.profiler import ProfilerActivity, profile
     model, params = lvlm.model, lvlm.params
     cls = type(model)               # bypass the CallTimer wrappers
     batch = {"tokens": torch.tensor([prompts[0]], device="cuda"),
              "visual_embeds": torch.from_numpy(ves[0]).cuda()[None]}
+
+    def prefill(nv):
+        b = dict(batch, visual_embeds=batch["visual_embeds"][:, :nv])
+        return lambda: cls.prefill(model, params, b, cache_len=1104,
+                                   last_only=True)
     n_ctx = len(prompts[0]) + len(ves[0])
     pool = model.init_cache(4, 1104, device="cuda")
     toks = torch.zeros((4, 1), dtype=torch.long, device="cuda")
     pos = torch.tensor([n_ctx, n_ctx + 4, 40, 44], device="cuda")
+    pos_compressed = torch.tensor([544, 548, 288, 292], device="cuda")
     runs = {
-        "prefill_1056": (lambda: cls.prefill(model, params, batch,
-                                             cache_len=1104,
-                                             last_only=True), 3),
+        "prefill_1056": (prefill(1024), 3),
+        "prefill_544": (prefill(512), 3),
+        "prefill_288": (prefill(256), 3),
         "decode_step_b4": (lambda: cls.decode_step(model, params, pool, toks,
                                                    pos), 10),
+        "decode_step_b4_compressed": (lambda: cls.decode_step(
+            model, params, pool, toks, pos_compressed), 10),
     }
     for name, (fn, n) in runs.items():
         fn()
@@ -620,8 +960,12 @@ def main() -> int:
     kernels = phase_kernels(flush)
     del flush
     phase_main_path_smoke()
-    launches, full = phase_main_path_full()
+    launches, full, timer = phase_main_path_full()
+    phase_compressors()
+    comp_launches = phase_compression_serve(full[0], timer)
+    phase_compression_smoke()
     phase_profile(*full)
+    launches = {k: launches[k] + comp_launches[k] for k in launches}
     for name, n in launches.items():
         check(n > 0, f"kernel {name} was not launched on the main path")
         kernels[name]["launches"] = n

@@ -10,6 +10,11 @@ Port of ``repro.api.lvlm`` for this slice:
         ...
     report = lvlm.serve(requests, EngineConfig(scheduler="chunked"))
 
+Visual-token compression is a named default strategy
+(``GenerationConfig(compression="fastv-0.5")``) that any request may
+override (``Request.compression``); ``compressors=`` registers extra
+named strategies with the engine.
+
 Everything runs on ``device``: the CUDA device unless the caller passes
 ``device="cpu"``; with no CUDA device and no ``device=``, construction
 raises instead of carrying on on the CPU.
@@ -22,6 +27,7 @@ from typing import Dict, Iterator, List, Optional, Sequence, Union
 import numpy as np
 import torch
 
+from repro_torch.api.compressors import make_compressor
 from repro_torch.api.generation import DECODER_NAMES, GenerationConfig
 from repro_torch.configs import get_config
 from repro_torch.configs.base import ModelConfig
@@ -119,13 +125,16 @@ class LVLM:
     # ----------------------------------------------------------- engine --
     def _build_engine(self, gen: GenerationConfig, *, max_batch: int,
                       cache_len: int,
-                      engine_cfg: Optional[EngineConfig] = None) -> Engine:
+                      engine_cfg: Optional[EngineConfig] = None,
+                      compressors: Optional[Dict] = None) -> Engine:
         if engine_cfg is None:
             engine_cfg = EngineConfig(max_batch=max_batch,
                                       cache_len=cache_len,
                                       scheduler="continuous")
         # generation knobs always come from gen; engine_cfg keeps only the
-        # serving-layer knobs (batch, cache, scheduler, cost)
+        # serving-layer knobs (batch, cache, scheduler, cost).
+        # gen.compression is sugar for a NAMED default strategy registered
+        # with the engine
         engine_cfg = dataclasses.replace(
             engine_cfg,
             temperature=gen.temperature,
@@ -133,7 +142,9 @@ class LVLM:
             eos_id=gen.eos_id, seed=gen.seed,
             decoder=gen.decoder)
         # analysis: allow L003 (this is the port's facade: it owns engine construction)
-        return Engine(self.model, self.params, engine_cfg)
+        return Engine(self.model, self.params, engine_cfg,
+                      compressor=make_compressor(gen.compression),
+                      compressors=compressors)
 
     def _requests(self, prompts, gen, visual_embeds) -> List[Request]:
         n = len(prompts)
@@ -160,13 +171,17 @@ class LVLM:
     # --------------------------------------------------------- generate --
     def generate(self, prompts, gen: Optional[GenerationConfig] = None, *,
                  visual_embeds=None,
-                 engine_cfg: Optional[EngineConfig] = None
+                 engine_cfg: Optional[EngineConfig] = None,
+                 compressors: Optional[Dict] = None
                  ) -> Union[GenerationResult, List[GenerationResult]]:
         """Generate continuations.
 
         ``prompts``: one token-id sequence or a list of them (a single
         prompt returns a single ``GenerationResult``). ``visual_embeds``:
         one [Nv, d] array (single prompt) or a list parallel to ``prompts``.
+        ``compressors``: extra named compression strategies registered
+        with the engine (preset/parametric names resolve without
+        registration).
         """
         gen = gen if gen is not None else GenerationConfig()
         single = _is_single_prompt(prompts)
@@ -175,7 +190,8 @@ class LVLM:
         reqs = self._requests(prompts, gen, visual_embeds)
         eng = self._build_engine(
             gen, max_batch=min(8, max(1, len(reqs))),
-            cache_len=self._cache_len(reqs, gen), engine_cfg=engine_cfg)
+            cache_len=self._cache_len(reqs, gen), engine_cfg=engine_cfg,
+            compressors=compressors)
         for r in reqs:
             eng.submit(r)
         stats = dict(eng.run(), **eng.decoder_stats())
@@ -210,13 +226,19 @@ class LVLM:
     # ------------------------------------------------------------ serve --
     def serve(self, requests: List[Request],
               engine_cfg: Optional[EngineConfig] = None,
-              gen: Optional[GenerationConfig] = None) -> ServeResult:
+              gen: Optional[GenerationConfig] = None,
+              compressors: Optional[Dict] = None) -> ServeResult:
         """Full serving run: scheduler + batching + virtual-clock metrics.
 
         ``engine_cfg`` keeps its serving knobs (scheduler, batch, cache);
-        ``gen`` optionally selects the default decoder and its sampling
-        knobs on top. A request may name its own decoder
-        (``Request.decoder``).
+        ``gen`` optionally selects the default decoder, its sampling knobs
+        and the default compression preset on top. A request may name its
+        own decoder (``Request.decoder``) and compression strategy
+        (``Request.compression``: any preset/parametric name or a key of
+        ``compressors``); KV accounting uses each request's
+        post-compression token count. Stats include the virtual-clock
+        decode cost per strategy group (``decode_cost_by_group``) and the
+        per-strategy prefill token reduction (``compression/<name>/...``).
         """
         ec = engine_cfg if engine_cfg is not None else EngineConfig()
         if gen is not None:
@@ -226,10 +248,16 @@ class LVLM:
         elif ec.decoder not in DECODER_NAMES:
             ec = dataclasses.replace(ec, decoder="sampling")
         # analysis: allow L003 (this is the port's facade: it owns engine construction)
-        eng = Engine(self.model, self.params, ec)
+        eng = Engine(self.model, self.params, ec,
+                     compressor=make_compressor(
+                         gen.compression if gen is not None else None),
+                     compressors=compressors)
         for r in requests:
             eng.submit(r)
         stats = dict(eng.run(), **eng.decoder_stats())
         stats["decode_cost_by_group"] = dict(eng.group_costs)
+        for name, cs in eng.compression_stats().items():
+            for k, v in cs.items():
+                stats[f"compression/{name}/{k}"] = v
         return ServeResult(stats=stats, requests=list(eng.finished),
                            engine=eng)

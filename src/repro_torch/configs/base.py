@@ -1,9 +1,9 @@
-"""Model configuration for the PyTorch port.
+"""Model and compression configuration for the PyTorch port.
 
-A copy of ``repro.configs.base.ModelConfig`` (the port imports nothing of
-the JAX package). The fields, defaults and derived properties are the
-reference's, so a config built here describes the same network as the
-reference config of the same name.
+Copies of ``repro.configs.base.ModelConfig`` and ``CompressionConfig``
+(the port imports nothing of the JAX package). The fields, defaults and
+derived properties are the reference's, so a config built here describes
+the same network as the reference config of the same name.
 """
 from __future__ import annotations
 
@@ -87,3 +87,23 @@ class ModelConfig:
 
     def with_(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
+
+
+@dataclasses.dataclass(frozen=True)
+class CompressionConfig:
+    """Selects taxonomy-dimension-1/2 features for a serving run (a copy
+    of ``repro.configs.base.CompressionConfig``: same fields, defaults)."""
+    # visual token compression (dim 1)
+    token_pruner: str = "none"       # none|fastv|sparsevlm|l2|divprune|cdpruner|pyramiddrop
+    token_merger: str = "none"       # none|tome|framefusion
+    keep_ratio: float = 1.0          # fraction of visual tokens kept
+    prune_layer: int = 2             # FastV: drop after this decoder layer
+    # KV cache (dim 2)
+    kv_selector: str = "none"        # none|snapkv|h2o|streaming|l2
+    kv_budget: int = 0               # tokens retained (0 = unlimited)
+    kv_budget_policy: str = "uniform"   # uniform|pyramid|adaptive
+    kv_merger: str = "none"          # none|d2o
+    # decoding (dim 4)
+    speculative: bool = False
+    draft_len: int = 4
+    early_exit_threshold: float = 0.0   # 0 = disabled

@@ -1,5 +1,5 @@
 # analysis: allow R001 (slice 1 ports no KV migration, so there is no complete_export to release)
-"""The LVLM serving engine of the port (slice 1: the main path).
+"""The LVLM serving engine of the port (the main path plus dim 1).
 
 Port of ``repro.core.serving.engine``: one ``Engine`` drives the model over
 a dense slot pool (the preallocated [layers, max_batch, cache_len, K, D]
@@ -9,12 +9,19 @@ a virtual clock advanced by the analytic ``CostModel``, so TTFT/TPOT/JCT
 are the reference's numbers exactly. Decoding runs behind the reference's
 decoder hook (``engine_decode``); the default is ``SamplingEngineDecoder``.
 
+Visual-token compression (dim 1) is per request, as in the reference: a
+compressor registry (``Engine(compressor=, compressors=)``), each request
+naming its strategy (``Request.compression``), the strategy run on the
+engine's device on the request's visual embeddings before prefill, and KV
+accounting on the POST-compression token count.
+
 Left to later slices (ROADMAP queue A), and refused with
-``NotImplementedError`` when a request or config asks for them: visual
-token compression other than ``"none"`` (slice 2), prefix caching and
-KV compaction (slice 3), the speculative and early-exit decoders
-(slice 4), KV migration / handoff (slice 6), tracing, profiling and the
-runtime sanitizer (slice 5).
+``NotImplementedError`` when a request or config asks for them: prefix
+caching and live KV compaction -- any compression strategy with a
+``decode_budget()`` (``streaming-kv``, ``l2-kv``,
+``<selector>-kv-<budget>``) -- (A9, slice 3), the speculative and
+early-exit decoders (slice 4), KV migration / handoff (slice 6), tracing,
+profiling and the runtime sanitizer (slice 5).
 
 NOTE: ``repro_torch.api`` (``LVLM``) is the public surface.
 """
@@ -26,10 +33,14 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.configs.base import CompressionConfig
 from repro_torch.core.decoding.sampling import sample_token
 from repro_torch.core.serving.disaggregation import CostModel
 from repro_torch.core.serving.request import Request, State, summarize
 from repro_torch.core.serving.scheduler import SCHEDULERS
+from repro_torch.core.token_compression.policy import (
+    CompressionStrategy, resolve_compression)
+from repro_torch.models.layers import embed_tokens
 
 
 @dataclasses.dataclass
@@ -48,6 +59,8 @@ class EngineConfig:
     eos_id: int = -1                     # -1 = never stop on eos
     seed: int = 0
     decoder: str = "sampling"            # default strategy: sampling|greedy
+    # (no compression field: the default compression strategy reaches the
+    # engine only as Engine(compressor=), which the facade builds)
     cost: CostModel = dataclasses.field(default_factory=CostModel)
 
 
@@ -120,7 +133,8 @@ def _slot_set(pool, slot, one):
 
 
 class Engine:
-    def __init__(self, model, params, ec: EngineConfig):
+    def __init__(self, model, params, ec: EngineConfig, *, compressor=None,
+                 compressors: Optional[Dict] = None):
         self.ec = ec
         self.model = model
         self.cfg = model.cfg
@@ -162,6 +176,20 @@ class Engine:
         self._decoders: Dict[str, object] = {self._default_name: self.decoder}
         self._used_decoders: set = set()
 
+        # compressor registry: the default strategy (no compression unless
+        # the caller passes one) plus named per-request strategies; unknown
+        # names resolve lazily through the preset / parametric grammar,
+        # validated on first use like decoders
+        self.compressor = compressor if compressor is not None \
+            else CompressionStrategy(CompressionConfig())
+        self._compressors: Dict[str, object] = dict(compressors or {})
+        self._default_comp_name = getattr(self.compressor, "name", "none")
+        self._compressors[self._default_comp_name] = self.compressor
+        self._validated_comps: set = set()
+        # per-strategy visual-token counters: name -> [in, out]
+        self._comp_counts: Dict[str, List[int]] = {}
+        self._validate_compressor(self._default_comp_name, self.compressor)
+
     # ----------------------------------------------------------- decoders --
     def _resolve_decoder(self, name: Optional[str]) -> Tuple[str, object]:
         """Per-request strategy resolution: None -> the engine default."""
@@ -190,28 +218,67 @@ class Engine:
     @staticmethod
     def _check_served(req: Request) -> None:
         """Refuse what this slice of the port does not serve yet."""
-        if req.compression not in (None, "none"):
-            raise NotImplementedError(
-                f"request {req.rid}: compression {req.compression!r} is not "
-                "ported yet (ROADMAP queue A, slice 2)")
         if req.handoff:
             raise NotImplementedError(
                 f"request {req.rid}: KV handoff (disaggregated serving) is "
                 "not ported yet (ROADMAP queue A, slice 6)")
 
+    # -------------------------------------------------------- compressors --
+    def _validate_compressor(self, name: str, comp) -> None:
+        if name in self._validated_comps:
+            return
+        if getattr(comp, "decode_budget", lambda: None)() is not None:
+            raise NotImplementedError(
+                f"compression strategy {name!r} compacts the KV cache live, "
+                "which is not ported yet (ROADMAP A9, the compacting "
+                "engine)")
+        validate = getattr(comp, "validate", None)
+        if validate is not None:
+            validate(self)
+        self._validated_comps.add(name)
+
+    def _resolve_compressor(self, name: Optional[str]) -> Tuple[str, object]:
+        """Per-request compression resolution: None -> the engine default;
+        otherwise a registered strategy or any preset/parametric name
+        (resolved lazily, mirror of ``_resolve_decoder``)."""
+        if name is None:
+            return self._default_comp_name, self.compressor
+        comp = self._compressors.get(name)
+        if comp is None:
+            comp = CompressionStrategy(resolve_compression(name), name=name)
+            self._compressors[name] = comp
+        self._validate_compressor(name, comp)
+        return name, comp
+
     def _stamp_compressed_nv(self, req: Request) -> None:
-        """Stamp the post-compression visual count; with no compression
-        it is the full count (the basis of all KV accounting)."""
-        if req.nv_compressed is None and req.visual_embeds is not None:
-            req.nv_compressed = len(req.visual_embeds)
+        """Resolve the request's strategy and stamp its POST-compression
+        visual count (idempotent; the basis of all KV accounting)."""
+        if req.nv_compressed is not None or req.visual_embeds is None:
+            return
+        _, comp = self._resolve_compressor(req.compression)
+        req.nv_compressed = int(
+            comp.compressed_token_count(len(req.visual_embeds)))
+
+    def compression_stats(self) -> Dict[str, Dict]:
+        """Per-strategy visual-token reduction of every strategy that
+        compressed a request's prefill: ``{name: {visual_tokens_in,
+        visual_tokens_out, prefill_token_reduction}}``."""
+        return {name: {"visual_tokens_in": vin,
+                       "visual_tokens_out": vout,
+                       "prefill_token_reduction":
+                           (1.0 - vout / vin) if vin else 0.0}
+                for name, (vin, vout) in self._comp_counts.items()}
 
     # ------------------------------------------------------------- intake --
     def submit(self, req: Request) -> None:
         self._check_served(req)
         name, _ = self._resolve_decoder(req.decoder)
         self._used_decoders.add(name)
+        req._comp_name, _ = self._resolve_compressor(req.compression)
         self._stamp_compressed_nv(req)
-        # (the speculative decoder's KV lookahead arrives with slice 4)
+        # (the speculative decoder's KV lookahead arrives with slice 4);
+        # capacity is checked against what actually lands in the cache:
+        # the POST-compression prompt length
         need = req.kv_prompt_len + req.max_new_tokens + req.lookahead
         if need > self.ec.cache_len - 1:
             raise ValueError(
@@ -234,7 +301,9 @@ class Engine:
 
     def kv_request_tokens(self, req: Request) -> int:
         """Block-rounded KV reservation one request commits the pool to:
-        prompt + max_new + decode lookahead."""
+        POST-compression prompt + max_new + decode lookahead (the strategy
+        resolves via the request even before submit, so admission never
+        over-reserves for tokens the pruner will drop)."""
         self._stamp_compressed_nv(req)
         bs = self._kv_block()
         need = req.kv_prompt_len + req.max_new_tokens + req.lookahead
@@ -284,6 +353,37 @@ class Engine:
         return torch.as_tensor(np.asarray(toks, np.int64)[None],
                                device=self.device)
 
+    def _prompt_query_embeds(self, req: Request) -> Optional[torch.Tensor]:
+        """Text-prompt embeddings [1, Q, d] for cross-modal pruners
+        (sparsevlm / cdpruner rank visual tokens by instruction
+        relevance), in the embedding table's dtype."""
+        if not req.tokens:
+            return None
+        return embed_tokens(self.params["embed"], self._tokens(req.tokens))
+
+    def _compress_visual(self, req: Request) -> Optional[torch.Tensor]:
+        """dim 1: the request's compression strategy runs on its visual
+        embeddings, on the engine's device, before they enter the
+        backbone, in the dtype the request gave them (float32): the model
+        casts them to its own dtype only after (bf16 scores would tie).
+        Returns the [N', d] device tensor the prefill takes."""
+        if req.visual_embeds is None:
+            return None
+        ve = torch.as_tensor(np.asarray(req.visual_embeds),
+                             device=self.device)
+        _, comp = self._resolve_compressor(req.compression)
+        nv_in = ve.shape[0]
+        if getattr(comp, "encoder_active", True):
+            # the query embed is only built for strategies that consume it
+            # (custom strategies default to yes)
+            q = self._prompt_query_embeds(req) \
+                if getattr(comp, "needs_query", True) else None
+            ve = comp.compress_prefill(ve[None], query=q)[0][0]
+        cnt = self._comp_counts.setdefault(req._comp_name, [0, 0])
+        cnt[0] += nv_in
+        cnt[1] += ve.shape[0]
+        return ve
+
     def _do_prefill_chunk(self, req: Request, n: int) -> None:
         ec = self.ec
         n = min(n, len(req.tokens) - req.prefill_done)
@@ -293,9 +393,10 @@ class Engine:
             slot = self._free_slot()
             req._slot = slot
             self.slot_req[slot] = req
-            req._ve = req.visual_embeds
-            self.slot_nv[slot] = 0 if req._ve is None else len(req._ve)
-            # visual tokens are prefill work too
+            req._ve = self._compress_visual(req)
+            self.slot_nv[slot] = 0 if req._ve is None else req._ve.shape[0]
+            # visual tokens are prefill work too (the dim-1 latency claim:
+            # the virtual clock sees the post-compression count)
             self._iter_visual_tokens += int(self.slot_nv[slot])
         slot = req._slot
         nv = int(self.slot_nv[slot])
@@ -304,8 +405,7 @@ class Engine:
         if req.prefill_done == 0:
             batch = {"tokens": self._tokens(req.tokens[:end])}
             if req._ve is not None:
-                batch["visual_embeds"] = torch.as_tensor(
-                    np.asarray(req._ve), device=self.device)[None]
+                batch["visual_embeds"] = req._ve[None]
             # only the last position's logits are read (the reference
             # unembeds every position and slices the last)
             logits, one = self.model.prefill(self.params, batch,

@@ -42,6 +42,9 @@ def _randn(rng, shape, dtype, dev):
     dict(b=1, h=2, kvh=1, sq=70, sk=64, d=64, causal=False, kv_len=40),
     dict(b=1, h=2, kvh=1, sq=90, sk=64, d=64, q_offset=-20),  # keyless rows
     dict(b=1, h=4, kvh=2, sq=2048, sk=2048, d=128),     # 32 q and key tiles
+    # compressed qwen2-vl-2b prefills: 512 / 256 kept visual + 32 text
+    dict(b=1, h=12, kvh=2, sq=544, sk=544, d=128),
+    dict(b=1, h=12, kvh=2, sq=288, sk=288, d=128),
 ])
 def test_flash_kernel_matches_plain(dev, dtype, case):
     rng = np.random.default_rng(0)
@@ -123,6 +126,8 @@ _MIXED = [40, 360, 1104, 1, 0, 97, 1060, 700]
     (5, [31, 32, 33, 64, 65]),                  # around split boundaries
     (8, _MIXED),                                # the engine's max_batch
     (16, _MIXED * 2),
+    # a mixed-compression batch: 1056 / 544 / 288-token prompts + decoded
+    (8, [1057, 545, 560, 575, 549, 566, 552, 319]),
 ])
 def test_paged_kernel_main_table(dev, dtype, b, seqs):
     """The decode shape of qwen2-vl-2b through the wrapper, with seq_lens
@@ -198,3 +203,27 @@ def test_kernels_refuse_what_they_do_not_take(dev):
         pa.paged_attention(qd, pages.transpose(0, 1), pages.transpose(0, 1),
                            table[:2], torch.ones(2, dtype=torch.int32,
                                                  device=dev))
+
+
+@pytest.mark.parametrize("preset", ["fastv-0.5", "sparsevlm-0.5", "l2-0.5",
+                                    "divprune-0.5", "cdpruner-0.5",
+                                    "tome-0.5", "framefusion-0.25"])
+def test_compressor_on_card_matches_cpu(dev, preset):
+    """Visual-token compression runs on the card (no host fallback): the
+    same kept indices as on the CPU, embeddings within 1e-5 (the merges'
+    scatter-adds sum in another order there)."""
+    from repro_torch.api import resolve_compression
+    from repro_torch.core.token_compression.policy import (
+        compress_visual_tokens)
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.standard_normal((2, 256, 128)
+                                             ).astype(np.float32))
+    q = torch.from_numpy(rng.standard_normal((2, 8, 128)).astype(np.float32))
+    cc = resolve_compression(preset)
+    want, want_idx, _ = compress_visual_tokens(cc, x, query=q)
+    got, idx, _ = compress_visual_tokens(cc, x.to(dev), query=q.to(dev))
+    assert got.device.type == "cuda"
+    assert (idx is None) == (want_idx is None)
+    if idx is not None:
+        assert torch.equal(idx.cpu(), want_idx)
+    assert float((got.cpu() - want).abs().max()) <= 1e-5

@@ -152,10 +152,10 @@ def test_later_slices_raise(pair):
     with pytest.raises(NotImplementedError):
         GenerationConfig(decoder="speculative")
     with pytest.raises(NotImplementedError):
-        GenerationConfig(compression="fastv-0.5")
+        GenerationConfig(compression="streaming-kv")
     eng = t.serve([], EngineConfig(max_batch=1, cache_len=32)).engine
     with pytest.raises(NotImplementedError):
-        eng.submit(Request(rid=0, tokens=[1, 2], compression="fastv-0.5"))
+        eng.submit(Request(rid=0, tokens=[1, 2], compression="streaming-kv"))
     with pytest.raises(NotImplementedError):
         eng.submit(Request(rid=1, tokens=[1, 2], handoff=True))
     with pytest.raises(NotImplementedError):
