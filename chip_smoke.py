@@ -13,8 +13,13 @@ published width (bfloat16, random weights from seed 0). The
 against the CPU at full width, serve a batch that mixes eight
 compression strategies through both kernels at their compressed prefill
 lengths, and compare the mixed batch's greedy tokens card against CPU on
-the smoke config. Each phase prints one JSON line; the last two lines are
-the kernel summary and ``{"ok": true, "device": {...}}``. Any failure
+the smoke config. The KV-cache phases hold the paged kernel's masked mode
+(windowed and compacted caches) against its plain version and time it,
+serve a compacting engine (per-request KV budgets) and a prefix-cache
+engine at full width, and compare both engines, every KV selector and a
+block-allocated paged pool card against CPU on the smoke config. Each
+phase prints one JSON line; the last two lines are the kernel summary
+and ``{"ok": true, "device": {...}}``. Any failure
 raises and exits non-zero before that line. Needs one CUDA device of
 compute capability 9.0.
 """
@@ -49,6 +54,11 @@ MIX = ("none", "fastv-0.5", "sparsevlm-0.5", "l2-0.5", "divprune-0.5",
 # its text prompt and new tokens per request, and its slot cache length
 # (LVLM._cache_len of 1024 visual + 32 text + 32 new tokens)
 SERVE_TEXT, SERVE_NEW, SERVE_CACHE_LEN = 32, 32, 1104
+# one request per strategy in the compacting serve (default streaming-kv-256):
+# four KV budgets over two selectors, no compaction, encoder-side pruners
+KV_MIX = ("streaming-kv-256", "l2-kv-256", "none", "fastv-0.5",
+          "streaming-kv-512", "l2-kv-128", "sparsevlm-0.5", "tome-0.5")
+KV_CACHE_LEN, KV_BUDGET = 1152, 256
 
 
 def emit(phase: str, **fields) -> None:
@@ -874,6 +884,554 @@ def phase_compression_smoke() -> None:
     emit("compression_smoke", config=cpu.cfg.name, presets=list(MIX), **out)
 
 
+# ------------------------------------------------------------- kv cache --
+
+def _masked_cases(rng, dtype, h, kvh, d, page):
+    """The masked paged kernel's inputs at batch 8 over a KV_CACHE_LEN-row
+    slot cache: (name, args, masking kwargs, key rows per request). The
+    ``compacted`` slot_pos comes from a real streaming (slots 0-3) and a
+    real l2 (4-7) compaction to KV_BUDGET of 1056 tokens, then a random
+    count of decoded rows; ``ring`` holds positions past the cache;
+    ``window_256`` is a plain cache with no k_pos; ``ahead`` reads every
+    row, those past the query's position masked. Each is given with the
+    identity table and a permuted one (physical page table[j] holds
+    logical page j)."""
+    from repro_torch.core.kv_cache.selection import SELECTORS
+    b, length, prompt = 8, KV_CACHE_LEN, 1056
+    pps = length // page
+    q = randn(rng, (b, h, d), dtype)
+    k = randn(rng, (b, length, kvh, d), dtype)
+    v = randn(rng, (b, length, kvh, d), dtype)
+    sp = torch.full((b, length), -1, dtype=torch.int32, device="cuda")
+    pos0 = torch.arange(prompt, dtype=torch.int32, device="cuda")
+    for sel, rows in (("streaming", slice(0, 4)), ("l2", slice(4, 8))):
+        nk, nv, kept = SELECTORS[sel](k[rows, :prompt], v[rows, :prompt],
+                                      budget=KV_BUDGET, pos=pos0)
+        k[rows, :KV_BUDGET], v[rows, :KV_BUDGET] = nk, nv
+        k[rows, KV_BUDGET:prompt], v[rows, KV_BUDGET:prompt] = 0, 0
+        sp[rows, :KV_BUDGET] = kept
+    steps = rng.integers(0, SERVE_NEW, b)
+    for i, t in enumerate(steps):             # rows decoded since
+        sp[i, prompt:prompt + t + 1] = torch.arange(
+            prompt, prompt + t + 1, dtype=torch.int32, device="cuda")
+    q_comp = torch.from_numpy((prompt + steps).astype(np.int32)).cuda()
+    ring_q = rng.integers(length, 3 * length, b)
+    ring = torch.full((b, length), -1, dtype=torch.int32)
+    for i, qp in enumerate(ring_q):
+        p = np.arange(qp - length + 1, qp + 1)
+        ring[i, torch.from_numpy(p % length)] = torch.from_numpy(
+            p.astype(np.int32))
+    win_q = torch.from_numpy(rng.integers(300, length, b).astype(np.int32)
+                             ).cuda()
+    ahead_q = torch.from_numpy(rng.integers(0, length - 8, b).astype(
+        np.int32)).cuda()
+    full = torch.full((b,), length, dtype=torch.int32, device="cuda")
+    rows = torch.arange(length, dtype=torch.int32, device="cuda")
+    cases = {                         # slot_pos, q_pos, window, seq_lens
+        "compacted": (sp, q_comp, 0, None),
+        "ring": (ring.cuda(), torch.from_numpy(ring_q.astype(np.int32)
+                                               ).cuda(), length, None),
+        "window_256": (None, win_q, 256, None),
+        "ahead": (rows.expand(b, length).contiguous(), ahead_q, 0, full),
+    }
+    ident = torch.arange(b * pps, dtype=torch.int32, device="cuda")
+    perm = torch.from_numpy(rng.permutation(b * pps).astype(np.int32)
+                            ).cuda()
+    out = []
+    for name, (slot_pos, q_pos, window, seq) in cases.items():
+        if seq is None:
+            seq = torch.clamp(q_pos + 1, max=length).to(torch.int32)
+        for tname, table in (("identity", ident), ("permuted", perm)):
+            pages = []
+            for x in (k, v) + (() if slot_pos is None else (slot_pos,)):
+                y = torch.empty_like(x).view(b * pps, page, *x.shape[2:])
+                y[table.long()] = x.reshape(b * pps, page, *x.shape[2:])
+                pages.append(y)
+            kw = dict(q_pos=q_pos, window=window,
+                      k_pos=pages[2] if slot_pos is not None else None)
+            out.append((f"{name}_{tname}", (q, pages[0], pages[1],
+                                            table.view(b, pps), seq), kw))
+    return out, (k, v, sp, q_comp)
+
+
+def phase_paged_masked(flush) -> None:
+    """The paged kernel's masked mode (windowed and compacted caches)
+    against its plain version in float32 and bf16, then the compacted case
+    timed (bf16, identity table) beside the unmasked kernel at the same
+    seq_lens, the byte bound of the masked function, and SDPA over the
+    dense slot cache with the boolean mask built from slot_pos."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels.ref import paged_key_mask
+    rng = np.random.default_rng(6)
+    h, kvh, d, page = 12, 2, 128, 16
+    errs = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        cases, _ = _masked_cases(rng, dtype, h, kvh, d, page)
+        for name, args, kw in cases:
+            got = pa.paged_attention(*args, **kw)
+            torch.cuda.synchronize()
+            e = max_err(got, pa.paged_attention_plain(*args, **kw))
+            errs[f"{name}/{str(dtype)[6:]}"] = e
+            check(e <= TOL[dtype], f"paged masked {name} {dtype}: err {e}")
+    dtype = torch.bfloat16
+    cases, (k, v, sp, q_pos) = _masked_cases(rng, dtype, h, kvh, d, page)
+    _, args, kw = cases[0]                   # compacted, identity table
+    q, kp, vp, table, seq = args
+    read, key = paged_key_mask(seq, table, page, **kw)
+    n_read, n_key = int(read.sum()), int(key.sum())
+    elt = q.element_size()
+    # the masked function needs every read row's position but only the
+    # key rows' K and V
+    nbytes = elt * (2 * q.numel() + 2 * n_key * kvh * d) \
+        + 4 * (table.numel() + 2 * len(seq) + n_read)
+    b_ms, b_by = bound(nbytes, 4 * h * d * n_key, dtype)
+    mask = ((sp >= 0) & (sp <= q_pos[:, None]))[:, None, None, :]
+    qs, ks, vs = q[:, :, None], k.transpose(1, 2), v.transpose(1, 2)
+    row = {"ms": time_ms(lambda: pa.paged_attention(*args, **kw), flush),
+           "unmasked_ms": time_ms(lambda: pa.paged_attention(*args), flush),
+           "plain_ms": time_ms(lambda: pa.paged_attention_plain(*args, **kw),
+                               flush),
+           "bound_ms": b_ms, "bound_by": b_by,
+           "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
+               qs, ks, vs, attn_mask=mask, enable_gqa=True), flush),
+           "rows_read": n_read, "key_rows": n_key}
+    row["masked_over_unmasked"] = row["ms"] / row["unmasked_ms"]
+    emit("paged_masked", shape=dict(b=8, h=h, kvh=kvh, d=d,
+                                    cache_len=KV_CACHE_LEN, page=page,
+                                    budget=KV_BUDGET,
+                                    seq_lens=seq.tolist()),
+         errors=errs, tolerance={"float32": TOL[torch.float32],
+                                 "bfloat16": TOL[torch.bfloat16]},
+         compacted_bf16=row)
+
+
+class EngineProbe:
+    """For one phase, wraps three ``Engine`` methods at class level (the
+    compacting engine builds its own model, so the model-level CallTimer
+    does not see it): counts prefill chunks and decode iterations, and for
+    each compaction records its request, budget, synchronised wall ms and
+    the count of ``slot_pos >= 0`` in every layer right after it."""
+    NAMES = ("_do_prefill_chunk", "_decode_iteration", "_compact_slot")
+
+    def __enter__(self):
+        from repro_torch.core.serving.engine import Engine
+        self.cls, self.orig = Engine, {n: getattr(Engine, n)
+                                       for n in self.NAMES}
+        self.prefill_chunks, self.decode_iters, self.compactions = 0, 0, []
+        probe = self
+
+        def chunk(eng, req, n):
+            probe.prefill_chunks += 1
+            return probe.orig["_do_prefill_chunk"](eng, req, n)
+
+        def decode(eng, reqs):
+            probe.decode_iters += 1
+            return probe.orig["_decode_iteration"](eng, reqs)
+
+        def compact(eng, slot, selector, budget):
+            pos_end = int(eng.slot_pos[slot])
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            probe.orig["_compact_slot"](eng, slot, selector, budget)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            kept = (eng.pool["layers"]["slot_pos"][:, slot] >= 0).sum(-1)
+            req = eng.slot_req[slot]
+            probe.compactions.append({
+                "rid": req.rid, "compression": req.compression,
+                "selector": selector, "budget": budget, "pos_end": pos_end,
+                "kept_min": int(kept.min()), "kept_max": int(kept.max()),
+                "ms": ms})
+        for n, fn in zip(self.NAMES, (chunk, decode, compact)):
+            setattr(Engine, n, fn)
+        return self
+
+    def __exit__(self, *exc):
+        for n, fn in self.orig.items():
+            setattr(self.cls, n, fn)
+
+
+def _profile_calls(runs: dict) -> dict:
+    """Device busy and wall ms per call of each ``(fn, n)`` under
+    torch.profiler (device-side events only), after one warm-up call:
+    idle share (1 - busy / wall), the largest kernels, the port's kernels'
+    device ms per launch (comparable across the kernels phase's timing
+    methods) and device ms per call of every kernel (``by_kernel``)."""
+    from torch.profiler import ProfilerActivity, profile
+    out = {}
+    for name, (fn, n) in runs.items():
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3 / n
+        evts = _kernel_events(prof)
+        busy = sum(_device_ms(e) for e in evts) / n
+        top = sorted(evts, key=_device_ms, reverse=True)[:8]
+        out[name] = {"wall_ms_per_call": wall,
+                     "device_busy_ms_per_call": busy if evts else None,
+                     "idle_share": (1 - busy / wall) if evts else None,
+                     "top_kernels": [{"name": e.key[:60],
+                                      "ms_per_call": _device_ms(e) / n,
+                                      "count_per_call": e.count / n}
+                                     for e in top],
+                     "port_kernels_ms_per_launch": {
+                         k: _device_ms(e) / e.count for e in evts
+                         for k in ("flash_fwd_kernel", "paged_split_kernel",
+                                   "paged_combine_kernel") if k in e.key},
+                     "by_kernel": {e.key[:60]: _device_ms(e) / n
+                                   for e in evts}}
+    return out
+
+
+def _busy_diff(a: dict, b: dict, n: int = 5) -> list:
+    """The kernels whose device ms per call differ most between two
+    ``_profile_calls`` readings (a minus b); pops their ``by_kernel``."""
+    ka, kb = a.pop("by_kernel"), b.pop("by_kernel")
+    diff = {k: ka.get(k, 0.0) - kb.get(k, 0.0) for k in set(ka) | set(kb)}
+    return [{"name": k, "ms_per_call": v}
+            for k, v in sorted(diff.items(), key=lambda kv: -abs(kv[1]))[:n]]
+
+
+def phase_kv_compaction_serve(lvlm) -> dict:
+    """qwen2-vl-2b at full width, bf16: a compacting engine (the default
+    strategy streaming-kv-256 through ``LVLM.serve``), cache_len 1152,
+    max_batch 8, 8 requests of 1024 visual + 32 text tokens and 32 new
+    tokens, each naming its own strategy (KV_MIX), under the continuous
+    and then the chunked scheduler (16-token chunks, so the windowed
+    extend runs: 32 text tokens fit one 256-token chunk). Checks every
+    request finished, every compacted slot holds exactly its budget of
+    positions in every layer, and both kernels' launches per prefill
+    chunk and decode step; prints compaction ms per request and the
+    device busy per decode step of the compacted pool beside a plain pool
+    at the same positions. Then ``generate`` with
+    ``GenerationConfig(compression="l2-kv")`` on two prompts."""
+    from repro_torch.api import (EngineConfig, GenerationConfig, LVLM,
+                                 Request, resolve_compression)
+    from repro_torch.core.token_compression.policy import CompressionStrategy
+    cfg = lvlm.cfg
+    L, nv = cfg.num_layers, cfg.num_visual_tokens
+    rng = np.random.default_rng(7)
+    prompts = [rng.integers(0, cfg.vocab_size, SERVE_TEXT).tolist()
+               for _ in KV_MIX]
+    ves = [rng.standard_normal((nv, cfg.d_model)).astype(np.float32)
+           for _ in KV_MIX]
+
+    def make():
+        return [Request(rid=i, tokens=list(p), max_new_tokens=SERVE_NEW,
+                        visual_embeds=ve, compression=c)
+                for i, (p, ve, c) in enumerate(zip(prompts, ves, KV_MIX))]
+    budgets = {c: CompressionStrategy(resolve_compression(c)).decode_budget()
+               for c in KV_MIX}
+    gen = GenerationConfig(max_new_tokens=SERVE_NEW, decoder="greedy",
+                           compression=KV_MIX[0])
+    out, launches = {}, None
+    for sched, extra in (("continuous", {}),
+                         ("chunked", dict(chunk_size=16, token_budget=4096))):
+        ec = EngineConfig(max_batch=8, cache_len=KV_CACHE_LEN,
+                          scheduler=sched, **extra)
+        _reset_counts()
+        t0 = time.perf_counter()
+        with EngineProbe() as probe:
+            rep = lvlm.serve(make(), ec, gen)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = _counts()
+        launches = counts if launches is None else {
+            k: launches[k] + counts[k] for k in counts}
+        eng = rep.engine
+        check(eng.compacting and eng.cfg.sliding_window == KV_CACHE_LEN,
+              "the kv default did not build a compacting engine")
+        check(len(rep.requests) == len(KV_MIX)
+              and all(len(r.generated) == SERVE_NEW for r in rep.requests),
+              f"compacting serve ({sched}) did not finish every request")
+        by_c = {c["compression"]: c for c in probe.compactions}
+        want = {c for c, bud in budgets.items() if bud}
+        check(set(by_c) == want, f"compacted {sorted(by_c)}, want "
+              f"{sorted(want)}")
+        for c, rec in by_c.items():
+            check(rec["kept_min"] == rec["kept_max"] == budgets[c]
+                  and rec["pos_end"] == SERVE_TEXT + nv,
+                  f"{c}: slot_pos >= 0 {rec} after compaction, budget "
+                  f"{budgets[c]}")
+        check(counts["flash_attention"] >= L * probe.prefill_chunks > 0,
+              f"flash launches {counts} vs {probe.prefill_chunks} chunks")
+        check(counts["paged_attention"] >= L * probe.decode_iters > 0,
+              f"paged launches {counts} vs {probe.decode_iters} steps")
+        out[sched] = {
+            "wall_seconds": wall, "prefill_chunks": probe.prefill_chunks,
+            "decode_steps": probe.decode_iters, "launches": counts,
+            "compaction": {c: {k: r[k] for k in ("selector", "budget",
+                                                 "pos_end", "kept_min",
+                                                 "ms")}
+                           for c, r in by_c.items()},
+            "compression_stats": eng.compression_stats(),
+            "virtual_ttft_s": {r.compression: r.ttft() for r in rep.requests}}
+        if sched == "continuous":
+            tokens = {r.rid: r.generated for r in rep.requests}
+            ceng = eng
+        else:
+            agree = float(np.mean([a == b for r in rep.requests
+                                   for a, b in zip(r.generated,
+                                                   tokens[r.rid])]))
+            out[sched]["token_agreement_with_continuous"] = agree
+    # device busy per decode step: the compacted (windowed, masked) pool
+    # against a plain pool read at the same positions (batch 8)
+    model, params = ceng.model, ceng.params
+    cls = type(model)
+    toks = torch.zeros((8, 1), dtype=torch.long, device="cuda")
+    pos = torch.full((8,), 1056 + SERVE_NEW // 2, device="cuda")
+    plain = lvlm.model.init_cache(8, KV_CACHE_LEN, device="cuda")
+    prof = _profile_calls({
+        "decode_step_b8_compacted": (lambda: cls.decode_step(
+            model, params, ceng.pool, toks, pos, windowed=True), 10),
+        "decode_step_b8_plain": (lambda: cls.decode_step(
+            lvlm.model, params, plain, toks, pos), 10)})
+    prof["compacted_minus_plain"] = _busy_diff(
+        prof["decode_step_b8_compacted"], prof["decode_step_b8_plain"])
+    # the facade's default: generate with a kv preset
+    _reset_counts()
+    with EngineProbe() as probe:
+        gres = lvlm.generate(prompts[:2], GenerationConfig(
+            max_new_tokens=SERVE_NEW, decoder="greedy", compression="l2-kv"),
+            visual_embeds=ves[:2])
+    torch.cuda.synchronize()
+    gcounts = _counts()
+    check(all(len(r.tokens) == SERVE_NEW for r in gres)
+          and [c["budget"] for c in probe.compactions] == [64, 64]
+          and all(c["kept_min"] == c["kept_max"] == 64
+                  for c in probe.compactions),
+          f"generate(compression='l2-kv') failed: {probe.compactions}")
+    check(gcounts["flash_attention"] >= L * probe.prefill_chunks > 0
+          and gcounts["paged_attention"] >= L * probe.decode_iters > 0,
+          f"generate launches {gcounts}")
+    emit("kv_compaction_serve", config=cfg.name, dtype=cfg.dtype,
+         presets=list(KV_MIX), cache_len=KV_CACHE_LEN, **out,
+         profile=prof,
+         generate_l2_kv={"launches": gcounts,
+                         "compaction_ms": [c["ms"] for c in
+                                           probe.compactions]})
+    return {k: launches[k] + gcounts[k] for k in launches}
+
+
+def phase_prefix_cache_serve(lvlm) -> dict:
+    """qwen2-vl-2b at full width, bf16, ``EngineConfig(prefix_cache=True,
+    prefix_block=16)``: a request of the 512-token system prompt alone,
+    then 8 text-only requests of that system prompt plus their own 32-token
+    tail, 32 new tokens each, under the continuous and chunked schedulers
+    (chunks of 1024 tokens: a hit reuses at most the first chunk, less
+    one token, as in the reference). The engine caches whole
+    block-aligned prompts (the reference's host map), so the system
+    prompt becomes reusable once the first request has served it. Checks greedy tokens equal the same serve without the
+    prefix cache and 28 flash launches per prefill or extend; prints the
+    token hit rate, and the device busy and wall ms of a hit (a 32-token
+    extend over 544 keys) against a cold 544-token prefill."""
+    from repro_torch.api import EngineConfig, GenerationConfig, LVLM, Request
+    cfg = lvlm.cfg
+    L = cfg.num_layers
+    rng = np.random.default_rng(8)
+    system = rng.integers(0, cfg.vocab_size, 512).tolist()
+    prompts = [system] + [system + rng.integers(0, cfg.vocab_size,
+                                                SERVE_TEXT).tolist()
+                          for _ in range(8)]
+
+    def make():
+        return [Request(rid=i, tokens=list(p), max_new_tokens=SERVE_NEW)
+                for i, p in enumerate(prompts)]
+    gen = GenerationConfig(max_new_tokens=SERVE_NEW, decoder="greedy")
+    cache_len = LVLM._cache_len(make(), gen)
+    out, launches = {}, None
+    for sched, extra in (("continuous", {}),
+                         ("chunked", dict(chunk_size=1024,
+                                          token_budget=8192))):
+        res = {}
+        for prefix in (True, False):
+            ec = EngineConfig(max_batch=8, cache_len=cache_len,
+                              scheduler=sched, prefix_cache=prefix,
+                              prefix_block=16, **extra)
+            _reset_counts()
+            t0 = time.perf_counter()
+            with EngineProbe() as probe:
+                rep = lvlm.serve(make(), ec, gen)
+            torch.cuda.synchronize()
+            res[prefix] = (rep, time.perf_counter() - t0, _counts(),
+                           probe.prefill_chunks)
+        rep, wall, counts, chunks = res[True]
+        launches = counts if launches is None else {
+            k: launches[k] + counts[k] for k in counts}
+        same = ({r.rid: r.generated for r in rep.requests}
+                == {r.rid: r.generated for r in res[False][0].requests})
+        check(same and len(rep.requests) == len(prompts),
+              f"prefix-cache serve ({sched}) tokens differ from the serve "
+              "without it")
+        check(rep.stats["prefix_hit_tokens"] == 8 * 512,
+              f"prefix hits {rep.stats['prefix_hit_tokens']}, want "
+              f"{8 * 512}")
+        check(counts["flash_attention"] == L * chunks,
+              f"flash launches {counts} vs {chunks} prefill chunks")
+        out[sched] = {"prefix_hit_tokens": rep.stats["prefix_hit_tokens"],
+                      "prefix_token_hit_rate":
+                          rep.stats["prefix_token_hit_rate"],
+                      "flash_launches_per_prefill":
+                          counts["flash_attention"] / chunks,
+                      "wall_seconds": wall,
+                      "wall_seconds_without_prefix_cache": res[False][1],
+                      "virtual_ttft_mean_s": rep.stats["ttft_mean"],
+                      "virtual_ttft_mean_s_without":
+                          res[False][0].stats["ttft_mean"],
+                      "launches": counts}
+    # device busy and wall of a hit (extend 32 over 544 keys) against a
+    # cold prefill of the same 544 tokens
+    model, params = lvlm.model, lvlm.params
+    cls = type(model)
+    toks = torch.tensor([prompts[1]], device="cuda")
+    _, pool = cls.prefill(model, params, {"tokens": toks[:, :512]},
+                          cache_len=cache_len)
+    prof = _profile_calls({
+        "prefix_hit_extend_32_over_544": (lambda: cls.extend(
+            model, params, pool, toks[:, 512:], 512), 5),
+        "cold_prefill_544": (lambda: cls.prefill(
+            model, params, {"tokens": toks}, cache_len=cache_len,
+            last_only=True), 5)})
+    prof["hit_minus_cold"] = _busy_diff(prof["prefix_hit_extend_32_over_544"],
+                                        prof["cold_prefill_544"])
+    emit("prefix_cache_serve", config=cfg.name, dtype=cfg.dtype,
+         system_prompt=512, tail=SERVE_TEXT, requests=len(prompts),
+         cache_len=cache_len, **out, profile=prof)
+    return launches
+
+
+def phase_kv_cache_smoke() -> None:
+    """qwen2-vl smoke in float32, the port on the card against the port on
+    the CPU: the compacting engine (per-request KV budgets) and the
+    prefix-cache engine give identical greedy tokens, compression stats
+    and prefix stats; every selector keeps the same positions; a
+    ``PagedKVPool`` filled through a ``BlockAllocator``, with two sequences
+    sharing prefix blocks through ``RadixPrefixCache``, is read through
+    the paged kernel against its plain version."""
+    from repro_torch.api import EngineConfig, GenerationConfig, LVLM, Request
+    from repro_torch.core.kv_cache import (SELECTORS, BlockAllocator,
+                                           PagedKVPool, RadixPrefixCache,
+                                           SeqBlocks)
+    from repro_torch.kernels import paged_attention as pa
+    cpu = LVLM.from_pretrained("qwen2-vl-2b", smoke=True, seed=0,
+                               device="cpu")
+    card = cpu.with_params(_tree_to(cpu.params, "cuda"))
+    cfg = cpu.cfg
+    rng = np.random.default_rng(9)
+    mix = ("streaming-kv-16", "l2-kv-12", "none", "fastv-0.5",
+           "streaming-kv-24", "l2-kv-8")
+    prompts = [rng.integers(0, cfg.vocab_size, n).tolist()
+               for n in (9, 12, 7, 14, 10, 8)]
+    ves = [rng.standard_normal((cfg.num_visual_tokens, cfg.d_model)
+                               ).astype(np.float32) for _ in mix]
+    system = rng.integers(0, cfg.vocab_size, 24).tolist()
+    pre = [system] + [system + rng.integers(0, cfg.vocab_size, 3 + i
+                                            ).tolist() for i in range(5)]
+
+    def kv_reqs():
+        return [Request(rid=i, tokens=list(p), max_new_tokens=6,
+                        visual_embeds=v, arrival=0.002 * i, compression=c)
+                for i, (p, v, c) in enumerate(zip(prompts, ves, mix))]
+
+    def prefix_reqs():
+        return [Request(rid=i, tokens=list(p), max_new_tokens=6,
+                        arrival=0.002 * i) for i, p in enumerate(pre)]
+    out = {}
+    for sched in ("continuous", "chunked"):
+        kw = dict(max_batch=3, cache_len=48, scheduler=sched, chunk_size=8,
+                  token_budget=24)
+        gen = GenerationConfig(max_new_tokens=6, decoder="greedy",
+                               compression=mix[0])
+        _reset_counts()
+        sc = cpu.serve(kv_reqs(), EngineConfig(**kw), gen)
+        sg = card.serve(kv_reqs(), EngineConfig(**kw), gen)
+        kv_counts = _counts()
+        pkw = dict(kw, prefix_cache=True, prefix_block=8)
+        gen = GenerationConfig(max_new_tokens=6, decoder="greedy")
+        pc = cpu.serve(prefix_reqs(), EngineConfig(**pkw), gen)
+        pg = card.serve(prefix_reqs(), EngineConfig(**pkw), gen)
+        row = {
+            "compacting_tokens_equal": ({r.rid: r.generated
+                                         for r in sc.requests}
+                                        == {r.rid: r.generated
+                                            for r in sg.requests}),
+            "compacting_stats_equal": (sc.engine.compression_stats()
+                                       == sg.engine.compression_stats()),
+            "prefix_tokens_equal": ({r.rid: r.generated for r in pc.requests}
+                                    == {r.rid: r.generated
+                                        for r in pg.requests}),
+            "prefix_stats_equal": all(
+                pc.stats[k] == pg.stats[k]
+                for k in ("prefix_hit_tokens", "prefix_token_hit_rate")),
+            "prefix_hit_tokens": pg.stats["prefix_hit_tokens"],
+            "compacting_launches": kv_counts}
+        check(all(v for k, v in row.items() if k.endswith("_equal"))
+              and len(sg.requests) == len(mix)
+              and pg.stats["prefix_hit_tokens"] > 0
+              and all(kv_counts.values()),
+              f"kv smoke card != CPU under {sched}: {row}")
+        out[sched] = row
+    # every selector, card against CPU (float32, layers as the batch)
+    k = rng.standard_normal((4, 96, 2, 64)).astype(np.float32)
+    v = rng.standard_normal((4, 96, 2, 64)).astype(np.float32)
+    a = rng.random((4, 3, 96, 96)).astype(np.float32)
+    sel = {}
+    for name, fn in SELECTORS.items():
+        args = [torch.from_numpy(x) for x in (k, v, a)]
+        kc, vc, pc_ = fn(args[0], args[1], budget=40, attn=args[2])
+        kg, vg, pg_ = fn(*(x.cuda() for x in args[:2]), budget=40,
+                         attn=args[2].cuda())
+        same = torch.equal(pg_.cpu(), pc_) and torch.equal(kg.cpu(), kc) \
+            and torch.equal(vg.cpu(), vc)
+        sel[name] = same
+        check(same, f"selector {name}: card != CPU")
+    # a paged pool filled through the block allocator; sequence B shares
+    # sequence A's first two blocks through the radix prefix cache
+    page, kvh, d, h = 16, 2, 128, 12
+    alloc = BlockAllocator(num_blocks=16, block_size=page)
+    pool = PagedKVPool(1, 16, page, kvh, d, torch.float32, device="cuda")
+    radix = RadixPrefixCache(alloc)
+    toks_a = rng.integers(0, 1000, 45).tolist()
+    seq_a = SeqBlocks([alloc.alloc() for _ in range(3)])
+    pool.write_prefill(seq_a, randn(rng, (1, 45, kvh, d), torch.float32),
+                       randn(rng, (1, 45, kvh, d), torch.float32))
+    radix.insert(toks_a, seq_a.block_ids, page)
+    toks_b = toks_a[:32] + rng.integers(1000, 2000, 20).tolist()
+    shared, matched, pinned = radix.match_prefix(toks_b)
+    check(matched == 32 and shared == seq_a.block_ids[:2],
+          f"radix match {matched} tokens, blocks {shared}")
+    for blk in shared:
+        alloc.share(blk)
+    seq_b = SeqBlocks(shared + [alloc.alloc() for _ in range(2)],
+                      length=matched)
+    for _ in range(len(toks_b) - matched):
+        pool.append_token(seq_b, randn(rng, (1, kvh, d), torch.float32),
+                          randn(rng, (1, kvh, d), torch.float32))
+    table = torch.tensor([seq_a.block_ids + [0], seq_b.block_ids],
+                         dtype=torch.int32, device="cuda")
+    seq = torch.tensor([seq_a.length, seq_b.length], dtype=torch.int32,
+                       device="cuda")
+    q = randn(rng, (2, h, d), torch.float32)
+    got = pa.paged_attention(q, pool.k[0], pool.v[0], table, seq)
+    torch.cuda.synchronize()
+    e_pool = max_err(got, pa.paged_attention_plain(q, pool.k[0], pool.v[0],
+                                                   table, seq))
+    check(e_pool <= TOL[torch.float32], f"paged pool read: err {e_pool}")
+    kb, _ = pool.gather(seq_b, 0)
+    ka, _ = pool.gather(seq_a, 0)
+    check(torch.equal(kb[:32], ka[:32]), "shared blocks differ")
+    radix.unpin(pinned)
+    emit("kv_cache_smoke", config=cfg.name, **out, selectors_equal=sel,
+         paged_pool={"seq_lens": seq.tolist(), "shared_blocks": shared,
+                     "err": e_pool, "allocator_free": alloc.num_free})
+
+
 def _device_ms(evt) -> float:
     return getattr(evt, "self_device_time_total",
                    getattr(evt, "self_cuda_time_total", 0.0)) / 1e3
@@ -895,7 +1453,6 @@ def phase_profile(lvlm, prompts, ves) -> None:
     steps of a 4-slot pool with two long and two short requests, before
     and after the same compressions, under torch.profiler (device time by
     kernel; busy share = device time / wall time)."""
-    from torch.profiler import ProfilerActivity, profile
     model, params = lvlm.model, lvlm.params
     cls = type(model)               # bypass the CallTimer wrappers
     batch = {"tokens": torch.tensor([prompts[0]], device="cuda"),
@@ -919,31 +1476,9 @@ def phase_profile(lvlm, prompts, ves) -> None:
         "decode_step_b4_compressed": (lambda: cls.decode_step(
             model, params, pool, toks, pos_compressed), 10),
     }
-    for name, (fn, n) in runs.items():
-        fn()
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            for _ in range(n):
-                fn()
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3 / n
-        evts = _kernel_events(prof)
-        busy_ms = sum(_device_ms(e) for e in evts) / n
-        top = sorted(evts, key=_device_ms, reverse=True)[:8]
-        emit("profile", run=name, wall_ms_per_call=wall_ms,
-             device_busy_ms_per_call=busy_ms if evts else None,
-             idle_share=(1 - busy_ms / wall_ms) if evts else None,
-             top_kernels=[{"name": e.key[:60], "ms_per_call":
-                           _device_ms(e) / n, "count_per_call": e.count / n}
-                          for e in top],
-             # the port's own kernels, device ms per launch (the profiler's
-             # reading, comparable across timing methods of the kernels phase)
-             port_kernels_ms_per_launch={
-                 k: _device_ms(e) / e.count for e in evts
-                 for k in ("flash_fwd_kernel", "paged_split_kernel",
-                           "paged_combine_kernel") if k in e.key})
+    for name, row in _profile_calls(runs).items():
+        del row["by_kernel"]
+        emit("profile", run=name, **row)
 
 
 def main() -> int:
@@ -964,8 +1499,15 @@ def main() -> int:
     phase_compressors()
     comp_launches = phase_compression_serve(full[0], timer)
     phase_compression_smoke()
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device="cuda")
+    phase_paged_masked(flush)
+    del flush
+    kv_launches = phase_kv_compaction_serve(full[0])
+    prefix_launches = phase_prefix_cache_serve(full[0])
+    phase_kv_cache_smoke()
     phase_profile(*full)
-    launches = {k: launches[k] + comp_launches[k] for k in launches}
+    launches = {k: launches[k] + comp_launches[k] + kv_launches[k]
+                + prefix_launches[k] for k in launches}
     for name, n in launches.items():
         check(n > 0, f"kernel {name} was not launched on the main path")
         kernels[name]["launches"] = n

@@ -6,11 +6,10 @@ the NAMED compression presets, so a compression sweep is a one-line loop:
     for preset in ("none", "fastv-0.5", "divprune-0.5", "tome-0.5"):
         lvlm.generate(prompts, GenerationConfig(compression=preset))
 
+The KV presets (``streaming-kv``, ``l2-kv``, ``<selector>-kv-<budget>``)
+serve as in the reference: as the default they make the engine compacting.
 The speculative and early-exit knobs arrive with slice 4 (ROADMAP queue
-A); naming those decoders raises ``NotImplementedError``. The KV presets
-(``streaming-kv``, ``l2-kv``, ``<selector>-kv-<budget>``) resolve as in
-the reference, but live KV compaction waits for the compacting engine
-(ROADMAP A9), so a config that names one raises ``NotImplementedError``.
+A); naming those decoders raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -55,16 +54,6 @@ class GenerationConfig:
             raise NotImplementedError(
                 f"decoder {self.decoder!r} is not ported yet (ROADMAP queue "
                 "A, slice 4)")
-        if isinstance(self.compression, (str, CompressionConfig)):
-            try:
-                cc = resolve_compression(self.compression)
-            except ValueError:      # unknown names fail where the reference's do
-                return
-            if CompressionStrategy(cc).decode_budget() is not None:
-                raise NotImplementedError(
-                    f"compression {self.compression!r} compacts the KV "
-                    "cache live, which is not ported yet (ROADMAP A9, the "
-                    "compacting engine)")
 
     def resolved_compression(self) -> CompressionConfig:
         return resolve_compression(self.compression)

@@ -1,5 +1,5 @@
 # analysis: allow R001 (slice 1 ports no KV migration, so there is no complete_export to release)
-"""The LVLM serving engine of the port (the main path plus dim 1).
+"""The LVLM serving engine of the port (the main path plus dims 1 and 2).
 
 Port of ``repro.core.serving.engine``: one ``Engine`` drives the model over
 a dense slot pool (the preallocated [layers, max_batch, cache_len, K, D]
@@ -15,19 +15,33 @@ naming its strategy (``Request.compression``), the strategy run on the
 engine's device on the request's visual embeddings before prefill, and KV
 accounting on the POST-compression token count.
 
+KV selection (dim 2a): when the DEFAULT strategy compacts (a
+``decode_budget()``: ``streaming-kv``, ``l2-kv``,
+``<selector>-kv-<budget>``), the engine is compacting, as the
+reference's: the model is rebuilt with ``sliding_window = cache_len`` so
+the pool is a position-exact ring (``slot_pos``), and after a prompt's
+last chunk each request's slot is compacted to its OWN strategy's budget
+with its selector (``_compact_slot``): the kept rows keep their original
+positions, the rest are zeroed and marked -1, and decode attends through
+the paged kernel's position mask. Prefix caching (dim 2b,
+``EngineConfig.prefix_cache``): longest block-aligned prefix reuse keyed
+by (compression variant, tokens), true-LRU with pins held by live
+requests, backed by snapshots that are CLONES of a slot's first rows (the
+pool is updated in place, so a view would be overwritten when the slot
+is reused).
+
 Left to later slices (ROADMAP queue A), and refused with
-``NotImplementedError`` when a request or config asks for them: prefix
-caching and live KV compaction -- any compression strategy with a
-``decode_budget()`` (``streaming-kv``, ``l2-kv``,
-``<selector>-kv-<budget>``) -- (A9, slice 3), the speculative and
-early-exit decoders (slice 4), KV migration / handoff (slice 6), tracing,
-profiling and the runtime sanitizer (slice 5).
+``NotImplementedError`` when a request or config asks for them: the
+speculative and early-exit decoders (slice 4), KV migration / handoff and
+the cluster-shared prefix tier (slice 6), tracing, profiling and the
+runtime sanitizer (slice 5).
 
 NOTE: ``repro_torch.api`` (``LVLM``) is the public surface.
 """
 from __future__ import annotations
 
 import dataclasses
+from collections import OrderedDict
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -35,12 +49,14 @@ import torch
 
 from repro_torch.configs.base import CompressionConfig
 from repro_torch.core.decoding.sampling import sample_token
+from repro_torch.core.kv_cache.selection import SELECTORS
 from repro_torch.core.serving.disaggregation import CostModel
 from repro_torch.core.serving.request import Request, State, summarize
 from repro_torch.core.serving.scheduler import SCHEDULERS
 from repro_torch.core.token_compression.policy import (
-    CompressionStrategy, resolve_compression)
+    LIVE_KV_SELECTORS, CompressionStrategy, resolve_compression)
 from repro_torch.models.layers import embed_tokens
+from repro_torch.models.registry import build
 
 
 @dataclasses.dataclass
@@ -61,6 +77,9 @@ class EngineConfig:
     decoder: str = "sampling"            # default strategy: sampling|greedy
     # (no compression field: the default compression strategy reaches the
     # engine only as Engine(compressor=), which the facade builds)
+    prefix_cache: bool = False
+    prefix_block: int = 16               # reuse granularity (tokens)
+    prefix_cap: int = 64                 # max cached prefixes (LRU-evicted)
     cost: CostModel = dataclasses.field(default_factory=CostModel)
 
 
@@ -93,7 +112,7 @@ class SamplingEngineDecoder:
             pos[r._slot] = eng.slot_pos[r._slot]
         logits, eng.pool = eng.model.decode_step(
             eng.params, eng.pool, torch.from_numpy(toks).to(eng.device),
-            torch.from_numpy(pos).to(eng.device))
+            torch.from_numpy(pos).to(eng.device), windowed=eng.windowed)
         temp = 0.0 if self.greedy else ec.temperature
         nxt = sample_token(eng.gen, logits, temperature=temp, top_k=ec.top_k,
                            top_p=ec.top_p).cpu().numpy()
@@ -122,6 +141,20 @@ def _slot_get(pool, slot):
                 else v[:, slot:slot + 1]) for k, v in pool.items()}
 
 
+def _tree_map(fn, tree):
+    return {k: (_tree_map(fn, v) if isinstance(v, dict) else fn(v))
+            for k, v in tree.items()}
+
+
+def _tree_pairs(a, b):
+    """The leaves of two trees of the same structure, pairwise."""
+    for k, v in a.items():
+        if isinstance(v, dict):
+            yield from _tree_pairs(v, b[k])
+        else:
+            yield v, b[k]
+
+
 def _slot_set(pool, slot, one):
     """Copy a batch-1 cache into the pool's slot, in place (the
     reference's ``.at[:, slot].set`` returns a new pool)."""
@@ -135,12 +168,35 @@ def _slot_set(pool, slot, one):
 class Engine:
     def __init__(self, model, params, ec: EngineConfig, *, compressor=None,
                  compressors: Optional[Dict] = None):
+        cfg = model.cfg
         self.ec = ec
-        self.model = model
-        self.cfg = model.cfg
         self.params = params
         self.device = params["embed"]["tok"].device
+        # default compression strategy (no compression unless the caller
+        # passes one); a compacting default makes a compacting engine
+        self.compressor = compressor if compressor is not None \
+            else CompressionStrategy(CompressionConfig())
+        cc0 = getattr(self.compressor, "cc", CompressionConfig())
+        compacting = (cc0.kv_selector in LIVE_KV_SELECTORS
+                      and cc0.kv_budget > 0)
+        if compacting and cfg.family not in ("dense", "vlm", "moe"):
+            raise ValueError("KV compaction needs an attention-cache family")
+        if compacting and cfg.use_mla:
+            raise ValueError("engine KV compaction on the MLA latent cache "
+                             "is not implemented (it is itself compressed)")
+        if compacting and ec.prefix_cache:
+            raise ValueError("prefix reuse + live compaction not composable "
+                             "(compacted caches are request-specific)")
+        self.compacting = compacting
+        if compacting:
+            # position-exact caches: full-length slot_pos ring (window off)
+            cfg = cfg.with_(sliding_window=ec.cache_len)
+            model = build(cfg)
+        self.model = model
+        self.cfg = cfg
+        self.windowed = compacting
         self.pool = model.init_cache(ec.max_batch, ec.cache_len,
+                                     windowed=self.windowed,
                                      device=self.device)
         self.slot_req: List[Optional[Request]] = [None] * ec.max_batch
         self.slot_pos = np.zeros(ec.max_batch, np.int64)   # next write pos
@@ -168,6 +224,13 @@ class Engine:
         self.iters = 0
         # cumulative decode-phase virtual-clock cost per strategy group
         self.group_costs: Dict[str, float] = {}
+        # prefix cache: host map keyed by (compression variant, tokens) of
+        # device snapshots, true LRU (hits move to the end); in-flight pin
+        # counts keep entries a live request hit resident
+        self._prefix: "OrderedDict[Tuple, Tuple]" = OrderedDict()
+        self._prefix_pins: Dict[Tuple[str, Tuple[int, ...]], int] = {}
+        self.prefix_hit_tokens = 0
+        self.prefix_total_tokens = 0
 
         # decoder registry: the configured default plus the strategies
         # requests name (``Request.decoder``), resolved lazily
@@ -176,12 +239,9 @@ class Engine:
         self._decoders: Dict[str, object] = {self._default_name: self.decoder}
         self._used_decoders: set = set()
 
-        # compressor registry: the default strategy (no compression unless
-        # the caller passes one) plus named per-request strategies; unknown
-        # names resolve lazily through the preset / parametric grammar,
-        # validated on first use like decoders
-        self.compressor = compressor if compressor is not None \
-            else CompressionStrategy(CompressionConfig())
+        # compressor registry: the default strategy plus named per-request
+        # strategies; unknown names resolve lazily through the preset /
+        # parametric grammar, validated on first use like decoders
         self._compressors: Dict[str, object] = dict(compressors or {})
         self._default_comp_name = getattr(self.compressor, "name", "none")
         self._compressors[self._default_comp_name] = self.compressor
@@ -227,11 +287,6 @@ class Engine:
     def _validate_compressor(self, name: str, comp) -> None:
         if name in self._validated_comps:
             return
-        if getattr(comp, "decode_budget", lambda: None)() is not None:
-            raise NotImplementedError(
-                f"compression strategy {name!r} compacts the KV cache live, "
-                "which is not ported yet (ROADMAP A9, the compacting "
-                "engine)")
         validate = getattr(comp, "validate", None)
         if validate is not None:
             validate(self)
@@ -318,18 +373,26 @@ class Engine:
         return sum(self.kv_request_tokens(r) for r in live)
 
     # -------------------------------------------------------- lifecycle --
-    # analysis: allow R001 (slice 1 holds no draft rows or prefix pins: unbinding the slot is the whole release)
+    # analysis: allow R001 (the speculative decoder's draft-pool rows come with slice 4: there is no release_slot hook to call yet)
     def _release_request(self, r: Request) -> None:
-        """Free every resource a request holds: its slot in the pool (this
-        slice has no draft-pool rows or prefix pins)."""
+        """Free every resource a request holds: its slot in the pool and
+        its prefix-cache pin (draft-pool rows arrive with slice 4)."""
         slot = getattr(r, "_slot", None)
         if slot is not None and self.slot_req[slot] is r:
             self.slot_req[slot] = None
+        key = getattr(r, "_prefix_pin", None)
+        if key is not None:
+            n = self._prefix_pins.get(key, 0) - 1
+            if n > 0:
+                self._prefix_pins[key] = n
+            else:
+                self._prefix_pins.pop(key, None)
+            r._prefix_pin = None
 
     # analysis: allow R001 (tracing is not ported yet, so there is no span to close)
     def abort(self, rid: int) -> bool:
-        """Cancel a request mid-flight: frees its slot; the request is
-        marked ``aborted`` and never reaches ``finished``. Returns False
+        """Cancel a request mid-flight: frees its slot and prefix pin; the
+        request is marked ``aborted`` and never reaches ``finished``. Returns False
         if ``rid`` is unknown or already retired."""
         for pool in (self.waiting, self.running):
             for r in pool:
@@ -341,6 +404,66 @@ class Engine:
                     self.aborted.append(r)
                     return True
         return False
+
+    # ------------------------------------------------------------- prefix --
+    def _prefix_variant(self, name: Optional[str]) -> str:
+        """Compression-variant component of every prefix-cache key: the
+        request's strategy name (None -> the engine default). A cached
+        prefill is only reusable under the SAME compression variant."""
+        return name if name is not None else self._default_comp_name
+
+    def _prefix_lookup(self, tokens: List[int],
+                       variant: Optional[str] = None
+                       ) -> Tuple[int, Optional[Tuple]]:
+        """Longest block-aligned cached prefix of ``tokens`` under the
+        given compression ``variant``: inserted keys are multiples of
+        ``prefix_block``, so probing descending block-aligned lengths is
+        exact. A hit is an LRU touch (move-to-end). (The reference's
+        ``touch=False`` probe serves the cluster tier of slice 6.)"""
+        bs = self.ec.prefix_block
+        v = self._prefix_variant(variant)
+        t = tuple(tokens)
+        for k in range((len(t) // bs) * bs, 0, -bs):
+            hit = self._prefix.get((v, t[:k]))
+            if hit is not None:
+                self._prefix.move_to_end((v, t[:k]))
+                return k, hit
+        return 0, None
+
+    def _prefix_insert(self, tokens: List[int], slot: int, length: int,
+                       variant: Optional[str] = None):
+        bs = self.ec.prefix_block
+        k = (min(length, len(tokens)) // bs) * bs
+        if k == 0:
+            return
+        key = (self._prefix_variant(variant), tuple(tokens[:k]))
+        if key in self._prefix:
+            self._prefix.move_to_end(key)            # re-insert = LRU touch
+            return
+        # a CLONE of the slot's first k rows: the pool is updated in place,
+        # and the slot's next occupant would overwrite a view
+        snap = _tree_map(lambda a: a[:, slot:slot + 1, :k].clone(), self.pool)
+        self._prefix_store(key, snap, k)
+
+    def _prefix_store(self, key: Tuple, snap, k: int) -> None:
+        """Insert an entry into the prefix cache with LRU eviction."""
+        if key in self._prefix:
+            self._prefix.move_to_end(key)
+            return
+        self._prefix[key] = (snap, k)
+        while len(self._prefix) > self.ec.prefix_cap:
+            # least-recent UNPINNED entry; pinned ones (a live request hit
+            # them) stay resident until their requests retire/abort
+            victim = next((c for c in self._prefix
+                           if not self._prefix_pins.get(c)), None)
+            if victim is None:
+                break
+            del self._prefix[victim]
+
+    def _install_snap(self, slot: int, snap) -> None:
+        """Copy a snapshot's rows into the start of ``slot``, in place."""
+        for a, s in _tree_pairs(self.pool, snap):
+            a[:, slot, :s.shape[2]] = s[:, 0]
 
     # ------------------------------------------------------------ prefill --
     def _free_slot(self) -> int:
@@ -403,15 +526,35 @@ class Engine:
         start, end = req.prefill_done, req.prefill_done + n
 
         if req.prefill_done == 0:
-            batch = {"tokens": self._tokens(req.tokens[:end])}
-            if req._ve is not None:
-                batch["visual_embeds"] = req._ve[None]
-            # only the last position's logits are read (the reference
-            # unembeds every position and slices the last)
-            logits, one = self.model.prefill(self.params, batch,
-                                             cache_len=ec.cache_len,
-                                             last_only=True)
-            _slot_set(self.pool, slot, one)
+            # dim 2b: prefix reuse (text-token prompts), keyed by the
+            # request's compression variant
+            use, hit = 0, None
+            if ec.prefix_cache and req._ve is None:
+                hit_k, hit = self._prefix_lookup(req.tokens,
+                                                 variant=req._comp_name)
+                self.prefix_total_tokens += len(req.tokens)
+                # always recompute >=1 token so we have last-position logits
+                use = min(hit_k, len(req.tokens) - 1, end - 1)
+            if hit is not None and use > 0:
+                key = (req._comp_name, tuple(req.tokens[:hit_k]))
+                self._prefix_pins[key] = self._prefix_pins.get(key, 0) + 1
+                req._prefix_pin = key
+                self._install_snap(slot, _tree_map(lambda a: a[:, :, :use],
+                                                   hit[0]))
+                self.prefix_hit_tokens += use
+                logits, _ = self.model.extend(
+                    self.params, _slot_get(self.pool, slot),
+                    self._tokens(req.tokens[use:end]), use)
+            else:
+                batch = {"tokens": self._tokens(req.tokens[:end])}
+                if req._ve is not None:
+                    batch["visual_embeds"] = req._ve[None]
+                # only the last position's logits are read (the reference
+                # unembeds every position and slices the last)
+                logits, one = self.model.prefill(
+                    self.params, batch, cache_len=ec.cache_len,
+                    windowed=self.windowed, last_only=True)
+                _slot_set(self.pool, slot, one)
         else:
             # the batch-1 slot view is extended in place: no copy back
             logits, _ = self.model.extend(
@@ -422,6 +565,19 @@ class Engine:
         self.slot_pos[slot] = nv + end
         if req.prefill_done >= len(req.tokens):
             # prompt complete: first token comes from the last logits
+            if ec.prefix_cache and req._ve is None:
+                self._prefix_insert(req.tokens, slot, end,
+                                    variant=req._comp_name)
+            if self.compacting:
+                # dim 2a: KV-side hook of the request's strategy -- each
+                # request compacts to its OWN budget; strategies without
+                # one skip compaction
+                _, comp = self._resolve_compressor(req.compression)
+                budget = getattr(comp, "decode_budget", lambda: None)()
+                if budget:
+                    self._compact_slot(
+                        slot, getattr(comp, "kv_selector", "streaming"),
+                        budget)
             _, dec = self._resolve_decoder(req.decoder)
             temp = 0.0 if getattr(dec, "greedy", False) else ec.temperature
             tok = int(sample_token(self.gen, logits[:, -1], temperature=temp,
@@ -436,6 +592,39 @@ class Engine:
             if req in self.waiting:
                 self.waiting.remove(req)
             self.running.append(req)
+
+    # ------------------------------------------------------ KV compaction --
+    def _compact_slot(self, slot: int, selector: str, budget: int) -> None:
+        """dim 2a: evict down to ``budget`` with exact position bookkeeping
+        (selector/budget come from the REQUEST's compression strategy).
+
+        Retained entries keep their ORIGINAL positions in ``slot_pos`` (the
+        RoPE-consistency requirement the survey's §V flags) and move to the
+        slot's first ``budget`` rows; the other rows are zeroed and marked
+        -1, in place. The reference ``vmap``s the selector over layers;
+        here the layers are the selector's batch axis (one call). Their
+        positions are layer 0's ``slot_pos``, which equals every layer's
+        at compaction time (asserted on CPU tensors; on the card the check
+        would synchronise). Dense-slot memory is not reclaimed, and decode
+        still reads the slot up to its position (the rows past the budget
+        are masked, not skipped).
+        """
+        pos_end = int(self.slot_pos[slot])
+        if pos_end <= budget:
+            return
+        lc = self.pool["layers"]
+        k = lc["k"][:, slot, :pos_end]            # [L, S, H, D]
+        v = lc["v"][:, slot, :pos_end]
+        sp = lc["slot_pos"][:, slot, :pos_end]    # [L, S]
+        if sp.device.type == "cpu":
+            assert bool((sp == sp[:1]).all()), "layers disagree on slot_pos"
+        nk, nv_, kept = SELECTORS[selector](k, v, budget=budget, pos=sp[0])
+        lc["k"][:, slot, :budget] = nk
+        lc["v"][:, slot, :budget] = nv_
+        lc["slot_pos"][:, slot, :budget] = kept
+        lc["k"][:, slot, budget:] = 0
+        lc["v"][:, slot, budget:] = 0
+        lc["slot_pos"][:, slot, budget:] = -1
 
     # ------------------------------------------------------------- decode --
     def _decode_iteration(self, reqs: List[Request]) -> None:
@@ -518,4 +707,8 @@ class Engine:
         out = summarize(self.finished)
         out["iterations"] = self.iters
         out["virtual_time_s"] = self.clock
+        if self.ec.prefix_cache:
+            out["prefix_hit_tokens"] = self.prefix_hit_tokens
+            out["prefix_token_hit_rate"] = (
+                self.prefix_hit_tokens / max(1, self.prefix_total_tokens))
         return out

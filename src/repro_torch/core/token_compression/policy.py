@@ -25,9 +25,7 @@ reference implementation):
                                    the pruner to size a request)
     decode_budget()             -- optional KV-side hook: tokens to compact
                                    each slot to after prefill (None = no
-                                   live KV compaction; the port's engine
-                                   refuses a budget until the compacting
-                                   engine is ported)
+                                   live KV compaction)
     kv_selector                 -- selector name for ``decode_budget``
     validate(engine)            -- optional, run on first use
 """
@@ -61,8 +59,7 @@ COMPRESSION_PRESETS = {
     "tome-0.5": CompressionConfig(token_merger="tome", keep_ratio=0.5),
     "framefusion-0.25": CompressionConfig(token_merger="framefusion",
                                           keep_ratio=0.25),
-    # dim 2a: live KV-cache compaction in the engine (refused by the port's
-    # engine until ROADMAP A9)
+    # dim 2a: live KV-cache compaction in the engine
     "streaming-kv": CompressionConfig(kv_selector="streaming", kv_budget=64),
     "l2-kv": CompressionConfig(kv_selector="l2", kv_budget=64),
 }

@@ -55,6 +55,21 @@
 // score at the -1e30 sentinel, as the reference does: all partials then
 // share m = -1e30 and the merge returns the mean of V over the table. Any
 // page size and any (permuted) table are taken.
+//
+// Masked mode (the position mask of the reference's `simple_sdpa`, for
+// windowed ring caches and compacted slots). Optional k_pos [P, page] int32
+// gives each physical slot's position (-1 = empty), q_pos [B] int32 the
+// query's, window > 0 a sliding window. Token t of request b is a key iff
+// t < seq_lens[b], and where k_pos is given 0 <= k_pos[t] <= q_pos[b], and
+// where window > 0 p_t > q_pos[b] - window, with p_t = k_pos[t] if given,
+// else t. A masked token inside seq_len scores the -1e30 sentinel (as
+// simple_sdpa), one past it stays -inf; a row with no key therefore gets
+// the mean of V over its first seq_len tokens. The k_pos entry of each
+// token rides the chunk's cp.async gather through the same block-table
+// entry, 4 bytes beside the 1 KB of bf16 K and V a token carries across
+// qwen2-vl-2b's two kv heads (2 x 2 x 128 x 2 bytes): under 1% more bytes
+// read. The masked kernel is its own instantiation (MASKED = true), so
+// the unmasked one compiles as before; the merge kernel is shared.
 
 #include <stdint.h>
 
@@ -77,7 +92,8 @@ struct Layout {
   static constexpr size_t v_off = k_off + 2 * stage;
   static constexpr size_t p_off = v_off + 2 * stage;      // f32 [MAXG][CHUNK]
   static constexpr size_t c_off = p_off + 4 * MAXG * CHUNK;  // f32 [MAXG]
-  static constexpr size_t bytes = c_off + 4 * MAXG;
+  static constexpr size_t kp_off = c_off + 4 * MAXG;  // int [2][CHUNK] k_pos
+  static constexpr size_t bytes = kp_off + 4 * 2 * CHUNK;
   static_assert(PIECES >= 8, "the swizzle permutes 8 pieces");
   static_assert(CHUNK * PIECES % THREADS == 0, "whole pieces per thread");
 };
@@ -91,6 +107,12 @@ __device__ __forceinline__ int swz(int t, int d) {
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   static_cast<uint32_t>(__cvta_generic_to_shared(dst))),
+               "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
                    static_cast<uint32_t>(__cvta_generic_to_shared(dst))),
                "l"(src)
                : "memory");
@@ -114,13 +136,16 @@ __device__ __forceinline__ float2 load2<__nv_bfloat16>(const __nv_bfloat16* p) {
 }
 
 // GMAX (4, 8 or 16) bounds G = H / KVH, so the per-head loops run no more
-// predicated-off iterations than needed (G = 6 takes GMAX = 8).
-template <typename T, int D, int GMAX>
+// predicated-off iterations than needed (G = 6 takes GMAX = 8). MASKED
+// takes k_pos (may be null), q_pos and window (the header's masked mode).
+template <typename T, int D, int GMAX, bool MASKED>
 __global__ void __launch_bounds__(THREADS)
     paged_split_kernel(const T* __restrict__ q, const T* __restrict__ kp,
                        const T* __restrict__ vp,
                        const int* __restrict__ block_table,
                        const int* __restrict__ seq_lens,
+                       const int* __restrict__ k_pos,
+                       const int* __restrict__ q_pos, int window,
                        float* __restrict__ part_acc,
                        float* __restrict__ part_ml, int H, int KVH, int page,
                        int pps, int split, float scale) {
@@ -131,6 +156,7 @@ __global__ void __launch_bounds__(THREADS)
   T* Vs = reinterpret_cast<T*>(smem + L::v_off);
   float* P = reinterpret_cast<float*>(smem + L::p_off);
   float* corr_s = reinterpret_cast<float*>(smem + L::c_off);
+  int* kpos_s = reinterpret_cast<int*>(smem + L::kp_off);
 
   // the merge kernel may be scheduled now; it waits for this grid's end
   asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
@@ -152,6 +178,7 @@ __global__ void __launch_bounds__(THREADS)
     }
   };
   const int seq = seq_lens[b];
+  const int qp = MASKED ? q_pos[b] : 0;
   int pg[PER];
   table_entries(j_begin, pg);
   const T* qr = q + ((size_t)b * H + (size_t)kvh * G) * D;
@@ -186,6 +213,10 @@ __global__ void __launch_bounds__(THREADS)
             (((size_t)pages[r] * page + j % page) * KVH + kvh) * D + d;
         cp_async16(kd + swz<T, D>(t, d), kp + src);
         cp_async16(vd + swz<T, D>(t, d), vp + src);
+        // the thread of a token's first piece also fetches its position
+        if (MASKED && k_pos != nullptr && d == 0)
+          cp_async4(kpos_s + (c & 1) * CHUNK + t,
+                    k_pos + (size_t)pages[r] * page + j % page);
       }
     }
     cp_async_commit();  // one group per chunk (empty past the last)
@@ -225,6 +256,14 @@ __global__ void __launch_bounds__(THREADS)
     cp_async_wait_1();  // chunk c has landed (c + 1 may still fly)
     __syncthreads();
 
+    // is token `lane` a key of the query (masked mode; true otherwise)?
+    bool is_key = true;
+    if (MASKED && lane < nc) {
+      const int p =
+          k_pos != nullptr ? kpos_s[(c & 1) * CHUNK + lane] : j0 + lane;
+      is_key = (k_pos == nullptr || (p >= 0 && p <= qp)) &&
+               (window <= 0 || p > qp - window);
+    }
     // scores of token `lane` for this warp's heads
     float dot[GPW];
 #pragma unroll
@@ -253,10 +292,11 @@ __global__ void __launch_bounds__(THREADS)
     for (int gi = 0; gi < GPW; ++gi) {
       const int g = warp + WARPS * gi;
       if (g < G) {
-        // past the split's tokens: not a key; seq_len 0: the sentinel
-        const float sc = lane >= nc ? -INFINITY
-                         : seq > 0  ? dot[gi]
-                                    : repro::kNegBig;
+        // past the split's tokens: not a key; seq_len 0 or a masked
+        // token: the sentinel
+        const float sc = lane >= nc         ? -INFINITY
+                         : seq > 0 && is_key ? dot[gi]
+                                             : repro::kNegBig;
         const float m_new = fmaxf(m_r[gi], repro::warp_max(sc));
         const float pr = expf(sc - m_new);
         const float corr = expf(m_r[gi] - m_new);  // 0 on the first chunk
@@ -380,22 +420,30 @@ __global__ void __launch_bounds__(D * SG)
   }
 }
 
-template <typename T, int D, int GMAX>
+// The masking arguments of one launch (k_pos and q_pos may be null).
+struct Mask {
+  const int* k_pos;
+  const int* q_pos;
+  int window;
+};
+
+template <typename T, int D, int GMAX, bool MASKED>
 cudaError_t launch(const void* q, const void* kp, const void* vp,
-                   const int* bt, const int* sl, void* o, float* part_acc,
-                   float* part_ml, int B, int H, int KVH, int page, int pps,
-                   int split, cudaStream_t stream) {
+                   const int* bt, const int* sl, Mask mask, void* o,
+                   float* part_acc, float* part_ml, int B, int H, int KVH,
+                   int page, int pps, int split, cudaStream_t stream) {
   const size_t smem = Layout<T, D>::bytes;
   cudaError_t err = cudaFuncSetAttribute(
-      paged_split_kernel<T, D, GMAX>,
+      paged_split_kernel<T, D, GMAX, MASKED>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const int n_splits = (pps * page + split - 1) / split;
-  paged_split_kernel<T, D, GMAX>
+  paged_split_kernel<T, D, GMAX, MASKED>
       <<<dim3(n_splits, KVH, B), THREADS, smem, stream>>>(
           static_cast<const T*>(q), static_cast<const T*>(kp),
-          static_cast<const T*>(vp), bt, sl, part_acc, part_ml, H, KVH, page,
-          pps, split, 1.0f / sqrtf((float)D));
+          static_cast<const T*>(vp), bt, sl, mask.k_pos, mask.q_pos,
+          mask.window, part_acc, part_ml, H, KVH, page, pps, split,
+          1.0f / sqrtf((float)D));
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   // the merge's weights, one per split, may exceed the default 48 KB
@@ -422,58 +470,80 @@ cudaError_t launch(const void* q, const void* kp, const void* vp,
                             static_cast<T*>(o), n_splits);
 }
 
-template <typename T, int D>
+template <typename T, int D, bool MASKED>
 cudaError_t launch_g(const void* q, const void* kp, const void* vp,
-                     const int* bt, const int* sl, void* o, float* part_acc,
-                     float* part_ml, int B, int H, int KVH, int page, int pps,
-                     int split, cudaStream_t stream) {
+                     const int* bt, const int* sl, Mask mask, void* o,
+                     float* part_acc, float* part_ml, int B, int H, int KVH,
+                     int page, int pps, int split, cudaStream_t stream) {
   const int G = H / KVH;
   if (G <= 4)
-    return launch<T, D, 4>(q, kp, vp, bt, sl, o, part_acc, part_ml, B, H, KVH,
-                           page, pps, split, stream);
+    return launch<T, D, 4, MASKED>(q, kp, vp, bt, sl, mask, o, part_acc,
+                                   part_ml, B, H, KVH, page, pps, split,
+                                   stream);
   if (G <= 8)
-    return launch<T, D, 8>(q, kp, vp, bt, sl, o, part_acc, part_ml, B, H, KVH,
-                           page, pps, split, stream);
-  return launch<T, D, 16>(q, kp, vp, bt, sl, o, part_acc, part_ml, B, H, KVH,
-                          page, pps, split, stream);
+    return launch<T, D, 8, MASKED>(q, kp, vp, bt, sl, mask, o, part_acc,
+                                   part_ml, B, H, KVH, page, pps, split,
+                                   stream);
+  return launch<T, D, 16, MASKED>(q, kp, vp, bt, sl, mask, o, part_acc,
+                                  part_ml, B, H, KVH, page, pps, split,
+                                  stream);
+}
+
+template <typename T, int D>
+cudaError_t launch_m(const void* q, const void* kp, const void* vp,
+                     const int* bt, const int* sl, Mask mask, void* o,
+                     float* part_acc, float* part_ml, int B, int H, int KVH,
+                     int page, int pps, int split, cudaStream_t stream) {
+  if (mask.k_pos != nullptr || mask.window > 0)
+    return launch_g<T, D, true>(q, kp, vp, bt, sl, mask, o, part_acc,
+                                part_ml, B, H, KVH, page, pps, split, stream);
+  return launch_g<T, D, false>(q, kp, vp, bt, sl, mask, o, part_acc, part_ml,
+                               B, H, KVH, page, pps, split, stream);
 }
 
 }  // namespace
 
 // q [B,H,D], k/v pages [P,page,KVH,D], block_table [B,pps] int32 (entries in
 // [0, P)), seq_lens [B] int32, o [B,H,D]; all contiguous, one dtype
-// (0 float32, 1 bfloat16), D in {64, 128}, H / KVH <= 16. `split` tokens per
-// CTA (>= 1); part_acc [B*H, ceil(pps*page/split), D] and part_ml
+// (0 float32, 1 bfloat16), D in {64, 128}, H / KVH <= 16. Masked mode:
+// k_pos [P,page] int32 or null, q_pos [B] int32 (needed when k_pos is given
+// or window > 0, else may be null), window >= 0. `split` tokens per CTA
+// (>= 1); part_acc [B*H, ceil(pps*page/split), D] and part_ml
 // [B*H, ceil(pps*page/split), 2] are float32 scratch. Returns the CUDA error
 // of the launches (0 on success).
 extern "C" int paged_attention_fwd(const void* q, const void* k_pages,
                                    const void* v_pages, const void* block_table,
-                                   const void* seq_lens, void* o,
+                                   const void* seq_lens, const void* k_pos,
+                                   const void* q_pos, int window, void* o,
                                    void* part_acc, void* part_ml, int B,
                                    int H, int KVH, int D, int page, int pps,
                                    int split, int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* bt = static_cast<const int*>(block_table);
   const int* sl = static_cast<const int*>(seq_lens);
+  const Mask mask = {static_cast<const int*>(k_pos),
+                     static_cast<const int*>(q_pos), window};
   float* pa = static_cast<float*>(part_acc);
   float* pm = static_cast<float*>(part_ml);
   // the merge keeps one weight per split in shared memory: at most 192 KB
   // beside its ~2 KB of static arrays, inside a CTA's 227 KB
   if (H % KVH != 0 || H / KVH > MAXG || split < 1 ||
-      (pps * page + split - 1) / split > 48 * 1024)
+      (pps * page + split - 1) / split > 48 * 1024 || window < 0 ||
+      ((k_pos != nullptr || window > 0) && q_pos == nullptr))
     return (int)cudaErrorInvalidValue;
   if (dtype == repro::kFloat32 && D == 64)
-    return launch_g<float, 64>(q, k_pages, v_pages, bt, sl, o, pa, pm, B, H,
-                               KVH, page, pps, split, s);
+    return launch_m<float, 64>(q, k_pages, v_pages, bt, sl, mask, o, pa, pm,
+                               B, H, KVH, page, pps, split, s);
   if (dtype == repro::kFloat32 && D == 128)
-    return launch_g<float, 128>(q, k_pages, v_pages, bt, sl, o, pa, pm, B, H,
-                                KVH, page, pps, split, s);
+    return launch_m<float, 128>(q, k_pages, v_pages, bt, sl, mask, o, pa, pm,
+                                B, H, KVH, page, pps, split, s);
   if (dtype == repro::kBFloat16 && D == 64)
-    return launch_g<__nv_bfloat16, 64>(q, k_pages, v_pages, bt, sl, o, pa,
-                                       pm, B, H, KVH, page, pps, split, s);
+    return launch_m<__nv_bfloat16, 64>(q, k_pages, v_pages, bt, sl, mask, o,
+                                       pa, pm, B, H, KVH, page, pps, split, s);
   if (dtype == repro::kBFloat16 && D == 128)
-    return launch_g<__nv_bfloat16, 128>(q, k_pages, v_pages, bt, sl, o, pa,
-                                        pm, B, H, KVH, page, pps, split, s);
+    return launch_m<__nv_bfloat16, 128>(q, k_pages, v_pages, bt, sl, mask, o,
+                                        pa, pm, B, H, KVH, page, pps, split,
+                                        s);
   return (int)cudaErrorInvalidValue;
 }
 

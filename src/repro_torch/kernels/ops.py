@@ -30,8 +30,11 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
                   q_offset=q_offset)
 
 
-def paged_attention(q, k_pages, v_pages, block_table, seq_lens):
-    """Paged decode attention. q [B,H,D] -> [B,H,D]."""
+def paged_attention(q, k_pages, v_pages, block_table, seq_lens, *,
+                    k_pos=None, q_pos=None, window: int = 0):
+    """Paged decode attention. q [B,H,D] -> [B,H,D]. ``k_pos`` [P,page],
+    ``q_pos`` [B] and ``window``: the kernel's masked mode (windowed and
+    compacted caches)."""
     if q.ndim != 3 or k_pages.ndim != 4:
         raise ValueError("paged_attention expects q rank-3, pages rank-4")
     if k_pages.shape != v_pages.shape:
@@ -43,4 +46,10 @@ def paged_attention(q, k_pages, v_pages, block_table, seq_lens):
     if q.shape[2] != k_pages.shape[3]:
         raise ValueError(f"q head dim {q.shape[2]} vs pages "
                          f"{k_pages.shape[3]}")
-    return _paged(q, k_pages, v_pages, block_table, seq_lens)
+    if k_pos is not None and tuple(k_pos.shape) != tuple(k_pages.shape[:2]):
+        raise ValueError(f"k_pos must be [P, page] = "
+                         f"{list(k_pages.shape[:2])}, got {list(k_pos.shape)}")
+    if (k_pos is not None or window) and q_pos is None:
+        raise ValueError("k_pos or window needs q_pos")
+    return _paged(q, k_pages, v_pages, block_table, seq_lens, k_pos=k_pos,
+                  q_pos=q_pos, window=window)

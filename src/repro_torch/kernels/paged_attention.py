@@ -18,7 +18,8 @@ import ctypes
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.ref import NEG_INF, paged_attention_ref
+from repro_torch.kernels.ref import (NEG_INF, paged_attention_ref,
+                                     paged_key_mask)
 
 HEAD_DIMS = (64, 128)
 MAX_GROUP = 16
@@ -34,12 +35,13 @@ paged_attention_plain = paged_attention_ref
 
 
 def paged_attention_split_plain(q, k_pages, v_pages, block_table, seq_lens,
-                                split_tokens: int):
+                                split_tokens: int, *, k_pos=None,
+                                q_pos=None, window: int = 0):
     """The kernel's algorithm in plain PyTorch: each run of
     ``split_tokens`` tokens gives a partial (m, l, acc) with the kernel's
-    masks (a request with seq_len > 0 reads its first seq_len tokens, one
-    with seq_len 0 every slot of its table at the -1e30 sentinel; a split
-    past them is empty: m = -inf, l = 0), and the partials merge as
+    masks (``paged_key_mask``: read tokens that are not keys score the
+    -1e30 sentinel; a split past the read tokens is empty: m = -inf,
+    l = 0), and the partials merge as
     sum_s e^(m_s - M) acc_s / sum_s e^(m_s - M) l_s. Same arguments and
     result as ``paged_attention_plain``."""
     b, h, d = q.shape
@@ -53,11 +55,9 @@ def paged_attention_split_plain(q, k_pages, v_pages, block_table, seq_lens,
     v_log = v_pages[bt].reshape(b, n_tok, kvh, d).float()
     qf = q.reshape(b, kvh, g, d).float() / (d ** 0.5)
     s = torch.einsum("bkgd,bckd->bkgc", qf, k_log)
-    seq = seq_lens.to(q.device).long()
-    pos = torch.arange(n_tok, device=q.device)
-    read = pos[None] < torch.where(seq > 0, seq, n_tok)[:, None]   # [B, T]
-    s = torch.where((seq > 0)[:, None, None, None], s,
-                    torch.full_like(s, NEG_INF))
+    read, key = paged_key_mask(seq_lens, block_table, page, k_pos=k_pos,
+                               q_pos=q_pos, window=window)
+    s = torch.where(key[:, None, None], s, torch.full_like(s, NEG_INF))
     s = torch.where(read[:, None, None], s, torch.full_like(s, -torch.inf))
     s = torch.nn.functional.pad(s, (0, pad), value=-torch.inf)
     v_log = torch.nn.functional.pad(v_log, (0, 0, 0, 0, 0, pad))
@@ -78,15 +78,24 @@ def paged_attention_split_plain(q, k_pages, v_pages, block_table, seq_lens,
 def _lib():
     fn = build.load("paged_attention").paged_attention_fwd
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 \
-            + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] \
+            + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
 
 
-def paged_attention(q, k_pages, v_pages, block_table, seq_lens):
+def paged_attention(q, k_pages, v_pages, block_table, seq_lens, *,
+                    k_pos=None, q_pos=None, window: int = 0):
     """q [B,H,D]; k/v pages [P,page,KVH,D]; block_table [B,pages_per_seq]
     int32 with entries in [0, P); seq_lens [B] int32 -> [B,H,D].
+
+    Masked mode (windowed and compacted caches): ``k_pos`` [P,page] int32,
+    the position of each physical slot (-1 = empty); ``q_pos`` [B] int32,
+    the query's position (needed with ``k_pos`` or ``window``); ``window``
+    > 0, a sliding window. Token t of request b is a key iff
+    t < seq_lens[b], 0 <= k_pos[t] <= q_pos[b] where ``k_pos`` is given,
+    and p_t > q_pos[b] - window where ``window`` > 0 (p_t = k_pos[t] if
+    given, else t); ``ref.paged_key_mask`` is the rule in plain PyTorch.
 
     A CPU tensor takes the plain version; a CUDA tensor takes the kernel
     (float32 or bfloat16, D in {64, 128}, H/KVH <= 16, contiguous) or
@@ -95,7 +104,8 @@ def paged_attention(q, k_pages, v_pages, block_table, seq_lens):
     """
     if q.device.type == "cpu":
         return paged_attention_plain(q, k_pages, v_pages, block_table,
-                                     seq_lens)
+                                     seq_lens, k_pos=k_pos, q_pos=q_pos,
+                                     window=window)
     if q.device.type != "cuda":
         raise ValueError(f"paged_attention: unsupported device {q.device}")
     b, h, d = q.shape
@@ -110,10 +120,23 @@ def paged_attention(q, k_pages, v_pages, block_table, seq_lens):
         if t.device != q.device or t.dtype != q.dtype:
             raise ValueError(f"paged_attention: {name} is {t.dtype} on "
                              f"{t.device}, q is {q.dtype} on {q.device}")
-    for name, t in (("block_table", block_table), ("seq_lens", seq_lens)):
+    ints = [("block_table", block_table, tuple(block_table.shape)),
+            ("seq_lens", seq_lens, (b,))]
+    if window < 0:
+        raise ValueError(f"paged_attention: window must be >= 0, got {window}")
+    if k_pos is not None:
+        ints.append(("k_pos", k_pos, tuple(k_pages.shape[:2])))
+    if k_pos is not None or window:
+        if q_pos is None:
+            raise ValueError("paged_attention: k_pos or window needs q_pos")
+        ints.append(("q_pos", q_pos, (b,)))
+    for name, t, shape in ints:
         if t.device != q.device or t.dtype != torch.int32:
             raise ValueError(f"paged_attention: {name} must be int32 on "
                              f"{q.device}, got {t.dtype} on {t.device}")
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name} must be {list(shape)}, got "
+                             f"{list(t.shape)}")
     if q.dtype not in _DTYPES:
         raise ValueError(f"paged_attention kernel takes float32 or bfloat16, "
                          f"not {q.dtype}")
@@ -123,16 +146,16 @@ def paged_attention(q, k_pages, v_pages, block_table, seq_lens):
     if h // kvh > MAX_GROUP:
         raise ValueError(f"paged_attention kernel takes at most {MAX_GROUP} "
                          f"query heads per kv head, not {h // kvh}")
-    if seq_lens.shape != (b,):
-        raise ValueError(f"seq_lens must be [{b}], got {tuple(seq_lens.shape)}")
     if pps == 0:
         raise ValueError("paged_attention kernel needs pages_per_seq >= 1")
-    if not all(t.is_contiguous() for t in (q, k_pages, v_pages, block_table,
-                                           seq_lens)) \
+    if not all(t.is_contiguous() for t in (q, k_pages, v_pages)) \
+            or not all(t.is_contiguous() for _, t, _ in ints) \
             or k_pages.data_ptr() % 16 or v_pages.data_ptr() % 16:
         raise ValueError("paged_attention kernel needs contiguous inputs and "
                          "16-byte aligned pages")
-    out = _launch(q, k_pages, v_pages, block_table, seq_lens, CHUNK)
+    out = _launch(q, k_pages, v_pages, block_table, seq_lens, CHUNK,
+                  k_pos=k_pos, q_pos=q_pos if (k_pos is not None or window)
+                  else None, window=window)
     paged_attention.launches += 1     # the split and merge kernels: one call
     return out
 
@@ -140,7 +163,8 @@ def paged_attention(q, k_pages, v_pages, block_table, seq_lens):
 paged_attention.launches = 0
 
 
-def _launch(q, k_pages, v_pages, block_table, seq_lens, split: int):
+def _launch(q, k_pages, v_pages, block_table, seq_lens, split: int, *,
+            k_pos=None, q_pos=None, window: int = 0):
     """The C entry on inputs ``paged_attention`` has checked, with
     ``split`` tokens per CTA of the split kernel (any value >= 1; more
     than ``CHUNK`` runs several chunks per CTA, which ``chip_smoke.py``
@@ -154,9 +178,12 @@ def _launch(q, k_pages, v_pages, block_table, seq_lens, split: int):
     part = torch.empty(b * h * n_split * (d + 2), dtype=torch.float32,
                        device=q.device)
     err = _lib()(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-                 block_table.data_ptr(), seq_lens.data_ptr(), out.data_ptr(),
-                 part.data_ptr(), part[b * h * n_split * d:].data_ptr(), b, h,
-                 kvh, d, page, pps, split, _DTYPES[q.dtype],
+                 block_table.data_ptr(), seq_lens.data_ptr(),
+                 None if k_pos is None else k_pos.data_ptr(),
+                 None if q_pos is None else q_pos.data_ptr(), window,
+                 out.data_ptr(), part.data_ptr(),
+                 part[b * h * n_split * d:].data_ptr(), b, h, kvh, d, page,
+                 pps, split, _DTYPES[q.dtype],
                  torch.cuda.current_stream(q.device).cuda_stream)
     if err:
         raise RuntimeError(f"paged_attention kernel launch failed: CUDA "

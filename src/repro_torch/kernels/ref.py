@@ -47,7 +47,37 @@ def flash_attention_ref(q, k, v, *, causal: bool = True,
     return o.reshape(b, h, sq, d).to(q.dtype)
 
 
-def paged_attention_ref(q, k_pages, v_pages, block_table, seq_lens):
+def paged_key_mask(seq_lens, block_table, page: int, *, k_pos=None,
+                   q_pos=None, window: int = 0):
+    """Which tokens of each request's table the paged kernel reads and
+    which of those are keys: ``(read, key)``, both [B, pages_per_seq*page].
+
+    A request with seq_len > 0 reads its first seq_len tokens; one with
+    seq_len 0 reads every slot of its table and has no key. Masked mode
+    (the reference's ``simple_sdpa`` mask over a windowed or compacted
+    cache): ``k_pos`` [P, page] int32 is each physical slot's position (-1
+    = empty), ``q_pos`` [B] the query's; a read token t is a key iff, where
+    ``k_pos`` is given, 0 <= k_pos[t] <= q_pos, and where ``window`` > 0,
+    p_t > q_pos - window (p_t = k_pos[t] if given, else t)."""
+    n_tok = block_table.shape[1] * page
+    dev = block_table.device
+    seq = seq_lens.to(dev).long()[:, None]
+    pos = torch.arange(n_tok, device=dev)[None]
+    read = pos < torch.where(seq > 0, seq, n_tok)
+    key = read & (seq > 0)
+    if k_pos is not None or window > 0:
+        qp = q_pos.to(dev).long()[:, None]
+        p_t = pos
+        if k_pos is not None:
+            p_t = k_pos[block_table.long()].reshape(-1, n_tok).long()
+            key = key & (p_t >= 0) & (p_t <= qp)
+        if window > 0:
+            key = key & (p_t > qp - window)
+    return read, key
+
+
+def paged_attention_ref(q, k_pages, v_pages, block_table, seq_lens, *,
+                        k_pos=None, q_pos=None, window: int = 0):
     """Decode attention over a paged KV pool, oracle.
 
     q          : [B, H, D]           one query token per request
@@ -55,8 +85,11 @@ def paged_attention_ref(q, k_pages, v_pages, block_table, seq_lens):
     v_pages    : [P, page, KVH, D]
     block_table: [B, pages_per_seq]  int32 physical page ids
     seq_lens   : [B]                 int32 valid tokens per request
-    Returns [B, H, D]. Every page of the table is visited, so a request
-    with ``seq_lens == 0`` gets the mean of V over its table's slots.
+    k_pos, q_pos, window: the masked mode of ``paged_key_mask``
+    Returns [B, H, D]. A read token that is not a key scores the -1e30
+    sentinel, one past seq_len is not read: a request with
+    ``seq_lens == 0`` gets the mean of V over its table's slots, and a row
+    whose read tokens are all masked the mean of V over them.
     """
     b, h, d = q.shape
     _, page, kvh, _ = k_pages.shape
@@ -67,9 +100,10 @@ def paged_attention_ref(q, k_pages, v_pages, block_table, seq_lens):
     v_log = v_pages[bt].reshape(b, pages_per_seq * page, kvh, d)
     qf = q.reshape(b, kvh, g, d).float() / (d ** 0.5)
     s = torch.einsum("bkgd,bckd->bkgc", qf, k_log.float())
-    pos = torch.arange(pages_per_seq * page, device=q.device)
-    valid = pos[None] < seq_lens.to(q.device).long()[:, None]   # [B, C]
-    s = torch.where(valid[:, None, None], s, torch.full_like(s, NEG_INF))
+    read, key = paged_key_mask(seq_lens, block_table, page, k_pos=k_pos,
+                               q_pos=q_pos, window=window)
+    s = torch.where(key[:, None, None], s, torch.full_like(s, NEG_INF))
+    s = torch.where(read[:, None, None], s, torch.full_like(s, -torch.inf))
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bkgc,bckd->bkgd", p, v_log.float())
     return o.reshape(b, h, d).to(q.dtype)

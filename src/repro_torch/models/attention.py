@@ -10,10 +10,16 @@ and ``simple_sdpa`` (continuation, decode), the port calls the kernels of
 ``repro_torch.kernels``: flash attention for prefill and scalar-start
 continuation, paged attention for decode over the slot cache viewed as a
 page pool with the identity block table. On CPU tensors the kernels run
-their plain versions. Windowed ring caches (``slot_pos``), per-row [B]
-continuation starts and caller-supplied positions do not fit the kernels:
-on CPU tensors they take the plain ``blockwise_sdpa`` / ``simple_sdpa``
-below, on CUDA tensors they raise ``NotImplementedError`` (ROADMAP).
+their plain versions. Windowed ring caches (``slot_pos``, the compacting
+engine's position-exact caches) take the kernels too: prefill attends over
+the fresh prompt with flash (only the ring write differs), a scalar-start
+extend that has not wrapped attends over the cache's first rows with
+flash, and decode (windowed, or with ``window > 0``) takes the paged
+kernel's masked mode with ``slot_pos`` as the key positions. Three paths
+do not fit the kernels: per-row [B] continuation starts, caller-supplied
+positions, and an extend into a ring that has wrapped. On CPU tensors
+they take the plain ``blockwise_sdpa`` / ``simple_sdpa`` below, on CUDA
+tensors they raise ``NotImplementedError`` (ROADMAP).
 
 Caches are updated in place (the reference returns updated copies); every
 function still returns the cache it was given, as the reference does.
@@ -125,7 +131,7 @@ def _off_kernel(x, what: str):
     if x.device.type != "cpu":
         raise NotImplementedError(
             f"{what} is not on the port's CUDA kernels yet (ROADMAP queue "
-            "A: windowed caches, [B] starts and custom positions)")
+            "A: [B] starts, custom positions and wrapped ring extends)")
 
 
 # --------------------------------------------------------------------------
@@ -251,10 +257,9 @@ def prefill_into_cache(p, x, cos, sin, cfg, cache, *, window=0,
     if cos is not None:
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
-    windowed = "slot_pos" in cache
-    if windowed:
-        _off_kernel(x, "a windowed (ring) KV cache")
-    cache = _cache_write_prefill(cache, k, v, windowed)
+    # a windowed (ring) cache differs only in where the prompt is written:
+    # the attention is over the fresh prompt itself
+    cache = _cache_write_prefill(cache, k, v, "slot_pos" in cache)
     o = _prompt_attention(q, k, v, cfg, causal=True, window=window,
                           positions=positions)
     return out_proj(p, o), cache
@@ -302,7 +307,15 @@ def _cache_write_extend(cache, new_k, new_v, start, windowed):
 def append_attention(p, x, cos, sin, cfg, cache, start, *, window=0):
     """Multi-token cache continuation: x [B,S_new,d] appended at ``start``
     (scalar, or [B] per-request starts); attends causally against the
-    cache (prefix + chunk)."""
+    cache (prefix + chunk).
+
+    A scalar start takes the flash kernel over the cache's first
+    ``start + S_new`` rows. On a windowed (ring) cache that needs
+    ``start + S_new <= L`` and assumes those rows hold positions
+    ``0 .. start+S_new-1`` in order -- true of every cache the engine
+    extends (a prefill then chunks; compaction runs only after a prompt's
+    last chunk). A ring that has wrapped, and [B] starts, take the plain
+    ``simple_sdpa`` over ``slot_pos`` on CPU tensors and raise on CUDA."""
     s_new = x.shape[1]
     q, k, v = qkv_proj(p, x)
     if cos is not None:
@@ -311,7 +324,9 @@ def append_attention(p, x, cos, sin, cfg, cache, start, *, window=0):
     windowed = "slot_pos" in cache
     per_row = torch.as_tensor(start).ndim > 0
     cache = _cache_write_extend(cache, k, v, start, windowed)
-    if not windowed and not per_row:
+    wrapped = windowed and not per_row \
+        and int(start) + s_new > cache["k"].shape[1]
+    if not per_row and not wrapped:
         start = int(start)
         kv_len = start + s_new
         o = ops.flash_attention(   # views of q and of the cache prefix
@@ -319,7 +334,8 @@ def append_attention(p, x, cos, sin, cfg, cache, start, *, window=0):
             cache["v"][:, :kv_len].transpose(1, 2), causal=True,
             window=window, kv_len=kv_len, q_offset=start)
         return out_proj(p, o.transpose(1, 2)), cache
-    _off_kernel(x, "a windowed cache" if windowed else "per-row [B] starts")
+    _off_kernel(x, "per-row [B] starts" if per_row
+                else "an extend into a wrapped ring cache")
     k_pos = (cache["slot_pos"] if windowed
              else torch.arange(cache["k"].shape[1], device=x.device))
     q_pos = _extend_positions(start, s_new, x.device)
@@ -338,7 +354,11 @@ def decode_attention(p, x, cos, sin, cfg, cache, pos, *, window=0):
 
     The dense slot cache [B,L,K,D] is a pool of B*L/page pages; request b
     owns pages b*L/page .. (b+1)*L/page - 1 in order (the identity block
-    table) and attends to its first pos[b]+1 tokens.
+    table) and attends to its first min(pos[b]+1, L) rows. A windowed
+    cache, or ``window > 0``, takes the kernel's masked mode: the key
+    positions are ``slot_pos`` viewed as pages (rows past a compaction's
+    budget hold -1), the query's is ``pos``. The query's own key is
+    written first, so every row has at least one key.
     """
     b = x.shape[0]
     pos = torch.as_tensor(pos, device=x.device).long().reshape(-1).expand(b)
@@ -348,21 +368,20 @@ def decode_attention(p, x, cos, sin, cfg, cache, pos, *, window=0):
         k = apply_rope(k, cos, sin)
     windowed = "slot_pos" in cache
     cache = _cache_write_decode(cache, k, v, pos, windowed)
-    if not windowed and not window:
-        length, kvh, hd = cache["k"].shape[1:]
-        page = _page_size(length)
-        n_pages = b * length // page
-        table = torch.arange(n_pages, dtype=torch.int32,
-                             device=x.device).view(b, length // page)
-        o = ops.paged_attention(
-            q[:, 0], cache["k"].reshape(n_pages, page, kvh, hd),
-            cache["v"].reshape(n_pages, page, kvh, hd), table,
-            (pos + 1).to(torch.int32))
-        return out_proj(p, o[:, None]), cache
-    _off_kernel(x, "a windowed cache" if windowed else "windowed decode")
-    k_pos = (cache["slot_pos"] if windowed
-             else torch.arange(cache["k"].shape[1], device=x.device))
-    o = simple_sdpa(_grouped(q, cfg.num_kv_heads), cache["k"], cache["v"],
-                    q_pos=pos[:, None], k_pos=k_pos, causal=True,
-                    window=window)
-    return out_proj(p, o), cache
+    length, kvh, hd = cache["k"].shape[1:]
+    page = _page_size(length)
+    n_pages = b * length // page
+    table = torch.arange(n_pages, dtype=torch.int32,
+                         device=x.device).view(b, length // page)
+    masked = {}
+    if windowed or window:
+        masked = dict(q_pos=pos.to(torch.int32), window=window,
+                      k_pos=(cache["slot_pos"].reshape(n_pages, page)
+                             if windowed else None))
+    # a ring that has wrapped reads all its rows
+    seq_lens = torch.clamp(pos + 1, max=length) if windowed else pos + 1
+    o = ops.paged_attention(
+        q[:, 0], cache["k"].reshape(n_pages, page, kvh, hd),
+        cache["v"].reshape(n_pages, page, kvh, hd), table,
+        seq_lens.to(torch.int32), **masked)
+    return out_proj(p, o[:, None]), cache

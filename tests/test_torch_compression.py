@@ -528,19 +528,26 @@ def test_custom_strategy_via_compressors(pair):
 @pytest.mark.parametrize("spec", ["streaming-kv", "l2-kv",
                                   "streaming-kv-128"])
 def test_kv_presets_are_refused(pair, spec):
-    """Live KV compaction waits for the compacting engine (ROADMAP A9):
-    the presets resolve, but serving them raises, per request and as the
-    engine default."""
-    _, t = pair
+    """Live KV compaction serves since the compacting engine (ROADMAP A9):
+    a kv preset as the engine default builds a compacting engine; what
+    stays refused, as in the reference, is a per-request kv preset on an
+    engine that was not built compacting, and a kv default together with
+    the prefix cache."""
+    j, t = pair
     assert resolve_compression(spec).kv_budget > 0
-    with pytest.raises(NotImplementedError, match="A9"):
-        GenerationConfig(compression=spec)
+    assert GenerationConfig(compression=spec).resolved_compression() == \
+        resolve_compression(spec)
     eng = t.serve([], EngineConfig(max_batch=1, cache_len=64)).engine
-    with pytest.raises(NotImplementedError, match="A9"):
-        eng.submit(Request(rid=0, tokens=[1, 2, 3], max_new_tokens=2,
-                           compression=spec))
-    with pytest.raises(NotImplementedError, match="A9"):
-        Engine(t.model, t.params, EngineConfig(max_batch=1, cache_len=64),
+    jeng = j.serve([], JEngineConfig(max_batch=1, cache_len=64)).engine
+    for e, R in ((eng, Request), (jeng, JRequest)):
+        with pytest.raises(ValueError, match="not built compacting"):
+            e.submit(R(rid=0, tokens=[1, 2, 3], max_new_tokens=2,
+                       compression=spec))
+    assert Engine(t.model, t.params, EngineConfig(max_batch=1, cache_len=64),
+                  compressor=make_compressor(spec)).compacting
+    with pytest.raises(ValueError, match="prefix reuse"):
+        Engine(t.model, t.params, EngineConfig(max_batch=1, cache_len=64,
+                                               prefix_cache=True),
                compressor=make_compressor(spec))
 
 

@@ -174,6 +174,122 @@ def test_paged_merge_takes_its_most_splits(dev):
         pa._launch(q, kp, vp, table, seq, 1)
 
 
+def _masked_inputs(rng, case, b, dtype, dev, permute, length=1152):
+    """Masked decode at the qwen2-vl-2b layout (12 / 2 heads, D 128, pages
+    of 16) over a ``length``-slot ring cache: (q, k, v, table, seq_lens,
+    k_pos [P, page], q_pos, window). ``ring``: positions wrapped past the
+    cache; ``compacted``: 256 kept positions, -1 rows, then 32 decoded
+    past a gap; ``window``: a plain cache with window 256 and no k_pos;
+    ``own_key``: the query's own row is its only key; ``ahead``: every
+    row read, those past the query's position masked."""
+    h, kvh, d, page = 12, 2, 128, 16
+    pps = length // page
+    q = _randn(rng, (b, h, d), dtype, dev)
+    kp = _randn(rng, (b * pps, page, kvh, d), dtype, dev)
+    vp = _randn(rng, (b * pps, page, kvh, d), dtype, dev)
+    order = rng.permutation(b * pps) if permute else np.arange(b * pps)
+    table = torch.from_numpy(order.reshape(b, pps).astype(np.int32)).to(dev)
+    sp = np.full((b, length), -1, np.int32)
+    window = 0
+    if case == "ring":
+        q_pos = rng.integers(length, 3 * length, b)
+        for i, qp in enumerate(q_pos):
+            p = np.arange(qp - length + 1, qp + 1)
+            sp[i, p % length] = p
+        window = length
+    elif case == "compacted":
+        q_pos = rng.integers(400, length - 1, b)
+        for i, qp in enumerate(q_pos):
+            sp[i, :256] = np.sort(rng.choice(qp - 31, 256, replace=False))
+            sp[i, qp - 31:qp + 1] = np.arange(qp - 31, qp + 1)
+    elif case == "window":
+        q_pos = rng.integers(0, length, b)
+        window = 256
+    elif case == "ahead":
+        q_pos = rng.integers(0, length - 8, b)
+        sp[:] = np.arange(length, dtype=np.int32)
+    else:
+        q_pos = rng.integers(0, length, b)
+        sp[np.arange(b), q_pos] = q_pos
+    k_pos = None
+    if case != "window":
+        k_pos = torch.empty((b * pps, page), dtype=torch.int32, device=dev)
+        k_pos[table.flatten().long()] = torch.from_numpy(
+            sp.reshape(b * pps, page)).to(dev)
+    seq = np.full(b, length) if case == "ahead" else np.minimum(q_pos + 1,
+                                                                length)
+    seq = torch.from_numpy(seq.astype(np.int32)).to(dev)
+    q_pos = torch.from_numpy(q_pos.astype(np.int32)).to(dev)
+    return (q, kp, vp, table, seq), dict(k_pos=k_pos, q_pos=q_pos,
+                                         window=window)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("permute", [False, True])
+@pytest.mark.parametrize("case", ["ring", "compacted", "window", "own_key",
+                                  "ahead"])
+def test_paged_kernel_masked_matches_plain(dev, dtype, permute, case):
+    """The masked mode (windowed and compacted caches) at batch 8 against
+    the plain version; ``own_key`` is a row whose only key is the query's
+    own, as decode leaves it over an empty slot."""
+    args, kw = _masked_inputs(np.random.default_rng(6), case, 8, dtype, dev,
+                              permute)
+    n0 = pa.paged_attention.launches
+    out = pa.paged_attention(*args, **kw)
+    torch.cuda.synchronize()
+    assert pa.paged_attention.launches == n0 + 1
+    ref = pa.paged_attention_plain(*args, **kw)
+    err = (out.float() - ref.float()).abs().max().item()
+    assert err <= TOL[dtype], err
+    if case == "own_key":       # softmax over one key: V of that row
+        q, kp, vp, table, seq = args
+        pos = kw["q_pos"].long()
+        rows = vp[table.long()[torch.arange(8, device=dev), pos // 16],
+                  pos % 16]
+        want = rows.repeat_interleave(6, dim=1)
+        assert (out.float() - want.float()).abs().max().item() <= TOL[dtype]
+
+
+def test_paged_kernel_masked_with_every_key_equals_unmasked(dev):
+    """k_pos = each row's own index and q_pos = seq_len - 1 mask nothing:
+    the masked kernel gives the unmasked kernel's bits."""
+    args = _main_table(np.random.default_rng(7), 8, _MIXED, torch.bfloat16,
+                       dev)
+    q, kp, vp, table, seq = args
+    k_pos = torch.empty(kp.shape[:2], dtype=torch.int32, device=dev)
+    k_pos[table.flatten().long()] = torch.arange(
+        table.numel() * 16, dtype=torch.int32, device=dev).view(-1, 16) \
+        % (table.shape[1] * 16)
+    got = pa.paged_attention(*args, k_pos=k_pos, q_pos=seq - 1)
+    torch.cuda.synchronize()
+    assert torch.equal(got[seq > 0], pa.paged_attention(*args)[seq > 0])
+
+
+def test_paged_kernel_refuses_bad_masks(dev):
+    qd = torch.zeros(2, 4, 64, device=dev)
+    pages = torch.zeros(4, 16, 2, 64, device=dev)
+    table = torch.arange(4, dtype=torch.int32, device=dev).view(2, 2)
+    seq = torch.ones(2, dtype=torch.int32, device=dev)
+    k_pos = torch.zeros(4, 16, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError):        # int64 positions
+        pa.paged_attention(qd, pages, pages, table, seq, k_pos=k_pos.long(),
+                           q_pos=seq)
+    with pytest.raises(ValueError):        # positions on the host
+        pa.paged_attention(qd, pages, pages, table, seq, k_pos=k_pos.cpu(),
+                           q_pos=seq)
+    with pytest.raises(ValueError):        # q_pos on the host
+        pa.paged_attention(qd, pages, pages, table, seq, k_pos=k_pos,
+                           q_pos=seq.cpu())
+    with pytest.raises(ValueError):        # no q_pos
+        pa.paged_attention(qd, pages, pages, table, seq, window=8)
+    with pytest.raises(ValueError):        # not [P, page]
+        pa.paged_attention(qd, pages, pages, table, seq,
+                           k_pos=k_pos[:, :8].contiguous(), q_pos=seq)
+    with pytest.raises(ValueError):        # not contiguous
+        pa.paged_attention(qd, pages, pages, table, seq,
+                           k_pos=k_pos.t().contiguous().t(), q_pos=seq)
+
+
 def test_kernels_refuse_what_they_do_not_take(dev):
     q = torch.zeros(1, 2, 8, 32, device=dev)
     with pytest.raises(ValueError):        # head dim 32 has no kernel

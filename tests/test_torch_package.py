@@ -70,3 +70,22 @@ def test_kernels_are_built_only_on_demand():
     assert build.library_path("flash_attention").suffix == ".so"
     for name in build.KERNELS:
         assert (build.CSRC / f"{name}.cu").is_file()
+
+
+@pytest.mark.parametrize("name", ["selection", "budget", "merging", "paged",
+                                  "prefix_cache", "tiered"])
+def test_kv_cache_modules_are_ported(name):
+    """Each module of the reference's ``core/kv_cache`` has its port,
+    which imports neither JAX nor the JAX package (the probe above imports
+    it with JAX blocked)."""
+    import ast
+    path = ROOT / "src" / "repro_torch" / "core" / "kv_cache" / f"{name}.py"
+    assert (ROOT / "src" / "repro" / "core" / "kv_cache" / f"{name}.py"
+            ).is_file()
+    mods = set()
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            mods.update(a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            mods.add(node.module)
+    assert not {m for m in mods if m.split(".")[0] in ("jax", "repro")}
