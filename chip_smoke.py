@@ -59,6 +59,19 @@ SERVE_TEXT, SERVE_NEW, SERVE_CACHE_LEN = 32, 32, 1104
 KV_MIX = ("streaming-kv-256", "l2-kv-256", "none", "fastv-0.5",
           "streaming-kv-512", "l2-kv-128", "sparsevlm-0.5", "tome-0.5")
 KV_CACHE_LEN, KV_BUDGET = 1152, 256
+# speculative decoding: draft tokens per round, and the verify's query
+# tokens per request (the committed token + gamma drafts)
+GAMMA = 4
+VERIFY_S = GAMMA + 1
+#: The speculative decoder's draft pool: ``SpeculativeDecoder._bind`` sizes
+#: it at cache_len + gamma + 8 rows, so ``_paged_view`` pages it by 4 tokens;
+#: its last row is the draft's scratch slot.
+DRAFT_CACHE_LEN, DRAFT_PAGE = SERVE_CACHE_LEN + GAMMA + 8, 4
+#: The multi-query mode's limit on err / max|ref| per edge (besides TOL):
+#: in bf16 one ulp of the largest output is 2^-7 = 7.8e-3 of it. A verify
+#: that drops each query's own key (t < q_pos for t <= q_pos) moves the
+#: serve-shaped outputs by 0.07-0.56 of their scale, so the limit sees it.
+REL_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
 
 
 def emit(phase: str, **fields) -> None:
@@ -1006,6 +1019,191 @@ def phase_paged_masked(flush) -> None:
          compacted_bf16=row)
 
 
+def _mq_case(rng, dtype, *, s, starts, h=12, kvh=2, d=128, page=16,
+             length=SERVE_CACHE_LEN, permute=False):
+    """Multi-query (verify) inputs over a ``length``-slot cache, one row
+    per start: ((q [B,S,H,D], k/v pages, table, seq_lens), q_pos [B,S],
+    (k, v) as the dense cache). Physical page table[j] holds logical page
+    j; a start of length - 1 is an inactive row routed to the scratch
+    slot (its queries past the cache read every row)."""
+    starts = np.asarray(starts)
+    b = len(starts)
+    pps = length // page
+    q = randn(rng, (b, s, h, d), dtype)
+    k = randn(rng, (b, length, kvh, d), dtype)
+    v = randn(rng, (b, length, kvh, d), dtype)
+    order = rng.permutation(b * pps) if permute else np.arange(b * pps)
+    table = torch.from_numpy(order.reshape(b, pps).astype(np.int32)).cuda()
+    pages = []
+    for x in (k, v):
+        y = torch.empty((b * pps, page, kvh, d), dtype=dtype, device="cuda")
+        y[table.flatten().long()] = x.reshape(b * pps, page, kvh, d)
+        pages.append(y)
+    q_pos = torch.from_numpy((starts[:, None] + np.arange(s)).astype(np.int32)
+                             ).cuda()
+    seq = torch.from_numpy(np.minimum(starts + s, length).astype(np.int32)
+                           ).cuda()
+    return (q, pages[0], pages[1], table, seq), q_pos, (k, v)
+
+
+def phase_paged_verify(flush) -> dict:
+    """The paged kernel's multi-query mode (the per-row-start verify and
+    the draft's 2-token lead; tensor cores for bf16 with S >= 2) against
+    its plain version in float32 and bf16 on every edge: the serve's
+    batch-8 verify (S = 5 over the SERVE_CACHE_LEN cache, rows at
+    1056-1083), a permuted table, inactive rows routed to the scratch
+    slot, blocks across 32-token split boundaries, S = 1, 2 and 8, G = 8
+    at D = 64 (64 rows a CTA), pages of 5 tokens, and the draft pool
+    (DRAFT_CACHE_LEN rows in 4-token pages): its 2-token lead at the
+    serve's text positions with two rows at the scratch slot, and its
+    one-query decode steps at batch 8. Each edge is held to TOL and to
+    REL_TOL of its reference's largest value; on the serve-shaped edges
+    the plain version with each query's own key dropped must miss
+    REL_TOL by 4x. S = 1 must give the one-query kernel's bits; S = 9,
+    bad q_pos and q_pos with k_pos or a window are refused. Then the
+    batch-8 verify timed (bf16, identity table) beside its bound, the
+    one-query kernel at the same seq_lens, S one-query launches (seq_lens
+    = start + i + 1) and SDPA over the slot cache with the boolean causal
+    mask."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import paged_attention as pa
+    rng = np.random.default_rng(11)
+    L = SERVE_CACHE_LEN
+    serve = 1056 + rng.integers(0, SERVE_NEW - VERIFY_S, 8)
+    # the draft's lead starts at text positions t_len - 1 (prompt of
+    # SERVE_TEXT, up to SERVE_NEW emitted); inactive rows at d_scr - 1
+    text = SERVE_TEXT - 1 + rng.integers(0, SERVE_NEW, 8)
+    lead = np.concatenate([text[:6], [DRAFT_CACHE_LEN - 2] * 2])
+    pool = dict(page=DRAFT_PAGE, length=DRAFT_CACHE_LEN)
+    edges = {
+        "serve_b8": dict(s=VERIFY_S, starts=serve),
+        "serve_b8_permuted": dict(s=VERIFY_S, starts=serve, permute=True),
+        "scratch_rows": dict(s=VERIFY_S, starts=[1060, L - 1, 40, L - 1,
+                                                 L - 2 - VERIFY_S, 0]),
+        "split_boundaries": dict(s=VERIFY_S, starts=[29, 30, 31, 62, 63, 95,
+                                                     127, 1], permute=True),
+        "s1": dict(s=1, starts=serve),
+        "s2_lead": dict(s=2, starts=serve - 1000),
+        "s8": dict(s=8, starts=[0, 25, 500, L - 1, L - 9, 1070]),
+        "g8_d64_s8": dict(s=8, starts=[3, 300, L - 1, 700], h=16, d=64),
+        "page5": dict(s=VERIFY_S, starts=[0, 33, 500, 1090, L - 1],
+                      page=5, length=1100, permute=True),
+        "draft_pool_lead": dict(s=2, starts=lead, **pool),
+        "draft_pool_lead_permuted": dict(s=2, starts=lead, permute=True,
+                                         **pool),
+    }
+    sensed = ("serve_b8", "serve_b8_permuted", "s2_lead", "draft_pool_lead",
+              "draft_pool_lead_permuted")
+    # the draft's decode steps: one query at text position t_len + 1 (the
+    # lead's second token's successor), inactive rows at d_scr
+    steps = np.concatenate([text[:6] + 2, [DRAFT_CACHE_LEN - 1] * 2])
+    errs, rel, sense = {}, {}, {}
+    for dtype in (torch.float32, torch.bfloat16):
+        dt = str(dtype)[6:]
+        for name, kw in edges.items():
+            args, qp, _ = _mq_case(rng, dtype, **kw)
+            got = pa.paged_attention(*args, q_pos=qp)
+            torch.cuda.synchronize()
+            want = pa.paged_attention_plain(*args, q_pos=qp)
+            scale = float(want.float().abs().max())
+            e = errs[f"{name}/{dt}"] = max_err(got, want)
+            r = rel[f"{name}/{dt}"] = e / scale
+            check(e <= TOL[dtype] and r <= REL_TOL[dtype],
+                  f"paged verify {name} {dtype}: err {e}, {r} of max|ref|")
+            if name in sensed:
+                wrong = pa.paged_attention_plain(*args, q_pos=qp - 1)
+                d = sense[f"{name}/{dt}"] = max_err(wrong, want) / scale
+                check(d > 4 * REL_TOL[dtype], f"paged verify {name} {dtype}:"
+                      f" a dropped causal key moves it only {d} of max|ref|")
+            if name == "s1":
+                one = pa.paged_attention(args[0][:, 0].contiguous(),
+                                         *args[1:])
+                check(torch.equal(got[:, 0], one),
+                      f"paged verify S=1 {dtype} != the one-query kernel")
+        for perm in (False, True):   # the draft's one-query decode steps
+            name = "draft_pool_decode" + ("_permuted" if perm else "")
+            args, _, _ = _mq_case(rng, dtype, s=1, starts=steps,
+                                  permute=perm, **pool)
+            q1 = (args[0][:, 0].contiguous(),) + args[1:]
+            got = pa.paged_attention(*q1)
+            torch.cuda.synchronize()
+            want = pa.paged_attention_plain(*q1)
+            e = errs[f"{name}/{dt}"] = max_err(got, want)
+            r = rel[f"{name}/{dt}"] = e / float(want.float().abs().max())
+            check(e <= TOL[dtype] and r <= REL_TOL[dtype],
+                  f"paged draft decode {name} {dtype}: err {e}, {r} of "
+                  "max|ref|")
+    refused = {}
+    args, qp, _ = _mq_case(rng, torch.bfloat16, s=VERIFY_S, starts=serve)
+    q9 = torch.zeros((8, 9) + args[0].shape[2:], dtype=torch.bfloat16,
+                     device="cuda")
+    bad = {"s9": ((q9,) + args[1:], dict(q_pos=torch.zeros(
+               (8, 9), dtype=torch.int32, device="cuda"))),
+           "q_pos_int64": (args, dict(q_pos=qp.long())),
+           "q_pos_b": (args, dict(q_pos=qp[:, 0].contiguous())),
+           "with_k_pos": (args, dict(q_pos=qp, k_pos=torch.zeros(
+               args[1].shape[:2], dtype=torch.int32, device="cuda"))),
+           "with_window": (args, dict(q_pos=qp, window=64))}
+    for name, (a, kw) in bad.items():
+        try:
+            pa.paged_attention(*a, **kw)
+            refused[name] = False
+        except ValueError:
+            refused[name] = True
+    check(all(refused.values()), f"paged verify refusals {refused}")
+
+    # timing: the serve's batch-8 verify (bf16, identity table)
+    dtype = torch.bfloat16
+    args, qp, (k, v) = _mq_case(rng, dtype, s=VERIFY_S, starts=serve)
+    q, kp, vp, table, seq = args
+    b, s, h, d = q.shape
+    kvh = kp.shape[2]
+    elt = q.element_size()
+    n_keys = int(torch.minimum(qp + 1, seq[:, None]).sum())
+    nbytes = elt * (2 * q.numel() + 2 * int(seq.sum()) * kvh * d) \
+        + 4 * (table.numel() + b + qp.numel())
+    b_ms, b_by = bound(nbytes, 4 * h * d * n_keys, dtype)
+    q1 = q[:, -1].contiguous()
+    singles = [(q[:, i].contiguous(), (qp[:, i] + 1).contiguous())
+               for i in range(s)]
+
+    def s_launches():
+        for qi, sl in singles:
+            pa.paged_attention(qi, kp, vp, table, sl)
+    rows = torch.arange(SERVE_CACHE_LEN, device="cuda")
+    mask = ((rows[None, None] < seq[:, None, None])
+            & (rows[None, None] <= qp[:, :, None]))[:, None]   # [B,1,S,L]
+    qs, ks, vs = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    row = {"ms": time_ms(lambda: pa.paged_attention(*args, q_pos=qp), flush),
+           "one_query_ms": time_ms(lambda: pa.paged_attention(q1, kp, vp,
+                                                              table, seq),
+                                   flush),
+           "s_launches_ms": time_ms(s_launches, flush),
+           "plain_ms": time_ms(lambda: pa.paged_attention_plain(
+               *args, q_pos=qp), flush),
+           "bound_ms": b_ms, "bound_by": b_by,
+           "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
+               qs, ks, vs, attn_mask=mask, enable_gqa=True), flush),
+           "max_abs_err": errs["serve_b8/bfloat16"]}
+    check(row["ms"] < row["s_launches_ms"],
+          f"the multi-query kernel ({row['ms']} ms) is not faster than "
+          f"{s} one-query launches ({row['s_launches_ms']} ms)")
+    emit("paged_verify", shape=dict(b=b, s=s, h=h, kvh=kvh, d=d,
+                                    cache_len=SERVE_CACHE_LEN, page=16,
+                                    seq_lens=seq.tolist()),
+         draft_pool=dict(cache_len=DRAFT_CACHE_LEN, page=DRAFT_PAGE,
+                         lead_starts=lead.tolist(),
+                         decode_seq_lens=(steps + 1).tolist()),
+         errors=errs, rel_errors=rel, dropped_key_rel=sense,
+         tolerance={"float32": TOL[torch.float32],
+                    "bfloat16": TOL[torch.bfloat16]},
+         rel_tolerance={"float32": REL_TOL[torch.float32],
+                        "bfloat16": REL_TOL[torch.bfloat16]},
+         refused=refused, bytes=nbytes, key_rows=n_keys,
+         verify_bf16=row)
+    return row
+
+
 class EngineProbe:
     """For one phase, wraps three ``Engine`` methods at class level (the
     compacting engine builds its own model, so the model-level CallTimer
@@ -1083,7 +1281,8 @@ def _profile_calls(runs: dict) -> dict:
                      "port_kernels_ms_per_launch": {
                          k: _device_ms(e) / e.count for e in evts
                          for k in ("flash_fwd_kernel", "paged_split_kernel",
-                                   "paged_combine_kernel") if k in e.key},
+                                   "paged_mma_kernel", "paged_combine_kernel")
+                         if k in e.key},
                      "by_kernel": {e.key[:60]: _device_ms(e) / n
                                    for e in evts}}
     return out
@@ -1432,6 +1631,373 @@ def phase_kv_cache_smoke() -> None:
                      "err": e_pool, "allocator_free": alloc.num_free})
 
 
+def _top2_gap(lvlm, prompt, ve, stream) -> float:
+    """The target's top-2 logit gap where it chose ``stream``'s last
+    token: the last position of a prefill of prompt + stream[:-1]."""
+    logits, _ = lvlm.model.prefill(
+        lvlm.params, {"tokens": torch.tensor([list(prompt) + stream[:-1]],
+                                             device="cuda"),
+                      "visual_embeds": torch.from_numpy(ve).cuda()[None]},
+        last_only=True)
+    top = torch.topk(logits[0, -1].float(), 2).values
+    return float(top[0] - top[1])
+
+
+def phase_spec_serve(lvlm) -> dict:
+    """qwen2-vl-2b at full width, bf16, speculative decoding through
+    ``LVLM.serve``: 8 requests of 1024 visual + 32 text tokens, 32 new
+    tokens, gamma 4, temperature 0, max_batch 8, with the target drafting
+    for itself (``draft=None``) and with a 2-layer draft cut from the
+    target's config (same widths and vocab, random weights, seed 1),
+    beside a greedy serve of the same inputs; then one serve mixing
+    greedy, sampling, speculative and early-exit requests per
+    ``Request.decoder`` (temperature 0.7). Checks every request finished,
+    >= 2 slots per round, 28 + draft-depth multi-query launches per round
+    (the verify and the draft's lead), and counts the requests whose
+    tokens equal greedy's, with the top-2 logit gap at each first
+    difference (bf16 verify and decode round differently). Then the hard
+    check in float32: 4 text + visual requests, 16 new tokens,
+    speculative tokens identical to greedy. Profiles a batch-8 verify
+    (S = 5), the draft's lead and decode step and a plain decode step."""
+    from repro_torch.api import EngineConfig, GenerationConfig, LVLM, Request
+    from repro_torch.kernels import paged_attention as pa
+    cfg = lvlm.cfg
+    L, nv = cfg.num_layers, cfg.num_visual_tokens
+    rng = np.random.default_rng(12)
+    prompts = [rng.integers(0, cfg.vocab_size, SERVE_TEXT).tolist()
+               for _ in range(8)]
+    ves = [rng.standard_normal((nv, cfg.d_model)).astype(np.float32)
+           for _ in range(8)]
+
+    def make(decs=(None,) * 8):
+        return [Request(rid=i, tokens=list(p), max_new_tokens=SERVE_NEW,
+                        visual_embeds=ve, decoder=dec)
+                for i, (p, ve, dec) in enumerate(zip(prompts, ves, decs))]
+    spec = GenerationConfig(max_new_tokens=SERVE_NEW, decoder="speculative",
+                            gamma=GAMMA, temperature=0.0)
+    ec = EngineConfig(max_batch=8, cache_len=LVLM._cache_len(make(), spec))
+    check(ec.cache_len == SERVE_CACHE_LEN, f"spec cache_len {ec.cache_len}")
+    n_tok = 8 * SERVE_NEW
+    _reset_counts()
+    t0 = time.perf_counter()
+    greedy = lvlm.serve(make(), ec, GenerationConfig(
+        max_new_tokens=SERVE_NEW, decoder="greedy"))
+    torch.cuda.synchronize()
+    greedy_wall = time.perf_counter() - t0
+    launches = _counts()
+    want = {r.rid: r.generated for r in greedy.requests}
+    draft = LVLM.from_config(cfg.with_(num_layers=2), seed=1)
+    out = {"greedy": {"wall_seconds": greedy_wall,
+                      "wall_ms_per_token": greedy_wall * 1e3 / n_tok,
+                      "launches": dict(launches)}}
+    for name, d, depth in (("self_draft", None, L),
+                           ("draft_2_layers", draft, 2)):
+        _reset_counts()
+        pa.paged_attention.multi_query_launches = 0
+        t0 = time.perf_counter()
+        rep = lvlm.serve(make(), ec, spec, draft=d)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts, mq = _counts(), pa.paged_attention.multi_query_launches
+        launches = {k: launches[k] + counts[k] for k in counts}
+        st = rep.stats
+        check(len(rep.requests) == 8 and all(len(r.generated) == SERVE_NEW
+                                             for r in rep.requests),
+              f"speculative serve ({name}) did not finish every request")
+        check(st["max_slots_per_round"] >= 2,
+              f"{name}: {st['max_slots_per_round']} slots per round")
+        check(mq == (L + depth) * st["spec_rounds"] > 0,
+              f"{name}: {mq} multi-query launches for {st['spec_rounds']} "
+              f"rounds")
+        check(st["proposed"] == GAMMA * st["target_calls"],
+              f"{name}: a round cut its gamma")
+        check(counts["flash_attention"] >= L * 8,
+              f"{name}: flash launches {counts}")
+        diffs = {}
+        for r in rep.requests:
+            g = want[r.rid]
+            k = next((i for i, (a, b) in enumerate(zip(r.generated, g))
+                      if a != b), None)
+            if k is not None:
+                diffs[r.rid] = {"first_difference": k, "target_top2_gap":
+                                _top2_gap(lvlm, prompts[r.rid], ves[r.rid],
+                                          g[:k + 1])}
+        out[name] = {
+            "wall_seconds": wall, "wall_ms_per_token": wall * 1e3 / n_tok,
+            "acceptance": st["acceptance"],
+            "mean_accepted_per_call": st["mean_accepted_per_call"],
+            "max_slots_per_round": st["max_slots_per_round"],
+            "spec_rounds": st["spec_rounds"],
+            "multi_query_launches": mq, "launches": counts,
+            "requests_equal_to_greedy": 8 - len(diffs),
+            "differences": diffs}
+
+    # one serve mixing the four strategies (two requests each)
+    decs = ("greedy", "sampling", "speculative", "early_exit") * 2
+    _reset_counts()
+    pa.paged_attention.multi_query_launches = 0
+    t0 = time.perf_counter()
+    rep = lvlm.serve(make(decs), ec, GenerationConfig(
+        max_new_tokens=SERVE_NEW, decoder="greedy", gamma=GAMMA,
+        temperature=0.7))
+    torch.cuda.synchronize()
+    counts, mq = _counts(), pa.paged_attention.multi_query_launches
+    launches = {k: launches[k] + counts[k] for k in counts}
+    st = rep.stats
+    check(len(rep.requests) == 8 and all(len(r.generated) == SERVE_NEW
+                                         for r in rep.requests)
+          and st["speculative/max_slots_per_round"] >= 2
+          and "early_exit/exit_rate" in st and mq > 0,
+          f"mixed-decoder serve failed: {mq} multi-query launches, "
+          f"{ {k: v for k, v in st.items() if '/' in k} }")
+    out["mixed"] = {"wall_seconds": time.perf_counter() - t0,
+                    "decoders": list(decs), "launches": counts,
+                    "multi_query_launches": mq,
+                    "decode_cost_by_group": st["decode_cost_by_group"],
+                    "speculative/acceptance": st["speculative/acceptance"],
+                    "early_exit/layers_used_mean":
+                        st["early_exit/layers_used_mean"]}
+
+    # device busy: a batch-8 verify, the draft's steps, a decode step
+    model, params = lvlm.model, lvlm.params
+    cls = type(model)                 # bypass the CallTimer wrappers
+    pool = model.init_cache(8, SERVE_CACHE_LEN, device="cuda")
+    d_pool = draft.model.init_cache(8, SERVE_CACHE_LEN + GAMMA + 8,
+                                    device="cuda")
+    starts = torch.from_numpy(1056 + rng.integers(0, 27, 8)).cuda()
+    blk = torch.zeros((8, VERIFY_S), dtype=torch.long, device="cuda")
+    prof = _profile_calls({
+        "verify_extend_b8_s5": (lambda: cls.extend(
+            model, params, pool, blk, starts), 5),
+        "self_draft_lead_extend_b8_s2": (lambda: cls.extend(
+            model, params, pool, blk[:, :2], starts - 1), 5),
+        "decode_step_b8": (lambda: cls.decode_step(
+            model, params, pool, blk[:, :1], starts), 5),
+        "draft2_lead_extend_b8_s2": (lambda: draft.model.extend(
+            draft.params, d_pool, blk[:, :2], starts - 1025), 5),
+        "draft2_decode_step_b8": (lambda: draft.model.decode_step(
+            draft.params, d_pool, blk[:, :1], starts - 1023), 5)})
+    for row in prof.values():
+        row.pop("by_kernel")
+    del draft, pool, d_pool
+
+    # the hard check: float32 at full width, speculative == greedy
+    f32 = LVLM.from_pretrained("qwen2-vl-2b", seed=0, dtype="float32")
+    f_prompts = [rng.integers(0, cfg.vocab_size, SERVE_TEXT).tolist()
+                 for _ in range(4)]
+    f_ves = [rng.standard_normal((nv, cfg.d_model)).astype(np.float32)
+             for _ in range(4)]
+    _reset_counts()
+    pa.paged_attention.multi_query_launches = 0
+    f_spec = f32.generate(f_prompts, GenerationConfig(
+        max_new_tokens=16, decoder="speculative", gamma=GAMMA,
+        temperature=0.0), visual_embeds=f_ves)
+    f_mq = pa.paged_attention.multi_query_launches
+    f_counts = _counts()
+    f_greedy = f32.generate(f_prompts, GenerationConfig(
+        max_new_tokens=16, decoder="greedy"), visual_embeds=f_ves)
+    torch.cuda.synchronize()
+    same32 = [a.tokens == b.tokens for a, b in zip(f_spec, f_greedy)]
+    check(all(same32) and f_mq > 0,
+          f"float32 speculative != greedy at full width: {same32}, "
+          f"{f_mq} multi-query launches")
+    out["float32"] = {"requests_equal_to_greedy": sum(same32),
+                      "acceptance": f_spec[0].stats["acceptance"],
+                      "multi_query_launches": f_mq, "launches": f_counts}
+    del f32, f_spec, f_greedy
+    torch.cuda.empty_cache()
+    emit("spec_serve", config=cfg.name, dtype=cfg.dtype, gamma=GAMMA,
+         cache_len=SERVE_CACHE_LEN, **out, profile=prof)
+    return launches
+
+
+def phase_early_exit_serve(lvlm, timer) -> dict:
+    """qwen2-vl-2b at full width, bf16, early exit through
+    ``LVLM.generate``, one request at a time (max_batch 1, so greedy runs
+    the same shapes): 2 requests of 1024 visual + 32 text tokens and 2 of
+    32 text tokens, 16 new tokens. ``exit_threshold=1.1`` never fires
+    (tokens equal greedy's, 28 layers for every token);
+    ``exit_threshold=0.0, exit_patience=0, exit_min_layers=1`` exits at
+    layer 1 and back-fills 27 layers through the paged kernel. Prints
+    wall ms per decoded token of each beside greedy's, and the device
+    busy of one never-firing step beside a plain batch-1 decode step."""
+    from repro_torch.api import GenerationConfig
+    from repro_torch.core.decoding.early_exit import early_exit_decode_step
+    cfg = lvlm.cfg
+    L, nv = cfg.num_layers, cfg.num_visual_tokens
+    rng = np.random.default_rng(13)
+    prompts = [rng.integers(0, cfg.vocab_size, SERVE_TEXT).tolist()
+               for _ in range(4)]
+    ves = [rng.standard_normal((nv, cfg.d_model)).astype(np.float32), None,
+           rng.standard_normal((nv, cfg.d_model)).astype(np.float32), None]
+    n_new = 16
+    runs = {"greedy": dict(decoder="greedy"),
+            "never_fires": dict(decoder="early_exit", exit_threshold=1.1),
+            "exits_at_layer_1": dict(decoder="early_exit",
+                                     exit_threshold=0.0, exit_patience=0,
+                                     exit_min_layers=1)}
+    out, toks, launches = {}, {}, None
+    for name, kw in runs.items():
+        _reset_counts()
+        timer.reset()
+        wall, res = 0.0, []
+        for p, ve in zip(prompts, ves):
+            t0 = time.perf_counter()
+            res.append(lvlm.generate(p, GenerationConfig(
+                max_new_tokens=n_new, temperature=0.0, **kw),
+                visual_embeds=ve))
+            torch.cuda.synchronize()
+            wall += time.perf_counter() - t0
+        counts = _counts()
+        launches = counts if launches is None else {
+            k: launches[k] + counts[k] for k in counts}
+        toks[name] = [r.tokens for r in res]
+        decoded = sum(len(r.tokens) - 1 for r in res)
+        decode_s = wall - timer.seconds["prefill"]
+        out[name] = {"wall_seconds": wall,
+                     "decode_ms_per_token": decode_s * 1e3 / decoded,
+                     "launches": counts}
+        check(all(len(t) == n_new for t in toks[name]),
+              f"early exit {name}: short outputs")
+        check(counts["paged_attention"] >= L * decoded,
+              f"early exit {name}: paged launches {counts} for {decoded} "
+              "decoded tokens")
+        if name != "greedy":
+            used = [u for r in res for u in r.stats["layers_used"]]
+            out[name]["layers_used"] = sorted(set(used))
+            out[name]["exit_rate"] = float(np.mean(
+                [r.stats["exit_rate"] for r in res]))
+    check(toks["never_fires"] == toks["greedy"]
+          and out["never_fires"]["layers_used"] == [L]
+          and out["never_fires"]["exit_rate"] == 0.0,
+          f"exit_threshold=1.1 fired or left greedy: {out['never_fires']}")
+    check(out["exits_at_layer_1"]["layers_used"] == [1]
+          and out["exits_at_layer_1"]["exit_rate"] == 1.0,
+          f"exit_threshold=0.0 did not exit at layer 1: "
+          f"{out['exits_at_layer_1']}")
+    # device busy of one step: never firing (28 layers + 27 logit lenses)
+    # and exiting at layer 1 (+ 27 back-filled layers) beside a decode step
+    model, params = lvlm.model, lvlm.params
+    cls = type(model)
+    pool = model.init_cache(1, SERVE_CACHE_LEN, device="cuda")
+    tok = torch.zeros((1, 1), dtype=torch.long, device="cuda")
+    pos = torch.tensor([1060], device="cuda")
+    prof = _profile_calls({
+        "early_exit_step_never_fires": (lambda: early_exit_decode_step(
+            model, params, pool, tok, pos, threshold=1.1), 5),
+        "early_exit_step_exits_at_1": (lambda: early_exit_decode_step(
+            model, params, pool, tok, pos, threshold=0.0, patience=0,
+            min_layers=1), 5),
+        "decode_step_b1": (lambda: cls.decode_step(model, params, pool, tok,
+                                                   pos), 5)})
+    for row in prof.values():
+        row.pop("by_kernel")
+    emit("early_exit_serve", config=cfg.name, dtype=cfg.dtype,
+         new_tokens=n_new, **out, profile=prof)
+    return launches
+
+
+def phase_decoding_smoke() -> None:
+    """qwen2-vl smoke in float32, the port on the card against the port on
+    the CPU: ``speculative_generate`` with a 1-layer draft (tokens and
+    every SpecStats field), self-draft acceptance exactly 1.0 on a
+    text-only prompt whose rounds tile (1 + 2 * (gamma + 1) tokens),
+    LANTERN at temperature 0 (k 256, delta 0.6), a serve mixing the four
+    strategies (visual and text requests, continuous and chunked), and
+    ``early_exit_decode_step`` logits and depth at thresholds 1.1 and 0."""
+    from repro_torch.api import EngineConfig, GenerationConfig, LVLM, Request
+    from repro_torch.core.decoding import speculative as sp
+    from repro_torch.core.decoding.early_exit import early_exit_decode_step
+    from repro_torch.kernels import paged_attention as pa
+    cpu = LVLM.from_pretrained("qwen2-vl-2b", smoke=True, seed=0,
+                               device="cpu")
+    card = cpu.with_params(_tree_to(cpu.params, "cuda"))
+    dcpu = LVLM.from_config(cpu.cfg.with_(num_layers=1), seed=1,
+                            device="cpu")
+    dcard = dcpu.with_params(_tree_to(dcpu.params, "cuda"))
+    cfg = cpu.cfg
+    rng = np.random.default_rng(14)
+    prompt = rng.integers(1, cfg.vocab_size, 12).tolist()
+    g = 3
+    out = {}
+    _reset_counts()
+    pa.paged_attention.multi_query_launches = 0
+
+    def both(self_draft=False, **kw):
+        res = []
+        for t, d in ((cpu, dcpu), (card, dcard)):
+            dd = t if self_draft else d
+            res.append(sp.speculative_generate(
+                t.model, dd.model, t.params, dd.params, prompt, gamma=g,
+                temperature=0.0, **kw))
+        (tc, sc), (tg, sg) = res
+        return tc == tg and sc == sg, sg
+    same, _ = both(max_new_tokens=10)
+    out["speculative_generate_equal"] = same
+    same_self, st_self = both(max_new_tokens=1 + 2 * (g + 1),
+                              self_draft=True)
+    out["self_draft_acceptance"] = sp.acceptance_rate(st_self)
+    same_l, st_l = both(max_new_tokens=10, lantern_k=256,
+                        lantern_delta=0.6)
+    out["lantern_equal"] = same_l
+    out["lantern_accepted"] = st_l.accepted
+    check(same and same_self and same_l
+          and out["self_draft_acceptance"] == 1.0,
+          f"speculative_generate card != CPU: {out}")
+    ps = [rng.integers(1, cfg.vocab_size, n).tolist() for n in (9, 12, 7, 14,
+                                                                10, 8)]
+    ves = [rng.standard_normal((cfg.num_visual_tokens, cfg.d_model)
+                               ).astype(np.float32) * 0.02 if i % 2 else None
+           for i in range(6)]
+    decs = ("speculative", "greedy", "early_exit", "speculative",
+            "sampling", None)
+
+    def reqs():
+        return [Request(rid=i, tokens=list(p), max_new_tokens=8,
+                        visual_embeds=ve, decoder=dec, arrival=0.002 * i)
+                for i, (p, ve, dec) in enumerate(zip(ps, ves, decs))]
+    gen = GenerationConfig(max_new_tokens=8, decoder="greedy", gamma=g,
+                           temperature=0.0)
+    for sched in ("continuous", "chunked"):
+        ec = EngineConfig(max_batch=4, cache_len=64, scheduler=sched,
+                          chunk_size=8, token_budget=24)
+        sc = cpu.serve(reqs(), ec, gen, draft=dcpu)
+        sg = card.serve(reqs(), ec, gen, draft=dcard)
+        same = ({r.rid: r.generated for r in sc.requests}
+                == {r.rid: r.generated for r in sg.requests})
+        same_stats = all(sc.stats[k] == sg.stats[k] for k in sc.stats
+                         if "/" in k or k.endswith("_mean"))
+        out[f"mixed_serve_{sched}"] = {"tokens_equal": same,
+                                       "stats_equal": same_stats}
+        check(same and same_stats and len(sg.requests) == 6,
+              f"mixed-decoder smoke card != CPU under {sched}")
+    for name, kw in (("never_fires", dict(threshold=1.1)),
+                     ("exits_at_1", dict(threshold=0.0, patience=0,
+                                         min_layers=1))):
+        toks = torch.tensor([prompt])
+        res = []
+        for t in (cpu, card):
+            _, cache = t.model.prefill(t.params, {"tokens": toks.to(
+                t.device)}, cache_len=32)
+            logits, cache, info = early_exit_decode_step(
+                t.model, t.params, cache, toks[:, -1:].to(t.device), 12,
+                **kw)
+            res.append((logits.cpu(), cache["layers"]["k"][:, :, 12].cpu(),
+                        info))
+        e = max_err(res[1][0], res[0][0])
+        e_cache = max_err(res[1][1], res[0][1])
+        out[f"early_exit_{name}"] = {"logit_err": e, "cache_err": e_cache,
+                                     "info": res[1][2]}
+        check(e <= SMOKE_LOGIT_TOL and e_cache <= SMOKE_LOGIT_TOL
+              and res[0][2] == res[1][2],
+              f"early exit {name} card != CPU: {out[f'early_exit_{name}']}")
+    out["launches"] = _counts()
+    out["multi_query_launches"] = pa.paged_attention.multi_query_launches
+    check(out["multi_query_launches"] > 0 and all(out["launches"].values()),
+          f"decoding smoke launches {out['launches']}")
+    emit("decoding_smoke", config=cfg.name, tolerance=SMOKE_LOGIT_TOL, **out)
+
+
 def _device_ms(evt) -> float:
     return getattr(evt, "self_device_time_total",
                    getattr(evt, "self_cuda_time_total", 0.0)) / 1e3
@@ -1501,22 +2067,30 @@ def main() -> int:
     phase_compression_smoke()
     flush = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device="cuda")
     phase_paged_masked(flush)
+    verify = phase_paged_verify(flush)
     del flush
     kv_launches = phase_kv_compaction_serve(full[0])
     prefix_launches = phase_prefix_cache_serve(full[0])
     phase_kv_cache_smoke()
+    spec_launches = phase_spec_serve(full[0])
+    ee_launches = phase_early_exit_serve(full[0], timer)
+    phase_decoding_smoke()
     phase_profile(*full)
     launches = {k: launches[k] + comp_launches[k] + kv_launches[k]
-                + prefix_launches[k] for k in launches}
+                + prefix_launches[k] + spec_launches[k] + ee_launches[k]
+                for k in launches}
     for name, n in launches.items():
         check(n > 0, f"kernel {name} was not launched on the main path")
         kernels[name]["launches"] = n
+    kernels["paged_attention"]["multi_query"] = verify
     emit("done", seconds=time.perf_counter() - t_start)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(env["smi"])
-    print(json.dumps({"kernels": [{k: kv[k] for k in keys}
-                                  for kv in kernels.values()]}))
+    print(json.dumps({"kernels": [
+        {k: kv[k] for k in keys + (("multi_query",) if "multi_query" in kv
+                                   else ())}
+        for kv in kernels.values()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": env["name"],
         "count": torch.cuda.device_count()}}))

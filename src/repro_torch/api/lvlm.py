@@ -10,7 +10,11 @@ Port of ``repro.api.lvlm`` for this slice:
         ...
     report = lvlm.serve(requests, EngineConfig(scheduler="chunked"))
 
-Visual-token compression is a named default strategy
+Every decode strategy (greedy, sampling, speculative, early_exit) runs
+through the same engine and decoder hook; ``GenerationConfig(decoder=)``
+names the default, ``Request.decoder`` overrides it per request, and
+``draft=`` (an ``LVLM``) is the speculative draft model (None: the target
+drafts for itself). Visual-token compression is a named default strategy
 (``GenerationConfig(compression="fastv-0.5")``) that any request may
 override (``Request.compression``); ``compressors=`` registers extra
 named strategies with the engine.
@@ -28,6 +32,7 @@ import numpy as np
 import torch
 
 from repro_torch.api.compressors import make_compressor
+from repro_torch.api.decoders import make_decoder
 from repro_torch.api.generation import DECODER_NAMES, GenerationConfig
 from repro_torch.configs import get_config
 from repro_torch.configs.base import ModelConfig
@@ -123,8 +128,23 @@ class LVLM:
         return LVLM(self.model, params)
 
     # ----------------------------------------------------------- engine --
+    def _strategy_decoders(self, gen: GenerationConfig,
+                           draft: Optional["LVLM"]) -> Dict:
+        """Named decoder instances parameterized by ``gen``, registered
+        with the engine so per-request strategies (``Request.decoder``)
+        use the caller's gamma/LANTERN/exit knobs and draft model.
+        Validation is lazy: an entry only errors if a request selects
+        it."""
+        return {
+            "speculative": make_decoder(
+                "speculative", gen,
+                draft=None if draft is None else draft.model,
+                d_params=None if draft is None else draft.params),
+            "early_exit": make_decoder("early_exit", gen),
+        }
+
     def _build_engine(self, gen: GenerationConfig, *, max_batch: int,
-                      cache_len: int,
+                      cache_len: int, draft: Optional["LVLM"] = None,
                       engine_cfg: Optional[EngineConfig] = None,
                       compressors: Optional[Dict] = None) -> Engine:
         if engine_cfg is None:
@@ -141,8 +161,10 @@ class LVLM:
             top_k=gen.top_k, top_p=gen.top_p,
             eos_id=gen.eos_id, seed=gen.seed,
             decoder=gen.decoder)
+        decoders = self._strategy_decoders(gen, draft)
         # analysis: allow L003 (this is the port's facade: it owns engine construction)
         return Engine(self.model, self.params, engine_cfg,
+                      decoder=decoders.get(gen.decoder), decoders=decoders,
                       compressor=make_compressor(gen.compression),
                       compressors=compressors)
 
@@ -165,12 +187,13 @@ class LVLM:
     def _cache_len(reqs: List[Request], gen: GenerationConfig) -> int:
         if not reqs:
             raise ValueError("generate() needs at least one prompt")
-        need = max(r.prompt_len + r.max_new_tokens for r in reqs) + 2
+        margin = 2 + (gen.gamma if gen.decoder == "speculative" else 0)
+        need = max(r.prompt_len + r.max_new_tokens for r in reqs) + margin
         return -(-need // 16) * 16                 # round up to x16
 
     # --------------------------------------------------------- generate --
     def generate(self, prompts, gen: Optional[GenerationConfig] = None, *,
-                 visual_embeds=None,
+                 visual_embeds=None, draft: Optional["LVLM"] = None,
                  engine_cfg: Optional[EngineConfig] = None,
                  compressors: Optional[Dict] = None
                  ) -> Union[GenerationResult, List[GenerationResult]]:
@@ -179,9 +202,10 @@ class LVLM:
         ``prompts``: one token-id sequence or a list of them (a single
         prompt returns a single ``GenerationResult``). ``visual_embeds``:
         one [Nv, d] array (single prompt) or a list parallel to ``prompts``.
-        ``compressors``: extra named compression strategies registered
-        with the engine (preset/parametric names resolve without
-        registration).
+        ``draft``: an ``LVLM`` used as the speculative draft model (None ->
+        self-draft). ``compressors``: extra named compression strategies
+        registered with the engine (preset/parametric names resolve
+        without registration).
         """
         gen = gen if gen is not None else GenerationConfig()
         single = _is_single_prompt(prompts)
@@ -190,8 +214,8 @@ class LVLM:
         reqs = self._requests(prompts, gen, visual_embeds)
         eng = self._build_engine(
             gen, max_batch=min(8, max(1, len(reqs))),
-            cache_len=self._cache_len(reqs, gen), engine_cfg=engine_cfg,
-            compressors=compressors)
+            cache_len=self._cache_len(reqs, gen), draft=draft,
+            engine_cfg=engine_cfg, compressors=compressors)
         for r in reqs:
             eng.submit(r)
         stats = dict(eng.run(), **eng.decoder_stats())
@@ -204,14 +228,17 @@ class LVLM:
 
     def generate_stream(self, prompt: Prompt,
                         gen: Optional[GenerationConfig] = None, *,
-                        visual_embeds=None) -> Iterator[int]:
-        """Per-token iterator over one prompt's continuation."""
+                        visual_embeds=None, draft: Optional["LVLM"] = None
+                        ) -> Iterator[int]:
+        """Per-token iterator over one prompt's continuation (any decoder;
+        a speculative round surfaces several tokens at once)."""
         gen = gen if gen is not None else GenerationConfig()
         reqs = self._requests([prompt], gen,
                               None if visual_embeds is None
                               else [np.asarray(visual_embeds)])
         eng = self._build_engine(gen, max_batch=1,
-                                 cache_len=self._cache_len(reqs, gen))
+                                 cache_len=self._cache_len(reqs, gen),
+                                 draft=draft)
         req = reqs[0]
         eng.submit(req)
         served = 0
@@ -227,13 +254,17 @@ class LVLM:
     def serve(self, requests: List[Request],
               engine_cfg: Optional[EngineConfig] = None,
               gen: Optional[GenerationConfig] = None,
+              draft: Optional["LVLM"] = None,
               compressors: Optional[Dict] = None) -> ServeResult:
         """Full serving run: scheduler + batching + virtual-clock metrics.
 
         ``engine_cfg`` keeps its serving knobs (scheduler, batch, cache);
-        ``gen`` optionally selects the default decoder, its sampling knobs
-        and the default compression preset on top. A request may name its
-        own decoder (``Request.decoder``) and compression strategy
+        ``gen`` optionally selects the default decoder, its sampling,
+        speculative and early-exit knobs and the default compression
+        preset on top; ``draft`` is the speculative draft model of every
+        speculative request (None -> self-draft). A request may name its
+        own decoder (``Request.decoder``; a mixed run's decoder stats are
+        prefixed, ``"speculative/acceptance"``) and compression strategy
         (``Request.compression``: any preset/parametric name or a key of
         ``compressors``); KV accounting uses each request's
         post-compression token count. Stats include the virtual-clock
@@ -241,14 +272,20 @@ class LVLM:
         per-strategy prefill token reduction (``compression/<name>/...``).
         """
         ec = engine_cfg if engine_cfg is not None else EngineConfig()
+        g = gen if gen is not None else GenerationConfig(
+            decoder=ec.decoder if ec.decoder in DECODER_NAMES else "sampling",
+            temperature=ec.temperature, top_k=ec.top_k, top_p=ec.top_p,
+            eos_id=ec.eos_id)
         if gen is not None:
             ec = dataclasses.replace(
                 ec, decoder=gen.decoder, temperature=gen.temperature,
                 top_k=gen.top_k, top_p=gen.top_p, eos_id=gen.eos_id)
         elif ec.decoder not in DECODER_NAMES:
             ec = dataclasses.replace(ec, decoder="sampling")
+        decoders = self._strategy_decoders(g, draft)
         # analysis: allow L003 (this is the port's facade: it owns engine construction)
         eng = Engine(self.model, self.params, ec,
+                     decoder=decoders.get(ec.decoder), decoders=decoders,
                      compressor=make_compressor(
                          gen.compression if gen is not None else None),
                      compressors=compressors)

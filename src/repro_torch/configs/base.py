@@ -85,6 +85,25 @@ class ModelConfig:
         if self.num_experts and self.moe_d_ff == 0:
             object.__setattr__(self, "moe_d_ff", self.d_ff)
 
+    def param_count(self) -> int:
+        """Exact parameter count from the built model's spec tree."""
+        from repro_torch.models.registry import build
+
+        def _walk(node) -> int:
+            if isinstance(node, dict):
+                return sum(_walk(v) for v in node.values())
+            n = 1
+            for s in node.shape:
+                n *= s
+            return n
+        return _walk(build(self).param_specs())
+
+    def active_param_count(self) -> int:
+        """Activated params per token: all of them for the dense and vlm
+        families the port builds (the reference discounts inactive MoE
+        experts; MoE is not ported)."""
+        return self.param_count()
+
     def with_(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
 

@@ -1,5 +1,5 @@
 # analysis: allow R001 (slice 1 ports no KV migration, so there is no complete_export to release)
-"""The LVLM serving engine of the port (the main path plus dims 1 and 2).
+"""The LVLM serving engine of the port (the main path plus dims 1, 2, 4).
 
 Port of ``repro.core.serving.engine``: one ``Engine`` drives the model over
 a dense slot pool (the preallocated [layers, max_batch, cache_len, K, D]
@@ -8,6 +8,13 @@ chunked, the last running real ``model.extend`` chunk continuation), with
 a virtual clock advanced by the analytic ``CostModel``, so TTFT/TPOT/JCT
 are the reference's numbers exactly. Decoding runs behind the reference's
 decoder hook (``engine_decode``); the default is ``SamplingEngineDecoder``.
+Every request may name its own strategy (``Request.decoder``: greedy,
+sampling, speculative, early_exit; dim 4): the engine keeps a decoder
+registry (``Engine(decoder=, decoders=)``, strategies validated on first
+use), groups the decode-phase slots by strategy each iteration and charges
+each group its own virtual-clock cost (``_iter_decode_cost``). A
+speculative slot reserves its ``gamma`` lookahead at submit, and its draft
+row is released with the slot (``release_slot``).
 
 Visual-token compression (dim 1) is per request, as in the reference: a
 compressor registry (``Engine(compressor=, compressors=)``), each request
@@ -31,10 +38,10 @@ pool is updated in place, so a view would be overwritten when the slot
 is reused).
 
 Left to later slices (ROADMAP queue A), and refused with
-``NotImplementedError`` when a request or config asks for them: the
-speculative and early-exit decoders (slice 4), KV migration / handoff and
-the cluster-shared prefix tier (slice 6), tracing, profiling and the
-runtime sanitizer (slice 5).
+``NotImplementedError`` when a request or config asks for them: KV
+migration / handoff and the cluster-shared prefix tier (slice 6);
+tracing, profiling and the runtime sanitizer come with slice 5 and have
+no switch here yet.
 
 NOTE: ``repro_torch.api`` (``LVLM``) is the public surface.
 """
@@ -74,7 +81,10 @@ class EngineConfig:
     top_p: float = 0.0                   # 0 = no nucleus warp
     eos_id: int = -1                     # -1 = never stop on eos
     seed: int = 0
-    decoder: str = "sampling"            # default strategy: sampling|greedy
+    decoder: str = "sampling"            # sampling|greedy|speculative|early_exit
+    #   DEFAULT strategy; any request may override it (``Request.decoder``);
+    #   an instance passed as Engine(decoder=) takes precedence, and
+    #   Engine(decoders={name: inst}) registers named strategies
     # (no compression field: the default compression strategy reaches the
     # engine only as Engine(compressor=), which the facade builds)
     prefix_cache: bool = False
@@ -166,7 +176,8 @@ def _slot_set(pool, slot, one):
 
 
 class Engine:
-    def __init__(self, model, params, ec: EngineConfig, *, compressor=None,
+    def __init__(self, model, params, ec: EngineConfig, *, decoder=None,
+                 decoders: Optional[Dict] = None, compressor=None,
                  compressors: Optional[Dict] = None):
         cfg = model.cfg
         self.ec = ec
@@ -232,12 +243,18 @@ class Engine:
         self.prefix_hit_tokens = 0
         self.prefix_total_tokens = 0
 
-        # decoder registry: the configured default plus the strategies
-        # requests name (``Request.decoder``), resolved lazily
-        self.decoder = _make_default_decoder(ec.decoder)
-        self._default_name = self.decoder.name
-        self._decoders: Dict[str, object] = {self._default_name: self.decoder}
+        # decoder registry: the configured default plus named per-request
+        # strategies (``Request.decoder``); unknown names resolve lazily,
+        # each validated on first use (a strategy only errors when a
+        # request actually asks for it)
+        self.decoder = decoder if decoder is not None \
+            else _make_default_decoder(ec.decoder)
+        self._decoders: Dict[str, object] = dict(decoders or {})
+        self._default_name = getattr(self.decoder, "name", ec.decoder)
+        self._decoders[self._default_name] = self.decoder
+        self._validated: set = set()
         self._used_decoders: set = set()
+        self._validate_decoder(self._default_name, self.decoder)
 
         # compressor registry: the default strategy plus named per-request
         # strategies; unknown names resolve lazily through the preset /
@@ -251,6 +268,14 @@ class Engine:
         self._validate_compressor(self._default_comp_name, self.compressor)
 
     # ----------------------------------------------------------- decoders --
+    def _validate_decoder(self, name: str, dec) -> None:
+        if name in self._validated:
+            return
+        validate = getattr(dec, "validate", None)
+        if validate is not None:
+            validate(self)
+        self._validated.add(name)
+
     def _resolve_decoder(self, name: Optional[str]) -> Tuple[str, object]:
         """Per-request strategy resolution: None -> the engine default."""
         if name is None:
@@ -259,6 +284,7 @@ class Engine:
         if dec is None:
             dec = _make_default_decoder(name)
             self._decoders[name] = dec
+        self._validate_decoder(name, dec)
         return name, dec
 
     def decoder_stats(self) -> Dict:
@@ -327,11 +353,15 @@ class Engine:
     # ------------------------------------------------------------- intake --
     def submit(self, req: Request) -> None:
         self._check_served(req)
-        name, _ = self._resolve_decoder(req.decoder)
+        name, dec = self._resolve_decoder(req.decoder)
         self._used_decoders.add(name)
         req._comp_name, _ = self._resolve_compressor(req.compression)
         self._stamp_compressed_nv(req)
-        # (the speculative decoder's KV lookahead arrives with slice 4);
+        # speculative slots verify up to gamma positions past the committed
+        # stream: reserve that slack so block writes stay clear of the
+        # scratch position (and schedulers account it as KV footprint)
+        req.lookahead = max(req.lookahead,
+                            int(getattr(dec, "lookahead_tokens", 0)))
         # capacity is checked against what actually lands in the cache:
         # the POST-compression prompt length
         need = req.kv_prompt_len + req.max_new_tokens + req.lookahead
@@ -356,12 +386,17 @@ class Engine:
 
     def kv_request_tokens(self, req: Request) -> int:
         """Block-rounded KV reservation one request commits the pool to:
-        POST-compression prompt + max_new + decode lookahead (the strategy
-        resolves via the request even before submit, so admission never
-        over-reserves for tokens the pruner will drop)."""
+        POST-compression prompt + max_new + decode lookahead (speculative
+        gamma AND the compression strategy resolve via the request even
+        before submit, so admission never over-reserves for tokens the
+        pruner will drop)."""
+        la = req.lookahead
+        if req.decoder is not None or la == 0:
+            _, dec = self._resolve_decoder(req.decoder)
+            la = max(la, int(getattr(dec, "lookahead_tokens", 0)))
         self._stamp_compressed_nv(req)
         bs = self._kv_block()
-        need = req.kv_prompt_len + req.max_new_tokens + req.lookahead
+        need = req.kv_prompt_len + req.max_new_tokens + la
         return ((need + bs - 1) // bs) * bs
 
     def kv_committed_tokens(self, include_waiting: bool = True) -> int:
@@ -373,13 +408,18 @@ class Engine:
         return sum(self.kv_request_tokens(r) for r in live)
 
     # -------------------------------------------------------- lifecycle --
-    # analysis: allow R001 (the speculative decoder's draft-pool rows come with slice 4: there is no release_slot hook to call yet)
     def _release_request(self, r: Request) -> None:
-        """Free every resource a request holds: its slot in the pool and
-        its prefix-cache pin (draft-pool rows arrive with slice 4)."""
+        """Free every resource a request holds: its slot in the pool, any
+        strategy-held per-slot state (the speculative draft-pool row), and
+        its prefix-cache pin. The gamma lookahead reservation is freed
+        implicitly: capacity accounting only counts live requests."""
         slot = getattr(r, "_slot", None)
         if slot is not None and self.slot_req[slot] is r:
             self.slot_req[slot] = None
+            for dec in self._decoders.values():
+                release = getattr(dec, "release_slot", None)
+                if release is not None:
+                    release(slot)
         key = getattr(r, "_prefix_pin", None)
         if key is not None:
             n = self._prefix_pins.get(key, 0) - 1
@@ -391,9 +431,10 @@ class Engine:
 
     # analysis: allow R001 (tracing is not ported yet, so there is no span to close)
     def abort(self, rid: int) -> bool:
-        """Cancel a request mid-flight: frees its slot and prefix pin; the
-        request is marked ``aborted`` and never reaches ``finished``. Returns False
-        if ``rid`` is unknown or already retired."""
+        """Cancel a request mid-flight: frees its slot, its speculative
+        draft-pool row, the reserved lookahead and its prefix pin; the
+        request is marked ``aborted`` and never reaches ``finished``.
+        Returns False if ``rid`` is unknown or already retired."""
         for pool in (self.waiting, self.running):
             for r in pool:
                 if r.rid == rid and r.state != State.DONE:
@@ -629,7 +670,13 @@ class Engine:
     # ------------------------------------------------------------- decode --
     def _decode_iteration(self, reqs: List[Request]) -> None:
         """One decode iteration through the decoder hooks: slots grouped by
-        strategy, each group charged its virtual-clock cost."""
+        strategy, each group's decoder run once over its whole group (the
+        speculative one verifies all its slots in one extend), and each
+        group charged its true virtual-clock cost: the decoder may report
+        one in ``_iter_decode_cost`` (speculative's block verify plus draft
+        steps, early exit's executed-layer fraction); otherwise the group
+        pays one plain batched decode step. Decoders may emit several
+        tokens per request; an eos inside a block truncates it."""
         groups: Dict[str, List[Request]] = {}
         for r in reqs:
             name, _ = self._resolve_decoder(r.decoder)
@@ -637,12 +684,16 @@ class Engine:
         total_cost = 0.0
         emitted_all: Dict[int, List[int]] = {}
         for name, group in groups.items():
+            self._iter_decode_cost = None
             emitted_all.update(self._decoders[name].engine_decode(self,
                                                                   group))
-            # mean context after the step advanced slot_pos (as the
-            # reference reads it)
-            ctx = float(np.mean([self.slot_pos[r._slot] for r in group]))
-            cost = self.ec.cost.decode_step_time(len(group), ctx)
+            if self._iter_decode_cost is None:
+                # mean context after the step advanced slot_pos (as the
+                # reference reads it)
+                ctx = float(np.mean([self.slot_pos[r._slot] for r in group]))
+                cost = self.ec.cost.decode_step_time(len(group), ctx)
+            else:
+                cost = self._iter_decode_cost
             total_cost += cost
             self.group_costs[name] = self.group_costs.get(name, 0.0) + cost
         self._iter_decode_cost = total_cost

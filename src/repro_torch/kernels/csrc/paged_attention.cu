@@ -70,8 +70,51 @@
 // qwen2-vl-2b's two kv heads (2 x 2 x 128 x 2 bytes): under 1% more bytes
 // read. The masked kernel is its own instantiation (MASKED = true), so
 // the unmasked one compiles as before; the merge kernel is shared.
+//
+// Multi-query mode (the per-row-start extend of the reference's
+// `append_attention`: the batched speculative verify and the draft's
+// 2-token lead). q is [B, S, H, D] with 1 <= S <= 8 query tokens per
+// request, q_pos [B, S] int32 their positions; token t of request b is a
+// key of query i iff t < seq_lens[b] and t <= q_pos[b, i] (simple_sdpa's
+// causal rule with k_pos = arange). A CTA of the split kernel still
+// gathers its chunk of K/V once, and scores all S * G query rows of its kv
+// head against it (row r = i * G + g, query i, head g of the group): at
+// qwen2-vl's G = 6 and a 5-token verify that is 30 rows. In float32 (and
+// for S = 1) the FMA kernel takes them, its rows instantiated up to 32 and
+// 64 (ROWS = the GMAX template argument) beside 4, 8 and 16, with q, P and
+// the running max/sum sized by ROWS; bf16 with S >= 2 runs on tensor cores
+// (below). The causal test is per row (each query its own q_pos), so a
+// masked token scores the -1e30 sentinel, as in the masked mode. The
+// merge runs per output
+// row (b, i, h) of [B * S * H]. Rows past the cache (the engine's
+// inactive slots, routed to start = L - 1 so q_pos >= L - 1) see every
+// read token. At S = 1 with q_pos = seq_len - 1 the rows, scores and
+// merge are the unmasked kernel's, bit for bit. The one-query
+// instantiations are untouched (MODE is a template argument).
+//
+// Tensor cores for the bf16 verify. Scoring 30 rows per CTA with FMAs
+// makes the split kernel issue- and latency-bound (each lane does 8 dot
+// products of 128 and 16 rows of P V per chunk). For bf16 and S >= 2 the
+// split kernel is `paged_mma_kernel` instead: each warp holds the A
+// fragments of one 16-row tile of q (loaded once from device memory) and
+// computes S = q K^T for the chunk's 32 tokens with mma.sync m16n8k16
+// (K's B fragments by ldmatrix from the same swizzled chunk), the online
+// softmax on the accumulator fragments (a row lives in the 4 lanes of a
+// quad), and P V with P re-packed to bf16 A fragments and V's B fragments
+// by ldmatrix.trans. The CTA's 4 warps split the 1, 2 or 4 row tiles
+// (MT) x the output columns; warps sharing a row tile compute the same S.
+// Rows past R are zero q rows, never written. Chunk rows past the split's
+// tokens are zero-filled by the cp.async gather so 0 * V stays finite.
+// P V rounds P to bf16, as the flash kernel does (within the bf16
+// tolerance of the plain version). S = 1 and float32 keep the FMA kernel.
+// With S >= 2 the wrapper gives each CTA 64 tokens (two chunks, the second
+// in flight while the first is scored): half the CTAs and partials of 32,
+// and faster at the verify's batch 8 (chip_smoke.py's paged_verify sweep;
+// PERF.md).
 
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "common.cuh"
 
@@ -81,18 +124,24 @@ constexpr int THREADS = 128;  // 4 warps
 constexpr int WARPS = THREADS / 32;
 constexpr int CHUNK = 32;     // tokens per cp.async stage (one per lane)
 constexpr int MAXG = 16;      // query heads per kv head
+constexpr int MAXS = 8;       // query tokens per request (multi-query mode)
+constexpr int MAXROWS = 64;   // query rows per CTA (multi-query mode)
 
-template <typename T, int D>
+// Modes of the split kernel (a template argument: each its own code).
+enum Mode : int { kPlain = 0, kMasked = 1, kMulti = 2 };
+
+// ROWS: query rows a CTA holds (MAXG for the one-query kernels).
+template <typename T, int D, int ROWS = MAXG>
 struct Layout {
   static constexpr int VEC = 16 / sizeof(T);  // elements per 16-byte piece
   static constexpr int PIECES = D / VEC;      // pieces per row, >= 8
   static constexpr size_t stage = sizeof(T) * CHUNK * D;  // one K or V chunk
-  static constexpr size_t q_off = 0;                      // f32 [MAXG][D]
-  static constexpr size_t k_off = repro::align128(4 * MAXG * D);
+  static constexpr size_t q_off = 0;                      // f32 [ROWS][D]
+  static constexpr size_t k_off = repro::align128(4 * ROWS * D);
   static constexpr size_t v_off = k_off + 2 * stage;
-  static constexpr size_t p_off = v_off + 2 * stage;      // f32 [MAXG][CHUNK]
-  static constexpr size_t c_off = p_off + 4 * MAXG * CHUNK;  // f32 [MAXG]
-  static constexpr size_t kp_off = c_off + 4 * MAXG;  // int [2][CHUNK] k_pos
+  static constexpr size_t p_off = v_off + 2 * stage;      // f32 [ROWS][CHUNK]
+  static constexpr size_t c_off = p_off + 4 * ROWS * CHUNK;  // f32 [ROWS]
+  static constexpr size_t kp_off = c_off + 4 * ROWS;  // int [2][CHUNK] k_pos
   static constexpr size_t bytes = kp_off + 4 * 2 * CHUNK;
   static_assert(PIECES >= 8, "the swizzle permutes 8 pieces");
   static_assert(CHUNK * PIECES % THREADS == 0, "whole pieces per thread");
@@ -135,10 +184,13 @@ __device__ __forceinline__ float2 load2<__nv_bfloat16>(const __nv_bfloat16* p) {
   return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
 }
 
-// GMAX (4, 8 or 16) bounds G = H / KVH, so the per-head loops run no more
-// predicated-off iterations than needed (G = 6 takes GMAX = 8). MASKED
-// takes k_pos (may be null), q_pos and window (the header's masked mode).
-template <typename T, int D, int GMAX, bool MASKED>
+// GMAX (4, 8 or 16; 32 and 64 in multi-query mode) bounds the query rows
+// of a CTA, R = G = H / KVH (S * G in multi-query mode), so the per-row
+// loops run no more predicated-off iterations than needed (G = 6 takes
+// GMAX = 8). kMasked takes k_pos (may be null), q_pos [B] and window (the
+// header's masked mode); kMulti takes S query tokens per request and
+// q_pos [B, S] (its multi-query mode).
+template <typename T, int D, int GMAX, int MODE>
 __global__ void __launch_bounds__(THREADS)
     paged_split_kernel(const T* __restrict__ q, const T* __restrict__ kp,
                        const T* __restrict__ vp,
@@ -147,9 +199,13 @@ __global__ void __launch_bounds__(THREADS)
                        const int* __restrict__ k_pos,
                        const int* __restrict__ q_pos, int window,
                        float* __restrict__ part_acc,
-                       float* __restrict__ part_ml, int H, int KVH, int page,
-                       int pps, int split, float scale) {
-  using L = Layout<T, D>;
+                       float* __restrict__ part_ml, int S, int H, int KVH,
+                       int page, int pps, int split, float scale) {
+  constexpr bool MASKED = MODE == kMasked;
+  constexpr bool MULTI = MODE == kMulti;
+  static_assert(MULTI || GMAX <= MAXG, "one-query rows are heads");
+  static_assert(GMAX <= THREADS, "one thread per row writes empty splits");
+  using L = Layout<T, D, (GMAX > MAXG ? GMAX : MAXG)>;
   extern __shared__ __align__(128) unsigned char smem[];
   float* qs = reinterpret_cast<float*>(smem + L::q_off);
   T* Ks = reinterpret_cast<T*>(smem + L::k_off);
@@ -162,6 +218,12 @@ __global__ void __launch_bounds__(THREADS)
   asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
   const int s = blockIdx.x, kvh = blockIdx.y, b = blockIdx.z;
   const int n_splits = gridDim.x, G = H / KVH;
+  const int R = MULTI ? S * G : G;  // query rows of this CTA
+  // output row of CTA row r: (b, h) of [B, H], or (b, i, h) of [B, S, H]
+  auto out_row = [&](int r) -> size_t {
+    return MULTI ? ((size_t)b * S + r / G) * H + (size_t)kvh * G + r % G
+                 : (size_t)b * H + (size_t)kvh * G + r;
+  };
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int n_tok = pps * page;
   const int j_begin = s * split;
@@ -181,20 +243,25 @@ __global__ void __launch_bounds__(THREADS)
   const int qp = MASKED ? q_pos[b] : 0;
   int pg[PER];
   table_entries(j_begin, pg);
-  const T* qr = q + ((size_t)b * H + (size_t)kvh * G) * D;
-  for (int i = threadIdx.x; i < G * D; i += THREADS)
-    qs[i] = repro::to_float<T>(qr[i]) * scale;
+  if constexpr (MULTI) {
+    for (int i = threadIdx.x; i < R * D; i += THREADS)
+      qs[i] = repro::to_float<T>(q[out_row(i / D) * D + i % D]) * scale;
+  } else {
+    const T* qr = q + ((size_t)b * H + (size_t)kvh * G) * D;
+    for (int i = threadIdx.x; i < G * D; i += THREADS)
+      qs[i] = repro::to_float<T>(qr[i]) * scale;
+  }
 
   const int n_read = seq > 0 ? min(seq, n_tok) : n_tok;
   const int j_end = min(j_begin + split, n_read);
-  // partial of query head g of this split: row (b * H + kvh * G + g) of
-  // [B * H, n_splits]
-  const size_t prow = ((size_t)b * H + (size_t)kvh * G) * n_splits + s;
+  // partial of CTA row r of this split: row out_row(r) of
+  // [B * H (* S), n_splits]
+  auto prow = [&](int r) -> size_t { return out_row(r) * n_splits + s; };
 
   if (j_begin >= j_end) {  // the split holds none of the request's tokens
-    if (threadIdx.x < G) {
-      part_ml[2 * (prow + (size_t)threadIdx.x * n_splits)] = -INFINITY;
-      part_ml[2 * (prow + (size_t)threadIdx.x * n_splits) + 1] = 0.0f;
+    if (threadIdx.x < R) {
+      part_ml[2 * prow(threadIdx.x)] = -INFINITY;
+      part_ml[2 * prow(threadIdx.x) + 1] = 0.0f;
     }
     return;
   }
@@ -233,13 +300,18 @@ __global__ void __launch_bounds__(THREADS)
     cp_async_commit();
   }
 
-  // score/softmax role: warp w owns heads w + WARPS * gi; lane = token
+  // score/softmax role: warp w owns rows w + WARPS * gi; lane = token
   constexpr int GPW = GMAX / WARPS;
   float m_r[GPW], l_r[GPW];
+  [[maybe_unused]] int qp_r[MULTI ? GPW : 1];  // each row's query position
 #pragma unroll
   for (int gi = 0; gi < GPW; ++gi) {
     m_r[gi] = -INFINITY;
     l_r[gi] = 0.0f;
+    if constexpr (MULTI) {
+      const int g = warp + WARPS * gi;
+      qp_r[gi] = g < R ? q_pos[(size_t)b * S + g / G] : 0;
+    }
   }
   // P V role: thread owns columns d2, d2 + 1 of heads set + NS * gi
   constexpr int NS = THREADS / (D / 2);
@@ -280,7 +352,7 @@ __global__ void __launch_bounds__(THREADS)
 #pragma unroll
         for (int gi = 0; gi < GPW; ++gi) {
           const int g = warp + WARPS * gi;
-          if (g < G) {
+          if (g < R) {
             const float* qg = qs + g * D + d;
 #pragma unroll
             for (int e = 0; e < L::VEC; ++e) dot[gi] = fmaf(qg[e], kf[e], dot[gi]);
@@ -291,12 +363,15 @@ __global__ void __launch_bounds__(THREADS)
 #pragma unroll
     for (int gi = 0; gi < GPW; ++gi) {
       const int g = warp + WARPS * gi;
-      if (g < G) {
+      if (g < R) {
+        // multi-query: token j0 + lane is a key of this row's query iff
+        // it is not past the query's position
+        const bool key = MULTI ? j0 + lane <= qp_r[gi] : is_key;
         // past the split's tokens: not a key; seq_len 0 or a masked
         // token: the sentinel
-        const float sc = lane >= nc         ? -INFINITY
-                         : seq > 0 && is_key ? dot[gi]
-                                             : repro::kNegBig;
+        const float sc = lane >= nc      ? -INFINITY
+                         : seq > 0 && key ? dot[gi]
+                                          : repro::kNegBig;
         const float m_new = fmaxf(m_r[gi], repro::warp_max(sc));
         const float pr = expf(sc - m_new);
         const float corr = expf(m_r[gi] - m_new);  // 0 on the first chunk
@@ -312,7 +387,7 @@ __global__ void __launch_bounds__(THREADS)
 #pragma unroll
     for (int gi = 0; gi < GPS; ++gi) {
       const int g = set + NS * gi;
-      if (g < G) {
+      if (g < R) {
         const float cr = corr_s[g];
         acc[gi][0] *= cr;
         acc[gi][1] *= cr;
@@ -324,7 +399,7 @@ __global__ void __launch_bounds__(THREADS)
 #pragma unroll
       for (int gi = 0; gi < GPS; ++gi) {
         const int g = set + NS * gi;
-        if (g < G) {
+        if (g < R) {
           const float pr = P[g * CHUNK + t];
           acc[gi][0] = fmaf(pr, vv.x, acc[gi][0]);
           acc[gi][1] = fmaf(pr, vv.y, acc[gi][1]);
@@ -342,21 +417,287 @@ __global__ void __launch_bounds__(THREADS)
 #pragma unroll
   for (int gi = 0; gi < GPW; ++gi) {
     const int g = warp + WARPS * gi;
-    if (g < G && lane == 0) {
-      part_ml[2 * (prow + (size_t)g * n_splits)] = m_r[gi];
-      part_ml[2 * (prow + (size_t)g * n_splits) + 1] = l_r[gi];
+    if (g < R && lane == 0) {
+      part_ml[2 * prow(g)] = m_r[gi];
+      part_ml[2 * prow(g) + 1] = l_r[gi];
     }
   }
 #pragma unroll
   for (int gi = 0; gi < GPS; ++gi) {
     const int g = set + NS * gi;
-    if (g < G)
-      *reinterpret_cast<float2*>(part_acc + (prow + (size_t)g * n_splits) * D +
-                                 d2) = make_float2(acc[gi][0], acc[gi][1]);
+    if (g < R)
+      *reinterpret_cast<float2*>(part_acc + prow(g) * D + d2) =
+          make_float2(acc[gi][0], acc[gi][1]);
   }
 }
 
-// Merge the split partials of one (request, query head) row. The weights
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+// a 16-byte cp.async that writes zeros (reads nothing)
+__device__ __forceinline__ void cp_async16_zero(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, 0;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p))
+      : "memory");
+}
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4],
+                                              const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p))
+      : "memory");
+}
+// c += a b: a 16x16 bf16 (row), b 16x8 bf16 (col), c 16x8 f32
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// The multi-query split kernel on tensor cores (bf16, S >= 2; the header
+// says why). Grid and partials as paged_split_kernel's kMulti mode. MT:
+// 16-row tiles of q per CTA (1, 2 or 4); warp w takes tile w % MT and
+// the D * MT / 4 output columns of column group w / MT.
+template <int D, int MT>
+__global__ void __launch_bounds__(THREADS)
+    paged_mma_kernel(const __nv_bfloat16* __restrict__ q,
+                     const __nv_bfloat16* __restrict__ kp,
+                     const __nv_bfloat16* __restrict__ vp,
+                     const int* __restrict__ block_table,
+                     const int* __restrict__ seq_lens,
+                     const int* __restrict__ q_pos,
+                     float* __restrict__ part_acc,
+                     float* __restrict__ part_ml, int S, int H, int KVH,
+                     int page, int pps, int split, float scale) {
+  using T = __nv_bfloat16;
+  using L = Layout<T, D>;
+  constexpr int KSTEPS = D / 16;          // k-steps of q K^T
+  constexpr int WPM = WARPS / MT;         // warps per row tile
+  constexpr int NTO = D / WPM / 8;        // output n-tiles per warp
+  static_assert(NTO % 2 == 0, "V fragments load two n-tiles at a time");
+  extern __shared__ __align__(128) unsigned char smem[];
+  T* Ks = reinterpret_cast<T*>(smem);
+  T* Vs = Ks + 2 * CHUNK * D;
+
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+  const int s = blockIdx.x, kvh = blockIdx.y, b = blockIdx.z;
+  const int n_splits = gridDim.x, G = H / KVH, R = S * G;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;   // mma fragment row / column pair
+  const int mt = warp % MT, col0 = (warp / MT) * (D / WPM);
+  auto out_row = [&](int r) -> size_t {
+    return ((size_t)b * S + r / G) * H + (size_t)kvh * G + r % G;
+  };
+  auto prow = [&](int r) -> size_t { return out_row(r) * n_splits + s; };
+  const int n_tok = pps * page;
+  const int j_begin = s * split;
+  const int* bt = block_table + (size_t)b * pps;
+  constexpr int PER = CHUNK * L::PIECES / THREADS;
+  auto table_entries = [&](int j0, int (&pg)[PER]) {
+#pragma unroll
+    for (int r = 0; r < PER; ++r) {
+      const int j = j0 + (threadIdx.x + r * THREADS) / L::PIECES;
+      pg[r] = j < n_tok ? bt[j / page] : 0;
+    }
+  };
+  const int seq = seq_lens[b];
+  int pg[PER];
+  table_entries(j_begin, pg);
+  // this thread's two rows of its tile, their query positions and the A
+  // fragments of q (rows past R are zero)
+  const int r0 = mt * 16 + g, r1 = r0 + 8;
+  const int qp0 = r0 < R ? q_pos[(size_t)b * S + r0 / G] : 0;
+  const int qp1 = r1 < R ? q_pos[(size_t)b * S + r1 / G] : 0;
+  uint32_t qa[KSTEPS][4];
+  {
+    const uint32_t* q0 = reinterpret_cast<const uint32_t*>(q + out_row(r0) * D);
+    const uint32_t* q1 = reinterpret_cast<const uint32_t*>(q + out_row(r1) * D);
+#pragma unroll
+    for (int kk = 0; kk < KSTEPS; ++kk) {
+      const int c = kk * 8 + t;          // column pair 2t of k-step kk
+      qa[kk][0] = r0 < R ? q0[c] : 0u;
+      qa[kk][1] = r1 < R ? q1[c] : 0u;
+      qa[kk][2] = r0 < R ? q0[c + 4] : 0u;
+      qa[kk][3] = r1 < R ? q1[c + 4] : 0u;
+    }
+  }
+
+  const int n_read = seq > 0 ? min(seq, n_tok) : n_tok;
+  const int j_end = min(j_begin + split, n_read);
+  if (j_begin >= j_end) {  // the split holds none of the request's tokens
+    if (threadIdx.x < R) {
+      part_ml[2 * prow(threadIdx.x)] = -INFINITY;
+      part_ml[2 * prow(threadIdx.x) + 1] = 0.0f;
+    }
+    return;
+  }
+
+  const int n_chunks = (j_end - j_begin + CHUNK - 1) / CHUNK;
+  auto load_chunk = [&](int c, const int (&pages)[PER]) {
+    const int j0 = j_begin + c * CHUNK, nc = min(CHUNK, j_end - j0);
+    T* kd = Ks + (c & 1) * CHUNK * D;
+    T* vd = Vs + (c & 1) * CHUNK * D;
+#pragma unroll
+    for (int r = 0; r < PER; ++r) {
+      const int i = threadIdx.x + r * THREADS;
+      const int tk = i / L::PIECES, d = (i % L::PIECES) * L::VEC, j = j0 + tk;
+      if (tk < nc) {
+        const size_t src =
+            (((size_t)pages[r] * page + j % page) * KVH + kvh) * D + d;
+        cp_async16(kd + swz<T, D>(tk, d), kp + src);
+        cp_async16(vd + swz<T, D>(tk, d), vp + src);
+      } else {  // rows past the split: zeros, so P V stays finite
+        cp_async16_zero(kd + swz<T, D>(tk, d), kp);
+        cp_async16_zero(vd + swz<T, D>(tk, d), vp);
+      }
+    }
+    cp_async_commit();
+  };
+  auto fetch_chunk = [&](int c) {
+    int pgc[PER];
+    table_entries(j_begin + c * CHUNK, pgc);
+    load_chunk(c, pgc);
+  };
+  load_chunk(0, pg);
+  if (n_chunks > 1) {
+    fetch_chunk(1);
+  } else {
+    cp_async_commit();
+  }
+
+  float m_r[2] = {-INFINITY, -INFINITY}, l_r[2] = {0.0f, 0.0f};
+  float acc[NTO][4];
+#pragma unroll
+  for (int n = 0; n < NTO; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.0f;
+  const int mi = lane / 8, li = lane % 8;  // ldmatrix: matrix, row
+
+  for (int c = 0; c < n_chunks; ++c) {
+    const int j0 = j_begin + c * CHUNK, nc = min(CHUNK, j_end - j0);
+    const T* Kc = Ks + (c & 1) * CHUNK * D;
+    const T* Vc = Vs + (c & 1) * CHUNK * D;
+    cp_async_wait_1();
+    __syncthreads();
+
+    // scores of the tile's 16 rows x the chunk's 32 tokens (4 n-tiles)
+    float sc[4][4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) sc[j][0] = sc[j][1] = sc[j][2] = sc[j][3] = 0.0f;
+#pragma unroll
+    for (int kk = 0; kk < KSTEPS; ++kk) {
+#pragma unroll
+      for (int jp = 0; jp < 2; ++jp) {
+        uint32_t kb[4];
+        ldsm_x4(kb, Kc + swz<T, D>(8 * (2 * jp + mi / 2) + li,
+                                   16 * kk + 8 * (mi % 2)));
+        mma_bf16(sc[2 * jp], qa[kk], kb[0], kb[1]);
+        mma_bf16(sc[2 * jp + 1], qa[kk], kb[2], kb[3]);
+      }
+    }
+    // masks (past the split: -inf; not a key: the sentinel), row max
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int tt = 8 * j + 2 * t + (e & 1), row = e / 2;
+        const bool key = seq > 0 && j0 + tt <= (row ? qp1 : qp0);
+        const float v = tt >= nc ? -INFINITY
+                        : key    ? sc[j][e] * scale
+                                 : repro::kNegBig;
+        sc[j][e] = v;
+        mx[row] = fmaxf(mx[row], v);
+      }
+    }
+    float corr[2];
+#pragma unroll
+    for (int row = 0; row < 2; ++row) {
+      mx[row] = fmaxf(mx[row], __shfl_xor_sync(0xffffffffu, mx[row], 1));
+      mx[row] = fmaxf(mx[row], __shfl_xor_sync(0xffffffffu, mx[row], 2));
+      const float m_new = fmaxf(m_r[row], mx[row]);
+      corr[row] = expf(m_r[row] - m_new);  // 0 on the first chunk
+      m_r[row] = m_new;
+    }
+    float sum[2] = {0.0f, 0.0f};
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float pr = expf(sc[j][e] - m_r[e / 2]);
+        sc[j][e] = pr;
+        sum[e / 2] += pr;
+      }
+    }
+#pragma unroll
+    for (int row = 0; row < 2; ++row) {
+      sum[row] += __shfl_xor_sync(0xffffffffu, sum[row], 1);
+      sum[row] += __shfl_xor_sync(0xffffffffu, sum[row], 2);
+      l_r[row] = l_r[row] * corr[row] + sum[row];
+    }
+#pragma unroll
+    for (int n = 0; n < NTO; ++n) {
+      acc[n][0] *= corr[0];
+      acc[n][1] *= corr[0];
+      acc[n][2] *= corr[1];
+      acc[n][3] *= corr[1];
+    }
+    // acc += P V: P's accumulator fragments are its A fragments
+#pragma unroll
+    for (int kk = 0; kk < 2; ++kk) {
+      const uint32_t pa[4] = {pack_bf16(sc[2 * kk][0], sc[2 * kk][1]),
+                              pack_bf16(sc[2 * kk][2], sc[2 * kk][3]),
+                              pack_bf16(sc[2 * kk + 1][0], sc[2 * kk + 1][1]),
+                              pack_bf16(sc[2 * kk + 1][2], sc[2 * kk + 1][3])};
+#pragma unroll
+      for (int np = 0; np < NTO / 2; ++np) {
+        uint32_t vb[4];
+        ldsm_x4_trans(vb, Vc + swz<T, D>(16 * kk + 8 * (mi % 2) + li,
+                                         col0 + 8 * (2 * np + mi / 2)));
+        mma_bf16(acc[2 * np], pa, vb[0], vb[1]);
+        mma_bf16(acc[2 * np + 1], pa, vb[2], vb[3]);
+      }
+    }
+    __syncthreads();  // chunk c's buffers are free
+    if (c + 2 < n_chunks) {
+      fetch_chunk(c + 2);
+    } else {
+      cp_async_commit();
+    }
+  }
+
+#pragma unroll
+  for (int row = 0; row < 2; ++row) {
+    const int r = row ? r1 : r0;
+    if (r >= R) continue;
+    if (col0 == 0 && t == 0) {
+      part_ml[2 * prow(r)] = m_r[row];
+      part_ml[2 * prow(r) + 1] = l_r[row];
+    }
+#pragma unroll
+    for (int n = 0; n < NTO; ++n)
+      *reinterpret_cast<float2*>(part_acc + prow(r) * D + col0 + 8 * n +
+                                 2 * t) =
+          make_float2(acc[n][2 * row], acc[n][2 * row + 1]);
+  }
+}
+
+// Merge the split partials of one output row: (request, query head), or
+// (request, query token, query head) in multi-query mode. The weights
 // e^(m_s - M) are computed once, in parallel, into shared memory; then SG
 // groups of D threads each sum every SG-th split of their column (short
 // chains of independent loads) and group 0 adds the SG sums.
@@ -374,7 +715,7 @@ __global__ void __launch_bounds__(D * SG)
   // launched early (programmatic dependent launch): wait until the split
   // kernel has finished and its partials are visible
   asm volatile("griddepcontrol.wait;\n" ::: "memory");
-  const size_t row = blockIdx.x;  // b * H + h
+  const size_t row = blockIdx.x;  // b * H + h, or (b * S + i) * H + h
   const float* ml = part_ml + row * n_splits * 2;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
 
@@ -427,27 +768,67 @@ struct Mask {
   int window;
 };
 
-template <typename T, int D, int GMAX, bool MASKED>
+template <typename T, int D>
+cudaError_t launch_merge(float* part_acc, float* part_ml, void* o, int rows,
+                         int n_splits, cudaStream_t stream);
+
+// The tensor-core multi-query split kernel with MT 16-row tiles, then the
+// merge.
+template <int D, int MT>
+cudaError_t launch_mma(const void* q, const void* kp, const void* vp,
+                       const int* bt, const int* sl, const int* q_pos,
+                       void* o, float* part_acc, float* part_ml, int B,
+                       int S, int H, int KVH, int page, int pps, int split,
+                       cudaStream_t stream) {
+  using T = __nv_bfloat16;
+  const size_t smem = 4 * sizeof(T) * CHUNK * D;  // K and V, 2 stages each
+  cudaError_t err = cudaFuncSetAttribute(
+      paged_mma_kernel<D, MT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return err;
+  const int n_splits = (pps * page + split - 1) / split;
+  paged_mma_kernel<D, MT><<<dim3(n_splits, KVH, B), THREADS, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(kp),
+      static_cast<const T*>(vp), bt, sl, q_pos, part_acc, part_ml, S, H, KVH,
+      page, pps, split, 1.0f / sqrtf((float)D));
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  return launch_merge<T, D>(part_acc, part_ml, o, B * S * H, n_splits,
+                            stream);
+}
+
+// S: query tokens per request (1 unless MODE is kMulti).
+template <typename T, int D, int GMAX, int MODE>
 cudaError_t launch(const void* q, const void* kp, const void* vp,
                    const int* bt, const int* sl, Mask mask, void* o,
-                   float* part_acc, float* part_ml, int B, int H, int KVH,
-                   int page, int pps, int split, cudaStream_t stream) {
-  const size_t smem = Layout<T, D>::bytes;
+                   float* part_acc, float* part_ml, int B, int S, int H,
+                   int KVH, int page, int pps, int split,
+                   cudaStream_t stream) {
+  const size_t smem = Layout<T, D, (GMAX > MAXG ? GMAX : MAXG)>::bytes;
   cudaError_t err = cudaFuncSetAttribute(
-      paged_split_kernel<T, D, GMAX, MASKED>,
+      paged_split_kernel<T, D, GMAX, MODE>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const int n_splits = (pps * page + split - 1) / split;
-  paged_split_kernel<T, D, GMAX, MASKED>
+  paged_split_kernel<T, D, GMAX, MODE>
       <<<dim3(n_splits, KVH, B), THREADS, smem, stream>>>(
           static_cast<const T*>(q), static_cast<const T*>(kp),
           static_cast<const T*>(vp), bt, sl, mask.k_pos, mask.q_pos,
-          mask.window, part_acc, part_ml, H, KVH, page, pps, split,
+          mask.window, part_acc, part_ml, S, H, KVH, page, pps, split,
           1.0f / sqrtf((float)D));
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
+  return launch_merge<T, D>(part_acc, part_ml, o, B * S * H, n_splits,
+                            stream);
+}
+
+// The merge of ``rows`` output rows, each over ``n_splits`` partials.
+template <typename T, int D>
+cudaError_t launch_merge(float* part_acc, float* part_ml, void* o, int rows,
+                         int n_splits, cudaStream_t stream) {
   // the merge's weights, one per split, may exceed the default 48 KB
   const size_t merge_smem = sizeof(float) * n_splits;
+  cudaError_t err;
   err = cudaFuncSetAttribute(paged_combine_kernel<T, D>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)merge_smem);
@@ -455,7 +836,7 @@ cudaError_t launch(const void* q, const void* kp, const void* vp,
   // programmatic dependent launch: the merge's launch overlaps the split
   // kernel's tail instead of following its end
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(B * H);
+  cfg.gridDim = dim3(rows);
   cfg.blockDim = dim3(D * SG);
   cfg.dynamicSmemBytes = merge_smem;
   cfg.stream = stream;
@@ -470,54 +851,109 @@ cudaError_t launch(const void* q, const void* kp, const void* vp,
                             static_cast<T*>(o), n_splits);
 }
 
-template <typename T, int D, bool MASKED>
+// The instantiation whose GMAX bounds the CTA's rows R = S * H / KVH
+// (32 and 64 exist only in float32 multi-query mode); bf16 multi-query
+// with S >= 2 takes the tensor-core kernel.
+template <typename T, int D, int MODE>
 cudaError_t launch_g(const void* q, const void* kp, const void* vp,
                      const int* bt, const int* sl, Mask mask, void* o,
-                     float* part_acc, float* part_ml, int B, int H, int KVH,
-                     int page, int pps, int split, cudaStream_t stream) {
-  const int G = H / KVH;
-  if (G <= 4)
-    return launch<T, D, 4, MASKED>(q, kp, vp, bt, sl, mask, o, part_acc,
-                                   part_ml, B, H, KVH, page, pps, split,
-                                   stream);
-  if (G <= 8)
-    return launch<T, D, 8, MASKED>(q, kp, vp, bt, sl, mask, o, part_acc,
-                                   part_ml, B, H, KVH, page, pps, split,
-                                   stream);
-  return launch<T, D, 16, MASKED>(q, kp, vp, bt, sl, mask, o, part_acc,
-                                  part_ml, B, H, KVH, page, pps, split,
-                                  stream);
+                     float* part_acc, float* part_ml, int B, int S, int H,
+                     int KVH, int page, int pps, int split,
+                     cudaStream_t stream) {
+  const int R = S * (H / KVH);
+  if constexpr (MODE == kMulti && std::is_same<T, __nv_bfloat16>::value) {
+    if (S >= 2) {  // tensor cores: 1, 2 or 4 row tiles of 16
+#define REPRO_MMA(MT)                                                       \
+  return launch_mma<D, MT>(q, kp, vp, bt, sl, mask.q_pos, o, part_acc,      \
+                           part_ml, B, S, H, KVH, page, pps, split, stream)
+      if (R <= 16) REPRO_MMA(1);
+      if (R <= 32) REPRO_MMA(2);
+      REPRO_MMA(4);
+#undef REPRO_MMA
+    }
+  }
+#define REPRO_LAUNCH(GM)                                                    \
+  return launch<T, D, GM, MODE>(q, kp, vp, bt, sl, mask, o, part_acc,       \
+                                part_ml, B, S, H, KVH, page, pps, split,    \
+                                stream)
+  if (R <= 4) REPRO_LAUNCH(4);
+  if (R <= 8) REPRO_LAUNCH(8);
+  if (R <= 16) REPRO_LAUNCH(16);
+  if constexpr (MODE == kMulti && std::is_same<T, float>::value) {
+    if (R <= 32) REPRO_LAUNCH(32);
+    REPRO_LAUNCH(64);
+  } else {  // bf16 takes more rows only on tensor cores (S >= 2)
+    return cudaErrorInvalidValue;
+  }
+#undef REPRO_LAUNCH
 }
 
 template <typename T, int D>
 cudaError_t launch_m(const void* q, const void* kp, const void* vp,
                      const int* bt, const int* sl, Mask mask, void* o,
-                     float* part_acc, float* part_ml, int B, int H, int KVH,
-                     int page, int pps, int split, cudaStream_t stream) {
+                     float* part_acc, float* part_ml, int B, int S, int H,
+                     int KVH, int page, int pps, int split,
+                     cudaStream_t stream) {
+  if (S > 0)  // multi-query mode (q_pos [B, S])
+    return launch_g<T, D, kMulti>(q, kp, vp, bt, sl, mask, o, part_acc,
+                                  part_ml, B, S, H, KVH, page, pps, split,
+                                  stream);
   if (mask.k_pos != nullptr || mask.window > 0)
-    return launch_g<T, D, true>(q, kp, vp, bt, sl, mask, o, part_acc,
-                                part_ml, B, H, KVH, page, pps, split, stream);
-  return launch_g<T, D, false>(q, kp, vp, bt, sl, mask, o, part_acc, part_ml,
-                               B, H, KVH, page, pps, split, stream);
+    return launch_g<T, D, kMasked>(q, kp, vp, bt, sl, mask, o, part_acc,
+                                   part_ml, B, 1, H, KVH, page, pps, split,
+                                   stream);
+  return launch_g<T, D, kPlain>(q, kp, vp, bt, sl, mask, o, part_acc,
+                                part_ml, B, 1, H, KVH, page, pps, split,
+                                stream);
+}
+
+// Dispatch on (dtype, D); S = 0 is the one-query kernel, S >= 1 the
+// multi-query mode.
+cudaError_t dispatch(const void* q, const void* k_pages, const void* v_pages,
+                     const int* bt, const int* sl, Mask mask, void* o,
+                     float* pa, float* pm, int B, int S, int H, int KVH,
+                     int D, int page, int pps, int split, int dtype,
+                     cudaStream_t s) {
+  if (dtype == repro::kFloat32 && D == 64)
+    return launch_m<float, 64>(q, k_pages, v_pages, bt, sl, mask, o, pa, pm,
+                               B, S, H, KVH, page, pps, split, s);
+  if (dtype == repro::kFloat32 && D == 128)
+    return launch_m<float, 128>(q, k_pages, v_pages, bt, sl, mask, o, pa, pm,
+                                B, S, H, KVH, page, pps, split, s);
+  if (dtype == repro::kBFloat16 && D == 64)
+    return launch_m<__nv_bfloat16, 64>(q, k_pages, v_pages, bt, sl, mask, o,
+                                       pa, pm, B, S, H, KVH, page, pps,
+                                       split, s);
+  if (dtype == repro::kBFloat16 && D == 128)
+    return launch_m<__nv_bfloat16, 128>(q, k_pages, v_pages, bt, sl, mask, o,
+                                        pa, pm, B, S, H, KVH, page, pps,
+                                        split, s);
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// q [B,H,D], k/v pages [P,page,KVH,D], block_table [B,pps] int32 (entries in
-// [0, P)), seq_lens [B] int32, o [B,H,D]; all contiguous, one dtype
-// (0 float32, 1 bfloat16), D in {64, 128}, H / KVH <= 16. Masked mode:
-// k_pos [P,page] int32 or null, q_pos [B] int32 (needed when k_pos is given
-// or window > 0, else may be null), window >= 0. `split` tokens per CTA
-// (>= 1); part_acc [B*H, ceil(pps*page/split), D] and part_ml
-// [B*H, ceil(pps*page/split), 2] are float32 scratch. Returns the CUDA error
-// of the launches (0 on success).
+// q [B,H,D] (S = 0) or [B,S,H,D] (multi-query mode, 1 <= S <= 8 and
+// S * H / KVH <= 64), k/v pages [P,page,KVH,D], block_table [B,pps] int32
+// (entries in [0, P)), seq_lens [B] int32, o shaped as q; all contiguous,
+// one dtype (0 float32, 1 bfloat16), D in {64, 128}, H / KVH <= 16.
+// One-query masked mode: k_pos [P,page] int32 or null, q_pos [B] int32
+// (needed when k_pos is given or window > 0, else may be null),
+// window >= 0. Multi-query mode: q_pos [B,S] int32 (each query's
+// position), no k_pos and no window; token t of request b is a key of
+// query i iff t < seq_lens[b] and t <= q_pos[b, i]. `split` tokens per CTA
+// (>= 1); part_acc [rows, ceil(pps*page/split), D] and part_ml
+// [rows, ceil(pps*page/split), 2] are float32 scratch, rows = B*H (times S
+// in the multi-query mode). Returns the CUDA error of the launches (0 on
+// success).
 extern "C" int paged_attention_fwd(const void* q, const void* k_pages,
                                    const void* v_pages, const void* block_table,
                                    const void* seq_lens, const void* k_pos,
                                    const void* q_pos, int window, void* o,
                                    void* part_acc, void* part_ml, int B,
-                                   int H, int KVH, int D, int page, int pps,
-                                   int split, int dtype, void* stream) {
+                                   int S, int H, int KVH, int D, int page,
+                                   int pps, int split, int dtype,
+                                   void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* bt = static_cast<const int*>(block_table);
   const int* sl = static_cast<const int*>(seq_lens);
@@ -531,20 +967,11 @@ extern "C" int paged_attention_fwd(const void* q, const void* k_pages,
       (pps * page + split - 1) / split > 48 * 1024 || window < 0 ||
       ((k_pos != nullptr || window > 0) && q_pos == nullptr))
     return (int)cudaErrorInvalidValue;
-  if (dtype == repro::kFloat32 && D == 64)
-    return launch_m<float, 64>(q, k_pages, v_pages, bt, sl, mask, o, pa, pm,
-                               B, H, KVH, page, pps, split, s);
-  if (dtype == repro::kFloat32 && D == 128)
-    return launch_m<float, 128>(q, k_pages, v_pages, bt, sl, mask, o, pa, pm,
-                                B, H, KVH, page, pps, split, s);
-  if (dtype == repro::kBFloat16 && D == 64)
-    return launch_m<__nv_bfloat16, 64>(q, k_pages, v_pages, bt, sl, mask, o,
-                                       pa, pm, B, H, KVH, page, pps, split, s);
-  if (dtype == repro::kBFloat16 && D == 128)
-    return launch_m<__nv_bfloat16, 128>(q, k_pages, v_pages, bt, sl, mask, o,
-                                        pa, pm, B, H, KVH, page, pps, split,
-                                        s);
-  return (int)cudaErrorInvalidValue;
+  if (S != 0 && (S < 1 || S > MAXS || S * (H / KVH) > MAXROWS ||
+                 q_pos == nullptr || k_pos != nullptr || window > 0))
+    return (int)cudaErrorInvalidValue;
+  return (int)dispatch(q, k_pages, v_pages, bt, sl, mask, o, pa, pm, B, S, H,
+                       KVH, D, page, pps, split, dtype, s);
 }
 
 // Dynamic shared memory of one split-kernel CTA for (dtype, D), in bytes

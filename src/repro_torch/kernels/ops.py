@@ -34,22 +34,25 @@ def paged_attention(q, k_pages, v_pages, block_table, seq_lens, *,
                     k_pos=None, q_pos=None, window: int = 0):
     """Paged decode attention. q [B,H,D] -> [B,H,D]. ``k_pos`` [P,page],
     ``q_pos`` [B] and ``window``: the kernel's masked mode (windowed and
-    compacted caches)."""
-    if q.ndim != 3 or k_pages.ndim != 4:
-        raise ValueError("paged_attention expects q rank-3, pages rank-4")
+    compacted caches). q [B,S,H,D] with ``q_pos`` [B,S] -> [B,S,H,D]: the
+    multi-query mode (per-row-start extend; key t of query i iff
+    t < seq_lens[b] and t <= q_pos[b, i])."""
+    if q.ndim not in (3, 4) or k_pages.ndim != 4:
+        raise ValueError("paged_attention expects q rank-3 (or rank-4, "
+                         "multi-query), pages rank-4")
     if k_pages.shape != v_pages.shape:
         raise ValueError("k_pages/v_pages shape mismatch")
     if block_table.ndim != 2 or block_table.shape[0] != q.shape[0]:
         raise ValueError("block_table must be [B, pages_per_seq]")
-    if q.shape[1] % k_pages.shape[2]:
+    if q.shape[-2] % k_pages.shape[2]:
         raise ValueError("H must be a multiple of KVH")
-    if q.shape[2] != k_pages.shape[3]:
-        raise ValueError(f"q head dim {q.shape[2]} vs pages "
+    if q.shape[-1] != k_pages.shape[3]:
+        raise ValueError(f"q head dim {q.shape[-1]} vs pages "
                          f"{k_pages.shape[3]}")
     if k_pos is not None and tuple(k_pos.shape) != tuple(k_pages.shape[:2]):
         raise ValueError(f"k_pos must be [P, page] = "
                          f"{list(k_pages.shape[:2])}, got {list(k_pos.shape)}")
-    if (k_pos is not None or window) and q_pos is None:
-        raise ValueError("k_pos or window needs q_pos")
+    if (k_pos is not None or window or q.ndim == 4) and q_pos is None:
+        raise ValueError("k_pos, window or a multi-query q needs q_pos")
     return _paged(q, k_pages, v_pages, block_table, seq_lens, k_pos=k_pos,
                   q_pos=q_pos, window=window)

@@ -10,6 +10,11 @@ Decode attention is bounded by bytes: each request's K/V rows are read
 once and shared by the query heads of their kv head. The kernel splits each
 request's tokens over many CTAs and merges their partial softmaxes
 (``paged_attention_split_plain`` is that algorithm in plain PyTorch).
+
+Its multi-query mode (q [B,S,H,D], ``q_pos`` [B,S], 1 <= S <= 8) serves
+the per-row-start extend of the speculative verify and the draft's lead,
+which the reference attends with pure-jnp ``simple_sdpa``: each CTA reads
+its K/V chunk once for all S * G query rows of its kv head.
 """
 from __future__ import annotations
 
@@ -18,15 +23,23 @@ import ctypes
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.ref import (NEG_INF, paged_attention_ref,
-                                     paged_key_mask)
+from repro_torch.kernels.ref import (NEG_INF, multi_query_rows,
+                                     paged_attention_ref, paged_key_mask)
 
 HEAD_DIMS = (64, 128)
 MAX_GROUP = 16
+#: Multi-query mode: query tokens per request, and query rows (tokens x
+#: heads of a kv head) per CTA of the split kernel.
+MAX_QUERIES = 8
+MAX_ROWS = 64
 #: Tokens the kernel stages per cp.async chunk, and the tokens of each CTA
 #: of its split kernel: one chunk at every batch (the source's header says
 #: why).
 CHUNK = 32
+#: Tokens of each CTA in the multi-query mode with S >= 2 (its tensor-core
+#: kernel): two chunks. S = 1 keeps CHUNK, so it gives the one-query
+#: kernel's bits.
+MQ_SPLIT = 2 * CHUNK
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 #: The kernel's function in plain PyTorch: it visits every page, so a
@@ -43,7 +56,19 @@ def paged_attention_split_plain(q, k_pages, v_pages, block_table, seq_lens,
     -1e30 sentinel; a split past the read tokens is empty: m = -inf,
     l = 0), and the partials merge as
     sum_s e^(m_s - M) acc_s / sum_s e^(m_s - M) l_s. Same arguments and
-    result as ``paged_attention_plain``."""
+    result as ``paged_attention_plain``, the multi-query mode included."""
+    if q.ndim == 4:
+        rows = multi_query_rows(q, block_table, seq_lens, q_pos)
+        return _split_plain(rows[0], k_pages, v_pages, *rows[1:3],
+                            split_tokens, q_pos=rows[3], causal=True
+                            ).reshape(q.shape)
+    return _split_plain(q, k_pages, v_pages, block_table, seq_lens,
+                        split_tokens, k_pos=k_pos, q_pos=q_pos, window=window)
+
+
+def _split_plain(q, k_pages, v_pages, block_table, seq_lens,
+                 split_tokens: int, *, k_pos=None, q_pos=None,
+                 window: int = 0, causal: bool = False):
     b, h, d = q.shape
     _, page, kvh, _ = k_pages.shape
     g = h // kvh
@@ -56,7 +81,7 @@ def paged_attention_split_plain(q, k_pages, v_pages, block_table, seq_lens,
     qf = q.reshape(b, kvh, g, d).float() / (d ** 0.5)
     s = torch.einsum("bkgd,bckd->bkgc", qf, k_log)
     read, key = paged_key_mask(seq_lens, block_table, page, k_pos=k_pos,
-                               q_pos=q_pos, window=window)
+                               q_pos=q_pos, window=window, causal=causal)
     s = torch.where(key[:, None, None], s, torch.full_like(s, NEG_INF))
     s = torch.where(read[:, None, None], s, torch.full_like(s, -torch.inf))
     s = torch.nn.functional.pad(s, (0, pad), value=-torch.inf)
@@ -79,7 +104,7 @@ def _lib():
     fn = build.load("paged_attention").paged_attention_fwd
     if fn.argtypes is None:
         fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] \
-            + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+            + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -101,25 +126,30 @@ def paged_attention(q, k_pages, v_pages, block_table, seq_lens, *,
     (float32 or bfloat16, D in {64, 128}, H/KVH <= 16, contiguous) or
     raises. The table's entries are not range-checked on the card (that
     would synchronize every step); the caller builds them.
+
+    Multi-query mode: q [B,S,H,D] and ``q_pos`` [B,S] int32, no ``k_pos``
+    and no window -> [B,S,H,D]; token t is a key of query i iff
+    t < seq_lens[b] and t <= q_pos[b, i]. The kernel takes
+    1 <= S <= 8 and S * H / KVH <= 64 (one CTA holds every query row of
+    a kv head).
     """
+    multi = q.ndim == 4
+    if multi and (k_pos is not None or window):
+        raise ValueError("paged_attention: the multi-query mode takes no "
+                         "k_pos and no window")
+    if multi and (q_pos is None or tuple(q_pos.shape) != tuple(q.shape[:2])):
+        raise ValueError(f"paged_attention: multi-query q_pos must be "
+                         f"{list(q.shape[:2])}, got "
+                         f"{None if q_pos is None else list(q_pos.shape)}")
     if q.device.type == "cpu":
         return paged_attention_plain(q, k_pages, v_pages, block_table,
                                      seq_lens, k_pos=k_pos, q_pos=q_pos,
                                      window=window)
     if q.device.type != "cuda":
         raise ValueError(f"paged_attention: unsupported device {q.device}")
-    b, h, d = q.shape
-    _, page, kvh, _ = k_pages.shape
-    pps = block_table.shape[1]
-    if k_pages.shape != v_pages.shape or k_pages.shape[3] != d or h % kvh \
-            or block_table.shape[0] != b:
-        raise ValueError(f"paged_attention kernel: q {tuple(q.shape)}, pages "
-                         f"{tuple(k_pages.shape)}, table "
-                         f"{tuple(block_table.shape)} do not fit")
-    for name, t in (("k_pages", k_pages), ("v_pages", v_pages)):
-        if t.device != q.device or t.dtype != q.dtype:
-            raise ValueError(f"paged_attention: {name} is {t.dtype} on "
-                             f"{t.device}, q is {q.dtype} on {q.device}")
+    if multi:
+        return _multi_query(q, k_pages, v_pages, block_table, seq_lens, q_pos)
+    b = q.shape[0]
     ints = [("block_table", block_table, tuple(block_table.shape)),
             ("seq_lens", seq_lens, (b,))]
     if window < 0:
@@ -130,6 +160,30 @@ def paged_attention(q, k_pages, v_pages, block_table, seq_lens, *,
         if q_pos is None:
             raise ValueError("paged_attention: k_pos or window needs q_pos")
         ints.append(("q_pos", q_pos, (b,)))
+    _check_kernel_inputs(q, k_pages, v_pages, ints)
+    out = _launch(q, k_pages, v_pages, block_table, seq_lens, CHUNK,
+                  k_pos=k_pos, q_pos=q_pos if (k_pos is not None or window)
+                  else None, window=window)
+    paged_attention.launches += 1     # the split and merge kernels: one call
+    return out
+
+
+def _check_kernel_inputs(q, k_pages, v_pages, ints):
+    """What the kernel takes, for a query [B, (S,) H, D]: ``ints`` lists
+    (name, tensor, shape) of the int32 arguments, the block table first."""
+    h, d = q.shape[-2:]
+    kvh = k_pages.shape[2]
+    table = ints[0][1]
+    pps = table.shape[1]
+    if k_pages.shape != v_pages.shape or k_pages.shape[3] != d or h % kvh \
+            or table.shape[0] != q.shape[0]:
+        raise ValueError(f"paged_attention kernel: q {tuple(q.shape)}, pages "
+                         f"{tuple(k_pages.shape)}, table "
+                         f"{tuple(table.shape)} do not fit")
+    for name, t in (("k_pages", k_pages), ("v_pages", v_pages)):
+        if t.device != q.device or t.dtype != q.dtype:
+            raise ValueError(f"paged_attention: {name} is {t.dtype} on "
+                             f"{t.device}, q is {q.dtype} on {q.device}")
     for name, t, shape in ints:
         if t.device != q.device or t.dtype != torch.int32:
             raise ValueError(f"paged_attention: {name} must be int32 on "
@@ -153,36 +207,57 @@ def paged_attention(q, k_pages, v_pages, block_table, seq_lens, *,
             or k_pages.data_ptr() % 16 or v_pages.data_ptr() % 16:
         raise ValueError("paged_attention kernel needs contiguous inputs and "
                          "16-byte aligned pages")
-    out = _launch(q, k_pages, v_pages, block_table, seq_lens, CHUNK,
-                  k_pos=k_pos, q_pos=q_pos if (k_pos is not None or window)
-                  else None, window=window)
-    paged_attention.launches += 1     # the split and merge kernels: one call
+
+
+def _multi_query(q, k_pages, v_pages, block_table, seq_lens, q_pos):
+    """The multi-query mode on the card: checks, then one launch."""
+    b, sq, h, _ = q.shape
+    _check_kernel_inputs(q, k_pages, v_pages, [
+        ("block_table", block_table, tuple(block_table.shape)),
+        ("seq_lens", seq_lens, (b,)), ("q_pos", q_pos, (b, sq))])
+    g = h // k_pages.shape[2]
+    if not 1 <= sq <= MAX_QUERIES:
+        raise ValueError(f"paged_attention kernel takes 1 to {MAX_QUERIES} "
+                         f"query tokens per request, not {sq}")
+    if sq * g > MAX_ROWS:
+        raise ValueError(f"paged_attention kernel takes at most {MAX_ROWS} "
+                         f"query rows per kv head, not {sq} tokens x {g} "
+                         "heads")
+    out = _launch(q, k_pages, v_pages, block_table, seq_lens,
+                  CHUNK if sq == 1 else MQ_SPLIT, q_pos=q_pos)
+    paged_attention.launches += 1
+    paged_attention.multi_query_launches += 1
     return out
 
 
+#: every launch of the wrapper, and those of its multi-query mode
 paged_attention.launches = 0
+paged_attention.multi_query_launches = 0
 
 
 def _launch(q, k_pages, v_pages, block_table, seq_lens, split: int, *,
             k_pos=None, q_pos=None, window: int = 0):
     """The C entry on inputs ``paged_attention`` has checked, with
     ``split`` tokens per CTA of the split kernel (any value >= 1; more
-    than ``CHUNK`` runs several chunks per CTA, which ``chip_smoke.py``
-    times against the wrapper's one)."""
-    b, h, d = q.shape
+    than ``CHUNK`` runs several chunks per CTA, which the card tests
+    check). A q of [B,S,H,D] takes the multi-query mode (``q_pos``
+    [B,S]), one of [B,H,D] the one-query kernel."""
+    b, h, d = q.shape[0], q.shape[-2], q.shape[-1]
+    sq = q.shape[1] if q.ndim == 4 else 0
     _, page, kvh, _ = k_pages.shape
     pps = block_table.shape[1]
     n_split = -(-pps * page // split)
+    rows = b * max(sq, 1) * h
     out = torch.empty_like(q)
-    # float32 partials: acc [B*H, n_split, D], then (m, l) [B*H, n_split, 2]
-    part = torch.empty(b * h * n_split * (d + 2), dtype=torch.float32,
+    # float32 partials: acc [rows, n_split, D], then (m, l) [rows, n_split, 2]
+    part = torch.empty(rows * n_split * (d + 2), dtype=torch.float32,
                        device=q.device)
     err = _lib()(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
                  block_table.data_ptr(), seq_lens.data_ptr(),
                  None if k_pos is None else k_pos.data_ptr(),
                  None if q_pos is None else q_pos.data_ptr(), window,
                  out.data_ptr(), part.data_ptr(),
-                 part[b * h * n_split * d:].data_ptr(), b, h, kvh, d, page,
+                 part[rows * n_split * d:].data_ptr(), b, sq, h, kvh, d, page,
                  pps, split, _DTYPES[q.dtype],
                  torch.cuda.current_stream(q.device).cuda_stream)
     if err:

@@ -48,7 +48,7 @@ def flash_attention_ref(q, k, v, *, causal: bool = True,
 
 
 def paged_key_mask(seq_lens, block_table, page: int, *, k_pos=None,
-                   q_pos=None, window: int = 0):
+                   q_pos=None, window: int = 0, causal: bool = False):
     """Which tokens of each request's table the paged kernel reads and
     which of those are keys: ``(read, key)``, both [B, pages_per_seq*page].
 
@@ -58,14 +58,16 @@ def paged_key_mask(seq_lens, block_table, page: int, *, k_pos=None,
     cache): ``k_pos`` [P, page] int32 is each physical slot's position (-1
     = empty), ``q_pos`` [B] the query's; a read token t is a key iff, where
     ``k_pos`` is given, 0 <= k_pos[t] <= q_pos, and where ``window`` > 0,
-    p_t > q_pos - window (p_t = k_pos[t] if given, else t)."""
+    p_t > q_pos - window (p_t = k_pos[t] if given, else t). ``causal``
+    (each row one query of the multi-query mode): a read token t is a key
+    iff t <= q_pos."""
     n_tok = block_table.shape[1] * page
     dev = block_table.device
     seq = seq_lens.to(dev).long()[:, None]
     pos = torch.arange(n_tok, device=dev)[None]
     read = pos < torch.where(seq > 0, seq, n_tok)
     key = read & (seq > 0)
-    if k_pos is not None or window > 0:
+    if k_pos is not None or window > 0 or causal:
         qp = q_pos.to(dev).long()[:, None]
         p_t = pos
         if k_pos is not None:
@@ -73,7 +75,19 @@ def paged_key_mask(seq_lens, block_table, page: int, *, k_pos=None,
             key = key & (p_t >= 0) & (p_t <= qp)
         if window > 0:
             key = key & (p_t > qp - window)
+        if causal:
+            key = key & (p_t <= qp)
     return read, key
+
+
+def multi_query_rows(q, block_table, seq_lens, q_pos):
+    """The multi-query mode's inputs as B*S one-query rows: q [B,S,H,D]
+    -> [B*S,H,D]; each query gets its request's table row and seq_len and
+    its own position (``q_pos`` [B,S] -> [B*S])."""
+    b, s = q.shape[:2]
+    return (q.reshape(b * s, *q.shape[2:]),
+            block_table.repeat_interleave(s, 0),
+            seq_lens.repeat_interleave(s), q_pos.reshape(-1))
 
 
 def paged_attention_ref(q, k_pages, v_pages, block_table, seq_lens, *,
@@ -90,7 +104,22 @@ def paged_attention_ref(q, k_pages, v_pages, block_table, seq_lens, *,
     sentinel, one past seq_len is not read: a request with
     ``seq_lens == 0`` gets the mean of V over its table's slots, and a row
     whose read tokens are all masked the mean of V over them.
+
+    Multi-query mode (the per-row-start extend): q [B, S, H, D] with
+    ``q_pos`` [B, S], no ``k_pos`` and no window; token t is a key of
+    query i iff t < seq_lens[b] and t <= q_pos[b, i]. Returns
+    [B, S, H, D].
     """
+    if q.ndim == 4:
+        rows = multi_query_rows(q, block_table, seq_lens, q_pos)
+        return _paged_ref(rows[0], k_pages, v_pages, *rows[1:3],
+                          q_pos=rows[3], causal=True).reshape(q.shape)
+    return _paged_ref(q, k_pages, v_pages, block_table, seq_lens,
+                      k_pos=k_pos, q_pos=q_pos, window=window)
+
+
+def _paged_ref(q, k_pages, v_pages, block_table, seq_lens, *, k_pos=None,
+               q_pos=None, window: int = 0, causal: bool = False):
     b, h, d = q.shape
     _, page, kvh, _ = k_pages.shape
     pages_per_seq = block_table.shape[1]
@@ -101,7 +130,7 @@ def paged_attention_ref(q, k_pages, v_pages, block_table, seq_lens, *,
     qf = q.reshape(b, kvh, g, d).float() / (d ** 0.5)
     s = torch.einsum("bkgd,bckd->bkgc", qf, k_log.float())
     read, key = paged_key_mask(seq_lens, block_table, page, k_pos=k_pos,
-                               q_pos=q_pos, window=window)
+                               q_pos=q_pos, window=window, causal=causal)
     s = torch.where(key[:, None, None], s, torch.full_like(s, NEG_INF))
     s = torch.where(read[:, None, None], s, torch.full_like(s, -torch.inf))
     p = torch.softmax(s, dim=-1)

@@ -9,16 +9,20 @@ Where the reference attends with its pure-jnp ``blockwise_sdpa`` (prefill)
 and ``simple_sdpa`` (continuation, decode), the port calls the kernels of
 ``repro_torch.kernels``: flash attention for prefill and scalar-start
 continuation, paged attention for decode over the slot cache viewed as a
-page pool with the identity block table. On CPU tensors the kernels run
-their plain versions. Windowed ring caches (``slot_pos``, the compacting
-engine's position-exact caches) take the kernels too: prefill attends over
-the fresh prompt with flash (only the ring write differs), a scalar-start
-extend that has not wrapped attends over the cache's first rows with
-flash, and decode (windowed, or with ``window > 0``) takes the paged
-kernel's masked mode with ``slot_pos`` as the key positions. Three paths
-do not fit the kernels: per-row [B] continuation starts, caller-supplied
-positions, and an extend into a ring that has wrapped. On CPU tensors
-they take the plain ``blockwise_sdpa`` / ``simple_sdpa`` below, on CUDA
+page pool with the identity block table, and the paged kernel's
+multi-query mode for a continuation with per-row [B] starts (the batched
+speculative verify and the draft's lead) over the same view. On CPU
+tensors the kernels run their plain versions. Windowed ring caches
+(``slot_pos``, the compacting engine's position-exact caches) take the
+kernels too: prefill attends over the fresh prompt with flash (only the
+ring write differs), a scalar-start extend that has not wrapped attends
+over the cache's first rows with flash, and decode (windowed, or with
+``window > 0``) takes the paged kernel's masked mode with ``slot_pos`` as
+the key positions. Three paths do not fit the kernels: caller-supplied
+positions, an extend into a ring that has wrapped, and [B] starts on a
+windowed cache or with ``window > 0`` (the speculative decoder refuses a
+compacting engine, so the engine never makes one). On CPU tensors they
+take the plain ``blockwise_sdpa`` / ``simple_sdpa`` below, on CUDA
 tensors they raise ``NotImplementedError`` (ROADMAP).
 
 Caches are updated in place (the reference returns updated copies); every
@@ -131,7 +135,8 @@ def _off_kernel(x, what: str):
     if x.device.type != "cpu":
         raise NotImplementedError(
             f"{what} is not on the port's CUDA kernels yet (ROADMAP queue "
-            "A: [B] starts, custom positions and wrapped ring extends)")
+            "A: custom positions, wrapped ring extends, and [B] starts on "
+            "a windowed cache)")
 
 
 # --------------------------------------------------------------------------
@@ -314,8 +319,15 @@ def append_attention(p, x, cos, sin, cfg, cache, start, *, window=0):
     ``start + S_new <= L`` and assumes those rows hold positions
     ``0 .. start+S_new-1`` in order -- true of every cache the engine
     extends (a prefill then chunks; compaction runs only after a prompt's
-    last chunk). A ring that has wrapped, and [B] starts, take the plain
-    ``simple_sdpa`` over ``slot_pos`` on CPU tensors and raise on CUDA."""
+    last chunk). [B] starts on a plain cache take the paged kernel's
+    multi-query mode over the slot cache viewed as pages (identity
+    table): query i of row b sits at ``q_pos = start[b] + i`` (past
+    ``L - 1`` for the engine's inactive rows, whose writes clip onto the
+    scratch slot) and sees rows ``t < min(start[b] + S_new, L)`` with
+    ``t <= q_pos`` -- ``simple_sdpa``'s rule with ``k_pos = arange(L)``.
+    A ring that has wrapped, and [B] starts on a windowed cache or with
+    ``window > 0``, take the plain ``simple_sdpa`` over ``slot_pos`` on
+    CPU tensors and raise on CUDA."""
     s_new = x.shape[1]
     q, k, v = qkv_proj(p, x)
     if cos is not None:
@@ -334,7 +346,15 @@ def append_attention(p, x, cos, sin, cfg, cache, start, *, window=0):
             cache["v"][:, :kv_len].transpose(1, 2), causal=True,
             window=window, kv_len=kv_len, q_offset=start)
         return out_proj(p, o.transpose(1, 2)), cache
-    _off_kernel(x, "per-row [B] starts" if per_row
+    if per_row and not windowed and not window:
+        q_pos = _extend_positions(start, s_new, x.device)     # [B, S_new]
+        k_pages, v_pages, table = _paged_view(cache, x.shape[0])
+        o = ops.paged_attention(
+            q.contiguous(), k_pages, v_pages, table,
+            torch.clamp(q_pos[:, -1] + 1, max=cache["k"].shape[1]
+                        ).to(torch.int32), q_pos=q_pos.to(torch.int32))
+        return out_proj(p, o), cache
+    _off_kernel(x, "per-row [B] starts on a windowed cache" if per_row
                 else "an extend into a wrapped ring cache")
     k_pos = (cache["slot_pos"] if windowed
              else torch.arange(cache["k"].shape[1], device=x.device))
@@ -347,6 +367,19 @@ def append_attention(p, x, cos, sin, cfg, cache, start, *, window=0):
 def _page_size(length: int) -> int:
     """Largest page of 16, 8, 4, 2, 1 tokens that tiles the slot cache."""
     return next(pg for pg in (16, 8, 4, 2, 1) if length % pg == 0)
+
+
+def _paged_view(cache, b: int):
+    """The dense slot cache [B,L,K,D] as the paged kernel's pool: B*L/page
+    pages, request b owning pages b*L/page .. (b+1)*L/page - 1 in order
+    (the identity block table). Returns (k_pages, v_pages, table)."""
+    length, kvh, hd = cache["k"].shape[1:]
+    page = _page_size(length)
+    n_pages = b * length // page
+    table = torch.arange(n_pages, dtype=torch.int32,
+                         device=cache["k"].device).view(b, length // page)
+    return (cache["k"].reshape(n_pages, page, kvh, hd),
+            cache["v"].reshape(n_pages, page, kvh, hd), table)
 
 
 def decode_attention(p, x, cos, sin, cfg, cache, pos, *, window=0):
@@ -368,20 +401,15 @@ def decode_attention(p, x, cos, sin, cfg, cache, pos, *, window=0):
         k = apply_rope(k, cos, sin)
     windowed = "slot_pos" in cache
     cache = _cache_write_decode(cache, k, v, pos, windowed)
-    length, kvh, hd = cache["k"].shape[1:]
-    page = _page_size(length)
-    n_pages = b * length // page
-    table = torch.arange(n_pages, dtype=torch.int32,
-                         device=x.device).view(b, length // page)
+    length = cache["k"].shape[1]
+    k_pages, v_pages, table = _paged_view(cache, b)
     masked = {}
     if windowed or window:
         masked = dict(q_pos=pos.to(torch.int32), window=window,
-                      k_pos=(cache["slot_pos"].reshape(n_pages, page)
+                      k_pos=(cache["slot_pos"].reshape(k_pages.shape[:2])
                              if windowed else None))
     # a ring that has wrapped reads all its rows
     seq_lens = torch.clamp(pos + 1, max=length) if windowed else pos + 1
-    o = ops.paged_attention(
-        q[:, 0], cache["k"].reshape(n_pages, page, kvh, hd),
-        cache["v"].reshape(n_pages, page, kvh, hd), table,
-        seq_lens.to(torch.int32), **masked)
+    o = ops.paged_attention(q[:, 0], k_pages, v_pages, table,
+                            seq_lens.to(torch.int32), **masked)
     return out_proj(p, o[:, None]), cache

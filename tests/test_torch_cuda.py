@@ -343,3 +343,193 @@ def test_compressor_on_card_matches_cpu(dev, preset):
     if idx is not None:
         assert torch.equal(idx.cpu(), want_idx)
     assert float((got.cpu() - want).abs().max()) <= 1e-5
+
+
+# ----------------------------------------------- multi-query (verify) --
+
+def _mq_inputs(rng, s, g, dtype, dev, *, permute, page=16, b=6, kvh=2,
+               length=288):
+    """Multi-query inputs over a ``length``-slot cache of ``b`` requests:
+    (q [B,S,H,D], k/v pages, table, seq_lens, q_pos). Row starts: the
+    cache's start, one block straddling each 32-token split boundary of
+    the first two, a mid-cache block, a block ending at the last live
+    row (L - 2), and an inactive row routed to the scratch slot
+    (start = L - 1: q_pos runs past the cache and every row is read).
+    Physical page table[j] holds logical page j."""
+    d = 128 if g == 6 else 64
+    h = kvh * g
+    pps = length // page
+    starts = np.array([0, 32 - s // 2, 64 - 1, length // 2 + 3,
+                       length - 1 - s, length - 1])[:b]
+    q = _randn(rng, (b, s, h, d), dtype, dev)
+    k = _randn(rng, (b, length, kvh, d), dtype, dev)
+    v = _randn(rng, (b, length, kvh, d), dtype, dev)
+    order = rng.permutation(b * pps) if permute else np.arange(b * pps)
+    table = torch.from_numpy(order.reshape(b, pps).astype(np.int32)).to(dev)
+    pages = []
+    for x in (k, v):
+        y = torch.empty((b * pps, page, kvh, d), dtype=dtype, device=dev)
+        y[table.flatten().long()] = x.reshape(b * pps, page, kvh, d)
+        pages.append(y)
+    q_pos = starts[:, None] + np.arange(s)
+    seq = np.minimum(starts + s, length)
+    return (q, pages[0], pages[1], table,
+            torch.from_numpy(seq.astype(np.int32)).to(dev),
+            torch.from_numpy(q_pos.astype(np.int32)).to(dev))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("g", [1, 6, 8])
+@pytest.mark.parametrize("s", range(1, 9))
+def test_paged_kernel_multi_query_matches_plain(dev, dtype, g, s):
+    """The multi-query mode (the per-row-start verify) against its plain
+    version: S = 1..8 query tokens, G = 1, 6 (qwen2-vl, D 128) and 8
+    heads per kv head (up to 64 rows a CTA), identity and permuted
+    tables, pages of 16 and 5 tokens, blocks across split boundaries and
+    an inactive scratch row."""
+    rng = np.random.default_rng(10 + s)
+    for permute, page in ((False, 16), (True, 16), (True, 5)):
+        *args, q_pos = _mq_inputs(rng, s, g, dtype, dev, permute=permute,
+                                  page=page, length=320)
+        n0 = pa.paged_attention.launches
+        m0 = pa.paged_attention.multi_query_launches
+        out = pa.paged_attention(*args, q_pos=q_pos)
+        torch.cuda.synchronize()
+        assert pa.paged_attention.launches == n0 + 1
+        assert pa.paged_attention.multi_query_launches == m0 + 1
+        assert out.shape == args[0].shape
+        ref = pa.paged_attention_plain(*args, q_pos=q_pos)
+        err = (out.float() - ref.float()).abs().max().item()
+        assert err <= TOL[dtype], (permute, page, err)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("permute", [False, True])
+def test_paged_kernel_draft_pool_matches_plain(dev, dtype, permute):
+    """The speculative draft pool of the qwen2-vl serve (1104 + gamma 4 + 8
+    = 1116 rows, so 4-token pages): the draft's 2-token lead at text
+    positions 31..62 with two rows at the scratch slot (start 1114), and
+    its one-query decode steps at batch 8 (seq_lens = text position + 3,
+    or the whole pool for the scratch rows)."""
+    rng = np.random.default_rng(17)
+    b, length, page, kvh, g, d = 8, 1116, 4, 2, 6, 128
+    pps = length // page
+    text = 31 + rng.integers(0, 32, b)
+    text[-2:] = length - 2
+    k = _randn(rng, (b, length, kvh, d), dtype, dev)
+    v = _randn(rng, (b, length, kvh, d), dtype, dev)
+    order = rng.permutation(b * pps) if permute else np.arange(b * pps)
+    table = torch.from_numpy(order.reshape(b, pps).astype(np.int32)).to(dev)
+    kp, vp = (torch.empty((b * pps, page, kvh, d), dtype=dtype, device=dev)
+              for _ in range(2))
+    kp[table.flatten().long()] = k.reshape(b * pps, page, kvh, d)
+    vp[table.flatten().long()] = v.reshape(b * pps, page, kvh, d)
+
+    def ints(x):
+        return torch.from_numpy(np.asarray(x, np.int32)).to(dev)
+    q = _randn(rng, (b, 2, kvh * g, d), dtype, dev)
+    q_pos = ints(text[:, None] + np.arange(2))
+    seq = ints(np.minimum(text + 2, length))
+    out = pa.paged_attention(q, kp, vp, table, seq, q_pos=q_pos)
+    ref = pa.paged_attention_plain(q, kp, vp, table, seq, q_pos=q_pos)
+    step = np.minimum(text + 3, length)
+    q1 = _randn(rng, (b, kvh * g, d), dtype, dev)
+    out1 = pa.paged_attention(q1, kp, vp, table, ints(step))
+    ref1 = pa.paged_attention_plain(q1, kp, vp, table, ints(step))
+    torch.cuda.synchronize()
+    for got, want in ((out, ref), (out1, ref1)):
+        err = (got.float() - want.float()).abs().max().item()
+        assert err <= TOL[dtype], err
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_multi_query_s1_equals_one_query_bits(dev, dtype):
+    """S = 1 with q_pos = seq_len - 1 masks nothing the one-query kernel
+    reads: the same bits, at the qwen2-vl decode shape."""
+    q, kp, vp, table, seq = _main_table(np.random.default_rng(11), 8,
+                                        [40, 360, 1104, 1, 97, 1060, 700, 32],
+                                        dtype, dev)
+    got = pa.paged_attention(q[:, None].contiguous(), kp, vp, table, seq,
+                             q_pos=(seq - 1)[:, None].contiguous())
+    torch.cuda.synchronize()
+    assert torch.equal(got[:, 0], pa.paged_attention(q, kp, vp, table, seq))
+
+
+def test_paged_multi_query_refusals(dev):
+    rng = np.random.default_rng(12)
+    q, kp, vp, table, seq, q_pos = _mq_inputs(rng, 4, 6, torch.bfloat16,
+                                              dev, permute=False)
+    with pytest.raises(ValueError):        # int64 positions
+        pa.paged_attention(q, kp, vp, table, seq, q_pos=q_pos.long())
+    with pytest.raises(ValueError):        # [B] positions for [B, S] q
+        pa.paged_attention(q, kp, vp, table, seq, q_pos=q_pos[:, 0])
+    with pytest.raises(ValueError):        # no positions
+        pa.paged_attention(q, kp, vp, table, seq)
+    with pytest.raises(ValueError):        # k_pos is not served with it
+        pa.paged_attention(q, kp, vp, table, seq, q_pos=q_pos,
+                           k_pos=torch.zeros(kp.shape[:2], dtype=torch.int32,
+                                             device=dev))
+    with pytest.raises(ValueError):        # nor a window
+        pa.paged_attention(q, kp, vp, table, seq, q_pos=q_pos, window=16)
+    q9 = torch.zeros((q.shape[0], 9) + q.shape[2:], dtype=q.dtype,
+                     device=dev)
+    with pytest.raises(ValueError):        # S = 9 > 8
+        pa.paged_attention(q9, kp, vp, table, seq,
+                           q_pos=torch.zeros(q9.shape[:2], dtype=torch.int32,
+                                             device=dev))
+    q16 = torch.zeros((q.shape[0], 5, 32, 64), dtype=q.dtype, device=dev)
+    kp16 = torch.zeros(kp.shape[:3] + (64,), dtype=q.dtype, device=dev)
+    with pytest.raises(ValueError):        # 5 tokens x 16 heads > 64 rows
+        pa.paged_attention(q16, kp16, kp16, table, seq,
+                           q_pos=torch.zeros(q16.shape[:2],
+                                             dtype=torch.int32, device=dev))
+    with pytest.raises(ValueError):        # positions on the host
+        pa.paged_attention(q, kp, vp, table, seq, q_pos=q_pos.cpu())
+
+
+def test_per_row_extend_card_matches_cpu(dev):
+    """A full [B]-start ``Model.extend`` (the batched verify) on the qwen2-vl
+    smoke config, card against CPU (float32): active rows' logits within
+    1e-3 (the smoke-logit bar) and their cache rows within 1e-4. The
+    inactive row clips several writes onto the scratch slot, whose
+    winner the card leaves unspecified: it is not compared."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.registry import build
+    cfg = get_config("qwen2-vl-2b", smoke=True)
+    model = build(cfg)
+    params = model.init(0, "cpu")
+    rng = np.random.default_rng(13)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (3, 20)))
+    _, cache = model.prefill(params, {"tokens": toks}, cache_len=48)
+    blk = torch.from_numpy(rng.integers(0, cfg.vocab_size, (3, 5)))
+    starts = torch.tensor([20, 14, 47])               # row 2: scratch
+
+    def tree_to(t):
+        return {k: tree_to(v) if isinstance(v, dict) else v.to(dev)
+                for k, v in t.items()}
+    pc, card = tree_to(params), tree_to(cache)
+    n0 = pa.paged_attention.multi_query_launches
+    lc, cache = model.extend(params, cache, blk, starts)
+    lg, card = model.extend(pc, card, blk.to(dev), starts.to(dev))
+    torch.cuda.synchronize()
+    assert pa.paged_attention.multi_query_launches == n0 + cfg.num_layers
+    assert (lg[:2].cpu() - lc[:2]).abs().max().item() <= 1e-3
+    for name in ("k", "v"):
+        got = card["layers"][name][:, :2, :25].cpu()
+        want = cache["layers"][name][:, :2, :25]
+        assert (got - want).abs().max().item() <= 1e-4
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("split", [32, 96, 128])
+def test_paged_multi_query_multi_chunk_splits(dev, dtype, split):
+    """The multi-query kernels at one to four 32-token chunks per CTA (the
+    wrapper gives the tensor-core kernel two): the cp.async ping-pong and
+    the online softmax across chunks."""
+    *args, q_pos = _mq_inputs(np.random.default_rng(14), 5, 6, dtype, dev,
+                              permute=True, length=320)
+    out = pa._launch(*args, split, q_pos=q_pos)
+    torch.cuda.synchronize()
+    ref = pa.paged_attention_plain(*args, q_pos=q_pos)
+    err = (out.float() - ref.float()).abs().max().item()
+    assert err <= TOL[dtype], err

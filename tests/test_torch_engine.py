@@ -148,19 +148,29 @@ def test_sampling_decoder_runs(pair):
 
 
 def test_later_slices_raise(pair):
+    """What stays refused: KV handoff (ROADMAP queue A, slice 6), and, as
+    the reference refuses them, a per-request KV preset on an engine not
+    built compacting, speculative or early exit on a compacting engine,
+    and a request past the cache. Speculative and early exit serve
+    otherwise (tests/test_torch_decoder_engine.py)."""
     _, t = pair
-    with pytest.raises(NotImplementedError):
-        GenerationConfig(decoder="speculative")
-    with pytest.raises(NotImplementedError):
-        GenerationConfig(decoder="early_exit")
+    assert GenerationConfig(decoder="speculative").gamma == 4
+    assert GenerationConfig(decoder="early_exit").exit_threshold == 0.9
     eng = t.serve([], EngineConfig(max_batch=1, cache_len=32)).engine
-    # KV compaction serves now (slice 3); per request it still needs an
-    # engine built compacting, as in the reference
     with pytest.raises(ValueError, match="not built compacting"):
         eng.submit(Request(rid=0, tokens=[1, 2], compression="streaming-kv"))
     with pytest.raises(NotImplementedError):
         eng.submit(Request(rid=1, tokens=[1, 2], handoff=True))
-    with pytest.raises(NotImplementedError):
-        eng.submit(Request(rid=2, tokens=[1, 2], decoder="early_exit"))
+    eng.submit(Request(rid=2, tokens=[1, 2], max_new_tokens=4,
+                       decoder="early_exit"))
     with pytest.raises(ValueError):
         eng.submit(Request(rid=3, tokens=[1] * 30, max_new_tokens=8))
+    comp = t.serve([], EngineConfig(max_batch=2, cache_len=32),
+                   gen=GenerationConfig(compression="streaming-kv")).engine
+    for dec in ("speculative", "early_exit"):
+        with pytest.raises(ValueError, match="compaction"):
+            comp.submit(Request(rid=4, tokens=[1, 2], max_new_tokens=4,
+                                decoder=dec))
+        with pytest.raises(ValueError, match="compaction"):
+            t.generate([1, 2, 3], GenerationConfig(
+                decoder=dec, max_new_tokens=2, compression="streaming-kv"))

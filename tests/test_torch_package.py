@@ -72,20 +72,35 @@ def test_kernels_are_built_only_on_demand():
         assert (build.CSRC / f"{name}.cu").is_file()
 
 
+def _assert_ported(path: str) -> None:
+    """``path`` (under ``src/``'s packages) has its reference, and its port
+    imports neither JAX nor the JAX package."""
+    import ast
+    assert (ROOT / "src" / "repro" / path).is_file()
+    tree = ast.parse((ROOT / "src" / "repro_torch" / path).read_text())
+    mods = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            mods.update(a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            mods.add(node.module)
+    assert not {m for m in mods if m.split(".")[0] in ("jax", "repro")}
+
+
 @pytest.mark.parametrize("name", ["selection", "budget", "merging", "paged",
                                   "prefix_cache", "tiered"])
 def test_kv_cache_modules_are_ported(name):
     """Each module of the reference's ``core/kv_cache`` has its port,
     which imports neither JAX nor the JAX package (the probe above imports
     it with JAX blocked)."""
-    import ast
-    path = ROOT / "src" / "repro_torch" / "core" / "kv_cache" / f"{name}.py"
-    assert (ROOT / "src" / "repro" / "core" / "kv_cache" / f"{name}.py"
-            ).is_file()
-    mods = set()
-    for node in ast.walk(ast.parse(path.read_text())):
-        if isinstance(node, ast.Import):
-            mods.update(a.name for a in node.names)
-        elif isinstance(node, ast.ImportFrom) and node.module:
-            mods.add(node.module)
-    assert not {m for m in mods if m.split(".")[0] in ("jax", "repro")}
+    _assert_ported(f"core/kv_cache/{name}.py")
+
+
+@pytest.mark.parametrize("path", ["core/decoding/speculative.py",
+                                  "core/decoding/early_exit.py",
+                                  "api/decoders.py"])
+def test_decoding_modules_are_ported(path):
+    """Each module of the advanced-decoding slice has its reference and
+    imports neither JAX nor the JAX package (the probe above imports it
+    with JAX blocked)."""
+    _assert_ported(path)
