@@ -72,6 +72,28 @@ DRAFT_CACHE_LEN, DRAFT_PAGE = SERVE_CACHE_LEN + GAMMA + 8, 4
 #: that drops each query's own key (t < q_pos for t <= q_pos) moves the
 #: serve-shaped outputs by 0.07-0.56 of their scale, so the limit sees it.
 REL_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
+#: Verify shapes whose output bits the multi-query mode's row tiles must
+#: not change (S * G <= 64 keeps one row tile): the serve's batch-8
+#: verify at S = 5 and S = 1, inputs from BITS_SEED through ``_mq_case``.
+BITS_SEED = 5
+BITS_CASES = {
+    "serve_b8_s5": dict(s=VERIFY_S, starts=[1056, 1060, 1063, 1070, 1075,
+                                            1080, 1083, SERVE_CACHE_LEN - 1]),
+    "serve_b8_s1": dict(s=1, starts=[1056, 1060, 1063, 1070, 1075, 1080,
+                                     1083, SERVE_CACHE_LEN - 1]),
+}
+#: sha256 of those outputs' bytes from the kernel as it was before row
+#: tiles were added (read on an NVIDIA H100 80GB HBM3)
+BITS_SHA = {
+    "serve_b8_s5/float32":
+        "b3b61961d10ecb9a8e5ea918e1da9e29bef7c2d4fefc1eccf5e8270451d950d5",
+    "serve_b8_s1/float32":
+        "468747aa4eeb34a72a285ca65c5f5983197490c661573862edd8f6210e1aa614",
+    "serve_b8_s5/bfloat16":
+        "0ead15c29905f2ef1cc9dee1d99775c953e3d572bb76df9de87ed928bbc0c71a",
+    "serve_b8_s1/bfloat16":
+        "0fec139e5906004c61b97c6b0e4551acc96ce58ed92b450ece3bcaa7aabb8f23",
+}
 
 
 def emit(phase: str, **fields) -> None:
@@ -185,7 +207,7 @@ def phase_build() -> None:
         fn = getattr(build.load(name), f"{name}_smem_bytes")
         smem[name] = {f"{dt}/d{d}": fn(code, d)
                       for dt, code in (("float32", 0), ("bfloat16", 1))
-                      for d in (64, 128)}
+                      for d in (32, 64, 128)}
     cuobjdump = os.path.join(os.path.dirname(build.nvcc_path()), "cuobjdump")
     sass = subprocess.run([cuobjdump, "-sass",
                            str(build.library_path("flash_attention"))],
@@ -1059,7 +1081,7 @@ def phase_paged_verify(flush) -> dict:
     one-query decode steps at batch 8. Each edge is held to TOL and to
     REL_TOL of its reference's largest value; on the serve-shaped edges
     the plain version with each query's own key dropped must miss
-    REL_TOL by 4x. S = 1 must give the one-query kernel's bits; S = 9,
+    REL_TOL by 4x. S = 1 must give the one-query kernel's bits; head dim 48,
     bad q_pos and q_pos with k_pos or a window are refused. Then the
     batch-8 verify timed (bf16, identity table) beside its bound, the
     one-query kernel at the same seq_lens, S one-query launches (seq_lens
@@ -1135,10 +1157,11 @@ def phase_paged_verify(flush) -> dict:
                   "max|ref|")
     refused = {}
     args, qp, _ = _mq_case(rng, torch.bfloat16, s=VERIFY_S, starts=serve)
-    q9 = torch.zeros((8, 9) + args[0].shape[2:], dtype=torch.bfloat16,
-                     device="cuda")
-    bad = {"s9": ((q9,) + args[1:], dict(q_pos=torch.zeros(
-               (8, 9), dtype=torch.int32, device="cuda"))),
+    q48 = torch.zeros((8, 9, 12, 48), dtype=torch.bfloat16, device="cuda")
+    kp48 = torch.zeros(args[1].shape[:3] + (48,), dtype=torch.bfloat16,
+                       device="cuda")
+    bad = {"head_dim_48": ((q48, kp48, kp48) + args[3:], dict(
+               q_pos=torch.zeros((8, 9), dtype=torch.int32, device="cuda"))),
            "q_pos_int64": (args, dict(q_pos=qp.long())),
            "q_pos_b": (args, dict(q_pos=qp[:, 0].contiguous())),
            "with_k_pos": (args, dict(q_pos=qp, k_pos=torch.zeros(
@@ -1998,6 +2021,469 @@ def phase_decoding_smoke() -> None:
     emit("decoding_smoke", config=cfg.name, tolerance=SMOKE_LOGIT_TOL, **out)
 
 
+# ------------------------------------------ head dim 32 and long verifies --
+
+def _kernel_row(fn, plain, library, flush, nbytes, flops, dtype, err):
+    """ms of ``fn``, ``plain`` and ``library`` beside the bound."""
+    b_ms, b_by = bound(nbytes, flops, dtype)
+    return {"max_abs_err": err, "ms": time_ms(fn, flush),
+            "plain_ms": time_ms(plain, flush), "bound_ms": b_ms,
+            "bound_by": b_by, "library_ms": time_ms(library, flush)}
+
+
+def phase_kernels_d32(flush) -> dict:
+    """Both kernels at head dim 32 (phi4-mini smoke's and every reference
+    smoke config's but qwen2-vl's; a bf16 row is 64 bytes: the flash
+    kernel's 64-byte-swizzled TMA box, the paged kernel's 4-piece
+    swizzle) in float32 and bf16 against their plain versions at TOL:
+    flash causal, windowed, kv_len < Sk, q_offset, keyless rows,
+    non-causal and strided views; paged one-query (identity, permuted,
+    seq_len 0, split boundaries), masked (compacted, ring, window, ahead)
+    and multi-query (S = 2, 5, 9 and 17 at G = 4, also within REL_TOL of
+    max|ref|). Then, in bf16, flash at phi4-mini smoke's heads (8 / 2) and
+    the main path's 1056-token prefill, and the one-query kernel at batch
+    8 over 1104 slots, each timed beside its bound, its plain version and
+    SDPA."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import paged_attention as pa
+    rng = np.random.default_rng(32)
+    h, kvh, d, page, length = 8, 2, 32, 16, SERVE_CACHE_LEN
+    main = dict(b=1, h=h, kvh=kvh, sq=1056, sk=1056, d=d)
+    flash_cases = [
+        ("main", main, {}),
+        ("window_64", main, dict(window=64)),
+        ("kv_len_lt_sk", dict(main, sq=64, sk=1104), dict(kv_len=1072)),
+        ("q_offset", dict(main, sq=16, sk=1104),
+         dict(kv_len=1056, q_offset=1000)),
+        ("keyless_rows", dict(main, sq=200, sk=200), dict(q_offset=-30)),
+        ("non_causal", dict(main, sq=70, sk=64), dict(causal=False,
+                                                      kv_len=40)),
+        ("window_64_sq70", dict(main, sq=70, sk=70), dict(window=64)),
+        ("strided_views", dict(main, sq=80, sk=1104, views=True),
+         dict(kv_len=1056, q_offset=976)),
+    ]
+    b, pps = 8, length // page
+    seqs = torch.tensor([1060, 1100, 40, 1103, 1056, 1070, 500, 1083],
+                        dtype=torch.int32, device="cuda")
+    ident = torch.arange(b * pps, dtype=torch.int32,
+                         device="cuda").view(b, pps)
+    perm = torch.from_numpy(rng.permutation(b * pps).astype(np.int32)
+                            ).cuda().view(b, pps)
+    zero_seq = seqs.clone()
+    zero_seq[::2] = 0
+    straddle = torch.tensor([31, 32, 33, 65, 63, 64, 1, 97],
+                            dtype=torch.int32, device="cuda")
+    errs, rel = {}, {}
+    for dtype in (torch.float32, torch.bfloat16):
+        dt = str(dtype)[6:]
+        for name, c, kw in flash_cases:
+            q, k, v = _flash_inputs(rng, c, dtype)
+            got = fa.flash_attention(q, k, v, **kw)
+            torch.cuda.synchronize()
+            e = errs[f"flash/{name}/{dt}"] = max_err(
+                got, fa.flash_attention_plain(q, k, v, **kw))
+            check(e <= TOL[dtype], f"flash d32 {name} {dtype}: err {e}")
+        qd = randn(rng, (b, h, d), dtype)
+        kp = randn(rng, (b * pps, page, kvh, d), dtype)
+        vp = randn(rng, (b * pps, page, kvh, d), dtype)
+        for name, table, sl in (("identity", ident, seqs),
+                                ("permuted", perm, seqs),
+                                ("seq_len_0", perm, zero_seq),
+                                ("split_boundaries", perm, straddle)):
+            got = pa.paged_attention(qd, kp, vp, table, sl)
+            torch.cuda.synchronize()
+            e = errs[f"paged/{name}/{dt}"] = max_err(
+                got, pa.paged_attention_plain(qd, kp, vp, table, sl))
+            check(e <= TOL[dtype], f"paged d32 {name} {dtype}: err {e}")
+        cases, _ = _masked_cases(rng, dtype, h, kvh, d, page)
+        for name, args, kw in cases:
+            got = pa.paged_attention(*args, **kw)
+            torch.cuda.synchronize()
+            e = errs[f"paged_masked/{name}/{dt}"] = max_err(
+                got, pa.paged_attention_plain(*args, **kw))
+            check(e <= TOL[dtype], f"paged d32 masked {name} {dtype}: {e}")
+        for s in (2, VERIFY_S, 9, 17):
+            for perm_t in (False, True):
+                name = f"multi_query_s{s}" + ("_permuted" if perm_t else "")
+                args, qp, _ = _mq_case(
+                    rng, dtype, s=s, h=h, kvh=kvh, d=d, permute=perm_t,
+                    starts=[0, 29, 500, length - 1, length - 1 - s, 1070])
+                got = pa.paged_attention(*args, q_pos=qp)
+                torch.cuda.synchronize()
+                want = pa.paged_attention_plain(*args, q_pos=qp)
+                e = errs[f"paged/{name}/{dt}"] = max_err(got, want)
+                r = rel[f"paged/{name}/{dt}"] = e / float(
+                    want.float().abs().max())
+                check(e <= TOL[dtype] and r <= REL_TOL[dtype],
+                      f"paged d32 {name} {dtype}: err {e}, {r} of max|ref|")
+    dtype = torch.bfloat16
+    out = {}
+    q, k, v = _flash_inputs(rng, main, dtype)
+    sq = main["sq"]
+    out["flash_attention"] = dict(shape=main, **_kernel_row(
+        lambda: fa.flash_attention(q, k, v),
+        lambda: fa.flash_attention_plain(q, k, v),
+        lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                               enable_gqa=True),
+        flush, q.element_size() * (2 * q.numel() + k.numel() + v.numel()),
+        4 * d * h * sq * (sq + 1) / 2, dtype, errs["flash/main/bfloat16"]))
+    cache_k = randn(rng, (b, length, kvh, d), dtype)
+    cache_v = randn(rng, (b, length, kvh, d), dtype)
+    qd = randn(rng, (b, h, d), dtype)
+    kp, vp = (x.view(b * pps, page, kvh, d) for x in (cache_k, cache_v))
+    n_tok = int(seqs.sum())
+    mask = (torch.arange(length, device="cuda")[None]
+            < seqs[:, None])[:, None, None, :]
+    out["paged_attention"] = dict(
+        shape=dict(b=b, h=h, kvh=kvh, d=d, cache_len=length, page=page,
+                   seq_lens=seqs.tolist()), **_kernel_row(
+            lambda: pa.paged_attention(qd, kp, vp, ident, seqs),
+            lambda: pa.paged_attention_plain(qd, kp, vp, ident, seqs),
+            lambda: F.scaled_dot_product_attention(
+                qd[:, :, None], cache_k.transpose(1, 2),
+                cache_v.transpose(1, 2), attn_mask=mask, enable_gqa=True),
+            flush, qd.element_size() * (2 * qd.numel()
+                                        + 2 * n_tok * kvh * d)
+            + 4 * (ident.numel() + b), 4 * h * d * n_tok, dtype,
+            errs["paged/identity/bfloat16"]))
+    emit("kernels_d32", errors=errs, rel_errors=rel,
+         tolerance={"float32": TOL[torch.float32],
+                    "bfloat16": TOL[torch.bfloat16]},
+         rel_tolerance={"float32": REL_TOL[torch.float32],
+                        "bfloat16": REL_TOL[torch.bfloat16]},
+         timed_bf16=out)
+    return out
+
+
+def _sha(t) -> str:
+    import hashlib
+    return hashlib.sha256(t.contiguous().cpu().view(torch.uint8).numpy()
+                          .tobytes()).hexdigest()
+
+
+def phase_paged_verify_long(flush) -> dict:
+    """The multi-query mode at S = 9, 13 and 17 (verifies of gamma 8, 12
+    and 16) for G = 6 (qwen2-vl, 12 / 2 heads) and G = 16 (32 / 2 heads),
+    D = 128: S x G = 54 to 272 query rows per kv head, so past 64 rows the
+    rows of a kv head go to several row-tile CTAs. In float32 and bf16
+    against the plain version at TOL and REL_TOL: the serve's batch-8
+    verify, a permuted table with scratch rows, pages of 5; on the serve
+    edge the plain version with each query's own key dropped must miss
+    REL_TOL by 4x. BITS_CASES (S = 5 and S = 1, one row tile) must give
+    the bits of the kernel before row tiles (BITS_SHA). Then, in bf16 at
+    G = 6 for each S (and G = 16 at S = 9), the batch-8 verify timed
+    beside its bound, S one-query launches, its plain version and SDPA
+    over the slot cache with the boolean causal mask."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import paged_attention as pa
+    rng = np.random.default_rng(15)
+    L = SERVE_CACHE_LEN
+    bits = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        for name, kw in BITS_CASES.items():
+            args, qp, _ = _mq_case(np.random.default_rng(BITS_SEED), dtype,
+                                   **kw)
+            key = f"{name}/{str(dtype)[6:]}"
+            bits[key] = _sha(pa.paged_attention(*args, q_pos=qp)) \
+                == BITS_SHA[key]
+    check(all(bits.values()), f"multi-query bits changed: {bits}")
+    errs, rel, sense = {}, {}, {}
+    heads = {6: dict(h=12, kvh=2), 16: dict(h=32, kvh=2)}
+    for dtype in (torch.float32, torch.bfloat16):
+        dt = str(dtype)[6:]
+        for g, hk in heads.items():
+            for s in (9, 13, 17):
+                serve = 1056 + rng.integers(0, SERVE_NEW - s, 8)
+                edges = {
+                    "serve_b8": dict(starts=serve),
+                    "permuted_scratch": dict(
+                        starts=[1060, L - 1, 40, L - 1, L - 2 - s, 0],
+                        permute=True),
+                    "page5": dict(starts=[0, 33, 500, 1080, L - 1], page=5,
+                                  length=1100, permute=True),
+                }
+                for name, kw in edges.items():
+                    args, qp, _ = _mq_case(rng, dtype, s=s, **hk, **kw)
+                    got = pa.paged_attention(*args, q_pos=qp)
+                    torch.cuda.synchronize()
+                    want = pa.paged_attention_plain(*args, q_pos=qp)
+                    scale = float(want.float().abs().max())
+                    key = f"g{g}_s{s}/{name}/{dt}"
+                    e = errs[key] = max_err(got, want)
+                    r = rel[key] = e / scale
+                    check(e <= TOL[dtype] and r <= REL_TOL[dtype],
+                          f"long verify {key}: err {e}, {r} of max|ref|")
+                    if name == "serve_b8":
+                        wrong = pa.paged_attention_plain(*args, q_pos=qp - 1)
+                        dk = sense[key] = max_err(wrong, want) / scale
+                        check(dk > 4 * REL_TOL[dtype], f"long verify {key}:"
+                              f" a dropped key moves it only {dk}")
+    dtype = torch.bfloat16
+    timed = {}
+    for g, s in ((6, 9), (6, 13), (6, 17), (16, 9)):
+        serve = 1056 + rng.integers(0, SERVE_NEW - s, 8)
+        args, qp, (k, v) = _mq_case(rng, dtype, s=s, starts=serve,
+                                    **heads[g])
+        q, kp, vp, table, seq = args
+        h, kvh, d = q.shape[2], kp.shape[2], q.shape[3]
+        n_keys = int(torch.minimum(qp + 1, seq[:, None]).sum())
+        nbytes = q.element_size() * (2 * q.numel()
+                                     + 2 * int(seq.sum()) * kvh * d) \
+            + 4 * (table.numel() + 8 + qp.numel())
+        singles = [(q[:, i].contiguous(), (qp[:, i] + 1).contiguous())
+                   for i in range(s)]
+
+        def s_launches(singles=singles, kp=kp, vp=vp, table=table):
+            for qi, sl in singles:
+                pa.paged_attention(qi, kp, vp, table, sl)
+        rows = torch.arange(L, device="cuda")
+        mask = ((rows[None, None] < seq[:, None, None])
+                & (rows[None, None] <= qp[:, :, None]))[:, None]
+        qs, ks, vs = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+        row = _kernel_row(
+            lambda args=args, qp=qp: pa.paged_attention(*args, q_pos=qp),
+            lambda args=args, qp=qp: pa.paged_attention_plain(*args,
+                                                              q_pos=qp),
+            lambda qs=qs, ks=ks, vs=vs, mask=mask:
+                F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask,
+                                               enable_gqa=True),
+            flush, nbytes, 4 * h * d * n_keys, dtype,
+            errs[f"g{g}_s{s}/serve_b8/bfloat16"])
+        row["s_launches_ms"] = time_ms(s_launches, flush)
+        row["rows_per_kv_head"] = s * g
+        row["row_tiles"] = -(-s * g // 64)
+        check(row["ms"] < row["s_launches_ms"],
+              f"G={g} S={s}: the multi-query kernel ({row['ms']} ms) is not "
+              f"faster than {s} one-query launches")
+        timed[f"g{g}_s{s}"] = row
+    emit("paged_verify_long", bits_equal=bits, errors=errs, rel_errors=rel,
+         dropped_key_rel=sense,
+         tolerance={"float32": TOL[torch.float32],
+                    "bfloat16": TOL[torch.bfloat16]},
+         rel_tolerance={"float32": REL_TOL[torch.float32],
+                        "bfloat16": REL_TOL[torch.bfloat16]},
+         timed_bf16=timed)
+    return timed
+
+
+def phase_phi4_smoke() -> dict:
+    """phi4-mini smoke (head dim 32) built with no ``device=``, so on
+    the card, against the same weights on the CPU (float32): prefill and
+    decode logits within SMOKE_LOGIT_TOL, and the greedy tokens of
+    ``generate`` (prompts of 9-70 tokens), of a chunked ``serve`` and of a
+    speculative serve at gamma 12 with self-draft (a 13-token verify: 52
+    rows at G = 4) identical. Returns the kernel launches of the card
+    runs."""
+    from repro_torch.api import EngineConfig, GenerationConfig, LVLM, Request
+    from repro_torch.kernels import paged_attention as pa
+    card = LVLM.from_pretrained("phi4-mini-3.8b", smoke=True, seed=0)
+    check(card.device.type == "cuda", "phi4-mini smoke did not land on cuda")
+    cpu = card.with_params(_tree_to(card.params, "cpu"))
+    cfg = card.cfg
+    rng = np.random.default_rng(16)
+    prompts = [rng.integers(0, cfg.vocab_size, n).tolist()
+               for n in (20, 70, 9, 33)]
+    toks = torch.tensor([prompts[1]])
+    lc, cc = cpu.model.prefill(cpu.params, {"tokens": toks}, cache_len=96)
+    lg, cg = card.model.prefill(card.params, {"tokens": toks.cuda()},
+                                cache_len=96)
+    e_pre = max_err(lg.cpu(), lc)
+    nxt, pos = torch.tensor([[3]]), torch.tensor([70])
+    dc, _ = cpu.model.decode_step(cpu.params, cc, nxt, pos)
+    dg, _ = card.model.decode_step(card.params, cg, nxt.cuda(), pos.cuda())
+    e_dec = max_err(dg.cpu(), dc)
+    check(e_pre <= SMOKE_LOGIT_TOL and e_dec <= SMOKE_LOGIT_TOL,
+          f"phi4 smoke logits card vs CPU: prefill {e_pre}, decode {e_dec}")
+    gen = GenerationConfig(max_new_tokens=8, decoder="greedy")
+    spec = GenerationConfig(max_new_tokens=14, decoder="speculative",
+                            gamma=12, temperature=0.0)
+    ec = EngineConfig(max_batch=4, cache_len=112, scheduler="chunked",
+                      chunk_size=16, token_budget=64)
+
+    def reqs(n_new):
+        return _requests(Request, prompts, [None] * 4, n_new)
+    res = {}
+    _reset_counts()
+    pa.paged_attention.multi_query_launches = 0
+    for name, t in (("card", card), ("cpu", cpu)):
+        res[name] = (
+            [r.tokens for r in t.generate(prompts, gen)],
+            {r.rid: r.generated for r in t.serve(reqs(8), ec, gen).requests},
+            {r.rid: r.generated
+             for r in t.serve(reqs(14), EngineConfig(max_batch=4,
+                                                     cache_len=112),
+                              spec).requests})
+        if name == "card":
+            torch.cuda.synchronize()
+            counts = _counts()
+            mq = pa.paged_attention.multi_query_launches
+    same = [a == b for a, b in zip(res["card"], res["cpu"])]
+    emit("phi4_smoke", config=cfg.name, dtype=cfg.dtype,
+         head_dim=cfg.head_dim, sliding_window=cfg.sliding_window,
+         prefill_logit_err=e_pre, decode_logit_err=e_dec,
+         tolerance=SMOKE_LOGIT_TOL,
+         tokens_equal=dict(zip(("generate", "chunked_serve",
+                                "speculative_gamma12"), same)),
+         launches=counts, multi_query_launches=mq)
+    check(all(same), f"phi4 smoke tokens card != CPU: {same}")
+    check(all(counts.values()) and mq > 0,
+          f"phi4 smoke: a kernel was not launched: {counts}, {mq}")
+    return counts
+
+
+def phase_async_serve(lvlm) -> dict:
+    """qwen2-vl-2b at full width, bf16, through ``LVLM.serve_async`` with
+    the sanitizer on at every step, abort and pump boundary: 8 requests
+    of 1024 visual + 32 text tokens, 32 new each, 3 greedy, 3 speculative
+    (gamma 4, the 2-layer draft of ``spec_serve``) and 2 early exit, all
+    admitted at once. (a) With ``obs=True, profile=True`` the streams'
+    tokens equal a sync ``serve`` of the same requests; (b) the trace has
+    no open span and passes ``validate_trace``; (c) a second traced serve
+    cancels one speculative stream after 4 tokens: the other 7 complete,
+    and the slot, its draft row and the committed KV are freed at once
+    and back to 0 at the end; (d) an all-speculative serve at gamma 8 (a
+    9-token verify) completes. Wall per emitted token is read with
+    obs/profile on and off, in turns (on, off, off, on), and the
+    profiler's sites by self wall time are printed. Returns the launches
+    of the serves."""
+    import asyncio
+    from repro_torch.api import (AdmissionConfig, EngineConfig,
+                                 GenerationConfig, LVLM, Request)
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.models.registry import build
+    from repro_torch.obs import to_chrome_trace, validate_trace
+    cfg = lvlm.cfg
+    clean = LVLM(build(cfg), lvlm.params)   # no CallTimer synchronisation
+    draft = LVLM.from_config(cfg.with_(num_layers=2), seed=1)
+    rng = np.random.default_rng(17)
+    prompts = [rng.integers(0, cfg.vocab_size, SERVE_TEXT).tolist()
+               for _ in range(8)]
+    ves = [rng.standard_normal((cfg.num_visual_tokens, cfg.d_model)
+                               ).astype(np.float32) for _ in range(8)]
+    decs = ("greedy", "speculative", "early_exit", "greedy", "speculative",
+            "greedy", "speculative", "early_exit")
+
+    def make(decoders=decs):
+        return [Request(rid=i, tokens=list(p), max_new_tokens=SERVE_NEW,
+                        visual_embeds=ve, decoder=dec)
+                for i, (p, ve, dec) in enumerate(zip(prompts, ves,
+                                                     decoders))]
+    gen = GenerationConfig(max_new_tokens=SERVE_NEW, decoder="greedy",
+                           gamma=GAMMA, temperature=0.0)
+    ec = EngineConfig(max_batch=8, cache_len=SERVE_CACHE_LEN, sanitize=True)
+    adm = AdmissionConfig(high_watermark=1.0, low_watermark=0.9)
+    n_tok = 8 * SERVE_NEW
+
+    def serve_async(obs, cancel_rid=None):
+        server = clean.serve_async(ec, gen, draft=draft, admission=adm,
+                                   obs=obs, profile=obs)
+        eng, mid = server.engine, {}
+
+        async def consume(stream):
+            out = []
+            async for tok in stream:
+                out.append(tok)
+                if stream.request.rid == cancel_rid and len(out) == 4:
+                    stream.cancel()
+                    slot = stream.request._slot
+                    mid.update(
+                        slot_freed=eng.slot_req[slot] is None,
+                        draft_row_freed=slot not in
+                        eng._decoders["speculative"].bound_slots(),
+                        committed_is_others=eng.kv_committed_tokens()
+                        == sum(eng.kv_request_tokens(r)
+                               for r in eng.running + eng.waiting
+                               if not r.aborted))
+                    break
+            return out
+
+        async def drive():
+            async with server:
+                return await asyncio.gather(
+                    *(consume(server.submit(r)) for r in make()))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs = asyncio.run(drive())
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        return server, dict(enumerate(outs)), wall, mid
+
+    sync = clean.serve(make(), ec, gen, draft=draft)
+    want = {r.rid: r.generated for r in sync.requests}
+    _reset_counts()
+    server, got, wall_on, _ = serve_async(True)
+    launches = _counts()
+    tracer, prof, summary = server.tracer, server.profiler, server.summary()
+    problems = validate_trace(to_chrome_trace(tracer.events))
+    check(got == want, "async streams != sync serve at temperature 0")
+    check(not problems and tracer.open_spans() == [],
+          f"trace invalid: {problems[:5]}, open {tracer.open_spans()}")
+    walls = {"on": [wall_on], "off": []}
+    for obs in (False, False, True):
+        _, g2, w, _ = serve_async(obs)
+        check(g2 == want, f"async serve (obs={obs}) tokens changed")
+        walls["on" if obs else "off"].append(w)
+    sites = sorted(prof.snapshot().items(),
+                   key=lambda kv: -kv[1]["wall_self_s"])
+    top_sites = [{"site": k, "count": v["count"],
+                  "wall_total_s": v["wall_total_s"],
+                  "wall_self_s": v["wall_self_s"],
+                  "virtual_s": v["virtual_s"]} for k, v in sites[:8]]
+    # (c) a mid-decode cancel, then the pool back at baseline
+    _reset_counts()
+    server, got_c, _, mid = serve_async(True, cancel_rid=1)
+    counts = _counts()
+    launches = {k: launches[k] + counts[k] for k in launches}
+    eng = server.engine
+    s = server.summary()
+    others = all(len(got_c[i]) == SERVE_NEW for i in got_c if i != 1)
+    baseline = dict(committed=eng.kv_committed_tokens(),
+                    slots_free=all(r is None for r in eng.slot_req),
+                    draft_rows=sorted(
+                        eng._decoders["speculative"].bound_slots()))
+    check(others and len(got_c[1]) == 4 and s["aborted"] == 1
+          and s["finished"] == 7 and all(mid.values()) and len(mid) == 3
+          and baseline == dict(committed=0, slots_free=True, draft_rows=[])
+          and server.tracer.open_spans() == [],
+          f"cancel serve: {mid}, {baseline}, summary aborted "
+          f"{s['aborted']} finished {s['finished']}")
+    # (d) gamma 8: a 9-token verify of 54 rows per kv head
+    spec8 = GenerationConfig(max_new_tokens=SERVE_NEW, decoder="speculative",
+                             gamma=8, temperature=0.0)
+    reqs8 = make(("speculative",) * 8)
+    ec8 = EngineConfig(max_batch=8, cache_len=LVLM._cache_len(reqs8, spec8),
+                       sanitize=True)
+    _reset_counts()
+    pa.paged_attention.multi_query_launches = 0
+    rep8 = clean.serve(reqs8, ec8, spec8, draft=draft)
+    torch.cuda.synchronize()
+    counts, mq8 = _counts(), pa.paged_attention.multi_query_launches
+    launches = {k: launches[k] + counts[k] for k in launches}
+    check(len(rep8.requests) == 8 and all(len(r.generated) == SERVE_NEW
+                                          for r in rep8.requests)
+          and mq8 > 0 and rep8.stats["proposed"]
+          == 8 * rep8.stats["target_calls"],
+          f"gamma-8 speculative serve failed: {mq8} multi-query launches")
+    per_tok = {k: [w * 1e3 / n_tok for w in v] for k, v in walls.items()}
+    emit("async_serve", config=cfg.name, dtype=cfg.dtype,
+         decoders=list(decs), tokens_equal_sync=True,
+         trace_events=len(tracer.events), trace_problems=len(problems),
+         wall_ms_per_token=per_tok,
+         on_over_off=float(np.mean(per_tok["on"]) / np.mean(per_tok["off"])),
+         top_sites=top_sites, summary={k: v for k, v in summary.items()
+                                       if not isinstance(v, dict)},
+         cancel=dict(mid=mid, end=baseline),
+         gamma8=dict(multi_query_launches=mq8,
+                     spec_rounds=rep8.stats["spec_rounds"],
+                     acceptance=rep8.stats["acceptance"],
+                     cache_len=ec8.cache_len),
+         launches=launches)
+    del clean, draft
+    torch.cuda.empty_cache()
+    return launches
+
+
 def _device_ms(evt) -> float:
     return getattr(evt, "self_device_time_total",
                    getattr(evt, "self_cuda_time_total", 0.0)) / 1e3
@@ -2068,6 +2554,8 @@ def main() -> int:
     flush = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device="cuda")
     phase_paged_masked(flush)
     verify = phase_paged_verify(flush)
+    d32 = phase_kernels_d32(flush)
+    verify_long = phase_paged_verify_long(flush)
     del flush
     kv_launches = phase_kv_compaction_serve(full[0])
     prefix_launches = phase_prefix_cache_serve(full[0])
@@ -2075,21 +2563,26 @@ def main() -> int:
     spec_launches = phase_spec_serve(full[0])
     ee_launches = phase_early_exit_serve(full[0], timer)
     phase_decoding_smoke()
+    phi4_launches = phase_phi4_smoke()
+    async_launches = phase_async_serve(full[0])
     phase_profile(*full)
     launches = {k: launches[k] + comp_launches[k] + kv_launches[k]
                 + prefix_launches[k] + spec_launches[k] + ee_launches[k]
-                for k in launches}
+                + phi4_launches[k] + async_launches[k] for k in launches}
     for name, n in launches.items():
         check(n > 0, f"kernel {name} was not launched on the main path")
         kernels[name]["launches"] = n
     kernels["paged_attention"]["multi_query"] = verify
+    kernels["paged_attention"]["long_verify"] = verify_long
+    for name, row in d32.items():
+        kernels[name]["head_dim_32"] = row
     emit("done", seconds=time.perf_counter() - t_start)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    extra = ("head_dim_32", "multi_query", "long_verify")
     print(env["smi"])
     print(json.dumps({"kernels": [
-        {k: kv[k] for k in keys + (("multi_query",) if "multi_query" in kv
-                                   else ())}
+        {k: kv[k] for k in keys + tuple(x for x in extra if x in kv)}
         for kv in kernels.values()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": env["name"],

@@ -25,6 +25,9 @@ from repro_torch.api.lvlm import (
     LVLM, GenerationResult, ServeResult, resolve_device)
 from repro_torch.configs.base import CompressionConfig
 from repro_torch.core.serving import CostModel, EngineConfig, Request, SLO
+# async serving layer (re-exported for convenience, as the reference does)
+from repro_torch.serving import (AdmissionConfig, AsyncLVLMServer,
+                                 MetricsRegistry, TokenStream)
 
 __all__ = [
     "LVLM", "GenerationConfig", "GenerationResult", "ServeResult",
@@ -33,4 +36,5 @@ __all__ = [
     "COMPRESSION_PRESETS", "resolve_compression", "CompressionConfig",
     "CompressionStrategy", "make_compressor", "compressed_token_count",
     "EngineConfig", "Request", "SLO", "CostModel", "resolve_device",
+    "AsyncLVLMServer", "TokenStream", "AdmissionConfig", "MetricsRegistry",
 ]

@@ -8,7 +8,12 @@ Port of ``repro.api.lvlm`` for this slice:
     out = lvlm.generate(prompt_tokens, GenerationConfig(max_new_tokens=16))
     for tok in lvlm.generate_stream(prompt_tokens):
         ...
-    report = lvlm.serve(requests, EngineConfig(scheduler="chunked"))
+    report = lvlm.serve(requests, EngineConfig(scheduler="chunked"),
+                        obs=True, profile=True)     # traced + profiled
+    server = lvlm.serve_async(EngineConfig(max_batch=8))
+    async with server:
+        async for tok in server.submit(request):
+            ...
 
 Every decode strategy (greedy, sampling, speculative, early_exit) runs
 through the same engine and decoder hook; ``GenerationConfig(decoder=)``
@@ -21,7 +26,8 @@ named strategies with the engine.
 
 Everything runs on ``device``: the CUDA device unless the caller passes
 ``device="cpu"``; with no CUDA device and no ``device=``, construction
-raises instead of carrying on on the CPU.
+raises instead of carrying on on the CPU. ``serve_async`` runs on the
+LVLM's device too.
 """
 from __future__ import annotations
 
@@ -40,6 +46,8 @@ from repro_torch.core.serving import Engine, EngineConfig, Request
 from repro_torch.models.convert import load_checkpoint, params_from_flat
 from repro_torch.models.layers import DTYPES
 from repro_torch.models.registry import build
+from repro_torch.obs import Profiler, Tracer
+from repro_torch.serving import AsyncLVLMServer
 
 Prompt = Sequence[int]
 
@@ -168,6 +176,36 @@ class LVLM:
                       compressor=make_compressor(gen.compression),
                       compressors=compressors)
 
+    @staticmethod
+    def _resolve_obs(obs):
+        """``obs=`` facade knob -> a ``repro_torch.obs.Tracer`` or None.
+
+        ``None``/``False`` -> no tracing (the engine holds NULL_TRACER and
+        every instrumentation site short-circuits); ``True`` -> a fresh
+        ``Tracer``; a ``Tracer`` instance is used as-is (share one across
+        servers to merge their events into a single trace)."""
+        if obs is None or obs is False:
+            return None
+        return Tracer() if obs is True else obs
+
+    @staticmethod
+    def _resolve_profile(profile):
+        """``profile=`` facade knob -> a ``repro_torch.obs.Profiler`` or
+        None; mirrors ``_resolve_obs``."""
+        if profile is None or profile is False:
+            return None
+        return Profiler() if profile is True else profile
+
+    @staticmethod
+    def _check_control(control) -> None:
+        """``control=``: the SLO-adaptive controller is not ported yet;
+        ``None``/``False`` (no control, zero policy calls) is the only
+        value taken."""
+        if control is not None and control is not False:
+            raise NotImplementedError(
+                "control= (the SLO-adaptive controller) is not ported to "
+                "repro_torch yet (ROADMAP item 15)")
+
     def _requests(self, prompts, gen, visual_embeds) -> List[Request]:
         n = len(prompts)
         if visual_embeds is None:
@@ -251,11 +289,41 @@ class LVLM:
             served += 1
 
     # ------------------------------------------------------------ serve --
+    def _serve_engine(self, engine_cfg: Optional[EngineConfig] = None,
+                      gen: Optional[GenerationConfig] = None,
+                      draft: Optional["LVLM"] = None,
+                      compressors: Optional[Dict] = None,
+                      tracer=None, profiler=None) -> Engine:
+        """Serving-engine wiring shared by ``serve`` (sync, closed-loop)
+        and ``serve_async`` (streaming, open-loop): resolve the default
+        strategy + generation knobs onto the EngineConfig and register
+        every named per-request strategy (decoders AND compressors)."""
+        ec = engine_cfg if engine_cfg is not None else EngineConfig()
+        g = gen if gen is not None else GenerationConfig(
+            decoder=ec.decoder if ec.decoder in DECODER_NAMES else "sampling",
+            temperature=ec.temperature, top_k=ec.top_k, top_p=ec.top_p,
+            eos_id=ec.eos_id)
+        if gen is not None:
+            ec = dataclasses.replace(
+                ec, decoder=gen.decoder, temperature=gen.temperature,
+                top_k=gen.top_k, top_p=gen.top_p, eos_id=gen.eos_id)
+        elif ec.decoder not in DECODER_NAMES:
+            ec = dataclasses.replace(ec, decoder="sampling")
+        decoders = self._strategy_decoders(g, draft)
+        # analysis: allow L003 (this is the port's facade: it owns engine construction)
+        return Engine(self.model, self.params, ec,
+                      decoder=decoders.get(ec.decoder), decoders=decoders,
+                      compressor=make_compressor(
+                          gen.compression if gen is not None else None),
+                      compressors=compressors, tracer=tracer,
+                      profiler=profiler)
+
     def serve(self, requests: List[Request],
               engine_cfg: Optional[EngineConfig] = None,
               gen: Optional[GenerationConfig] = None,
               draft: Optional["LVLM"] = None,
-              compressors: Optional[Dict] = None) -> ServeResult:
+              compressors: Optional[Dict] = None,
+              obs=None, profile=None, control=None) -> ServeResult:
         """Full serving run: scheduler + batching + virtual-clock metrics.
 
         ``engine_cfg`` keeps its serving knobs (scheduler, batch, cache);
@@ -270,25 +338,17 @@ class LVLM:
         post-compression token count. Stats include the virtual-clock
         decode cost per strategy group (``decode_cost_by_group``) and the
         per-strategy prefill token reduction (``compression/<name>/...``).
+        ``obs=True`` (or a ``Tracer``) traces the run and ``profile=True``
+        (or a ``Profiler``) profiles its hot-path sites; the engine holds
+        them as ``result.engine.tracer`` / ``.profiler``. ``control=`` is
+        not ported yet (ROADMAP item 15). For open-loop traffic with
+        streaming delivery and cancellation, see ``serve_async``.
         """
-        ec = engine_cfg if engine_cfg is not None else EngineConfig()
-        g = gen if gen is not None else GenerationConfig(
-            decoder=ec.decoder if ec.decoder in DECODER_NAMES else "sampling",
-            temperature=ec.temperature, top_k=ec.top_k, top_p=ec.top_p,
-            eos_id=ec.eos_id)
-        if gen is not None:
-            ec = dataclasses.replace(
-                ec, decoder=gen.decoder, temperature=gen.temperature,
-                top_k=gen.top_k, top_p=gen.top_p, eos_id=gen.eos_id)
-        elif ec.decoder not in DECODER_NAMES:
-            ec = dataclasses.replace(ec, decoder="sampling")
-        decoders = self._strategy_decoders(g, draft)
-        # analysis: allow L003 (this is the port's facade: it owns engine construction)
-        eng = Engine(self.model, self.params, ec,
-                     decoder=decoders.get(ec.decoder), decoders=decoders,
-                     compressor=make_compressor(
-                         gen.compression if gen is not None else None),
-                     compressors=compressors)
+        self._check_control(control)
+        eng = self._serve_engine(engine_cfg, gen, draft,
+                                 compressors=compressors,
+                                 tracer=self._resolve_obs(obs),
+                                 profiler=self._resolve_profile(profile))
         for r in requests:
             eng.submit(r)
         stats = dict(eng.run(), **eng.decoder_stats())
@@ -298,3 +358,47 @@ class LVLM:
                 stats[f"compression/{name}/{k}"] = v
         return ServeResult(stats=stats, requests=list(eng.finished),
                            engine=eng)
+
+    def serve_async(self, engine_cfg: Optional[EngineConfig] = None,
+                    gen: Optional[GenerationConfig] = None, *,
+                    draft: Optional["LVLM"] = None,
+                    admission=None, metrics=None, compressors=None,
+                    pacing: str = "virtual", pacing_scale: float = 1.0,
+                    disconnect_timeout_s: Optional[float] = None,
+                    obs=None, profile=None,
+                    control=None) -> AsyncLVLMServer:
+        """Async streaming server over the same engine wiring as ``serve``,
+        on this LVLM's device (the card unless it was built with
+        ``device="cpu"``).
+
+        Returns a ``repro_torch.serving.AsyncLVLMServer``: a background
+        pump over the grouped step loop with per-request async token
+        channels, KV-watermark admission control (backpressure instead of
+        pool exhaustion), mid-stream cancellation that frees every held
+        resource, and per-request TTFT/TPOT/queue-wait SLO telemetry:
+
+            server = lvlm.serve_async(EngineConfig(max_batch=8))
+            async with server:
+                async for tok in server.submit(req):
+                    ...
+
+        ``admission`` is an ``AdmissionConfig`` (high/low KV watermarks,
+        optional max inflight, deferred-queue ``order``: "fifo" or
+        SLO-slack "slack"); ``metrics`` an optional shared
+        ``MetricsRegistry``. ``pacing="wall"`` sleeps each step's virtual
+        duration (times ``pacing_scale``) in real time -- the default
+        "virtual" runs steps back-to-back and stays deterministic.
+        ``disconnect_timeout_s`` aborts a stream whose consumer stopped
+        reading for that many wall seconds. ``obs`` / ``profile`` as in
+        ``serve``; ``control=`` is not ported yet (ROADMAP item 15). At
+        temperature 0 the streams are bit-identical to ``serve``'s
+        outputs.
+        """
+        return AsyncLVLMServer(self, engine_cfg=engine_cfg, gen=gen,
+                               draft=draft, admission=admission,
+                               metrics=metrics, compressors=compressors,
+                               pacing=pacing, pacing_scale=pacing_scale,
+                               disconnect_timeout_s=disconnect_timeout_s,
+                               tracer=self._resolve_obs(obs),
+                               profiler=self._resolve_profile(profile),
+                               control=control or None)

@@ -1,4 +1,4 @@
-# analysis: allow R001 (slice 1 ports no KV migration, so there is no complete_export to release)
+# analysis: allow R001 (KV migration is not ported until slice 6, so there is no complete_export to release)
 """The LVLM serving engine of the port (the main path plus dims 1, 2, 4).
 
 Port of ``repro.core.serving.engine``: one ``Engine`` drives the model over
@@ -37,11 +37,20 @@ requests, backed by snapshots that are CLONES of a slot's first rows (the
 pool is updated in place, so a view would be overwritten when the slot
 is reused).
 
+Observability (``Engine(tracer=, profiler=)``, default the null objects):
+every site the reference instruments emits the same events with the same
+names, fields and virtual times, each guarded on ``.enabled``, so an
+untraced, unprofiled engine makes no hook call. Sites only read clocks;
+on CUDA a site's wall time reaches device work only up to the host's last
+synchronisation inside it (sampling's read of the logits). The runtime
+sanitizer (``EngineConfig.sanitize``, else ``REPRO_SANITIZE``) asserts the
+conservation laws of ``repro_torch.analysis.sanitizer`` at every step and
+abort boundary.
+
 Left to later slices (ROADMAP queue A), and refused with
 ``NotImplementedError`` when a request or config asks for them: KV
-migration / handoff and the cluster-shared prefix tier (slice 6);
-tracing, profiling and the runtime sanitizer come with slice 5 and have
-no switch here yet.
+migration / handoff and the cluster-shared prefix tier (slice 6;
+``migrated_in`` / ``migrated_out`` stay 0 until then).
 
 NOTE: ``repro_torch.api`` (``LVLM``) is the public surface.
 """
@@ -54,6 +63,9 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.analysis.sanitizer import (assert_conserved,
+                                            check_engine_conservation,
+                                            sanitize_enabled)
 from repro_torch.configs.base import CompressionConfig
 from repro_torch.core.decoding.sampling import sample_token
 from repro_torch.core.kv_cache.selection import SELECTORS
@@ -64,6 +76,8 @@ from repro_torch.core.token_compression.policy import (
     LIVE_KV_SELECTORS, CompressionStrategy, resolve_compression)
 from repro_torch.models.layers import embed_tokens
 from repro_torch.models.registry import build
+from repro_torch.obs.profile import NULL_PROFILER
+from repro_torch.obs.trace import NULL_TRACER
 
 
 @dataclasses.dataclass
@@ -91,6 +105,11 @@ class EngineConfig:
     prefix_block: int = 16               # reuse granularity (tokens)
     prefix_cap: int = 64                 # max cached prefixes (LRU-evicted)
     cost: CostModel = dataclasses.field(default_factory=CostModel)
+    # runtime sanitizer (repro_torch.analysis.sanitizer): conservation
+    # asserts at step/abort boundaries -- slot table, draft-pool rows,
+    # prefix pins, kv accounting. None = follow the REPRO_SANITIZE env
+    # var; True/False force it per engine.
+    sanitize: Optional[bool] = None
 
 
 class SamplingEngineDecoder:
@@ -178,7 +197,8 @@ def _slot_set(pool, slot, one):
 class Engine:
     def __init__(self, model, params, ec: EngineConfig, *, decoder=None,
                  decoders: Optional[Dict] = None, compressor=None,
-                 compressors: Optional[Dict] = None):
+                 compressors: Optional[Dict] = None, tracer=None,
+                 profiler=None):
         cfg = model.cfg
         self.ec = ec
         self.params = params
@@ -242,6 +262,10 @@ class Engine:
         self._prefix_pins: Dict[Tuple[str, Tuple[int, ...]], int] = {}
         self.prefix_hit_tokens = 0
         self.prefix_total_tokens = 0
+        # KV migration counters (Prometheus ``migrated_*_total``): no
+        # migration until ROADMAP slice 6, so they stay 0
+        self.migrated_in = 0
+        self.migrated_out = 0
 
         # decoder registry: the configured default plus named per-request
         # strategies (``Request.decoder``); unknown names resolve lazily,
@@ -266,6 +290,22 @@ class Engine:
         # per-strategy visual-token counters: name -> [in, out]
         self._comp_counts: Dict[str, List[int]] = {}
         self._validate_compressor(self._default_comp_name, self.compressor)
+
+        # observability: every instrumentation site guards on
+        # ``.enabled`` (the null objects keep the disabled hot path
+        # call-free); ``trace_replica`` is this engine's track in a trace
+        self.tracer = tracer if tracer is not None else NULL_TRACER
+        self.trace_replica = 0
+        self.profiler = profiler if profiler is not None else NULL_PROFILER
+        # runtime sanitizer: resolved once (config wins over env)
+        self.sanitize = (bool(ec.sanitize) if ec.sanitize is not None
+                         else sanitize_enabled())
+
+    def _sanitize_check(self, where: str) -> None:
+        """Raise ``SanitizerError`` if a conservation invariant is
+        violated (slot/draft-row/pin/kv accounting). Called at step and
+        abort boundaries when ``sanitize`` is on."""
+        assert_conserved(self, check_engine_conservation, where)
 
     # ----------------------------------------------------------- decoders --
     def _validate_decoder(self, name: str, dec) -> None:
@@ -373,6 +413,11 @@ class Engine:
                 " (last position is the inactive-slot scratch)")
         req.arrival = max(req.arrival, self.clock)
         self.waiting.append(req)
+        if self.tracer.enabled:
+            self.tracer.span_begin(
+                "request", req.rid, replica=self.trace_replica,
+                vt=self.clock, prompt_len=req.prompt_len,
+                decoder=name, compression=req._comp_name)
 
     # -------------------------------------------------- kv accounting --
     @property
@@ -429,7 +474,6 @@ class Engine:
                 self._prefix_pins.pop(key, None)
             r._prefix_pin = None
 
-    # analysis: allow R001 (tracing is not ported yet, so there is no span to close)
     def abort(self, rid: int) -> bool:
         """Cancel a request mid-flight: frees its slot, its speculative
         draft-pool row, the reserved lookahead and its prefix pin; the
@@ -443,6 +487,15 @@ class Engine:
                     r.state = State.DONE
                     r.aborted = True
                     self.aborted.append(r)
+                    if self.tracer.enabled:
+                        # closes the request span AND any open stage span
+                        # (prefill, compress) so an abort never orphans
+                        # part of the trace
+                        self.tracer.span_abort(rid,
+                                               replica=self.trace_replica,
+                                               vt=self.clock)
+                    if self.sanitize:
+                        self._sanitize_check(f"Engine.abort(rid={rid})")
                     return True
         return False
 
@@ -537,15 +590,31 @@ class Engine:
                              device=self.device)
         _, comp = self._resolve_compressor(req.compression)
         nv_in = ve.shape[0]
+        if self.tracer.enabled:
+            # vision tokens entering the backbone: the wall-time delta of
+            # this span is the real compression cost the virtual clock
+            # does not model
+            self.tracer.span_begin("compress", req.rid,
+                                   replica=self.trace_replica,
+                                   vt=self.clock, strategy=req._comp_name,
+                                   nv_in=nv_in)
+        if self.profiler.enabled:
+            self.profiler.site_begin("compress")
         if getattr(comp, "encoder_active", True):
             # the query embed is only built for strategies that consume it
             # (custom strategies default to yes)
             q = self._prompt_query_embeds(req) \
                 if getattr(comp, "needs_query", True) else None
             ve = comp.compress_prefill(ve[None], query=q)[0][0]
+        if self.profiler.enabled:
+            self.profiler.site_end("compress")
         cnt = self._comp_counts.setdefault(req._comp_name, [0, 0])
         cnt[0] += nv_in
         cnt[1] += ve.shape[0]
+        if self.tracer.enabled:
+            self.tracer.span_end("compress", req.rid,
+                                 replica=self.trace_replica,
+                                 vt=self.clock, nv_out=int(ve.shape[0]))
         return ve
 
     def _do_prefill_chunk(self, req: Request, n: int) -> None:
@@ -553,10 +622,20 @@ class Engine:
         n = min(n, len(req.tokens) - req.prefill_done)
         if n <= 0:
             return
+        first_chunk = req.prefill_done == 0
+        # hot-path site: the whole chunk (compression, prefix probe and
+        # forward) -- the nested compress site subtracts from this site's
+        # SELF time, leaving the forward pass and sampling
+        if self.profiler.enabled:
+            self.profiler.site_begin("prefill_forward")
         if req.prefill_done == 0:
             slot = self._free_slot()
             req._slot = slot
             self.slot_req[slot] = req
+            if self.tracer.enabled:
+                self.tracer.span_begin("prefill", req.rid,
+                                       replica=self.trace_replica,
+                                       slot=slot, vt=self.clock)
             req._ve = self._compress_visual(req)
             self.slot_nv[slot] = 0 if req._ve is None else req._ve.shape[0]
             # visual tokens are prefill work too (the dim-1 latency claim:
@@ -604,6 +683,10 @@ class Engine:
 
         req.prefill_done = end
         self.slot_pos[slot] = nv + end
+        if self.tracer.enabled:
+            self.tracer.instant("prefill_chunk", req.rid,
+                                replica=self.trace_replica, slot=slot,
+                                vt=self.clock, tokens=n)
         if req.prefill_done >= len(req.tokens):
             # prompt complete: first token comes from the last logits
             if ec.prefix_cache and req._ve is None:
@@ -626,6 +709,10 @@ class Engine:
             req.generated.append(tok)
             req._needs_ttft = True
             self.slot_last_tok[slot] = tok
+            if self.tracer.enabled:
+                self.tracer.span_end("prefill", req.rid,
+                                     replica=self.trace_replica, slot=slot,
+                                     vt=self.clock)
             if req.is_finished() or tok == ec.eos_id:
                 req.state = State.DONE
             else:
@@ -633,6 +720,12 @@ class Engine:
             if req in self.waiting:
                 self.waiting.remove(req)
             self.running.append(req)
+        if self.profiler.enabled:
+            # virtual attribution: the chunk's share of this step's
+            # modeled prefill cost (visual tokens enter on chunk 0)
+            nv_chunk = int(self.slot_nv[slot]) if first_chunk else 0
+            self.profiler.site_end(
+                "prefill_forward", vt=ec.cost.prefill_time(n + nv_chunk))
 
     # ------------------------------------------------------ KV compaction --
     def _compact_slot(self, slot: int, selector: str, budget: int) -> None:
@@ -685,6 +778,8 @@ class Engine:
         emitted_all: Dict[int, List[int]] = {}
         for name, group in groups.items():
             self._iter_decode_cost = None
+            if self.profiler.enabled:
+                self.profiler.site_begin(f"decode:{name}")
             emitted_all.update(self._decoders[name].engine_decode(self,
                                                                   group))
             if self._iter_decode_cost is None:
@@ -694,8 +789,19 @@ class Engine:
                 cost = self.ec.cost.decode_step_time(len(group), ctx)
             else:
                 cost = self._iter_decode_cost
+            if self.profiler.enabled:
+                # per-group launch: wall covers the decoder's forward(s) up
+                # to its host read of the tokens; virtual is the group's
+                # true modeled cost
+                self.profiler.site_end(f"decode:{name}", vt=cost)
             total_cost += cost
             self.group_costs[name] = self.group_costs.get(name, 0.0) + cost
+            if self.tracer.enabled:
+                # one lane slice per decoder group per iteration: where
+                # the virtual decode cost of a mixed batch goes
+                self.tracer.slice(f"decode:{name}", self.clock, cost,
+                                  replica=self.trace_replica,
+                                  batch=len(group))
         self._iter_decode_cost = total_cost
         for r in reqs:
             for tok in emitted_all.get(r._slot, ()):
@@ -706,7 +812,6 @@ class Engine:
                     break
 
     # --------------------------------------------------------------- step --
-    # analysis: allow R001 (tracing is not ported yet, so there is no span to close)
     def step(self) -> bool:
         """One scheduler iteration. Returns False when fully idle."""
         self.running = [r for r in self.running if r.state != State.DONE]
@@ -727,11 +832,21 @@ class Engine:
         if decode_reqs:
             self._decode_iteration(decode_reqs)
         # virtual clock
+        vt0 = self.clock
         dt = self.ec.cost.prefill_time(plan.prefill_tokens
                                        + self._iter_visual_tokens)
         dt += self._iter_decode_cost
         self.clock += dt
         self.iters += 1
+        if self.tracer.enabled:
+            self.tracer.slice("engine_step", vt0, dt,
+                              replica=self.trace_replica,
+                              prefill_tokens=plan.prefill_tokens,
+                              decode_batch=len(decode_reqs))
+            for r in decode_reqs:
+                self.tracer.slice("decode_step", vt0, dt,
+                                  replica=self.trace_replica,
+                                  slot=r._slot, rid=r.rid)
         # stamp times & retire
         seen, stampable = set(), []
         for r in self.running + [r for r, _ in plan.prefill]:
@@ -742,11 +857,22 @@ class Engine:
             if getattr(r, "_needs_ttft", False):
                 r.first_token_time = self.clock
                 r._needs_ttft = False
+                if self.tracer.enabled:
+                    self.tracer.instant("first_token", r.rid,
+                                        replica=self.trace_replica,
+                                        vt=self.clock)
             if r.state == State.DONE and r.finish_time is None:
                 r.finish_time = self.clock
                 self.finished.append(r)
                 self._release_request(r)
+                if self.tracer.enabled:
+                    self.tracer.span_end("request", r.rid,
+                                         replica=self.trace_replica,
+                                         vt=self.clock,
+                                         tokens=len(r.generated))
         self.running = [r for r in self.running if r.state != State.DONE]
+        if self.sanitize:
+            self._sanitize_check(f"Engine.step (iter {self.iters})")
         return True
 
     def run(self, max_iters: int = 100000) -> Dict:

@@ -21,7 +21,10 @@
 //    tiles into a 2-stage ring. Each stage has a full barrier per operand
 //    and an empty barrier per operand (K is free once S is computed, V once
 //    P V is). TMA writes each 64-column box with the 128-byte swizzle and
-//    zero-fills rows past the end of the view;
+//    zero-fills rows past the end of the view. At D = 32 a row is 64 bytes:
+//    one 32-column box with the 64-byte swizzle (the wgmma descriptors take
+//    its layout type and 512-byte row groups), S = Q K^T takes two k-steps
+//    and P V is an m64n32k16;
 //  - one consumer warpgroup (warps 0-3) owns the 64 q rows, 16 per warp.
 //    S = Q K^T is a `wgmma` with both operands in shared memory (K-major).
 //    The online softmax runs on the accumulator registers: each thread
@@ -270,19 +273,35 @@ constexpr int BN = 64;               // keys per tile
 constexpr int STAGES = 2;            // K/V ring depth
 constexpr int CONSUMERS = 128;       // warps 0-3
 constexpr int THREADS = CONSUMERS + 32;  // + the producer warp
-constexpr uint32_t BOX = 64 * 128;   // one [64 rows][64 bf16] swizzled box
+
+// The swizzled TMA box of a head dim. D >= 64: boxes of 64 columns (128-byte
+// rows) with the 128-byte swizzle, D / 64 of them per tile row. D = 32: one
+// box of 32 columns (64-byte rows) with the 64-byte swizzle. Either way a box
+// holds 64 rows, its 8-row groups are ROWB * 8 bytes apart, and a 16-element
+// k-step is 32 bytes along a row, ROWB / 32 k-steps per box.
+template <int D>
+struct Box {
+  static constexpr int COLS = D >= 64 ? 64 : 32;
+  static constexpr uint32_t ROWB = COLS * 2;     // bytes per box row
+  static constexpr uint32_t BYTES = 64 * ROWB;   // one [64 rows][COLS] box
+  static constexpr int NC = D / COLS;            // boxes per tile row
+  static constexpr int KPB = ROWB / 32;          // k-steps per box
+  static constexpr uint64_t LAYOUT = D >= 64 ? 1 : 2;  // wgmma: 128B / 64B
+  static_assert(D == 32 || D % 64 == 0, "head dim 32 or a multiple of 64");
+};
 
 template <int D>
 struct Smem {
-  static constexpr int NC = D / 64;  // 64-column boxes per row
-  static constexpr uint32_t tile = NC * BOX;
+  static constexpr int NC = Box<D>::NC;
+  static constexpr uint32_t tile = NC * Box<D>::BYTES;
   static constexpr uint32_t q_off = 0;
   static constexpr uint32_t k_off = q_off + tile;
   static constexpr uint32_t v_off = k_off + STAGES * tile;
   static constexpr uint32_t bar_off = v_off + STAGES * tile;
   // q_full, k_full[STAGES], v_full[STAGES], k_empty[STAGES], v_empty[STAGES]
   static constexpr uint32_t n_bars = 1 + 4 * STAGES;
-  // + 1 KB: the swizzled boxes need a 1024-byte aligned base
+  // + 1 KB: the swizzled boxes need a 1024-byte aligned base (512 bytes
+  // for the 64-byte swizzle)
   static constexpr size_t bytes = bar_off + 8 * n_bars + 1024;
 };
 
@@ -342,14 +361,17 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
       : "memory");
 }
 
-// wgmma shared-memory matrix descriptor, 128-byte swizzle (layout type 1).
-// Byte offsets: lbo between 64-element atoms along the leading dimension
-// (used by the MN-major V operand), sbo between 8-row groups (1024).
-__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo,
-                                               uint32_t sbo) {
+// wgmma shared-memory matrix descriptor of head dim D's box: 128-byte
+// swizzle (layout type 1) for D >= 64, 64-byte swizzle (type 2) for D = 32.
+// Byte offsets: lbo between swizzle atoms along the leading dimension (used
+// by the MN-major V operand when D spans several boxes), sbo between 8-row
+// groups (8 box rows: 1024 or 512).
+template <int D>
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo,
+                                              uint32_t sbo) {
   return (uint64_t)((addr & 0x3FFFF) >> 4) |
          ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
-         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
+         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | (Box<D>::LAYOUT << 62);
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -444,10 +466,32 @@ __device__ __forceinline__ void wgmma_rs_m64n128k16_tb(float (&d)[64],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
 }
 
+// D[64 x 32] += A[64 x 16] * B[16 x 32], A in registers (bf16 pairs), B in
+// shared memory MN-major (transposed, 64-byte swizzle).
+__device__ __forceinline__ void wgmma_rs_m64n32k16_tb(float (&d)[16],
+                                                     const uint32_t (&a)[4],
+                                                     uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
 template <int D>
 __device__ __forceinline__ void wgmma_pv(float (&o)[D / 2],
                                          const uint32_t (&a)[4],
                                          uint64_t desc_b);
+template <>
+__device__ __forceinline__ void wgmma_pv<32>(float (&o)[16],
+                                             const uint32_t (&a)[4],
+                                             uint64_t desc_b) {
+  wgmma_rs_m64n32k16_tb(o, a, desc_b);
+}
 template <>
 __device__ __forceinline__ void wgmma_pv<64>(float (&o)[32],
                                              const uint32_t (&a)[4],
@@ -569,11 +613,12 @@ __device__ __forceinline__ void pack_p(const float (&sc)[BN / 2],
 template <int D>
 __device__ __forceinline__ void issue_qk(float (&sc)[BN / 2], uint32_t q_s,
                                          uint32_t k_s) {
+  using X = Box<D>;
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk) {
-    const uint32_t off = (kk / 4) * BOX + (kk % 4) * 32;
-    wgmma_ss_m64n64k16(sc, sw128_desc(q_s + off, 16, 1024),
-                       sw128_desc(k_s + off, 16, 1024), kk > 0);
+    const uint32_t off = (kk / X::KPB) * X::BYTES + (kk % X::KPB) * 32;
+    wgmma_ss_m64n64k16(sc, smem_desc<D>(q_s + off, 16, 8 * X::ROWB),
+                       smem_desc<D>(k_s + off, 16, 8 * X::ROWB), kk > 0);
   }
   wgmma_commit();
 }
@@ -583,9 +628,11 @@ template <int D>
 __device__ __forceinline__ void issue_pv(float (&o)[D / 2],
                                          const uint32_t (&pa)[BN / 16][4],
                                          uint32_t v_s) {
+  using X = Box<D>;
 #pragma unroll
   for (int kk = 0; kk < BN / 16; ++kk)
-    wgmma_pv<D>(o, pa[kk], sw128_desc(v_s + kk * 16 * 128, BOX, 1024));
+    wgmma_pv<D>(o, pa[kk], smem_desc<D>(v_s + kk * 16 * X::ROWB, X::BYTES,
+                                        8 * X::ROWB));
   wgmma_commit();
 }
 
@@ -596,6 +643,7 @@ __global__ void __launch_bounds__(THREADS, 2)
                      const __grid_constant__ CUtensorMap tm_v,
                      __nv_bfloat16* __restrict__ o, Strides os, Problem p) {
   using L = Smem<D>;
+  using X = Box<D>;
   extern __shared__ unsigned char smem_raw[];
   // 1024-byte aligned base (the 128-byte swizzle repeats every 8 rows)
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
@@ -635,7 +683,7 @@ __global__ void __launch_bounds__(THREADS, 2)
     if (lane == 0) {
       mbar_expect_tx(q_full, L::tile);
       for (int c = 0; c < L::NC; ++c)
-        tma_load(q_s + c * BOX, &tm_q, q_full, c * 64, q0, h, b);
+        tma_load(q_s + c * X::BYTES, &tm_q, q_full, c * X::COLS, q0, h, b);
       for (int i = 0; i < n; ++i) {
         const int s = i % STAGES;
         const uint32_t free_ph = ((i / STAGES) & 1) ^ 1;
@@ -643,11 +691,13 @@ __global__ void __launch_bounds__(THREADS, 2)
         mbar_wait(k_empty(s), free_ph);
         mbar_expect_tx(k_full(s), L::tile);
         for (int c = 0; c < L::NC; ++c)
-          tma_load(k_tile(s) + c * BOX, &tm_k, k_full(s), c * 64, k0, kvh, b);
+          tma_load(k_tile(s) + c * X::BYTES, &tm_k, k_full(s), c * X::COLS, k0,
+                   kvh, b);
         mbar_wait(v_empty(s), free_ph);
         mbar_expect_tx(v_full(s), L::tile);
         for (int c = 0; c < L::NC; ++c)
-          tma_load(v_tile(s) + c * BOX, &tm_v, v_full(s), c * 64, k0, kvh, b);
+          tma_load(v_tile(s) + c * X::BYTES, &tm_v, v_full(s), c * X::COLS, k0,
+                   kvh, b);
       }
     }
   } else {
@@ -766,7 +816,8 @@ EncodeTiled encode_tiled() {
 }
 
 // A 4-d map of a [B, N, S, D] bf16 view: boxes of 64 columns x 64 rows of
-// one (b, n), 128-byte swizzle, zero fill past the ends.
+// one (b, n) with the 128-byte swizzle (D = 32: 32 columns, 64-byte
+// swizzle), zero fill past the ends.
 bool make_map(CUtensorMap* map, const void* ptr, int B, int N, int S, int D,
               const Strides& st) {
   EncodeTiled fn = encode_tiled();
@@ -775,11 +826,12 @@ bool make_map(CUtensorMap* map, const void* ptr, int B, int N, int S, int D,
                               (cuuint64_t)B};
   const cuuint64_t strides[3] = {(cuuint64_t)st.s * 2, (cuuint64_t)st.n * 2,
                                  (cuuint64_t)st.b * 2};
-  const cuuint32_t box[4] = {64, 64, 1, 1};
+  const cuuint32_t box[4] = {D >= 64 ? 64u : 32u, 64, 1, 1};
   const cuuint32_t elem[4] = {1, 1, 1, 1};
   return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
             dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            D >= 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
@@ -812,7 +864,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
 }  // namespace
 
 // q [B,H,Sq,D], k/v [B,KVH,Sk,D], o [B,H,Sq,D]: views of one dtype
-// (0 float32, 1 bfloat16), D in {64, 128}, last dimension contiguous.
+// (0 float32, 1 bfloat16), D in {32, 64, 128}, last dimension contiguous.
 // `strides` holds the element strides (b, head, seq) of q, k, v and o, in
 // that order (12 values), each a multiple of 16 bytes. kv_len and q_offset
 // are already resolved as the Pallas wrapper resolves them. Returns the CUDA
@@ -831,6 +883,9 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
                 *kf = static_cast<const float*>(k),
                 *vf = static_cast<const float*>(v);
     float* of = static_cast<float*>(o);
+    if (D == 32)
+      return f32::launch<32>(qf, kf, vf, of, B, H, KVH, Sq, Sk, kv_len,
+                             q_offset, causal, window, st, s);
     if (D == 64)
       return f32::launch<64>(qf, kf, vf, of, B, H, KVH, Sq, Sk, kv_len,
                              q_offset, causal, window, st, s);
@@ -839,6 +894,9 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
                               q_offset, causal, window, st, s);
   }
   if (dtype == repro::kBFloat16) {
+    if (D == 32)
+      return bf16::launch<32>(q, k, v, o, B, H, KVH, Sq, Sk, kv_len, q_offset,
+                              causal, window, st, s);
     if (D == 64)
       return bf16::launch<64>(q, k, v, o, B, H, KVH, Sq, Sk, kv_len, q_offset,
                               causal, window, st, s);
@@ -853,6 +911,10 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
 // (reported by chip_smoke.py's build phase; ptxas prints only static).
 extern "C" int flash_attention_smem_bytes(int dtype, int D) {
   if (dtype == repro::kFloat32)
-    return D == 64 ? (int)f32::Layout<64>::bytes : (int)f32::Layout<128>::bytes;
-  return D == 64 ? (int)bf16::Smem<64>::bytes : (int)bf16::Smem<128>::bytes;
+    return D == 32   ? (int)f32::Layout<32>::bytes
+           : D == 64 ? (int)f32::Layout<64>::bytes
+                     : (int)f32::Layout<128>::bytes;
+  return D == 32   ? (int)bf16::Smem<32>::bytes
+         : D == 64 ? (int)bf16::Smem<64>::bytes
+                   : (int)bf16::Smem<128>::bytes;
 }

@@ -73,13 +73,18 @@
 //
 // Multi-query mode (the per-row-start extend of the reference's
 // `append_attention`: the batched speculative verify and the draft's
-// 2-token lead). q is [B, S, H, D] with 1 <= S <= 8 query tokens per
-// request, q_pos [B, S] int32 their positions; token t of request b is a
-// key of query i iff t < seq_lens[b] and t <= q_pos[b, i] (simple_sdpa's
-// causal rule with k_pos = arange). A CTA of the split kernel still
-// gathers its chunk of K/V once, and scores all S * G query rows of its kv
-// head against it (row r = i * G + g, query i, head g of the group): at
-// qwen2-vl's G = 6 and a 5-token verify that is 30 rows. In float32 (and
+// 2-token lead). q is [B, S, H, D] with S >= 1 query tokens per request,
+// q_pos [B, S] int32 their positions; token t of request b is a key of
+// query i iff t < seq_lens[b] and t <= q_pos[b, i] (simple_sdpa's causal
+// rule with k_pos = arange). A CTA of the split kernel still gathers its
+// chunk of K/V once, and scores up to MAXROWS = 64 of the S * G query rows
+// of its kv head against it (row r = i * G + g, query i, head g of the
+// group): at qwen2-vl's G = 6 and a 5-token verify that is 30 rows, all of
+// them. Past 64 rows (a verify of gamma >= 10 at G = 6) the rows go to
+// row tiles of 64, a grid axis folded into y (row tile * KVH + kv head):
+// each row-tile CTA gathers its own chunk, and the merge still runs per
+// output row. With S * G <= 64 there is one row tile, and the kernels
+// compute what they did before it existed. In float32 (and
 // for S = 1) the FMA kernel takes them, its rows instantiated up to 32 and
 // 64 (ROWS = the GMAX template argument) beside 4, 8 and 16, with q, P and
 // the running max/sum sized by ROWS; bf16 with S >= 2 runs on tensor cores
@@ -124,7 +129,6 @@ constexpr int THREADS = 128;  // 4 warps
 constexpr int WARPS = THREADS / 32;
 constexpr int CHUNK = 32;     // tokens per cp.async stage (one per lane)
 constexpr int MAXG = 16;      // query heads per kv head
-constexpr int MAXS = 8;       // query tokens per request (multi-query mode)
 constexpr int MAXROWS = 64;   // query rows per CTA (multi-query mode)
 
 // Modes of the split kernel (a template argument: each its own code).
@@ -134,7 +138,7 @@ enum Mode : int { kPlain = 0, kMasked = 1, kMulti = 2 };
 template <typename T, int D, int ROWS = MAXG>
 struct Layout {
   static constexpr int VEC = 16 / sizeof(T);  // elements per 16-byte piece
-  static constexpr int PIECES = D / VEC;      // pieces per row, >= 8
+  static constexpr int PIECES = D / VEC;      // pieces per row, >= 4
   static constexpr size_t stage = sizeof(T) * CHUNK * D;  // one K or V chunk
   static constexpr size_t q_off = 0;                      // f32 [ROWS][D]
   static constexpr size_t k_off = repro::align128(4 * ROWS * D);
@@ -143,15 +147,22 @@ struct Layout {
   static constexpr size_t c_off = p_off + 4 * ROWS * CHUNK;  // f32 [ROWS]
   static constexpr size_t kp_off = c_off + 4 * ROWS;  // int [2][CHUNK] k_pos
   static constexpr size_t bytes = kp_off + 4 * 2 * CHUNK;
-  static_assert(PIECES >= 8, "the swizzle permutes 8 pieces");
+  static_assert(PIECES >= 4, "the swizzle permutes 4 or 8 pieces");
   static_assert(CHUNK * PIECES % THREADS == 0, "whole pieces per thread");
 };
 
-// Shared-memory element offset of (token t, column d) in a chunk.
+// Shared-memory element offset of (token t, column d) in a chunk. A row of
+// 8 or more 16-byte pieces permutes them by the token's low 3 bits; a row of
+// 4 (bf16 at D = 32: two tokens per 128 bytes) by bits 1-2, so 8 lanes
+// reading one piece of 8 consecutive tokens still hit 8 distinct 16-byte
+// bank groups.
 template <typename T, int D>
 __device__ __forceinline__ int swz(int t, int d) {
   constexpr int VEC = Layout<T, D>::VEC;
-  return t * D + (((d / VEC) ^ (t & 7)) * VEC) + d % VEC;
+  if constexpr (Layout<T, D>::PIECES >= 8)
+    return t * D + (((d / VEC) ^ (t & 7)) * VEC) + d % VEC;
+  else
+    return t * D + (((d / VEC) ^ ((t >> 1) & 3)) * VEC) + d % VEC;
 }
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
@@ -216,12 +227,18 @@ __global__ void __launch_bounds__(THREADS)
 
   // the merge kernel may be scheduled now; it waits for this grid's end
   asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
-  const int s = blockIdx.x, kvh = blockIdx.y, b = blockIdx.z;
+  // blockIdx.y = row tile * KVH + kv head (one row tile but in the
+  // multi-query mode with S * G > MAXROWS)
+  const int s = blockIdx.x, b = blockIdx.z;
+  const int kvh = MULTI ? (int)(blockIdx.y % KVH) : (int)blockIdx.y;
   const int n_splits = gridDim.x, G = H / KVH;
-  const int R = MULTI ? S * G : G;  // query rows of this CTA
+  const int row0 = MULTI ? (int)(blockIdx.y / KVH) * MAXROWS : 0;
+  // query rows of this CTA: rows row0 .. row0 + R - 1 of the kv head's S * G
+  const int R = MULTI ? min(MAXROWS, S * G - row0) : G;
   // output row of CTA row r: (b, h) of [B, H], or (b, i, h) of [B, S, H]
   auto out_row = [&](int r) -> size_t {
-    return MULTI ? ((size_t)b * S + r / G) * H + (size_t)kvh * G + r % G
+    return MULTI ? ((size_t)b * S + (row0 + r) / G) * H + (size_t)kvh * G +
+                       (row0 + r) % G
                  : (size_t)b * H + (size_t)kvh * G + r;
   };
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
@@ -310,12 +327,12 @@ __global__ void __launch_bounds__(THREADS)
     l_r[gi] = 0.0f;
     if constexpr (MULTI) {
       const int g = warp + WARPS * gi;
-      qp_r[gi] = g < R ? q_pos[(size_t)b * S + g / G] : 0;
+      qp_r[gi] = g < R ? q_pos[(size_t)b * S + (row0 + g) / G] : 0;
     }
   }
   // P V role: thread owns columns d2, d2 + 1 of heads set + NS * gi
   constexpr int NS = THREADS / (D / 2);
-  constexpr int GPS = GMAX / NS;
+  constexpr int GPS = (GMAX + NS - 1) / NS;  // NS = 8 > GMAX = 4 at D = 32
   const int d2 = 2 * (threadIdx.x % (D / 2)), set = threadIdx.x / (D / 2);
   float acc[GPS][2];
 #pragma unroll
@@ -496,13 +513,18 @@ __global__ void __launch_bounds__(THREADS)
   T* Vs = Ks + 2 * CHUNK * D;
 
   asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
-  const int s = blockIdx.x, kvh = blockIdx.y, b = blockIdx.z;
-  const int n_splits = gridDim.x, G = H / KVH, R = S * G;
+  // blockIdx.y = row tile * KVH + kv head; the tile holds rows
+  // row0 .. row0 + R - 1 of the kv head's S * G
+  const int s = blockIdx.x, kvh = blockIdx.y % KVH, b = blockIdx.z;
+  const int n_splits = gridDim.x, G = H / KVH;
+  const int row0 = (int)(blockIdx.y / KVH) * MAXROWS;
+  const int R = min(MAXROWS, S * G - row0);
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane / 4, t = lane % 4;   // mma fragment row / column pair
   const int mt = warp % MT, col0 = (warp / MT) * (D / WPM);
   auto out_row = [&](int r) -> size_t {
-    return ((size_t)b * S + r / G) * H + (size_t)kvh * G + r % G;
+    return ((size_t)b * S + (row0 + r) / G) * H + (size_t)kvh * G +
+           (row0 + r) % G;
   };
   auto prow = [&](int r) -> size_t { return out_row(r) * n_splits + s; };
   const int n_tok = pps * page;
@@ -522,8 +544,8 @@ __global__ void __launch_bounds__(THREADS)
   // this thread's two rows of its tile, their query positions and the A
   // fragments of q (rows past R are zero)
   const int r0 = mt * 16 + g, r1 = r0 + 8;
-  const int qp0 = r0 < R ? q_pos[(size_t)b * S + r0 / G] : 0;
-  const int qp1 = r1 < R ? q_pos[(size_t)b * S + r1 / G] : 0;
+  const int qp0 = r0 < R ? q_pos[(size_t)b * S + (row0 + r0) / G] : 0;
+  const int qp1 = r1 < R ? q_pos[(size_t)b * S + (row0 + r1) / G] : 0;
   uint32_t qa[KSTEPS][4];
   {
     const uint32_t* q0 = reinterpret_cast<const uint32_t*>(q + out_row(r0) * D);
@@ -787,7 +809,9 @@ cudaError_t launch_mma(const void* q, const void* kp, const void* vp,
       (int)smem);
   if (err != cudaSuccess) return err;
   const int n_splits = (pps * page + split - 1) / split;
-  paged_mma_kernel<D, MT><<<dim3(n_splits, KVH, B), THREADS, smem, stream>>>(
+  const int n_rt = (S * (H / KVH) + MAXROWS - 1) / MAXROWS;  // row tiles
+  paged_mma_kernel<D, MT>
+      <<<dim3(n_splits, KVH * n_rt, B), THREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(kp),
       static_cast<const T*>(vp), bt, sl, q_pos, part_acc, part_ml, S, H, KVH,
       page, pps, split, 1.0f / sqrtf((float)D));
@@ -810,8 +834,10 @@ cudaError_t launch(const void* q, const void* kp, const void* vp,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const int n_splits = (pps * page + split - 1) / split;
+  const int n_rt =  // row tiles (multi-query mode with S * G > MAXROWS)
+      MODE == kMulti ? (S * (H / KVH) + MAXROWS - 1) / MAXROWS : 1;
   paged_split_kernel<T, D, GMAX, MODE>
-      <<<dim3(n_splits, KVH, B), THREADS, smem, stream>>>(
+      <<<dim3(n_splits, KVH * n_rt, B), THREADS, smem, stream>>>(
           static_cast<const T*>(q), static_cast<const T*>(kp),
           static_cast<const T*>(vp), bt, sl, mask.k_pos, mask.q_pos,
           mask.window, part_acc, part_ml, S, H, KVH, page, pps, split,
@@ -851,22 +877,27 @@ cudaError_t launch_merge(float* part_acc, float* part_ml, void* o, int rows,
                             static_cast<T*>(o), n_splits);
 }
 
-// The instantiation whose GMAX bounds the CTA's rows R = S * H / KVH
-// (32 and 64 exist only in float32 multi-query mode); bf16 multi-query
-// with S >= 2 takes the tensor-core kernel.
+// The instantiation whose GMAX bounds the CTA's rows R = S * H / KVH, at
+// most MAXROWS (more rows take more row-tile CTAs; 32 and 64 exist only in
+// float32 multi-query mode); bf16 multi-query with S >= 2 takes the
+// tensor-core kernel.
 template <typename T, int D, int MODE>
 cudaError_t launch_g(const void* q, const void* kp, const void* vp,
                      const int* bt, const int* sl, Mask mask, void* o,
                      float* part_acc, float* part_ml, int B, int S, int H,
                      int KVH, int page, int pps, int split,
                      cudaStream_t stream) {
-  const int R = S * (H / KVH);
+  const int R = min(S * (H / KVH), MAXROWS);
   if constexpr (MODE == kMulti && std::is_same<T, __nv_bfloat16>::value) {
     if (S >= 2) {  // tensor cores: 1, 2 or 4 row tiles of 16
 #define REPRO_MMA(MT)                                                       \
   return launch_mma<D, MT>(q, kp, vp, bt, sl, mask.q_pos, o, part_acc,      \
                            part_ml, B, S, H, KVH, page, pps, split, stream)
-      if (R <= 16) REPRO_MMA(1);
+      // at D = 32 one warp's share of the columns with a single row tile
+      // would be one n-tile; V's fragments load two, so take two row tiles
+      if constexpr (D >= 64) {
+        if (R <= 16) REPRO_MMA(1);
+      }
       if (R <= 32) REPRO_MMA(2);
       REPRO_MMA(4);
 #undef REPRO_MMA
@@ -914,12 +945,19 @@ cudaError_t dispatch(const void* q, const void* k_pages, const void* v_pages,
                      float* pa, float* pm, int B, int S, int H, int KVH,
                      int D, int page, int pps, int split, int dtype,
                      cudaStream_t s) {
+  if (dtype == repro::kFloat32 && D == 32)
+    return launch_m<float, 32>(q, k_pages, v_pages, bt, sl, mask, o, pa, pm,
+                               B, S, H, KVH, page, pps, split, s);
   if (dtype == repro::kFloat32 && D == 64)
     return launch_m<float, 64>(q, k_pages, v_pages, bt, sl, mask, o, pa, pm,
                                B, S, H, KVH, page, pps, split, s);
   if (dtype == repro::kFloat32 && D == 128)
     return launch_m<float, 128>(q, k_pages, v_pages, bt, sl, mask, o, pa, pm,
                                 B, S, H, KVH, page, pps, split, s);
+  if (dtype == repro::kBFloat16 && D == 32)
+    return launch_m<__nv_bfloat16, 32>(q, k_pages, v_pages, bt, sl, mask, o,
+                                       pa, pm, B, S, H, KVH, page, pps,
+                                       split, s);
   if (dtype == repro::kBFloat16 && D == 64)
     return launch_m<__nv_bfloat16, 64>(q, k_pages, v_pages, bt, sl, mask, o,
                                        pa, pm, B, S, H, KVH, page, pps,
@@ -933,10 +971,11 @@ cudaError_t dispatch(const void* q, const void* k_pages, const void* v_pages,
 
 }  // namespace
 
-// q [B,H,D] (S = 0) or [B,S,H,D] (multi-query mode, 1 <= S <= 8 and
-// S * H / KVH <= 64), k/v pages [P,page,KVH,D], block_table [B,pps] int32
-// (entries in [0, P)), seq_lens [B] int32, o shaped as q; all contiguous,
-// one dtype (0 float32, 1 bfloat16), D in {64, 128}, H / KVH <= 16.
+// q [B,H,D] (S = 0) or [B,S,H,D] (multi-query mode, S >= 1; the S * H / KVH
+// rows of a kv head go to row tiles of MAXROWS), k/v pages [P,page,KVH,D],
+// block_table [B,pps] int32 (entries in [0, P)), seq_lens [B] int32, o
+// shaped as q; all contiguous, one dtype (0 float32, 1 bfloat16), D in
+// {32, 64, 128}, H / KVH <= 16.
 // One-query masked mode: k_pos [P,page] int32 or null, q_pos [B] int32
 // (needed when k_pos is given or window > 0, else may be null),
 // window >= 0. Multi-query mode: q_pos [B,S] int32 (each query's
@@ -967,8 +1006,7 @@ extern "C" int paged_attention_fwd(const void* q, const void* k_pages,
       (pps * page + split - 1) / split > 48 * 1024 || window < 0 ||
       ((k_pos != nullptr || window > 0) && q_pos == nullptr))
     return (int)cudaErrorInvalidValue;
-  if (S != 0 && (S < 1 || S > MAXS || S * (H / KVH) > MAXROWS ||
-                 q_pos == nullptr || k_pos != nullptr || window > 0))
+  if (S != 0 && (S < 1 || q_pos == nullptr || k_pos != nullptr || window > 0))
     return (int)cudaErrorInvalidValue;
   return (int)dispatch(q, k_pages, v_pages, bt, sl, mask, o, pa, pm, B, S, H,
                        KVH, D, page, pps, split, dtype, s);
@@ -978,8 +1016,10 @@ extern "C" int paged_attention_fwd(const void* q, const void* k_pages,
 // (reported by chip_smoke.py's build phase; ptxas prints only static).
 extern "C" int paged_attention_smem_bytes(int dtype, int D) {
   if (dtype == repro::kFloat32)
-    return D == 64 ? (int)Layout<float, 64>::bytes
-                   : (int)Layout<float, 128>::bytes;
-  return D == 64 ? (int)Layout<__nv_bfloat16, 64>::bytes
-                 : (int)Layout<__nv_bfloat16, 128>::bytes;
+    return D == 32   ? (int)Layout<float, 32>::bytes
+           : D == 64 ? (int)Layout<float, 64>::bytes
+                     : (int)Layout<float, 128>::bytes;
+  return D == 32   ? (int)Layout<__nv_bfloat16, 32>::bytes
+         : D == 64 ? (int)Layout<__nv_bfloat16, 64>::bytes
+                   : (int)Layout<__nv_bfloat16, 128>::bytes;
 }

@@ -11,10 +11,11 @@ once and shared by the query heads of their kv head. The kernel splits each
 request's tokens over many CTAs and merges their partial softmaxes
 (``paged_attention_split_plain`` is that algorithm in plain PyTorch).
 
-Its multi-query mode (q [B,S,H,D], ``q_pos`` [B,S], 1 <= S <= 8) serves
+Its multi-query mode (q [B,S,H,D], ``q_pos`` [B,S], any S >= 1) serves
 the per-row-start extend of the speculative verify and the draft's lead,
 which the reference attends with pure-jnp ``simple_sdpa``: each CTA reads
-its K/V chunk once for all S * G query rows of its kv head.
+its K/V chunk once for up to 64 of the S * G query rows of its kv head
+(more rows take more row-tile CTAs).
 """
 from __future__ import annotations
 
@@ -26,12 +27,8 @@ from repro_torch.kernels import build
 from repro_torch.kernels.ref import (NEG_INF, multi_query_rows,
                                      paged_attention_ref, paged_key_mask)
 
-HEAD_DIMS = (64, 128)
+HEAD_DIMS = (32, 64, 128)
 MAX_GROUP = 16
-#: Multi-query mode: query tokens per request, and query rows (tokens x
-#: heads of a kv head) per CTA of the split kernel.
-MAX_QUERIES = 8
-MAX_ROWS = 64
 #: Tokens the kernel stages per cp.async chunk, and the tokens of each CTA
 #: of its split kernel: one chunk at every batch (the source's header says
 #: why).
@@ -123,15 +120,15 @@ def paged_attention(q, k_pages, v_pages, block_table, seq_lens, *,
     given, else t); ``ref.paged_key_mask`` is the rule in plain PyTorch.
 
     A CPU tensor takes the plain version; a CUDA tensor takes the kernel
-    (float32 or bfloat16, D in {64, 128}, H/KVH <= 16, contiguous) or
+    (float32 or bfloat16, D in {32, 64, 128}, H/KVH <= 16, contiguous) or
     raises. The table's entries are not range-checked on the card (that
     would synchronize every step); the caller builds them.
 
     Multi-query mode: q [B,S,H,D] and ``q_pos`` [B,S] int32, no ``k_pos``
     and no window -> [B,S,H,D]; token t is a key of query i iff
-    t < seq_lens[b] and t <= q_pos[b, i]. The kernel takes
-    1 <= S <= 8 and S * H / KVH <= 64 (one CTA holds every query row of
-    a kv head).
+    t < seq_lens[b] and t <= q_pos[b, i]. The kernel takes any S >= 1:
+    a CTA holds up to 64 of a kv head's S * H / KVH query rows, and more
+    rows take more CTAs.
     """
     multi = q.ndim == 4
     if multi and (k_pos is not None or window):
@@ -215,14 +212,8 @@ def _multi_query(q, k_pages, v_pages, block_table, seq_lens, q_pos):
     _check_kernel_inputs(q, k_pages, v_pages, [
         ("block_table", block_table, tuple(block_table.shape)),
         ("seq_lens", seq_lens, (b,)), ("q_pos", q_pos, (b, sq))])
-    g = h // k_pages.shape[2]
-    if not 1 <= sq <= MAX_QUERIES:
-        raise ValueError(f"paged_attention kernel takes 1 to {MAX_QUERIES} "
-                         f"query tokens per request, not {sq}")
-    if sq * g > MAX_ROWS:
-        raise ValueError(f"paged_attention kernel takes at most {MAX_ROWS} "
-                         f"query rows per kv head, not {sq} tokens x {g} "
-                         "heads")
+    if sq < 1:
+        raise ValueError("paged_attention kernel needs S >= 1 query tokens")
     out = _launch(q, k_pages, v_pages, block_table, seq_lens,
                   CHUNK if sq == 1 else MQ_SPLIT, q_pos=q_pos)
     paged_attention.launches += 1

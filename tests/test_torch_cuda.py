@@ -45,6 +45,14 @@ def _randn(rng, shape, dtype, dev):
     # compressed qwen2-vl-2b prefills: 512 / 256 kept visual + 32 text
     dict(b=1, h=12, kvh=2, sq=544, sk=544, d=128),
     dict(b=1, h=12, kvh=2, sq=288, sk=288, d=128),
+    # head dim 32 (phi4-mini smoke and the other reference smoke configs):
+    # causal, windowed, kv_len / q_offset, keyless rows, many tiles
+    dict(b=2, h=4, kvh=2, sq=100, sk=100, d=32),
+    dict(b=1, h=6, kvh=2, sq=130, sk=130, d=32, window=40),
+    dict(b=1, h=2, kvh=2, sq=17, sk=96, d=32, kv_len=80, q_offset=50),
+    dict(b=1, h=2, kvh=1, sq=90, sk=64, d=32, q_offset=-20),
+    dict(b=1, h=4, kvh=1, sq=70, sk=64, d=32, causal=False, kv_len=40),
+    dict(b=1, h=8, kvh=2, sq=1056, sk=1056, d=32),
 ])
 def test_flash_kernel_matches_plain(dev, dtype, case):
     rng = np.random.default_rng(0)
@@ -65,7 +73,8 @@ def test_flash_kernel_matches_plain(dev, dtype, case):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("d,h,kvh,page", [(64, 4, 2, 16), (128, 12, 2, 16),
-                                          (64, 16, 1, 5)])
+                                          (64, 16, 1, 5), (32, 4, 1, 16),
+                                          (32, 8, 2, 5), (32, 16, 1, 16)])
 def test_paged_kernel_matches_plain(dev, dtype, d, h, kvh, page):
     rng = np.random.default_rng(1)
     b, pps = 3, 7
@@ -174,15 +183,15 @@ def test_paged_merge_takes_its_most_splits(dev):
         pa._launch(q, kp, vp, table, seq, 1)
 
 
-def _masked_inputs(rng, case, b, dtype, dev, permute, length=1152):
+def _masked_inputs(rng, case, b, dtype, dev, permute, length=1152, d=128):
     """Masked decode at the qwen2-vl-2b layout (12 / 2 heads, D 128, pages
-    of 16) over a ``length``-slot ring cache: (q, k, v, table, seq_lens,
+    of 16; ``d`` another head dim) over a ``length``-slot ring cache: (q, k, v, table, seq_lens,
     k_pos [P, page], q_pos, window). ``ring``: positions wrapped past the
     cache; ``compacted``: 256 kept positions, -1 rows, then 32 decoded
     past a gap; ``window``: a plain cache with window 256 and no k_pos;
     ``own_key``: the query's own row is its only key; ``ahead``: every
     row read, those past the query's position masked."""
-    h, kvh, d, page = 12, 2, 128, 16
+    h, kvh, page = 12, 2, 16
     pps = length // page
     q = _randn(rng, (b, h, d), dtype, dev)
     kp = _randn(rng, (b * pps, page, kvh, d), dtype, dev)
@@ -291,9 +300,15 @@ def test_paged_kernel_refuses_bad_masks(dev):
 
 
 def test_kernels_refuse_what_they_do_not_take(dev):
-    q = torch.zeros(1, 2, 8, 32, device=dev)
-    with pytest.raises(ValueError):        # head dim 32 has no kernel
+    q = torch.zeros(1, 2, 8, 48, device=dev)
+    with pytest.raises(ValueError):        # head dim 48 has no kernel
         fa.flash_attention(q, q[:, :1], q[:, :1])
+    with pytest.raises(ValueError):        # nor in the paged kernel
+        pa.paged_attention(q[:, :, 0].contiguous(),
+                           torch.zeros(2, 16, 1, 48, device=dev),
+                           torch.zeros(2, 16, 1, 48, device=dev),
+                           torch.zeros(1, 2, dtype=torch.int32, device=dev),
+                           torch.ones(1, dtype=torch.int32, device=dev))
     q = torch.zeros(1, 2, 8, 64, device=dev, dtype=torch.float16)
     with pytest.raises(ValueError):        # neither float32 nor bfloat16
         fa.flash_attention(q, q, q)
@@ -348,15 +363,17 @@ def test_compressor_on_card_matches_cpu(dev, preset):
 # ----------------------------------------------- multi-query (verify) --
 
 def _mq_inputs(rng, s, g, dtype, dev, *, permute, page=16, b=6, kvh=2,
-               length=288):
+               length=288, d=None):
     """Multi-query inputs over a ``length``-slot cache of ``b`` requests:
     (q [B,S,H,D], k/v pages, table, seq_lens, q_pos). Row starts: the
     cache's start, one block straddling each 32-token split boundary of
     the first two, a mid-cache block, a block ending at the last live
     row (L - 2), and an inactive row routed to the scratch slot
     (start = L - 1: q_pos runs past the cache and every row is read).
-    Physical page table[j] holds logical page j."""
-    d = 128 if g == 6 else 64
+    Physical page table[j] holds logical page j. ``d`` defaults to 128
+    at G = 6 (qwen2-vl) and 64 otherwise."""
+    if d is None:
+        d = 128 if g == 6 else 64
     h = kvh * g
     pps = length // page
     starts = np.array([0, 32 - s // 2, 64 - 1, length // 2 + 3,
@@ -471,17 +488,17 @@ def test_paged_multi_query_refusals(dev):
                                              device=dev))
     with pytest.raises(ValueError):        # nor a window
         pa.paged_attention(q, kp, vp, table, seq, q_pos=q_pos, window=16)
-    q9 = torch.zeros((q.shape[0], 9) + q.shape[2:], dtype=q.dtype,
+    q0 = torch.zeros((q.shape[0], 0) + q.shape[2:], dtype=q.dtype,
                      device=dev)
-    with pytest.raises(ValueError):        # S = 9 > 8
-        pa.paged_attention(q9, kp, vp, table, seq,
-                           q_pos=torch.zeros(q9.shape[:2], dtype=torch.int32,
+    with pytest.raises(ValueError):        # no query tokens
+        pa.paged_attention(q0, kp, vp, table, seq,
+                           q_pos=torch.zeros(q0.shape[:2], dtype=torch.int32,
                                              device=dev))
-    q16 = torch.zeros((q.shape[0], 5, 32, 64), dtype=q.dtype, device=dev)
-    kp16 = torch.zeros(kp.shape[:3] + (64,), dtype=q.dtype, device=dev)
-    with pytest.raises(ValueError):        # 5 tokens x 16 heads > 64 rows
-        pa.paged_attention(q16, kp16, kp16, table, seq,
-                           q_pos=torch.zeros(q16.shape[:2],
+    q48 = torch.zeros((q.shape[0], 9, 32, 48), dtype=q.dtype, device=dev)
+    kp48 = torch.zeros(kp.shape[:3] + (48,), dtype=q.dtype, device=dev)
+    with pytest.raises(ValueError):        # head dim 48 has no kernel
+        pa.paged_attention(q48, kp48, kp48, table, seq,
+                           q_pos=torch.zeros(q48.shape[:2],
                                              dtype=torch.int32, device=dev))
     with pytest.raises(ValueError):        # positions on the host
         pa.paged_attention(q, kp, vp, table, seq, q_pos=q_pos.cpu())
@@ -533,3 +550,164 @@ def test_paged_multi_query_multi_chunk_splits(dev, dtype, split):
     ref = pa.paged_attention_plain(*args, q_pos=q_pos)
     err = (out.float() - ref.float()).abs().max().item()
     assert err <= TOL[dtype], err
+
+
+# ------------------------------------ head dim 32 and long verifies --
+
+def _assert_mq_close(out, ref, dtype, what):
+    """The multi-query bar: within TOL and within REL_TOL of max|ref|."""
+    err = (out.float() - ref.float()).abs().max().item()
+    scale = ref.float().abs().max().item()
+    assert err <= TOL[dtype], (what, err)
+    assert err <= {torch.float32: 1e-5, torch.bfloat16: 1e-2}[dtype] \
+        * max(scale, 1.0), (what, err, scale)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", ["ring", "compacted", "window", "own_key",
+                                  "ahead"])
+def test_paged_kernel_masked_d32_matches_plain(dev, dtype, case):
+    """The masked mode at head dim 32 (the bf16 rows are 64 bytes: the
+    4-piece swizzle)."""
+    args, kw = _masked_inputs(np.random.default_rng(20), case, 8, dtype, dev,
+                              True, length=640, d=32)
+    out = pa.paged_attention(*args, **kw)
+    torch.cuda.synchronize()
+    ref = pa.paged_attention_plain(*args, **kw)
+    err = (out.float() - ref.float()).abs().max().item()
+    assert err <= TOL[dtype], err
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("g", [1, 6, 16])
+@pytest.mark.parametrize("s", [1, 2, 5, 8])
+def test_paged_kernel_multi_query_d32_matches_plain(dev, dtype, g, s):
+    """The multi-query mode at head dim 32: the FMA kernel (float32, S = 1)
+    and the tensor-core kernel, whose D = 32 takes two row tiles of 16."""
+    rng = np.random.default_rng(30 + s)
+    for permute, page in ((False, 16), (True, 5)):
+        *args, q_pos = _mq_inputs(rng, s, g, dtype, dev, permute=permute,
+                                  page=page, length=320, d=32)
+        out = pa.paged_attention(*args, q_pos=q_pos)
+        torch.cuda.synchronize()
+        ref = pa.paged_attention_plain(*args, q_pos=q_pos)
+        _assert_mq_close(out, ref, dtype, (permute, page))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("g,d", [(6, 128), (16, 64), (16, 32)])
+@pytest.mark.parametrize("s", [9, 13, 17])
+def test_paged_kernel_long_verify_matches_plain(dev, dtype, g, d, s):
+    """Verifies of gamma 8, 12 and 16 (S = gamma + 1): S * G from 54 to 272
+    rows, so past 64 rows a kv head's rows go to several row-tile CTAs."""
+    rng = np.random.default_rng(40 + s)
+    for permute, page in ((False, 16), (True, 5)):
+        *args, q_pos = _mq_inputs(rng, s, g, dtype, dev, permute=permute,
+                                  page=page, length=320, d=d)
+        m0 = pa.paged_attention.multi_query_launches
+        out = pa.paged_attention(*args, q_pos=q_pos)
+        torch.cuda.synchronize()
+        assert pa.paged_attention.multi_query_launches == m0 + 1
+        ref = pa.paged_attention_plain(*args, q_pos=q_pos)
+        _assert_mq_close(out, ref, dtype, (permute, page))
+
+
+def _tree_to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, device) for k, v in tree.items()}
+    return tree.to(device)
+
+
+def test_phi4_smoke_card_matches_cpu(dev):
+    """phi4-mini smoke (head dim 32) with no ``device=`` runs on the card:
+    prefill and decode logits within 1e-3 of the CPU port's on the same
+    weights, greedy tokens identical."""
+    from repro_torch.api import GenerationConfig, LVLM
+    card = LVLM.from_pretrained("phi4-mini-3.8b", smoke=True, seed=0)
+    assert card.device.type == "cuda"
+    cpu = card.with_params(_tree_to(card.params, "cpu"))
+    rng = np.random.default_rng(50)
+    prompts = [rng.integers(0, card.cfg.vocab_size, n).tolist()
+               for n in (20, 70, 9)]
+    toks = torch.tensor([prompts[0]])
+    n0 = fa.flash_attention.launches, pa.paged_attention.launches
+    lc, cc = cpu.model.prefill(cpu.params, {"tokens": toks}, cache_len=48)
+    lg, cg = card.model.prefill(card.params, {"tokens": toks.to(dev)},
+                                cache_len=48)
+    assert (lg.cpu() - lc).abs().max().item() <= 1e-3
+    nxt, pos = torch.tensor([[3]]), torch.tensor([20])
+    dc, _ = cpu.model.decode_step(cpu.params, cc, nxt, pos)
+    dg, _ = card.model.decode_step(card.params, cg, nxt.to(dev), pos.to(dev))
+    assert (dg.cpu() - dc).abs().max().item() <= 1e-3
+    gen = GenerationConfig(max_new_tokens=8, decoder="greedy")
+    got = [r.tokens for r in card.generate(prompts, gen)]
+    want = [r.tokens for r in cpu.generate(prompts, gen)]
+    torch.cuda.synchronize()
+    assert fa.flash_attention.launches > n0[0]
+    assert pa.paged_attention.launches > n0[1]
+    assert got == want
+
+
+def test_serve_async_card_matches_sync_and_cpu(dev):
+    """``serve_async(obs=True, profile=True)`` on the card (qwen2-vl smoke,
+    float32, sanitizer on): a mixed greedy / speculative / early-exit
+    batch streams the tokens of a sync ``serve`` on the card and of the
+    same async serve on the CPU, the trace validates, and a cancelled
+    stream leaves the pool at baseline."""
+    import asyncio
+    from repro_torch.api import (AdmissionConfig, EngineConfig,
+                                 GenerationConfig, LVLM, Request)
+    from repro_torch.obs import to_chrome_trace, validate_trace
+    cpu = LVLM.from_pretrained("qwen2-vl-2b", smoke=True, seed=0,
+                               device="cpu")
+    card = cpu.with_params(_tree_to(cpu.params, "cuda"))
+    cfg = cpu.cfg
+    rng = np.random.default_rng(60)
+    prompts = [rng.integers(1, cfg.vocab_size, n).tolist()
+               for n in (9, 12, 7, 14)]
+    ves = [rng.standard_normal((cfg.num_visual_tokens, cfg.d_model)
+                               ).astype(np.float32) if i % 2 else None
+           for i in range(4)]
+    decs = ("speculative", "greedy", "early_exit", "speculative")
+
+    def reqs():
+        return [Request(rid=i, tokens=list(p), max_new_tokens=8,
+                        visual_embeds=ve, decoder=d)
+                for i, (p, ve, d) in enumerate(zip(prompts, ves, decs))]
+    gen = GenerationConfig(max_new_tokens=8, decoder="greedy", gamma=3,
+                           temperature=0.0)
+    ec = EngineConfig(max_batch=4, cache_len=64, sanitize=True)
+    adm = AdmissionConfig(high_watermark=1.0, low_watermark=0.9)
+
+    def run_async(lvlm, cancel_rid=None):
+        server = lvlm.serve_async(ec, gen, admission=adm, obs=True,
+                                  profile=True)
+
+        async def consume(stream):
+            out = []
+            async for tok in stream:
+                out.append(tok)
+                if stream.request.rid == cancel_rid and len(out) == 2:
+                    stream.cancel()
+                    break
+            return out
+
+        async def drive():
+            async with server:
+                return await asyncio.gather(
+                    *(consume(server.submit(r)) for r in reqs()))
+        return dict(enumerate(asyncio.run(drive()))), server
+
+    got, server = run_async(card)
+    torch.cuda.synchronize()
+    sync = card.serve(reqs(), ec, gen)
+    assert got == {r.rid: r.generated for r in sync.requests}
+    assert got == run_async(cpu)[0]
+    assert validate_trace(to_chrome_trace(server.tracer.events)) == []
+    assert "decode:speculative" in server.profiler.snapshot()
+    _, server = run_async(card, cancel_rid=0)
+    eng = server.engine
+    assert server.summary()["aborted"] == 1
+    assert eng.kv_committed_tokens() == 0
+    assert all(r is None for r in eng.slot_req)
+    assert eng._decoders["speculative"].bound_slots() == set()

@@ -104,3 +104,34 @@ def test_decoding_modules_are_ported(path):
     imports neither JAX nor the JAX package (the probe above imports it
     with JAX blocked)."""
     _assert_ported(path)
+
+
+@pytest.mark.parametrize("path", [
+    "obs/stats.py", "obs/trace.py", "obs/perfetto.py", "obs/validate.py",
+    "obs/profile.py", "obs/prom.py", "obs/__init__.py",
+    "analysis/sanitizer.py", "serving/metrics.py", "serving/admission.py",
+    "serving/server.py", "serving/__init__.py"])
+def test_serving_and_observability_modules_are_ported(path):
+    """Each module of the serving-and-observability slice has its
+    reference, and imports neither JAX nor the JAX package, not even the
+    JAX-free ``repro.obs`` (the probe above imports it with JAX blocked)."""
+    _assert_ported(path)
+
+
+def test_obs_validate_cli_runs_without_jax(tmp_path):
+    """``python -m repro_torch.obs.validate`` checks a trace with JAX
+    blocked."""
+    trace = tmp_path / "t.jsonl"
+    trace.write_text(
+        '{"k": "B", "name": "request", "rid": 1, "rep": 0, "vt": 0.0, '
+        '"wt": 0.0}\n{"k": "E", "name": "request", "rid": 1, "rep": 0, '
+        '"vt": 0.1, "wt": 0.1}\n')
+    probe = ("import sys, runpy; sys.modules['jax'] = None; "
+             f"sys.argv = ['v', {str(trace)!r}]; "
+             "runpy.run_module('repro_torch.obs.validate', "
+             "run_name='__main__')")
+    out = subprocess.run([sys.executable, "-c", probe],
+                         env=dict(os.environ, PYTHONPATH=str(ROOT / "src")),
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert "OK (2 events" in out.stdout
