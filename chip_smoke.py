@@ -17,8 +17,12 @@ the smoke config. The KV-cache phases hold the paged kernel's masked mode
 (windowed and compacted caches) against its plain version and time it,
 serve a compacting engine (per-request KV budgets) and a prefix-cache
 engine at full width, and compare both engines, every KV selector and a
-block-allocated paged pool card against CPU on the smoke config. Each
-phase prints one JSON line; the last two lines are the kernel summary
+block-allocated paged pool card against CPU on the smoke config. The
+cluster phases serve ``LVLM.serve_cluster`` (prefill / decode roles
+with KV migrated between replicas on the card, drain, the shared prefix
+tier) and the SLO-adaptive controller, card against CPU on the smoke
+config and at full width, and run the ``repro_torch.launch.serve`` CLI.
+Each phase prints one JSON line; the last two lines are the kernel summary
 and ``{"ok": true, "device": {...}}``. Any failure
 raises and exits non-zero before that line. Needs one CUDA device of
 compute capability 9.0.
@@ -94,6 +98,21 @@ BITS_SHA = {
     "serve_b8_s1/bfloat16":
         "0fec139e5906004c61b97c6b0e4551acc96ce58ed92b450ece3bcaa7aabb8f23",
 }
+
+#: the disaggregation phases' traffic (``disagg_burst`` of
+#: ``benchmarks/bench_serving.py``): a chat cohort of 16 requests (8-24
+#: text tokens from numpy seed 34, 16 new tokens, Poisson arrivals at
+#: 2000 req/s from seed 33) and, at the 5th chat arrival, a burst of 3
+#: requests 0.5 ms apart with 4 new tokens each
+CHAT_N, CHAT_NEW, CHAT_RATE, BURST_N, BURST_NEW = 16, 16, 2000.0, 3, 4
+#: full-width cluster slots: 1024 visual + 32 text + 4 new fit, and the
+#: modeled KV link carries bf16 K and V of 28 layers x 2 kv heads x 128
+CLUSTER_CACHE_LEN, CLUSTER_CHUNK = 1152, 256
+KV_BYTES_PER_TOKEN = 28 * 2 * 2 * 128 * 2
+#: the prefix-affinity smoke's shared prefix: its first 16-token block
+#: consistent-hashes to replica 1 (crc32 mod 2), so the first request
+#: publishes it there
+PREFIX_SEED = 40
 
 
 def emit(phase: str, **fields) -> None:
@@ -352,6 +371,7 @@ def phase_kernels(flush) -> dict:
             errs[f"{name}/{str(dtype)[6:]}"] = e
             check(e <= TOL[dtype], f"paged {name} {dtype}: err {e}")
     errs.update(_paged_serve_cases(rng, h, kvh, d, page))
+    errs.update(_paged_cluster_cases(rng, h, kvh, d, page))
     dtype = torch.bfloat16
     qd = randn(rng, (b, h, d), dtype)
     cache_k = randn(rng, (b, length, kvh, d), dtype)
@@ -431,6 +451,41 @@ def _paged_serve_cases(rng, h, kvh, d, page) -> dict:
                 errs[f"{name}_{tname}/{str(dtype)[6:]}"] = e
                 check(e <= TOL[dtype], f"paged {name} {tname} {dtype}: "
                       f"err {e} at seq_lens {lens.tolist()}")
+    return errs
+
+
+def _paged_cluster_cases(rng, h, kvh, d, page) -> dict:
+    """The wrapper at the cluster serve's decode batches: 16 slots (the
+    decode replica) and 12 (a unified one) of CLUSTER_CACHE_LEN rows, as
+    the engine decodes the whole slot pool: imported burst requests
+    (1056-token prompts plus decoded tokens), chat requests (8-24 tokens
+    plus up to CHAT_NEW decoded), and free slots, which read every row
+    (seq_len = cache_len) of whatever an earlier occupant left. Pages
+    are random, so every row past a request's seq_len is stale data;
+    identity table (the engine's), float32 and bfloat16, each held
+    against the plain version."""
+    from repro_torch.kernels import paged_attention as pa
+    length, errs = CLUSTER_CACHE_LEN, {}
+    pps = length // page
+    for b in (16, 12):
+        burst = 1024 + SERVE_TEXT + rng.integers(1, BURST_NEW, BURST_N)
+        chat = rng.integers(8, 24, b - BURST_N - 3) \
+            + rng.integers(1, CHAT_NEW, b - BURST_N - 3)
+        lens = np.concatenate([burst, chat, [length] * 3])
+        sl = torch.tensor(rng.permutation(lens), dtype=torch.int32,
+                          device="cuda")
+        table = torch.arange(b * pps, dtype=torch.int32,
+                             device="cuda").view(b, pps)
+        for dtype in (torch.float32, torch.bfloat16):
+            qd = randn(rng, (b, h, d), dtype)
+            kp = randn(rng, (b * pps, page, kvh, d), dtype)
+            vp = randn(rng, (b * pps, page, kvh, d), dtype)
+            got = pa.paged_attention(qd, kp, vp, table, sl)
+            torch.cuda.synchronize()
+            e = max_err(got, pa.paged_attention_plain(qd, kp, vp, table, sl))
+            errs[f"cluster_b{b}/{str(dtype)[6:]}"] = e
+            check(e <= TOL[dtype], f"paged cluster b={b} {dtype}: err {e} "
+                  f"at seq_lens {sl.tolist()}")
     return errs
 
 
@@ -1656,12 +1711,13 @@ def phase_kv_cache_smoke() -> None:
 
 def _top2_gap(lvlm, prompt, ve, stream) -> float:
     """The target's top-2 logit gap where it chose ``stream``'s last
-    token: the last position of a prefill of prompt + stream[:-1]."""
-    logits, _ = lvlm.model.prefill(
-        lvlm.params, {"tokens": torch.tensor([list(prompt) + stream[:-1]],
-                                             device="cuda"),
-                      "visual_embeds": torch.from_numpy(ve).cuda()[None]},
-        last_only=True)
+    token: the last position of a prefill of prompt + stream[:-1] (after
+    the visual embeddings ``ve``, if any)."""
+    batch = {"tokens": torch.tensor([list(prompt) + stream[:-1]],
+                                    device="cuda")}
+    if ve is not None:
+        batch["visual_embeds"] = torch.from_numpy(ve).cuda()[None]
+    logits, _ = lvlm.model.prefill(lvlm.params, batch, last_only=True)
     top = torch.topk(logits[0, -1].float(), 2).values
     return float(top[0] - top[1])
 
@@ -2484,6 +2540,701 @@ def phase_async_serve(lvlm) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------- cluster --
+
+def _chat_burst(Request, cfg, burst: bool, video):
+    """(chat, burst) requests of the disaggregation phases; ``video(rng,
+    j)`` gives the j-th burst request's (tokens, visual_embeds) from the
+    arrival generator, as the reference draws its burst."""
+    rng = np.random.RandomState(33)
+    r34 = np.random.RandomState(34)
+    pre = list(r34.randint(1, cfg.vocab_size, size=0))
+    chat = [Request(rid=i, tokens=pre + list(r34.randint(
+        1, cfg.vocab_size, size=r34.randint(8, 24))),
+        max_new_tokens=CHAT_NEW, arrival=i * 0.001) for i in range(CHAT_N)]
+    arr = np.cumsum(rng.exponential(1 / CHAT_RATE, size=CHAT_N))
+    for r, t in zip(chat, arr):
+        r.arrival = float(t)
+    vid = []
+    for j in range(BURST_N if burst else 0):
+        toks, ve = video(rng, j)
+        vid.append(Request(rid=100 + j, tokens=toks,
+                           max_new_tokens=BURST_NEW, visual_embeds=ve,
+                           arrival=float(arr[4]) + j * 0.0005))
+    return chat, vid
+
+
+def _control_burst(Request, SLO, cfg):
+    """``control_burst``'s traffic: 16 requests of 160 visual embeddings
+    and 8-14 text tokens, 8 new, Poisson arrivals at 4000 req/s, SLO
+    30 ms TTFT / 6 ms TPOT (seeds 77 and 78)."""
+    rng = np.random.RandomState(77)
+    r78 = np.random.RandomState(78)
+    reqs = []
+    for i in range(16):
+        toks = list(r78.randint(1, cfg.vocab_size, size=r78.randint(8, 14)))
+        reqs.append(Request(rid=i, tokens=toks, max_new_tokens=8))
+    arrivals = np.cumsum(rng.exponential(1 / 4000.0, size=len(reqs)))
+    for i, r in enumerate(reqs):
+        r.arrival = float(arrivals[i])
+        r.slo = SLO(ttft_ms=30.0, tpot_ms=6.0)
+        r.visual_embeds = rng.randn(160, cfg.d_model).astype(
+            np.float32) * 0.02
+    return reqs
+
+
+def _drive(front, reqs, on_token=None):
+    """Serve ``reqs`` through a server or router (one consumer task
+    each); returns {rid: tokens} and the wall seconds. ``on_token(stream,
+    tokens)`` runs after every token a consumer reads."""
+    import asyncio
+
+    async def consume(stream):
+        out = []
+        async for tok in stream:
+            out.append(tok)
+            if on_token is not None:
+                on_token(stream, out)
+        return out
+
+    async def drive():
+        async with front:
+            return await asyncio.gather(
+                *(consume(front.submit(r)) for r in reqs))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    outs = asyncio.run(drive())
+    torch.cuda.synchronize()
+    return {r.rid: o for r, o in zip(reqs, outs)}, time.perf_counter() - t0
+
+
+def _servers(front):
+    return [rep.server for rep in front.replicas] \
+        if hasattr(front, "replicas") else [front]
+
+
+def _fleet_state(front) -> dict:
+    """What a run leaves that must not depend on the device: every
+    replica's records on the virtual clock, migrations, remote prefix
+    hits and the fleet summary."""
+    import dataclasses
+    servers = _servers(front)
+    return {"records": [[dataclasses.asdict(r) for r in s.metrics.records]
+                        for s in servers],
+            "migrated": [(s.engine.migrated_in, s.engine.migrated_out)
+                         for s in servers],
+            "remote_prefix_hits": [s.engine.remote_prefix_hits
+                                   for s in servers],
+            "migrations": list(getattr(front, "migrations", [])),
+            "summary": front.summary()}
+
+
+def _at_baseline(front) -> bool:
+    """Every pool back at its baseline: no committed KV, every slot free,
+    no export ticket, no router assignment left."""
+    for s in _servers(front):
+        e = s.engine
+        if e.kv_committed_tokens() or any(r is not None for r in e.slot_req) \
+                or e._exports or s._streams:
+            return False
+    return all(not rep.inflight for rep in getattr(front, "replicas", ()))
+
+
+def _chat_tpot_p95(chat) -> float:
+    return float(np.percentile(
+        [(r.finish_time - r.first_token_time) / max(1, len(r.generated) - 1)
+         for r in chat], 95))
+
+
+def _drain_run(lvlm, ec, gen, chat, drain: bool):
+    """``chat`` on a 2-replica unified fleet of ``ec``; with ``drain``,
+    ``Router.drain(0)`` once every stream has 4 tokens. Returns (tokens,
+    wall seconds, router)."""
+    front = lvlm.serve_cluster(2, ec, gen=gen)
+    seen = set()
+
+    def on_token(stream, toks):
+        if drain and len(toks) == 4:
+            seen.add(stream.request.rid)
+            if len(seen) == len(chat):
+                front.drain(0)
+    toks, wall = _drive(front, chat, on_token)
+    return toks, wall, front
+
+
+def _control_run(lvlm, ctl, cfg):
+    """``control_burst`` on one server (max_batch 8, cache_len 256,
+    ``kv_capacity_tokens`` 512, watermarks 0.9 / 0.7, sanitizer on) with
+    ``control=ctl``. Returns (tokens, wall seconds, server)."""
+    from repro_torch.api import (AdmissionConfig, EngineConfig,
+                                 GenerationConfig, Request, SLO)
+    server = lvlm.serve_async(
+        EngineConfig(max_batch=8, cache_len=256, kv_capacity_tokens=512,
+                     temperature=0.0, sanitize=True),
+        gen=GenerationConfig(decoder="greedy", temperature=0.0,
+                             max_new_tokens=8),
+        admission=AdmissionConfig(high_watermark=0.9, low_watermark=0.7),
+        control=ctl)
+    toks, wall = _drive(server, _control_burst(Request, SLO, cfg))
+    return toks, wall, server
+
+
+def phase_cluster_smoke() -> dict:
+    """qwen2-vl smoke in float32, ``LVLM.serve_cluster`` / ``serve_async``
+    on the card (built with no ``device=``) against the same weights on
+    the CPU, sanitizer on in every engine: the reference's
+    ``disagg_burst`` (colocated 2 x 12 and prefill 8 / decode 16, each
+    without and with the burst of three 420-token prompts, cost
+    ``kv_bytes_per_token=100_000``) and ``control_burst`` (defer-only and
+    adaptive) scenarios, a ``Router.drain(0)`` once every stream has 4
+    tokens against the undrained run, and a ``prefix_affinity`` fleet
+    with the shared tier where the second replica hits a prefix the
+    first one published. Tokens, virtual-clock records (TTFT, TPOT, JCT,
+    arrival, finish), migrations, remote prefix hits and the control
+    counters are equal on both devices, no override stays open, and
+    every pool is back at its baseline. Returns the card runs' kernel
+    launches."""
+    from repro_torch.api import (ControlConfig, CostModel, EngineConfig,
+                                 GenerationConfig, LVLM, Request)
+    t0 = time.perf_counter()
+    card = LVLM.from_pretrained("qwen2-vl-2b", smoke=True, seed=0)
+    check(card.device.type == "cuda", "cluster smoke did not land on cuda")
+    cpu = card.with_params(_tree_to(card.params, "cpu"))
+    cfg = card.cfg
+    gen16 = GenerationConfig(decoder="greedy", temperature=0.0,
+                             max_new_tokens=CHAT_NEW)
+    cost = CostModel(kv_bytes_per_token=100_000)
+
+    def ec(batch, **kw):
+        return EngineConfig(max_batch=batch, cache_len=512,
+                            scheduler="chunked", chunk_size=32,
+                            temperature=0.0, cost=cost, sanitize=True, **kw)
+
+    def text_burst(rng, j):
+        return list(rng.randint(1, cfg.vocab_size, size=420)), None
+
+    def fleet(lvlm, label):
+        if label == "disagg":
+            return lvlm.serve_cluster(
+                [{"role": "prefill", "engine_cfg": ec(8)},
+                 {"role": "decode", "engine_cfg": ec(16)}], ec(8), gen=gen16)
+        return lvlm.serve_cluster(2, ec(12), gen=gen16)
+
+    launches = {"flash_attention": 0, "paged_attention": 0}
+
+    def both(run):
+        """run(lvlm) -> (tokens, front, extra) on the card, then the
+        CPU; the card's launches are added up."""
+        _reset_counts()
+        g = run(card)
+        torch.cuda.synchronize()
+        for k, n in _counts().items():
+            launches[k] += n
+        return g, run(cpu)
+
+    out, problems = {}, []
+
+    def compare(name, g, c):
+        (gt, gf, gx), (ct, cf, cx) = g, c
+        same = dict(tokens=gt == ct, state=_fleet_state(gf)
+                    == _fleet_state(cf), extra=gx == cx,
+                    baseline=_at_baseline(gf) and _at_baseline(cf))
+        if not all(same.values()):
+            problems.append((name, same))
+        return same
+
+    # (a) disagg_burst
+    for label in ("colocated", "disagg"):
+        row = {}
+        for phase in ("baseline", "burst"):
+            def run(lvlm, label=label, phase=phase):
+                chat, vid = _chat_burst(Request, cfg, phase == "burst",
+                                        text_burst)
+                front = fleet(lvlm, label)
+                toks, _ = _drive(front, chat + vid)
+                return toks, front, _chat_tpot_p95(chat)
+            g, c = both(run)
+            row[phase] = dict(equal=compare(f"{label}/{phase}", g, c),
+                              chat_tpot_p95=g[2],
+                              migrations=len(g[1].migrations))
+        row["tpot_ratio"] = (row["burst"]["chat_tpot_p95"]
+                             / row["baseline"]["chat_tpot_p95"])
+        out[f"disagg_burst/{label}"] = row
+    check(out["disagg_burst/disagg"]["burst"]["migrations"]
+          == CHAT_N + BURST_N, "disagg fleet: not every request migrated")
+
+    # (b) control_burst
+    for label, ctl in (("defer_only", None),
+                       ("adaptive", ControlConfig(cooldown_s=0.001))):
+        def run(lvlm, ctl=ctl):
+            toks, _, server = _control_run(lvlm, ctl, cfg)
+            return toks, server, None
+        g, c = both(run)
+        s = g[1].summary()
+        out[f"control_burst/{label}"] = dict(
+            equal=compare(f"control/{label}", g, c),
+            slo_e2e_attainment=s["slo_e2e_attainment"],
+            deferred=s["deferred"],
+            control={k: s.get(k) for k in (
+                "control_commits", "control_reverts",
+                "control_overrides_open")})
+    adaptive = out["control_burst/adaptive"]
+    check(adaptive["control"]["control_overrides_open"] == 0
+          and adaptive["control"]["control_commits"] > 0
+          and adaptive["slo_e2e_attainment"]
+          > out["control_burst/defer_only"]["slo_e2e_attainment"],
+          f"control burst: {adaptive}")
+
+    # (c) drain once every stream has 4 tokens, against the undrained run
+    def run_drain(lvlm, drain):
+        chat, _ = _chat_burst(Request, cfg, False, text_burst)
+        toks, _, front = _drain_run(lvlm, ec(12), gen16, chat, drain)
+        return toks, front, None
+    g, c = both(lambda lvlm: run_drain(lvlm, True))
+    undrained = run_drain(card, False)[0]
+    out["drain"] = dict(equal=compare("drain", g, c),
+                        equals_undrained=g[0] == undrained,
+                        migrations=len(g[1].migrations))
+    check(g[0] == undrained and out["drain"]["migrations"] > 0,
+          f"drain: {out['drain']}")
+
+    # (d) prefix affinity over the shared tier: a first request publishes
+    # the prefix from replica 1 (its cold hash), then replica 0 -- the
+    # first candidate once both see the prefix through the tier -- takes
+    # the rest and installs the tier's snapshot
+    rng = np.random.RandomState(PREFIX_SEED)
+    shared = list(rng.randint(1, cfg.vocab_size, size=32))
+    fam = [shared + list(rng.randint(1, cfg.vocab_size,
+                                     size=rng.randint(4, 8)))
+           for _ in range(4)]
+
+    def run_prefix(lvlm):
+        front = lvlm.serve_cluster(
+            2, EngineConfig(max_batch=4, cache_len=128, temperature=0.0,
+                            prefix_cache=True, sanitize=True),
+            gen=GenerationConfig(decoder="greedy", temperature=0.0,
+                                 max_new_tokens=4),
+            routing="prefix_affinity", shared_prefix=True)
+        reqs = [Request(rid=i, tokens=list(p), max_new_tokens=4)
+                for i, p in enumerate(fam)]
+        first, _ = _drive(front, reqs[:1])
+        rest, _ = _drive(front, reqs[1:])
+        return {**first, **rest}, front, [rep.dispatched
+                                          for rep in front.replicas]
+    g, c = both(run_prefix)
+    out["prefix_affinity"] = dict(
+        equal=compare("prefix_affinity", g, c), dispatched=g[2],
+        remote_prefix_hits=[rep.server.engine.remote_prefix_hits
+                            for rep in g[1].replicas],
+        tier=g[1].prefix_tier.stats())
+    check(g[2] == [3, 1] and out["prefix_affinity"]["remote_prefix_hits"][0]
+          >= 1, f"prefix tier: {out['prefix_affinity']}")
+    emit("cluster_smoke", config=cfg.name, dtype=cfg.dtype, sanitize=True,
+         **out, launches=launches, seconds=time.perf_counter() - t0)
+    check(not problems, f"cluster smoke card != CPU: {problems}")
+    check(all(launches.values()), f"cluster smoke launches {launches}")
+    return launches
+
+
+class _FleetProbe:
+    """Instruments a fleet's engines (instance attributes, so nothing in
+    the port changes): the kernel launches inside each engine's steps,
+    CUDA events around every ``export_kv`` and ``import_kv`` with the
+    bytes each moves, and, for every import, the ticket's snapshot and a
+    device copy of the slot rows ``[0, pos)`` it was written into (hashed
+    after the run, so the serve pays no host read). On each replica's
+    first step that decodes a burst request (rid >= 100), every call of
+    the paged wrapper is recorded -- its inputs, the whole slot pool with
+    the stale rows of earlier occupants, and the kernel's output -- to be
+    held against the plain version after the run."""
+
+    def __init__(self, front):
+        self.launches = [dict.fromkeys(("flash_attention",
+                                        "paged_attention"), 0)
+                         for _ in front.replicas]
+        self.exports, self.imports = [], []
+        self.imported = [set() for _ in front.replicas]
+        self.paged_calls = [None for _ in front.replicas]
+        for i, rep in enumerate(front.replicas):
+            eng = rep.server.engine
+            eng.step = self._step(i, eng, eng.step)
+            eng.export_kv = self._export(eng.export_kv)
+            eng.import_kv = self._import(i, eng, eng.import_kv)
+
+    def _step(self, i, eng, step):
+        from repro_torch.core.serving.request import State
+        from repro_torch.kernels import ops
+
+        def counted():
+            before = _counts()
+            burst = [r.rid for r in eng.running if r.rid >= 100
+                     and r.state == State.DECODE
+                     and getattr(r, "_ready_at", 0.0) <= eng.clock]
+            if self.paged_calls[i] is not None or not burst:
+                res = step()
+            else:
+                calls, real = [], ops._paged
+
+                def recorded(q, *args, **kw):
+                    o = real(q, *args, **kw)
+                    if q.ndim == 3:
+                        calls.append(([t.clone() for t in (q, *args)],
+                                      {k: v.clone() if torch.is_tensor(v)
+                                       else v for k, v in kw.items()},
+                                      o.clone()))
+                    return o
+                ops._paged = recorded
+                try:
+                    res = step()
+                finally:
+                    ops._paged = real
+                if calls:
+                    self.paged_calls[i] = (burst, calls)
+            for k, n in _counts().items():
+                self.launches[i][k] += n - before[k]
+            return res
+        return counted
+
+    def _export(self, export_kv):
+        def timed(rid):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            ticket = export_kv(rid)
+            end.record()
+            self.exports.append((rid, ticket["pos"], start, end))
+            return ticket
+        return timed
+
+    def _import(self, i, eng, import_kv):
+        def timed(req, ticket, *, ready_at=0.0):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            import_kv(req, ticket, ready_at=ready_at)
+            end.record()
+            self.imported[i].add(req.rid)
+            pos, slot = ticket["pos"], req._slot
+            rows = {k: v[:, slot:slot + 1, :pos].clone()
+                    for k, v in eng.pool["layers"].items()}
+            self.imports.append((req.rid, pos, start, end,
+                                 ticket["snap"]["layers"], rows))
+        return timed
+
+    def _paged_check(self, i) -> dict:
+        """The recorded decode step of replica ``i``: every layer's kernel
+        output against ``paged_attention_plain`` on the same inputs, held
+        to TOL and REL_TOL (err over the reference's largest value)."""
+        from repro_torch.kernels import paged_attention as pa
+        burst, calls = self.paged_calls[i]
+        errs, rels = [], []
+        for args, kw, got in calls:
+            want = pa.paged_attention_plain(*args, **kw)
+            e = max_err(got, want)
+            errs.append(e)
+            rels.append(e / float(want.float().abs().max()))
+        q, kp, _, table, sl = calls[0][0]
+        return {"replica": i, "batch": q.shape[0], "dtype": str(q.dtype)[6:],
+                "slot_rows": table.shape[1] * kp.shape[1],
+                "seq_lens": sl.tolist(), "layers": len(calls),
+                "burst_rids": burst,
+                "imported_rids": sorted(set(burst) & self.imported[i]),
+                "max_abs_err": max(errs), "max_rel_err": max(rels),
+                "ok": all(e <= TOL[q.dtype] and r <= REL_TOL[q.dtype]
+                          for e, r in zip(errs, rels))}
+
+    def report(self) -> dict:
+        """Per migration: KV tokens and bytes, export and import device
+        ms (CUDA events around the call), and whether the imported rows'
+        sha256 equals the snapshot's; per replica that decoded a burst
+        request, its recorded paged calls against the plain version."""
+        torch.cuda.synchronize()
+        exp = {rid: (pos, s.elapsed_time(e))
+               for rid, pos, s, e in self.exports}
+        rows = []
+        for rid, pos, s, e, snap, got in self.imports:
+            nbytes = sum(v.numel() * v.element_size() for v in snap.values())
+            rows.append({
+                "rid": rid, "kv_tokens": pos, "bytes": nbytes,
+                "export_ms": exp[rid][1], "import_ms": s.elapsed_time(e),
+                "copy_bound_ms": 2 * nbytes / HBM_BYTES_PER_S * 1e3,
+                "sha_equal": all(_sha(snap[k]) == _sha(got[k])
+                                 for k in snap)})
+        paged = [self._paged_check(i) for i, c in enumerate(self.paged_calls)
+                 if c is not None]
+        self.paged_calls = [None] * len(self.paged_calls)
+        return {"migrations": rows, "launches": self.launches,
+                "paged_checks": paged}
+
+
+def _bf16_bar(lvlm, reqs, got, want) -> list:
+    """The bf16 bar between two runs of the same requests: every stream
+    equal, or its first differing token chosen where the target's top-2
+    logit gap is exactly 0. Returns (rid, step, gap) of each stream that
+    differs."""
+    out = []
+    for r in reqs:
+        a, b = got[r.rid], want[r.rid]
+        if a == b:
+            continue
+        i = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y),
+                 min(len(a), len(b)))
+        out.append((r.rid, i, _top2_gap(lvlm, r.tokens, r.visual_embeds,
+                                        a[:i + 1])))
+    return out
+
+
+def _copy_ms(snap_shape_tokens: int, pool, flush) -> float:
+    """Device ms of one migration's copy alone at ``snap_shape_tokens``
+    rows (K and V of every layer from a slot into a buffer), replayed as
+    a CUDA graph after an L2 flush: what ``export_kv``'s clone and
+    ``import_kv``'s install each cost on the card without the host."""
+    src = {k: v[:, 0, :snap_shape_tokens] for k, v in pool["layers"].items()}
+    dst = {k: torch.empty_like(v) for k, v in src.items()}
+
+    def copy():
+        for k in src:
+            dst[k].copy_(src[k])
+    return time_ms(copy, flush)
+
+
+def phase_cluster_serve(lvlm) -> dict:
+    """qwen2-vl-2b at full published width, bf16, through
+    ``LVLM.serve_cluster`` with one set of weights behind every replica,
+    sanitizer on. (a) Disaggregation under a visual burst: the chat
+    cohort of ``disagg_burst`` and, at its 5th arrival, 3 requests of
+    1024 visual embeddings + 32 text tokens; cache_len 1152, chunked
+    (chunks of 256), ``CostModel(kv_bytes_per_token=28672)`` (bf16 K and
+    V at these widths); fleets prefill 8 / decode 16 and 2 x 12
+    unified, each without and with the burst. In ``disagg`` the decode
+    replica's admission gate counts its 16 slots (``max_inflight``): an
+    import that passes the KV watermark but finds every slot taken fails,
+    and the request then decodes on the prefill replica (as in the
+    reference), so the gate makes it wait for a slot. Every request of
+    that fleet migrates; each imported slot's rows ``[0, pos)`` hash to
+    its ticket snapshot's; the prefill replica launches only the flash
+    kernel and the decode replica only the paged kernel, over the
+    imported KV. ``disagg_ungated`` is the same fleet with the burst and
+    no gate, as the reference runs it: the imports that find no slot
+    cancel their export, and those requests decode on the prefill
+    replica, which then launches the paged kernel. On every burst run,
+    each replica's first decode step over a burst request records its
+    paged calls (batch 16 on the decode replica over imported KV, 12 on a
+    unified one, 8 on the prefill one; 1152-row slots holding earlier
+    occupants' stale rows), held against the plain version at TOL and
+    REL_TOL. The streams of every fleet meet the bf16 bar against the
+    colocated one. (b) Drain: the chat cohort on 2 x 12 unified,
+    ``drain(0)`` once every stream has 4 tokens: streams meet the bf16
+    bar against the undrained run, and every pool is back at its
+    baseline. (c) Control: ``control_burst`` at full width, defer-only
+    and adaptive. Prints the chat TPOT p95 (virtual) burst over
+    no-burst, migrations and their KV tokens and bytes, wall ms per
+    emitted token, the export and import device ms beside their bytes
+    and the copy's bound, and each replica's launches. Returns the
+    serves' launches."""
+    from repro_torch.api import (AdmissionConfig, ControlConfig, CostModel,
+                                 EngineConfig, GenerationConfig, LVLM,
+                                 Request)
+    from repro_torch.models.registry import build
+    t0 = time.perf_counter()
+    cfg = lvlm.cfg
+    clean = LVLM(build(cfg), lvlm.params)   # no CallTimer synchronisation
+    nv = cfg.num_visual_tokens
+    gen16 = GenerationConfig(decoder="greedy", temperature=0.0,
+                             max_new_tokens=CHAT_NEW)
+    cost = CostModel(kv_bytes_per_token=KV_BYTES_PER_TOKEN)
+
+    def ec(batch):
+        return EngineConfig(max_batch=batch, cache_len=CLUSTER_CACHE_LEN,
+                            scheduler="chunked", chunk_size=CLUSTER_CHUNK,
+                            temperature=0.0, cost=cost, sanitize=True)
+
+    def fleet(label):
+        if label == "colocated":
+            return clean.serve_cluster(2, ec(12), gen=gen16)
+        gate = ({"admission": AdmissionConfig(max_inflight=16)}
+                if label == "disagg" else {})
+        return clean.serve_cluster(
+            [{"role": "prefill", "engine_cfg": ec(8)},
+             {"role": "decode", "engine_cfg": ec(16), **gate}], ec(8),
+            gen=gen16)
+
+    def image_burst(rng, j):
+        toks = list(rng.randint(1, cfg.vocab_size, size=SERVE_TEXT))
+        return toks, rng.randn(nv, cfg.d_model).astype(np.float32) * 0.02
+
+    launches = {"flash_attention": 0, "paged_attention": 0}
+
+    def counted(fn):
+        _reset_counts()
+        res = fn()
+        torch.cuda.synchronize()
+        for k, n in _counts().items():
+            launches[k] += n
+        return res
+
+    out, streams = {}, {}
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device="cuda")
+    for label, phase in (("colocated", "baseline"), ("colocated", "burst"),
+                         ("disagg", "baseline"), ("disagg", "burst"),
+                         ("disagg_ungated", "burst")):
+        row = out.setdefault(label, {})
+        chat, vid = _chat_burst(Request, cfg, phase == "burst", image_burst)
+        front = fleet(label)
+        probe = _FleetProbe(front)
+        toks, wall = counted(lambda: _drive(front, chat + vid))
+        streams[label, phase] = (chat + vid, toks)
+        n_tok = sum(len(t) for t in toks.values())
+        s = front.summary()
+        rep = probe.report()
+        moves = rep["migrations"]
+        moved = {m["rid"] for m in moves}
+        row[phase] = {
+            "chat_tpot_p95": _chat_tpot_p95(chat),
+            "wall_ms_per_token": wall * 1e3 / n_tok,
+            "migrations": s.get("disaggregation", {}).get("migrations", 0),
+            "migrated_kv_tokens": s.get("disaggregation", {}).get(
+                "migrated_kv_tokens", 0),
+            "migrated_kv_bytes": sum(m["bytes"] for m in moves),
+            "burst_migrations": [m for m in moves if m["rid"] >= 100],
+            "failed_back": sorted(r.rid for r in chat + vid
+                                  if r.rid not in moved)
+            if label != "colocated" else [],
+            "launches_by_replica": rep["launches"],
+            "paged_checks": rep["paged_checks"],
+            "at_baseline": _at_baseline(front)}
+        check(all(m["sha_equal"] for m in moves),
+              f"{label}/{phase}: imported rows != ticket snapshot")
+        check(row[phase]["at_baseline"], f"{label}/{phase} not at baseline")
+        checks = {c["replica"]: c for c in rep["paged_checks"]}
+        check(all(c["ok"] for c in checks.values()),
+              f"{label}/{phase}: paged kernel != plain on the serve's "
+              f"inputs: {rep['paged_checks']}")
+        pf, dec = rep["launches"]
+        if phase == "burst":
+            want = ({0: 8, 1: 16} if label == "disagg_ungated"
+                    else {1: 16} if label == "disagg" else {})
+            check(all(i in checks and checks[i]["batch"] == b
+                      and checks[i]["slot_rows"] == CLUSTER_CACHE_LEN
+                      for i, b in want.items())
+                  and (label != "colocated" or any(
+                      c["batch"] == 12 for c in checks.values()))
+                  and (label == "colocated"
+                       or checks[1]["imported_rids"]),
+                  f"{label}/burst: paged calls recorded {checks}")
+        if label == "disagg":
+            check(len(moves) == len(chat + vid)
+                  and pf["paged_attention"] == 0
+                  and pf["flash_attention"] > 0
+                  and dec["flash_attention"] == 0
+                  and dec["paged_attention"] > 0,
+                  f"disagg/{phase}: {len(moves)} migrations, launches "
+                  f"{rep['launches']}")
+            if phase == "burst":
+                burst = row[phase]["burst_migrations"]
+                check(sorted(m["rid"] for m in burst) == [100, 101, 102]
+                      and all(m["kv_tokens"] == nv + SERVE_TEXT
+                              for m in burst),
+                      f"burst requests did not all migrate: {burst}")
+                row["copy_ms_graph"] = _copy_ms(
+                    nv + SERVE_TEXT, front.replicas[1].server.engine.pool,
+                    flush)
+        if label == "disagg_ungated":
+            back = row[phase]["failed_back"]
+            check(back and all(len(toks[rid]) == (
+                BURST_NEW if rid >= 100 else CHAT_NEW) for rid in back)
+                  and set(checks[0]["burst_rids"]) <= set(back)
+                  and pf["paged_attention"] > 0,
+                  f"disagg_ungated: failed back {back}, launches "
+                  f"{rep['launches']}, checks {checks}")
+        del front, probe, rep, moves
+        if len(row) == 2:
+            row["tpot_ratio"] = (row["burst"]["chat_tpot_p95"]
+                                 / row["baseline"]["chat_tpot_p95"])
+    del flush
+    bars = {f"{label}/{phase}": _bf16_bar(clean, *streams[label, phase],
+                                          streams["colocated", phase][1])
+            for label, phase in streams if label != "colocated"}
+    out["bf16_bar_vs_colocated"] = bars
+    check(all(g == 0.0 for b in bars.values() for _, _, g in b),
+          f"disaggregated vs colocated streams differ at a nonzero gap: "
+          f"{bars}")
+
+    # (b) drain
+    def run_drain(drain):
+        chat, _ = _chat_burst(Request, cfg, False, image_burst)
+        return (chat, *counted(lambda: _drain_run(clean, ec(12), gen16, chat,
+                                                  drain)))
+    chat, undrained, _, _ = run_drain(False)
+    _, drained, wall, front = run_drain(True)
+    bar = _bf16_bar(clean, chat, drained, undrained)
+    out["drain"] = {
+        "migrations": len(front.migrations),
+        "wall_ms_per_token": wall * 1e3 / sum(len(t)
+                                              for t in drained.values()),
+        "bf16_bar": bar, "at_baseline": _at_baseline(front),
+        "replica_states": front.summary()["replica_states"]}
+    check(all(g == 0.0 for _, _, g in bar) and out["drain"]["at_baseline"]
+          and out["drain"]["migrations"] > 0, f"drain: {out['drain']}")
+    del front
+
+    # (c) control
+    for label, ctl in (("defer_only", None),
+                       ("adaptive", ControlConfig(cooldown_s=0.001))):
+        toks, wall, server = counted(lambda: _control_run(clean, ctl, cfg))
+        s = server.summary()
+        out[f"control/{label}"] = {
+            "slo_e2e_attainment": s["slo_e2e_attainment"],
+            "deferred": s["deferred"], "finished": s["finished"],
+            "wall_ms_per_token": wall * 1e3 / sum(len(t)
+                                                  for t in toks.values()),
+            **{k: s.get(k) for k in ("control_commits", "control_reverts",
+                                     "control_overrides_open")},
+            "at_baseline": _at_baseline(server)}
+    on, off = out["control/adaptive"], out["control/defer_only"]
+    check(on["finished"] == off["finished"] == 16
+          and on["control_overrides_open"] == 0
+          and on["slo_e2e_attainment"] > off["slo_e2e_attainment"]
+          and on["at_baseline"] and off["at_baseline"],
+          f"control at full width: {on} vs {off}")
+    emit("cluster_serve", config=cfg.name, dtype=cfg.dtype,
+         cache_len=CLUSTER_CACHE_LEN, kv_bytes_per_token=KV_BYTES_PER_TOKEN,
+         **out, launches=launches, seconds=time.perf_counter() - t0)
+    del clean
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_serve_cli() -> None:
+    """``python -m repro_torch.launch.serve --roles prefill:1,decode:1
+    --control --open-loop 2000 --requests 8`` on the card, in a
+    subprocess, with ``--metrics-out -``: the report (the last JSON
+    object of its output) parses with 8 finished requests, and the
+    Prometheus text counts more than 0 migrations (the reference CLI's
+    report keeps only scalar keys, so the ``disaggregation`` block is
+    read there)."""
+    cmd = [sys.executable, "-m", "repro_torch.launch.serve",
+           "--roles", "prefill:1,decode:1", "--control", "--open-loop",
+           "2000", "--requests", "8", "--metrics-out", "-"]
+    t0 = time.perf_counter()
+    res = subprocess.run(cmd, cwd=HERE, capture_output=True, text=True,
+                         timeout=300, env=dict(
+                             os.environ, PYTHONPATH=os.path.join(HERE, "src")))
+    seconds = time.perf_counter() - t0
+    check(res.returncode == 0, f"serve CLI failed: {res.stderr[-2000:]}")
+    text = res.stdout
+    report = json.loads(text[text.rfind("\n{") + 1:])
+    moved = [ln for ln in text.splitlines()
+             if ln.startswith("repro_migrations_total")]
+    migrations = int(float(moved[0].split()[-1])) if moved else 0
+    emit("serve_cli", seconds=seconds, finished=report.get("finished"),
+         migrations=migrations, control_overrides_open=report.get(
+             "control_overrides_open"),
+         ttft_p95=report.get("ttft_p95"), tpot_p95=report.get("tpot_p95"))
+    check(report.get("finished") == 8 and migrations > 0,
+          f"serve CLI: {report}, migrations {migrations}")
+
+
 def _device_ms(evt) -> float:
     return getattr(evt, "self_device_time_total",
                    getattr(evt, "self_cuda_time_total", 0.0)) / 1e3
@@ -2565,10 +3316,15 @@ def main() -> int:
     phase_decoding_smoke()
     phi4_launches = phase_phi4_smoke()
     async_launches = phase_async_serve(full[0])
+    cluster_smoke_launches = phase_cluster_smoke()
+    cluster_launches = phase_cluster_serve(full[0])
+    phase_serve_cli()
     phase_profile(*full)
     launches = {k: launches[k] + comp_launches[k] + kv_launches[k]
                 + prefix_launches[k] + spec_launches[k] + ee_launches[k]
-                + phi4_launches[k] + async_launches[k] for k in launches}
+                + phi4_launches[k] + async_launches[k]
+                + cluster_smoke_launches[k] + cluster_launches[k]
+                for k in launches}
     for name, n in launches.items():
         check(n > 0, f"kernel {name} was not launched on the main path")
         kernels[name]["launches"] = n

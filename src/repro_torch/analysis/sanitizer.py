@@ -4,9 +4,9 @@ boundaries -- the dynamic half of the R-rules.
 Port of ``repro.analysis.sanitizer`` (its own copy: the port imports no
 module of ``repro``). It reads the port engine's ``slot_req``,
 ``slot_pos``, ``_prefix_pins``, ``_prefix``, each request's
-``_prefix_pin`` and each decoder's ``bound_slots``; the engine has no
-migration tickets until ROADMAP slice 6, so ``_exports`` is read with
-``getattr(..., {})`` and is empty.
+``_prefix_pin``, each decoder's ``bound_slots`` and the export tickets
+of live KV migrations (``_exports``), whose pins and slots the laws
+below account for while a migration is in flight.
 
 The static R-rules prove release sites EXIST on every path; the
 sanitizer proves the accounting actually balances while the system

@@ -11,7 +11,10 @@ round). Compression is per request (``repro_torch.api.compressors``):
 ``Request.compression`` names a strategy resolved against the engine's
 compressor registry, so one batch mixes ``none`` chat traffic with
 ``framefusion-0.25`` video traffic, with KV accounting on
-post-compression token counts.
+post-compression token counts. ``LVLM.serve_cluster`` fronts N async
+server replicas with a ``Router`` (routing policies, prefill / decode
+roles with live KV migration, a cluster-shared prefix tier), and
+``control=`` attaches the SLO-adaptive ``Controller``.
 """
 from repro_torch.api.compressors import (
     CompressionStrategy, compressed_token_count, make_compressor)
@@ -24,10 +27,19 @@ from repro_torch.api.generation import (
 from repro_torch.api.lvlm import (
     LVLM, GenerationResult, ServeResult, resolve_device)
 from repro_torch.configs.base import CompressionConfig
-from repro_torch.core.serving import CostModel, EngineConfig, Request, SLO
+from repro_torch.core.serving import (CostModel, EngineConfig, PoolConfig,
+                                      Request, SLO, goodput,
+                                      simulate_colocated,
+                                      simulate_disaggregated)
 # async serving layer (re-exported for convenience, as the reference does)
 from repro_torch.serving import (AdmissionConfig, AsyncLVLMServer,
                                  MetricsRegistry, TokenStream)
+# cluster layer: multi-engine routing over N async server replicas
+# (`LVLM.serve_cluster`)
+from repro_torch.cluster import ClusterMetrics, ROUTING_POLICIES, Router
+# SLO-adaptive quality control + Pareto sweeps (`control=` facade knob)
+from repro_torch.control import (AdaptivePolicy, ControlConfig, ControlLevel,
+                                 Controller, DEFAULT_LADDER)
 
 __all__ = [
     "LVLM", "GenerationConfig", "GenerationResult", "ServeResult",
@@ -37,4 +49,8 @@ __all__ = [
     "CompressionStrategy", "make_compressor", "compressed_token_count",
     "EngineConfig", "Request", "SLO", "CostModel", "resolve_device",
     "AsyncLVLMServer", "TokenStream", "AdmissionConfig", "MetricsRegistry",
+    "PoolConfig", "goodput", "simulate_colocated", "simulate_disaggregated",
+    "Router", "ClusterMetrics", "ROUTING_POLICIES",
+    "AdaptivePolicy", "ControlConfig", "ControlLevel", "Controller",
+    "DEFAULT_LADDER",
 ]

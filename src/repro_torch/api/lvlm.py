@@ -10,9 +10,14 @@ Port of ``repro.api.lvlm`` for this slice:
         ...
     report = lvlm.serve(requests, EngineConfig(scheduler="chunked"),
                         obs=True, profile=True)     # traced + profiled
-    server = lvlm.serve_async(EngineConfig(max_batch=8))
+    server = lvlm.serve_async(EngineConfig(max_batch=8), control=True)
     async with server:
         async for tok in server.submit(request):
+            ...
+    router = lvlm.serve_cluster(2, EngineConfig(max_batch=8),
+                                roles=["prefill", "decode"])
+    async with router:                 # KV crosses prefill -> decode
+        async for tok in router.submit(request):
             ...
 
 Every decode strategy (greedy, sampling, speculative, early_exit) runs
@@ -26,8 +31,9 @@ named strategies with the engine.
 
 Everything runs on ``device``: the CUDA device unless the caller passes
 ``device="cpu"``; with no CUDA device and no ``device=``, construction
-raises instead of carrying on on the CPU. ``serve_async`` runs on the
-LVLM's device too.
+raises instead of carrying on on the CPU. ``serve_async`` and every
+replica of ``serve_cluster`` run on the LVLM's device too, and share its
+weights: only the KV pools are per replica.
 """
 from __future__ import annotations
 
@@ -197,14 +203,25 @@ class LVLM:
         return Profiler() if profile is True else profile
 
     @staticmethod
-    def _check_control(control) -> None:
-        """``control=``: the SLO-adaptive controller is not ported yet;
-        ``None``/``False`` (no control, zero policy calls) is the only
-        value taken."""
-        if control is not None and control is not False:
-            raise NotImplementedError(
-                "control= (the SLO-adaptive controller) is not ported to "
-                "repro_torch yet (ROADMAP item 15)")
+    def _resolve_control(control):
+        """``control=`` facade knob -> a ``repro_torch.control.Controller``
+        or None.
+
+        Mirrors ``_resolve_obs``: ``None``/``False`` -> no adaptive
+        control (ZERO policy calls -- every site guards on
+        ``control is not None``); ``True`` -> a fresh ``Controller`` with
+        the default degradation ladder; a ``ControlConfig`` or
+        ``AdaptivePolicy`` wraps into a fresh ``Controller``; a
+        ``Controller`` instance is used as-is (share one across replicas
+        so the fleet walks a single ladder)."""
+        if control is None or control is False:
+            return None
+        from repro_torch.control import Controller
+        if control is True:
+            return Controller()
+        if isinstance(control, Controller):
+            return control
+        return Controller(control)
 
     def _requests(self, prompts, gen, visual_embeds) -> List[Request]:
         n = len(prompts)
@@ -340,16 +357,22 @@ class LVLM:
         per-strategy prefill token reduction (``compression/<name>/...``).
         ``obs=True`` (or a ``Tracer``) traces the run and ``profile=True``
         (or a ``Profiler``) profiles its hot-path sites; the engine holds
-        them as ``result.engine.tracer`` / ``.profiler``. ``control=`` is
-        not ported yet (ROADMAP item 15). For open-loop traffic with
-        streaming delivery and cancellation, see ``serve_async``.
+        them as ``result.engine.tracer`` / ``.profiler``. ``control=``
+        (True, a ``ControlConfig``, an ``AdaptivePolicy`` or a
+        ``Controller``) degrades each request at submit against the KV
+        already committed. For open-loop traffic with streaming delivery
+        and cancellation, see ``serve_async``.
         """
-        self._check_control(control)
         eng = self._serve_engine(engine_cfg, gen, draft,
                                  compressors=compressors,
                                  tracer=self._resolve_obs(obs),
                                  profiler=self._resolve_profile(profile))
+        ctl = self._resolve_control(control)
         for r in requests:
+            if ctl is not None:
+                # closed-loop shaping: degrade against already-committed
+                # KV; the override commits immediately (submitted now)
+                ctl.shape_sync(eng, r)
             eng.submit(r)
         stats = dict(eng.run(), **eng.decoder_stats())
         stats["decode_cost_by_group"] = dict(eng.group_costs)
@@ -390,9 +413,10 @@ class LVLM:
         "virtual" runs steps back-to-back and stays deterministic.
         ``disconnect_timeout_s`` aborts a stream whose consumer stopped
         reading for that many wall seconds. ``obs`` / ``profile`` as in
-        ``serve``; ``control=`` is not ported yet (ROADMAP item 15). At
-        temperature 0 the streams are bit-identical to ``serve``'s
-        outputs.
+        ``serve``; ``control=`` attaches an SLO-adaptive controller that
+        degrades deferred requests under KV pressure instead of queueing
+        them. At temperature 0 the streams are bit-identical to
+        ``serve``'s outputs.
         """
         return AsyncLVLMServer(self, engine_cfg=engine_cfg, gen=gen,
                                draft=draft, admission=admission,
@@ -401,4 +425,91 @@ class LVLM:
                                disconnect_timeout_s=disconnect_timeout_s,
                                tracer=self._resolve_obs(obs),
                                profiler=self._resolve_profile(profile),
-                               control=control or None)
+                               control=self._resolve_control(control))
+
+    def serve_cluster(self, replicas=2,
+                      engine_cfg: Optional[EngineConfig] = None,
+                      gen: Optional[GenerationConfig] = None, *,
+                      routing="round_robin", draft: Optional["LVLM"] = None,
+                      admission=None, compressors=None,
+                      roles: Optional[Sequence[str]] = None,
+                      shared_prefix: Optional[bool] = None,
+                      pacing: str = "virtual",
+                      pacing_scale: float = 1.0,
+                      disconnect_timeout_s: Optional[float] = None,
+                      obs=None, profile=None, control=None) -> "Router":
+        """Multi-engine router: N async server replicas behind ONE submit
+        surface (``repro_torch.cluster.Router``), with pluggable routing.
+        Every replica runs on this LVLM's device and shares its weights;
+        only the KV pools are per replica, so a KV migration between
+        replicas is a device-to-device copy on one card.
+
+        ``replicas`` is an int (homogeneous fleet sharing ``engine_cfg`` /
+        ``gen`` / ``draft`` / ``admission``) or a sequence of per-replica
+        override dicts with any of those keys -- a heterogeneous fleet,
+        e.g. one speculative-heavy replica and one early-exit replica:
+
+            router = lvlm.serve_cluster(
+                [{"gen": GenerationConfig(decoder="speculative", gamma=4)},
+                 {"gen": GenerationConfig(decoder="early_exit")}],
+                routing="least_kv")
+            async with router:
+                async for tok in router.submit(req):
+                    ...
+
+        ``routing`` is a ``repro_torch.cluster.ROUTING_POLICIES`` name
+        (round_robin | least_kv | prefix_affinity) or a policy instance.
+
+        ``roles`` disaggregates the fleet (unified | prefill | decode,
+        one per replica; a per-replica spec dict may carry a ``"role"``
+        key instead): prefill replicas hand post-compression KV to
+        decode replicas over the modeled KV link. ``shared_prefix``
+        promotes the per-replica prefix caches to one cluster-shared
+        radix tier (default: exactly when the fleet is role-split).
+        Pacing/disconnect knobs apply to every replica (see
+        ``serve_async``). With one replica the router streams are
+        bit-identical to the bare server's.
+        """
+        from repro_torch.cluster import Router
+
+        if isinstance(replicas, int):
+            if replicas < 1:
+                raise ValueError("serve_cluster needs at least one replica")
+            specs: List[Dict] = [{} for _ in range(replicas)]
+        else:
+            specs = [dict(s) for s in replicas]
+            if not specs:
+                raise ValueError("serve_cluster needs at least one replica")
+        if roles is not None and len(roles) != len(specs):
+            raise ValueError(f"roles has {len(roles)} entries for "
+                             f"{len(specs)} replicas")
+        rep_roles = list(roles) if roles is not None \
+            else ["unified"] * len(specs)
+        # ONE tracer for the whole fleet: a migrated request's spans land
+        # in a single contiguous trace; the Router assigns each engine its
+        # replica track index. Same for the profiler: fleet-merged site
+        # histograms, rendered once in Router.metrics_snapshot()
+        tracer = self._resolve_obs(obs)
+        profiler = self._resolve_profile(profile)
+        # ... and ONE adaptive controller: per-replica pressure levels,
+        # fleet-shared actuation counters, router-level routing bias
+        ctl = self._resolve_control(control)
+        servers = []
+        for i, spec in enumerate(specs):
+            unknown = set(spec) - {"engine_cfg", "gen", "draft", "admission",
+                                   "compressors", "role"}
+            if unknown:
+                raise ValueError(f"unknown replica spec keys: {unknown}")
+            if "role" in spec:
+                rep_roles[i] = spec["role"]
+            servers.append(self.serve_async(
+                spec.get("engine_cfg", engine_cfg),
+                spec.get("gen", gen),
+                draft=spec.get("draft", draft),
+                admission=spec.get("admission", admission),
+                compressors=spec.get("compressors", compressors),
+                pacing=pacing, pacing_scale=pacing_scale,
+                disconnect_timeout_s=disconnect_timeout_s,
+                obs=tracer, profile=profiler, control=ctl))
+        return Router(servers, routing=routing, roles=rep_roles,
+                      shared_prefix=shared_prefix, control=ctl)

@@ -1,4 +1,3 @@
-# analysis: allow R001 (KV migration is not ported until slice 6, so there is no complete_export to release)
 """The LVLM serving engine of the port (the main path plus dims 1, 2, 4).
 
 Port of ``repro.core.serving.engine``: one ``Engine`` drives the model over
@@ -35,7 +34,19 @@ the paged kernel's position mask. Prefix caching (dim 2b,
 by (compression variant, tokens), true-LRU with pins held by live
 requests, backed by snapshots that are CLONES of a slot's first rows (the
 pool is updated in place, so a view would be overwritten when the slot
-is reused).
+is reused). A cluster-shared prefix tier (``prefix_share``, installed by
+``repro_torch.cluster``) is probed after the local cache: a longer remote
+hit is installed locally and pays one modeled KV-link transfer on this
+engine's clock.
+
+Live KV migration (disaggregated prefill/decode, drain): ``export_kv``
+pins a request and takes a CLONE of its slot's rows on the device (the
+snapshot outlives the slot, which may get a new occupant before the
+ticket is read), ``import_kv`` copies it into a free slot of a sibling
+engine on the same device and gates the request's first decode step on
+the modeled transfer (``_ready_at``), ``complete_export`` /
+``cancel_export`` release or return the source. A ``handoff`` request
+parks in ``MIGRATING`` after its prefill.
 
 Observability (``Engine(tracer=, profiler=)``, default the null objects):
 every site the reference instruments emits the same events with the same
@@ -46,11 +57,6 @@ synchronisation inside it (sampling's read of the logits). The runtime
 sanitizer (``EngineConfig.sanitize``, else ``REPRO_SANITIZE``) asserts the
 conservation laws of ``repro_torch.analysis.sanitizer`` at every step and
 abort boundary.
-
-Left to later slices (ROADMAP queue A), and refused with
-``NotImplementedError`` when a request or config asks for them: KV
-migration / handoff and the cluster-shared prefix tier (slice 6;
-``migrated_in`` / ``migrated_out`` stay 0 until then).
 
 NOTE: ``repro_torch.api`` (``LVLM``) is the public surface.
 """
@@ -262,8 +268,18 @@ class Engine:
         self._prefix_pins: Dict[Tuple[str, Tuple[int, ...]], int] = {}
         self.prefix_hit_tokens = 0
         self.prefix_total_tokens = 0
-        # KV migration counters (Prometheus ``migrated_*_total``): no
-        # migration until ROADMAP slice 6, so they stay 0
+        # cluster-shared prefix tier (duck-typed: lookup/insert; installed
+        # by repro_torch.cluster so a prefix cached on ANY replica
+        # short-circuits prefill here). Remote hits are installed locally
+        # and pay one modeled KV-link transfer on this engine's clock.
+        self.prefix_share = None
+        self.remote_prefix_hits = 0
+        self._iter_transfer_cost = 0.0
+        # live KV migration: rid -> export ticket. The ticket owns the
+        # source slot and any prefix pin from ``export_kv`` until
+        # ``complete_export`` (source release) or ``cancel_export``
+        # (ownership back to the request).
+        self._exports: Dict[int, Dict] = {}
         self.migrated_in = 0
         self.migrated_out = 0
 
@@ -341,14 +357,6 @@ class Engine:
                 out[f"{n}/{k}"] = v
         return out
 
-    @staticmethod
-    def _check_served(req: Request) -> None:
-        """Refuse what this slice of the port does not serve yet."""
-        if req.handoff:
-            raise NotImplementedError(
-                f"request {req.rid}: KV handoff (disaggregated serving) is "
-                "not ported yet (ROADMAP queue A, slice 6)")
-
     # -------------------------------------------------------- compressors --
     def _validate_compressor(self, name: str, comp) -> None:
         if name in self._validated_comps:
@@ -392,7 +400,6 @@ class Engine:
 
     # ------------------------------------------------------------- intake --
     def submit(self, req: Request) -> None:
-        self._check_served(req)
         name, dec = self._resolve_decoder(req.decoder)
         self._used_decoders.add(name)
         req._comp_name, _ = self._resolve_compressor(req.compression)
@@ -441,7 +448,13 @@ class Engine:
             la = max(la, int(getattr(dec, "lookahead_tokens", 0)))
         self._stamp_compressed_nv(req)
         bs = self._kv_block()
-        need = req.kv_prompt_len + req.max_new_tokens + la
+        if req.handoff and not getattr(req, "_imported", False):
+            # prefill-role accounting: a handoff request decodes on the
+            # importing engine -- this pool only ever holds its prompt KV
+            # plus the first token
+            need = req.kv_prompt_len + 1
+        else:
+            need = req.kv_prompt_len + req.max_new_tokens + la
         return ((need + bs - 1) // bs) * bs
 
     def kv_committed_tokens(self, include_waiting: bool = True) -> int:
@@ -499,6 +512,199 @@ class Engine:
                     return True
         return False
 
+    # ---------------------------------------------------------- migration --
+    # Live KV migration protocol (disaggregated prefill/decode, drain):
+    #   export_kv (source pin) -> import_kv (target commit) ->
+    #   complete_export (source release), or cancel_export to back out.
+    # The exporting request stays in ``running`` in State.MIGRATING and
+    # keeps its slot until the source release, so a target-side failure
+    # before commit loses nothing (exactly-once: the request either
+    # resumes here via cancel_export or decodes exactly once over there).
+
+    def can_export(self, req: Request) -> bool:
+        """True when this engine can hand the request's KV to a sibling:
+        compacted caches are request-specific (position-masked rings) and
+        decoders with per-slot state (speculative draft-pool rows) cannot
+        be rebuilt from a bare KV snapshot on the importing side."""
+        if self.compacting:
+            return False
+        _, dec = self._resolve_decoder(req.decoder)
+        return getattr(dec, "release_slot", None) is None
+
+    def export_kv(self, rid: int) -> Dict:
+        """Pin a live request for migration and snapshot its KV.
+
+        Returns the export ticket: a CLONE of the slot's cache rows up to
+        the current position, on this engine's device (the reference
+        slices an immutable array; here the pool is updated in place, and
+        the source slot may get a new occupant -- a retried import --
+        before the ticket is read), plus the per-slot cursors and the
+        source clock (the transfer-time anchor). The ticket owns the
+        source slot and any prefix pin until ``complete_export`` /
+        ``cancel_export``; the request stops decoding here (MIGRATING)."""
+        req = next((r for r in self.running
+                    if r.rid == rid
+                    and r.state in (State.DECODE, State.MIGRATING)), None)
+        if req is None:
+            raise KeyError(f"export_kv: rid {rid} is not migratable here")
+        if rid in self._exports:
+            raise RuntimeError(f"export_kv: rid {rid} already has an "
+                               "export pin")
+        if not self.can_export(req):
+            raise RuntimeError(
+                f"export_kv: rid {rid} is not exportable (compacted cache "
+                "or per-slot decoder state)")
+        slot = req._slot
+        pos = int(self.slot_pos[slot])
+        if self.profiler.enabled:
+            self.profiler.site_begin("kv_export")
+        snap = _tree_map(lambda a: a[:, slot:slot + 1, :pos].clone(),
+                         self.pool)
+        if self.profiler.enabled:
+            self.profiler.site_end("kv_export")
+        ticket = {
+            "rid": rid, "req": req, "snap": snap, "pos": pos,
+            "last_tok": int(self.slot_last_tok[slot]),
+            "nv": int(self.slot_nv[slot]),
+            "slot": slot, "clock": self.clock,
+            "prefix_pin": getattr(req, "_prefix_pin", None),
+        }
+        # pin ownership moves to the ticket: the target never inherits the
+        # source's prefix pin, and the source release must still find it
+        # after the target overwrites the request's slot binding
+        req._prefix_pin = None
+        req._export_pin = rid
+        req.state = State.MIGRATING
+        self._exports[rid] = ticket
+        if self.tracer.enabled:
+            self.tracer.span_begin(
+                "kv_migration", rid, replica=self.trace_replica,
+                vt=self.clock, kv_tokens=pos)
+            self.tracer.counter(
+                "migration_bytes_inflight", self._export_bytes_inflight(),
+                replica=self.trace_replica, vt=self.clock)
+        return ticket
+
+    def _export_bytes_inflight(self) -> int:
+        """Modeled bytes of every KV snapshot currently pinned for
+        migration out of this engine (a trace counter track)."""
+        bpt = int(getattr(self.ec.cost, "kv_bytes_per_token", 0))
+        return sum(int(t["pos"]) for t in self._exports.values()) * bpt
+
+    def complete_export(self, rid: int) -> None:
+        """Source-side release of a migrated request: the importing engine
+        has committed, so free everything the export ticket owns -- the
+        slot (and any decoder per-slot row), the prefix pin, and the
+        running-list entry. Never touches ``req.state``: the importing
+        engine owns the request now."""
+        ticket = self._exports.pop(rid)
+        req = ticket["req"]
+        self.running.remove(req)
+        slot = ticket["slot"]
+        if self.slot_req[slot] is req:
+            self.slot_req[slot] = None
+            for dec in self._decoders.values():
+                release = getattr(dec, "release_slot", None)
+                if release is not None:
+                    release(slot)
+        key = ticket["prefix_pin"]
+        if key is not None:
+            n = self._prefix_pins.get(key, 0) - 1
+            if n > 0:
+                self._prefix_pins[key] = n
+            else:
+                self._prefix_pins.pop(key, None)
+        req._export_pin = None
+        self.migrated_out += 1
+        if self.tracer.enabled:
+            self.tracer.instant("kv_export_complete", rid,
+                                replica=self.trace_replica, vt=self.clock)
+            self.tracer.counter(
+                "migration_bytes_inflight", self._export_bytes_inflight(),
+                replica=self.trace_replica, vt=self.clock)
+        if self.sanitize:
+            self._sanitize_check(f"Engine.complete_export(rid={rid})")
+
+    def cancel_export(self, rid: int) -> None:
+        """Back out an export (no sibling could import): the request
+        resumes decoding HERE -- pin ownership returns to it, and its
+        handoff flag clears so KV accounting covers the in-place decode."""
+        ticket = self._exports.pop(rid, None)
+        if ticket is None:
+            return
+        req = ticket["req"]
+        req._prefix_pin = ticket["prefix_pin"]
+        req._export_pin = None
+        req.handoff = False
+        req.state = State.DECODE
+        if self.tracer.enabled:
+            self.tracer.span_end("kv_migration", rid,
+                                 replica=self.trace_replica,
+                                 vt=self.clock, cancelled=True)
+            self.tracer.counter(
+                "migration_bytes_inflight", self._export_bytes_inflight(),
+                replica=self.trace_replica, vt=self.clock)
+        if self.sanitize:
+            self._sanitize_check(f"Engine.cancel_export(rid={rid})")
+
+    def import_kv(self, req: Request, ticket: Dict, *,
+                  ready_at: float = 0.0) -> None:
+        """Import-commit side of a migration: bind a free slot, copy the
+        exported KV snapshot into its first rows (a device-to-device copy;
+        rows past the snapshot keep the slot's previous occupant's KV,
+        which decode never reads: it attends up to ``slot_pos``, set
+        here) and the per-slot cursors, and resume the request in DECODE.
+        Its first decode step here is gated on ``ready_at`` (source export
+        clock + modeled KV-link transfer), so the transfer cost lands on
+        this engine's virtual clock before the request's next token.
+        Raises when no slot is free or the snapshot cannot fit -- the
+        caller still holds the source pin and may try a sibling or
+        cancel."""
+        if self.compacting:
+            raise RuntimeError("import_kv: compacting engines cannot host "
+                               "migrated KV (position-masked caches)")
+        if any(r.rid == req.rid for r in self.running + self.waiting):
+            raise ValueError(f"import_kv: rid {req.rid} already live here")
+        name, _dec = self._resolve_decoder(req.decoder)
+        self._used_decoders.add(name)
+        req._comp_name, _ = self._resolve_compressor(req.compression)
+        pos = int(ticket["pos"])
+        remaining = req.max_new_tokens - len(req.generated)
+        if pos + remaining > self.ec.cache_len - 1:
+            raise ValueError(
+                f"import_kv: rid {req.rid} needs {pos + remaining} tokens; "
+                f"cache_len-1 = {self.ec.cache_len - 1} available")
+        slot = self._free_slot()
+        req._slot = slot
+        self.slot_req[slot] = req
+        if self.profiler.enabled:
+            self.profiler.site_begin("kv_transfer")
+        self._install_snap(slot, ticket["snap"])
+        if self.profiler.enabled:
+            # virtual attribution: the modeled KV-link transfer this
+            # import pays on the target clock (cf. ``ready_at``)
+            self.profiler.site_end(
+                "kv_transfer", vt=self.ec.cost.transfer_time(pos))
+        self.slot_pos[slot] = pos
+        self.slot_last_tok[slot] = ticket["last_tok"]
+        self.slot_nv[slot] = ticket["nv"]
+        req._imported = True
+        req._ready_at = max(self.clock, ready_at)
+        req.state = State.DECODE
+        req.prefill_done = len(req.tokens)
+        self.migrated_in += 1
+        self.running.append(req)
+        if self.tracer.enabled:
+            # the import commit closes the migration span ON THE TARGET
+            # replica and hands the request's trace track over with it;
+            # ``vt`` is the transfer-complete time, so the request's
+            # virtual timeline never rewinds across the replica boundary
+            self.tracer.span_end(
+                "kv_migration", req.rid, replica=self.trace_replica,
+                vt=req._ready_at, kv_tokens=pos)
+        if self.sanitize:
+            self._sanitize_check(f"Engine.import_kv(rid={req.rid})")
+
     # ------------------------------------------------------------- prefix --
     def _prefix_variant(self, name: Optional[str]) -> str:
         """Compression-variant component of every prefix-cache key: the
@@ -506,22 +712,52 @@ class Engine:
         prefill is only reusable under the SAME compression variant."""
         return name if name is not None else self._default_comp_name
 
-    def _prefix_lookup(self, tokens: List[int],
+    def _prefix_lookup(self, tokens: List[int], touch: bool = True,
                        variant: Optional[str] = None
                        ) -> Tuple[int, Optional[Tuple]]:
         """Longest block-aligned cached prefix of ``tokens`` under the
         given compression ``variant``: inserted keys are multiples of
         ``prefix_block``, so probing descending block-aligned lengths is
-        exact. A hit is an LRU touch (move-to-end). (The reference's
-        ``touch=False`` probe serves the cluster tier of slice 6.)"""
+        exact. A hit is an LRU touch (move-to-end) unless ``touch=False``
+        -- the pure probe routing layers use (cluster prefix-affinity),
+        where only a real prefill hit should refresh recency. With a
+        cluster-shared tier, a longer remote hit wins and (on a touching
+        lookup) is installed locally at one modeled KV-link transfer."""
         bs = self.ec.prefix_block
         v = self._prefix_variant(variant)
         t = tuple(tokens)
+        best_k, best = 0, None
         for k in range((len(t) // bs) * bs, 0, -bs):
             hit = self._prefix.get((v, t[:k]))
             if hit is not None:
-                self._prefix.move_to_end((v, t[:k]))
-                return k, hit
+                best_k, best = k, hit
+                break
+        if self.prefix_share is not None:
+            if self.profiler.enabled:
+                self.profiler.site_begin("prefix_tier_probe")
+            rk, rsnap = self.prefix_share.lookup(v, t, block=bs, touch=touch)
+            if self.profiler.enabled:
+                self.profiler.site_end("prefix_tier_probe")
+            if rk > best_k:
+                # remote hit beats the local one: install it locally (one
+                # modeled KV-link transfer, charged to this step's clock)
+                # so later lookups here are local; the tier's snapshot is
+                # shared by reference and only ever copied out of
+                if touch:
+                    if self.profiler.enabled:
+                        self.profiler.site_begin("prefix_tier_install")
+                    self._prefix_store((v, t[:rk]), rsnap, rk)
+                    self._iter_transfer_cost += self.ec.cost.transfer_time(rk)
+                    self.remote_prefix_hits += 1
+                    if self.profiler.enabled:
+                        self.profiler.site_end(
+                            "prefix_tier_install",
+                            vt=self.ec.cost.transfer_time(rk))
+                return rk, (rsnap, rk)
+        if best is not None:
+            if touch:
+                self._prefix.move_to_end((v, t[:best_k]))
+            return best_k, best
         return 0, None
 
     def _prefix_insert(self, tokens: List[int], slot: int, length: int,
@@ -538,6 +774,14 @@ class Engine:
         # and the slot's next occupant would overwrite a view
         snap = _tree_map(lambda a: a[:, slot:slot + 1, :k].clone(), self.pool)
         self._prefix_store(key, snap, k)
+        if self.prefix_share is not None:
+            # publish to the cluster-shared tier: a sibling replica's next
+            # prefill of this prefix short-circuits via the tier
+            if self.profiler.enabled:
+                self.profiler.site_begin("prefix_tier_install")
+            self.prefix_share.insert(key[0], key[1], snap, k)
+            if self.profiler.enabled:
+                self.profiler.site_end("prefix_tier_install")
 
     def _prefix_store(self, key: Tuple, snap, k: int) -> None:
         """Insert an entry into the prefix cache with LRU eviction."""
@@ -715,7 +959,13 @@ class Engine:
                                      vt=self.clock)
             if req.is_finished() or tok == ec.eos_id:
                 req.state = State.DONE
+            elif req.handoff and self.can_export(req):
+                # disaggregated prefill: park for KV export (the serving
+                # layer migrates it to a decode replica) instead of
+                # entering this engine's decode loop
+                req.state = State.MIGRATING
             else:
+                req.handoff = False       # not exportable: decode in place
                 req.state = State.DECODE
             if req in self.waiting:
                 self.waiting.remove(req)
@@ -817,15 +1067,23 @@ class Engine:
         self.running = [r for r in self.running if r.state != State.DONE]
         visible = [r for r in self.waiting if r.arrival <= self.clock]
         plan = self.sched.plan(visible, self.running)
-        decode_reqs = [r for r in plan.decode if r.state == State.DECODE]
+        # decode only requests whose KV is resident AND ready: an imported
+        # request waits out its modeled transfer (``_ready_at``) first, a
+        # MIGRATING request is frozen until export completes or cancels
+        decode_reqs = [r for r in plan.decode if r.state == State.DECODE
+                       and getattr(r, "_ready_at", 0.0) <= self.clock]
         if not plan.prefill and not decode_reqs:
             future = [r.arrival for r in self.waiting
                       if r.arrival > self.clock]
-            if future:                  # idle until the next arrival
+            future += [r._ready_at for r in self.running
+                       if r.state == State.DECODE
+                       and getattr(r, "_ready_at", 0.0) > self.clock]
+            if future:                  # idle until arrival / KV readiness
                 self.clock = min(future)
                 return True
             return False
         self._iter_visual_tokens = 0
+        self._iter_transfer_cost = 0.0    # shared-prefix-tier installs
         for req, n in plan.prefill:
             self._do_prefill_chunk(req, n)
         self._iter_decode_cost = 0.0      # summed per strategy group
@@ -835,7 +1093,7 @@ class Engine:
         vt0 = self.clock
         dt = self.ec.cost.prefill_time(plan.prefill_tokens
                                        + self._iter_visual_tokens)
-        dt += self._iter_decode_cost
+        dt += self._iter_decode_cost + self._iter_transfer_cost
         self.clock += dt
         self.iters += 1
         if self.tracer.enabled:

@@ -1,9 +1,9 @@
 """Request lifecycle for the LVLM serving layer (survey dim 2c).
 
 Port of ``repro.core.serving.request``: pure Python plus numpy, as the
-reference. The fields of later slices (per-request compression,
-handoff) are kept so a request means the same in both packages; the
-port's engine refuses what it does not serve yet.
+reference, with the same fields (per-request decoder and compression,
+the disaggregation ``handoff`` flag) and states (``MIGRATING`` while a
+request's KV moves between engines).
 """
 from __future__ import annotations
 

@@ -1,7 +1,7 @@
 """Admission control for the async serving layer: KV watermarks with
+hysteresis and FIFO backpressure.
 
 Port of ``repro.serving.admission`` (same watermarks, same order).
-hysteresis and FIFO backpressure.
 
 The engine's dense slot pool (and any narrower ``kv_capacity_tokens``
 budget) is a hard resource: vLLM-style serving systems gate request entry
@@ -133,8 +133,10 @@ class AdmissionController:
         """Commit ``req`` into the engine, awaiting under backpressure.
 
         ``submit`` is the commit callable gated by the watermarks --
-        ``Engine.submit`` by default (a migrated-in request's
-        ``Engine.import_kv`` arrives with ROADMAP slice 6).
+        ``Engine.submit`` by default; the serving layer passes
+        ``Engine.import_kv`` (bound to a migration ticket) for a
+        migrated-in request so KV imports respect the same pressure
+        limits as fresh admissions.
 
         Returns True once the commit has run, False if the waiter was
         retracted via ``cancel`` (the request never entered the engine).

@@ -45,11 +45,14 @@ Design points:
     (KV slot, draft row, gamma lookahead, prefix pin) is released.
   * ``stop()`` drains by default (finishes in-flight work); pass
     ``drain=False`` to abort all live streams first.
-
-Not ported yet, and refused with ``NotImplementedError``: KV migration
-(``request_migration``, ``import_stream``, ``complete_export``,
-``cancel_export``, ``release_migrated``; ROADMAP slice 6) and the
-SLO-adaptive controller (``control=``; ROADMAP item 15).
+  * Migration: a request parked in ``MIGRATING`` (a disaggregated
+    handoff after prefill, or a drain) surfaces as a ``MigrateSignal`` on
+    its stream; the fronting ``repro_torch.cluster.Router`` runs the
+    protocol (``Engine.export_kv`` -> a sibling's ``import_stream`` ->
+    ``complete_export`` + ``release_migrated``) from the consumer task.
+  * ``control=``: an SLO-adaptive ``repro_torch.control.Controller``
+    shapes admissions and walks its ladder once per pump iteration;
+    ``None`` makes zero policy calls.
 """
 from __future__ import annotations
 
@@ -69,9 +72,18 @@ from repro_torch.serving.metrics import MetricsRegistry
 _DONE = object()                      # stream sentinel
 
 
-def _not_ported(what: str, where: str):
-    return NotImplementedError(
-        f"{what} is not ported to repro_torch yet ({where})")
+class MigrateSignal(Exception):
+    """Pushed into a stream's queue when its request parks in MIGRATING
+    (disaggregated handoff after prefill, or a drain's live migration).
+    The consumer-side Router catches it and runs the migration protocol
+    -- export, import on a sibling, source release -- from the consumer
+    task, so the pump never blocks on a sibling server. Seeing it raised
+    from a bare ``TokenStream`` means a migration was requested on a
+    server with no fronting ``repro_torch.cluster.Router``."""
+
+    def __init__(self, rid: int):
+        super().__init__(f"request {rid} awaiting KV migration")
+        self.rid = rid
 
 
 class TokenStream:
@@ -94,6 +106,7 @@ class TokenStream:
         self.disconnected = False     # aborted by the disconnect timeout
         self.submit_clock: Optional[float] = None
         self.admit_clock: Optional[float] = None
+        self._migrate_signaled = False   # MigrateSignal already queued
         # wall-clock consumer liveness (disconnect-timeout bookkeeping)
         self._reading = False         # consumer currently inside __anext__
         self._pending_since = None    # first post-step sighting of an
@@ -153,9 +166,6 @@ class AsyncLVLMServer:
                  tracer=None, profiler=None, control=None):
         if pacing not in ("virtual", "wall"):
             raise ValueError("pacing must be 'virtual' or 'wall'")
-        if control is not None:
-            raise _not_ported("the SLO-adaptive controller (control=)",
-                              "ROADMAP item 15")
         self.engine = lvlm._serve_engine(engine_cfg, gen, draft,
                                          compressors=compressors,
                                          tracer=tracer, profiler=profiler)
@@ -182,6 +192,13 @@ class AsyncLVLMServer:
         self._pump_task: Optional[asyncio.Task] = None
         self._stopping = False
         self._pump_error: Optional[BaseException] = None
+        # SLO-adaptive controller (repro_torch.control), possibly shared
+        # fleet-wide like the tracer/profiler. None = zero policy calls:
+        # every call site below guards on `is not None`, same discipline
+        # as tracer.enabled
+        self.control = control
+        if control is not None:
+            control.attach(self)
         # runtime sanitizer: follows the engine's resolved flag
         # (EngineConfig.sanitize / REPRO_SANITIZE)
         self.sanitize = bool(getattr(self.engine, "sanitize", False))
@@ -256,10 +273,16 @@ class AsyncLVLMServer:
         if self.tracer.enabled:
             self.tracer.span_begin("admission_wait", rid, replica=rep,
                                    vt=self.engine.clock)
+        if self.control is not None:
+            # under pressure: degrade the incoming request's shape BEFORE
+            # the watermark check (aggressive preset = smaller KV need)
+            self.control.shape(self, stream.request)
         try:
             admitted = await self.admission.admit(stream.request)
         except asyncio.CancelledError:
             self._streams.pop(stream.request.rid, None)
+            if self.control is not None:
+                self.control.revert(stream.request)
             stream.aborted = True
             stream._finished = True
             if self.tracer.enabled:
@@ -268,10 +291,16 @@ class AsyncLVLMServer:
                                        reason="cancelled at admission")
             raise
         if not admitted:
+            if self.control is not None:
+                self.control.revert(stream.request)
             if self.tracer.enabled:
                 self.tracer.span_end("admission_wait", rid, replica=rep,
                                      vt=self.engine.clock, cancelled=True)
             return                      # cancelled at the admission gate
+        if self.control is not None:
+            # the request entered the engine under its (possibly
+            # degraded) fields: consume the override record
+            self.control.commit(stream.request)
         stream.admit_clock = self.engine.clock
         if self.tracer.enabled:
             self.tracer.span_end("admission_wait", rid, replica=rep,
@@ -303,23 +332,136 @@ class AsyncLVLMServer:
 
     # -------------------------------------------------------- migration --
     def request_migration(self, rid: int) -> bool:
-        raise _not_ported("KV migration (request_migration)",
-                          "ROADMAP slice 6")
+        """Ask for ``rid`` to be migrated off this server. An exportable
+        DECODE-phase request parks in MIGRATING now (the pump then pushes
+        a ``MigrateSignal`` to its consumer); a request still waiting,
+        prefilling, or parked at the admission gate is flagged ``handoff``
+        so it parks right after its prefill. Returns False when the
+        request is unknown, finished, or not exportable -- it then simply
+        finishes here."""
+        eng = self.engine
+        for r in eng.running:
+            if r.rid == rid and r.state is State.DECODE:
+                if not eng.can_export(r):
+                    return False
+                r.state = State.MIGRATING
+                if self._wake is not None:
+                    self._wake.set()
+                return True
+        for r in list(eng.waiting) + [x for x in eng.running
+                                      if x.state is State.PREFILL]:
+            if r.rid == rid and r.state is not State.DONE:
+                if not eng.can_export(r):
+                    return False
+                r.handoff = True
+                if self._wake is not None:
+                    self._wake.set()
+                return True
+        stream = self._streams.get(rid)
+        if stream is not None and not stream.aborted \
+                and stream.request.state is State.WAITING:
+            # parked at the admission gate: prefill will park it for
+            # export once admitted
+            if not eng.can_export(stream.request):
+                return False
+            stream.request.handoff = True
+            return True
+        return False
 
     async def import_stream(self, request: Request, ticket: Dict, *,
                             ready_at: float = 0.0) -> TokenStream:
-        raise _not_ported("KV migration (import_stream)", "ROADMAP slice 6")
+        """Adopt a request migrated FROM a sibling server: register its
+        stream (tokens the source already delivered are not replayed) and
+        commit the KV import through the admission gate, so migrated KV
+        respects the same watermarks as fresh admissions. On any failure
+        (no free slot, cancelled, pump dead) nothing stays registered and
+        the caller still holds the source's export pin."""
+        if self._pump_error is not None:
+            raise RuntimeError("server pump failed") from self._pump_error
+        rid = request.rid
+        if self._pump_task is None:
+            await self.start()
+        if rid in self._streams:
+            raise ValueError(f"request id {rid} already streaming")
+        stream = TokenStream(self, request)
+        stream._submitted = True
+        stream._pushed = len(request.generated)  # source already delivered
+        stream.submit_clock = self.engine.clock
+        # full-decode KV accounting from the first watermark check on: the
+        # request decodes HERE even though its prefill ran elsewhere
+        request._imported = True
+        # the stream registers BEFORE the admission await so the
+        # sanitizer's live-rid/stream invariant holds the moment the
+        # import commits inside the gate
+        # analysis: atomic-step (the duplicate-rid check runs AFTER the
+        # lazy start() suspension, with no await between it and this
+        # registration)
+        self._streams[rid] = stream
+        rep = self.engine.trace_replica
+        if self.tracer.enabled:
+            # the import waits out the same watermarks as a fresh
+            # admission; on failure ONLY this span closes -- the request
+            # (and its open kv_migration span) stays live on the source,
+            # which resumes it via cancel_export or tries a sibling
+            self.tracer.span_begin("admission_wait", rid, replica=rep,
+                                   vt=self.engine.clock, imported=True)
+        try:
+            admitted = await self.admission.admit(
+                request,
+                submit=lambda r: self.engine.import_kv(r, ticket,
+                                                       ready_at=ready_at))
+        except BaseException:
+            # analysis: atomic-step (retracts only this coroutine's own
+            # registration; no other stream state is assumed unchanged
+            # across the await)
+            self._streams.pop(rid, None)
+            stream._finished = True
+            if self.tracer.enabled:
+                self.tracer.span_end("admission_wait", rid, replica=rep,
+                                     vt=self.engine.clock, failed=True)
+            raise
+        if not admitted:
+            # analysis: atomic-step (same single-entry retraction as the
+            # failure path above)
+            self._streams.pop(rid, None)
+            stream._finished = True
+            if self.tracer.enabled:
+                self.tracer.span_end("admission_wait", rid, replica=rep,
+                                     vt=self.engine.clock, failed=True)
+            raise RuntimeError(
+                f"import of rid {rid} retracted at the admission gate")
+        stream.admit_clock = self.engine.clock
+        if self.tracer.enabled:
+            self.tracer.span_end("admission_wait", rid, replica=rep,
+                                 vt=self.engine.clock)
+        self._wake.set()
+        return stream
 
     def complete_export(self, rid: int) -> None:
-        raise _not_ported("KV migration (complete_export)",
-                          "ROADMAP slice 6")
+        """Source-side release after a sibling committed the import (see
+        ``Engine.complete_export``); wakes the pump so a now-unblocked
+        drain can finish."""
+        self.engine.complete_export(rid)
+        self.admission.maybe_admit()     # freed KV -> drain waiters
+        if self._wake is not None:
+            self._wake.set()
 
     def cancel_export(self, rid: int) -> None:
-        raise _not_ported("KV migration (cancel_export)", "ROADMAP slice 6")
+        """Back out a migration: the request resumes decoding here."""
+        self.engine.cancel_export(rid)
+        stream = self._streams.get(rid)
+        if stream is not None:
+            stream._migrate_signaled = False   # a later drain may retry
+        if self._wake is not None:
+            self._wake.set()
 
     def release_migrated(self, rid: int) -> None:
-        raise _not_ported("KV migration (release_migrated)",
-                          "ROADMAP slice 6")
+        """Deregister the stream of a request migrated AWAY. No metrics
+        record here -- the importing server observes the completed
+        request, so fleet-merged registries count it exactly once."""
+        stream = self._streams.pop(rid, None)
+        if stream is not None:
+            stream._finished = True
 
     # ------------------------------------------------------------- pump --
     async def _pump(self) -> None:
@@ -335,12 +477,18 @@ class AsyncLVLMServer:
                 self._drain()
                 self._check_disconnects()
                 self.admission.maybe_admit()
+                if self.control is not None:
+                    # observe pressure, walk the degradation ladder,
+                    # reshape deferred waiters on a level change
+                    self.control.on_step(self)
                 if progressed and self.tracer.enabled:
                     self._emit_counters()
                 if self.sanitize:
                     self._sanitize_check()   # conservation at the boundary
                 if not progressed:
-                    # idle: park until a submit or stop wakes the pump --
+                    # idle, or every live request is frozen (MIGRATING /
+                    # awaiting its KV transfer): park until a submit,
+                    # migration completion, or stop wakes the pump --
                     # never busy-spin
                     if self._stopping:
                         return
@@ -360,8 +508,9 @@ class AsyncLVLMServer:
 
     def _emit_counters(self) -> None:
         """Post-step counter tracks: KV watermark, admission queue depth,
-        prefix hits, migration bytes in flight (0 until KV migration is
-        ported) -- the counter lanes the Perfetto export renders."""
+        prefix hits (local + cluster tier), migration bytes in flight --
+        the live time-series the SLO-adaptive controller reads and the
+        Perfetto export renders as counter lanes."""
         eng = self.engine
         rep = eng.trace_replica
         vt = eng.clock
@@ -372,7 +521,12 @@ class AsyncLVLMServer:
                   replica=rep, vt=vt)
         t.counter("prefix_hit_tokens", eng.prefix_hit_tokens,
                   replica=rep, vt=vt)
-        t.counter("migration_bytes_inflight", 0, replica=rep, vt=vt)
+        if eng.prefix_share is not None:
+            stats = eng.prefix_share.stats()
+            t.counter("prefix_tier_hits", stats.get("hits", 0),
+                      replica=rep, vt=vt)
+        t.counter("migration_bytes_inflight",
+                  eng._export_bytes_inflight(), replica=rep, vt=vt)
 
     def _check_disconnects(self) -> None:
         """Abort streams whose consumer hung up: tokens stayed queued
@@ -435,6 +589,12 @@ class AsyncLVLMServer:
             if stream.request.state is State.DONE:
                 del self._streams[rid]
                 self._finish_stream(stream, aborted=False)
+            elif (stream.request.state is State.MIGRATING
+                  and not stream._migrate_signaled):
+                # tell the consumer -- after any tokens already fanned out
+                # -- to run the migration protocol from its own task
+                stream._migrate_signaled = True
+                stream._q.put_nowait(MigrateSignal(rid))
 
     # ---------------------------------------------------------- reports --
     def metrics_snapshot(self, *, replica: Optional[int] = None) -> str:
@@ -464,9 +624,13 @@ class AsyncLVLMServer:
                      "Streams aborted by the disconnect timeout.",
                      self.disconnects, labels=labels)
         # standalone server: render the profiler's hot-path site
-        # histograms here (a fleet would render them once at fleet level)
+        # histograms here; in a fleet the profiler is shared, so the
+        # Router renders them ONCE at fleet level (replica label absent)
         if replica is None and self.profiler.enabled:
             profile_families(prom, self.profiler)
+        # same sharing rule for the adaptive controller's families
+        if replica is None and self.control is not None:
+            self.control.prom_families(prom)
         return prom.render()
 
     def summary(self) -> Dict:
@@ -482,4 +646,6 @@ class AsyncLVLMServer:
         for name, cs in self.engine.compression_stats().items():
             for k, v in cs.items():
                 out[f"compression/{name}/{k}"] = v
+        if self.control is not None:
+            out.update(self.control.summary())
         return out

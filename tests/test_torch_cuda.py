@@ -711,3 +711,162 @@ def test_serve_async_card_matches_sync_and_cpu(dev):
     assert eng.kv_committed_tokens() == 0
     assert all(r is None for r in eng.slot_req)
     assert eng._decoders["speculative"].bound_slots() == set()
+
+
+def _smoke_pair(arch="qwen2-vl-2b"):
+    from repro_torch.api import LVLM
+    cpu = LVLM.from_pretrained(arch, smoke=True, seed=0, device="cpu")
+    return cpu, cpu.with_params(_tree_to(cpu.params, "cuda"))
+
+
+def _run_until(eng, cond, limit=200):
+    for _ in range(limit):
+        if cond():
+            return
+        assert eng.step()
+    raise AssertionError("condition not reached")
+
+
+def test_kv_export_import_on_card_is_bit_exact(dev):
+    """``export_kv`` on the card clones the slot's rows (a device tensor,
+    not a view of the pool), ``import_kv`` copies them into another
+    engine's slot bit for bit, ``complete_export`` frees the source, and
+    the snapshot survives the source slot's reuse; the migrated request
+    decodes through the paged kernel and its float32 tokens equal an
+    unmigrated run's on the card."""
+    from repro_torch.api import EngineConfig, GenerationConfig, Request
+    from repro_torch.core.serving.engine import Engine
+    from repro_torch.core.serving.request import State
+    _, card = _smoke_pair()
+    cfg = card.cfg
+    rng = np.random.default_rng(70)
+    prompt = rng.integers(1, cfg.vocab_size, 14).tolist()
+    other = rng.integers(1, cfg.vocab_size, 30).tolist()
+    ve = rng.standard_normal((cfg.num_visual_tokens, cfg.d_model)
+                             ).astype(np.float32)
+    ec = EngineConfig(max_batch=2, cache_len=80, temperature=0.0,
+                      sanitize=True)
+    gen = GenerationConfig(max_new_tokens=8, decoder="greedy",
+                           temperature=0.0)
+    plain = card.serve([Request(rid=0, tokens=list(prompt), max_new_tokens=8,
+                                visual_embeds=ve)], ec, gen).requests[0]
+    src = Engine(card.model, card.params, ec)
+    dst = Engine(card.model, card.params, ec)
+    req = Request(rid=0, tokens=list(prompt), max_new_tokens=8,
+                  visual_embeds=ve)
+    req.handoff = True
+    src.submit(req)
+    _run_until(src, lambda: req.state is State.MIGRATING)
+    ticket = src.export_kv(0)
+    slot, pos = ticket["slot"], ticket["pos"]
+    assert pos == len(prompt) + cfg.num_visual_tokens
+    snap = ticket["snap"]["layers"]
+    assert all(v.is_cuda for v in snap.values())
+    for k, v in snap.items():
+        assert v.data_ptr() != src.pool["layers"][k].data_ptr()
+        assert torch.equal(v[:, 0], src.pool["layers"][k][:, slot, :pos])
+    before = {k: v.clone() for k, v in snap.items()}
+    dst.import_kv(req, ticket, ready_at=ticket["clock"])
+    src.complete_export(0)
+    assert src.slot_req[slot] is None and src._exports == {}
+    for k in snap:
+        assert torch.equal(dst.pool["layers"][k][:, req._slot, :pos],
+                           before[k][:, 0])
+    nxt = Request(rid=1, tokens=other, max_new_tokens=2)
+    src.submit(nxt)
+    _run_until(src, lambda: nxt.state is State.DONE)
+    assert nxt._slot == slot
+    for k, v in snap.items():
+        assert torch.equal(v, before[k])
+    n0 = pa.paged_attention.launches
+    while dst.step():
+        pass
+    torch.cuda.synchronize()
+    assert pa.paged_attention.launches > n0
+    assert req.generated == plain.generated
+
+
+def test_disaggregated_fleet_on_card_matches_cpu(dev):
+    """A prefill:1,decode:1 fleet on the card (qwen2-vl smoke, float32,
+    sanitizer on): every request migrates, streams equal the colocated
+    fleet on the card and the disaggregated fleet on the CPU, and the
+    records on the virtual clock are exactly the CPU's."""
+    import asyncio
+    import dataclasses
+    from repro_torch.api import EngineConfig, GenerationConfig, Request
+    cpu, card = _smoke_pair()
+    cfg = cpu.cfg
+    rng = np.random.default_rng(71)
+    prompts = [rng.integers(1, cfg.vocab_size, n).tolist()
+               for n in (9, 12, 7, 14)]
+    ves = [rng.standard_normal((cfg.num_visual_tokens, cfg.d_model)
+                               ).astype(np.float32) if i % 2 else None
+           for i in range(4)]
+    ec = EngineConfig(max_batch=4, cache_len=64, temperature=0.0,
+                      sanitize=True)
+    gen = GenerationConfig(max_new_tokens=6, decoder="greedy",
+                           temperature=0.0)
+
+    def run(lvlm, roles):
+        router = lvlm.serve_cluster(2, ec, gen=gen, roles=roles)
+
+        async def drive():
+            async with router:
+                return await asyncio.gather(*(
+                    _consume(router.submit(Request(
+                        rid=i, tokens=list(p), max_new_tokens=6,
+                        visual_embeds=ve)))
+                    for i, (p, ve) in enumerate(zip(prompts, ves))))
+        outs = dict(enumerate(asyncio.run(drive())))
+        recs = [[dataclasses.asdict(r) for r in rep.server.metrics.records]
+                for rep in router.replicas]
+        return outs, recs, router
+
+    got, recs, router = run(card, ["prefill", "decode"])
+    assert len(router.migrations) == 4
+    assert all(rep.server.engine.kv_committed_tokens() == 0
+               for rep in router.replicas)
+    assert got == run(card, None)[0]
+    want, want_recs, _ = run(cpu, ["prefill", "decode"])
+    assert got == want and recs == want_recs
+
+
+async def _consume(stream):
+    return [tok async for tok in stream]
+
+
+def test_shared_tier_snapshot_on_card_survives_slot_reuse(dev):
+    """The shared prefix tier's snapshot (a clone on the card) keeps its
+    bits after the publishing slot is reused, and a sibling's remote hit
+    installs exactly them."""
+    from repro_torch.api import EngineConfig, Request
+    from repro_torch.cluster import SharedPrefixTier
+    from repro_torch.core.serving.engine import Engine
+    from repro_torch.core.serving.request import State
+    _, card = _smoke_pair("phi4-mini-3.8b")
+    rng = np.random.default_rng(72)
+    shared = rng.integers(1, 512, 32).tolist()
+    ec = EngineConfig(max_batch=1, cache_len=96, temperature=0.0,
+                      prefix_cache=True, sanitize=True)
+    a = Engine(card.model, card.params, ec)
+    b = Engine(card.model, card.params, ec)
+    a.prefix_share = b.prefix_share = tier = SharedPrefixTier(block=16)
+    r0 = Request(rid=0, tokens=shared + [5, 6, 7], max_new_tokens=2)
+    a.submit(r0)
+    _run_until(a, lambda: r0.state is State.DONE)
+    _, snap = tier.lookup("none", r0.tokens, block=16, touch=False)
+    before = {k: v.clone() for k, v in snap["layers"].items()}
+    r1 = Request(rid=1, tokens=rng.integers(1, 512, 40).tolist(),
+                 max_new_tokens=2)
+    a.submit(r1)
+    _run_until(a, lambda: r1.state is State.DONE)
+    assert not torch.equal(a.pool["layers"]["k"][:, 0, :32],
+                           before["k"][:, 0])
+    for k, v in snap["layers"].items():
+        assert torch.equal(v, before[k])
+    r2 = Request(rid=2, tokens=shared + [9, 9], max_new_tokens=2)
+    b.submit(r2)
+    b.step()
+    assert b.remote_prefix_hits == 1
+    for k in ("k", "v"):
+        assert torch.equal(b.pool["layers"][k][:, 0, :32], before[k][:, 0])

@@ -148,19 +148,22 @@ def test_sampling_decoder_runs(pair):
 
 
 def test_later_slices_raise(pair):
-    """What stays refused: KV handoff (ROADMAP queue A, slice 6), and, as
-    the reference refuses them, a per-request KV preset on an engine not
-    built compacting, speculative or early exit on a compacting engine,
-    and a request past the cache. Speculative and early exit serve
-    otherwise (tests/test_torch_decoder_engine.py)."""
+    """What stays refused, as the reference refuses it: a per-request KV
+    preset on an engine not built compacting, speculative or early exit
+    on a compacting engine, and a request past the cache. Speculative and
+    early exit serve otherwise (tests/test_torch_decoder_engine.py); a
+    KV handoff request is served too, reserving its prompt plus one
+    token (tests/test_torch_disaggregation.py)."""
     _, t = pair
     assert GenerationConfig(decoder="speculative").gamma == 4
     assert GenerationConfig(decoder="early_exit").exit_threshold == 0.9
     eng = t.serve([], EngineConfig(max_batch=1, cache_len=32)).engine
     with pytest.raises(ValueError, match="not built compacting"):
         eng.submit(Request(rid=0, tokens=[1, 2], compression="streaming-kv"))
-    with pytest.raises(NotImplementedError):
-        eng.submit(Request(rid=1, tokens=[1, 2], handoff=True))
+    handoff = Request(rid=1, tokens=[1, 2], max_new_tokens=4, handoff=True)
+    eng.submit(handoff)
+    assert eng.kv_request_tokens(handoff) == eng._kv_block()
+    assert eng.abort(1)
     eng.submit(Request(rid=2, tokens=[1, 2], max_new_tokens=4,
                        decoder="early_exit"))
     with pytest.raises(ValueError):

@@ -1,0 +1,70 @@
+"""The port's serving CLI (``python -m repro_torch.launch.serve``) against
+the reference's (``python -m repro.launch.serve``), on the CPU.
+
+Both CLIs build their own smoke model from their own seed and serve the
+same synthetic requests (numpy seeds); every number in their JSON
+report lives on the virtual clock and, at temperature 0 with no eos,
+does not depend on the weights, so the two reports are equal -- for a
+plain run, a prefix-affinity fleet with a shared prefix, a
+prefill/decode fleet (with its Prometheus text) and an adaptive-control
+run.
+"""
+import json
+import sys
+
+import pytest
+
+import repro.launch.serve as jserve
+import repro_torch.launch.serve as tserve
+
+COMMON = ["--requests", "4", "--new-tokens", "4"]
+CASES = {
+    "plain": [],
+    "prefix_affinity": ["--arch", "phi4-mini-3.8b", "--replicas", "2",
+                        "--routing", "prefix_affinity", "--prefix-cache",
+                        "--shared-prefix", "32"],
+    "roles": ["--roles", "prefill:1,decode:1", "--open-loop", "2000",
+              "--metrics-out", "-"],
+    "control": ["--control", "--open-loop", "2000", "--max-batch", "2"],
+}
+
+
+def _reference(args, monkeypatch, capsys):
+    monkeypatch.setattr(sys, "argv", ["serve"] + args)
+    assert jserve.main() == 0
+    return capsys.readouterr().out
+
+
+def _port(args, capsys):
+    assert tserve.main(args + ["--device", "cpu"]) == 0
+    return capsys.readouterr().out
+
+
+def _last_json(out):
+    """The report: the JSON object that ends the output."""
+    return json.loads(out[out.rfind("\n{") + 1:])
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_cli_report_equals_reference(case, monkeypatch, capsys):
+    args = COMMON + CASES[case]
+    ref = _reference(args, monkeypatch, capsys)
+    port = _port(args, capsys)
+    blob = _last_json(port)
+    assert blob["finished"] == 4 and blob["tokens"] == 16
+    if case == "roles":
+        assert "repro_migrations_total 4" in port
+    if case == "control":
+        assert blob["control_overrides_open"] == 0
+    assert blob == _last_json(ref)
+    assert port == ref
+
+
+def test_cli_refuses_dry_run_and_needs_a_device(capsys, monkeypatch):
+    with pytest.raises(SystemExit):
+        tserve.main(["--dry-run", "--device", "cpu"])
+    assert "production mesh" in capsys.readouterr().err
+    import torch
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tserve.main(COMMON)

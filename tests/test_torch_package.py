@@ -135,3 +135,30 @@ def test_obs_validate_cli_runs_without_jax(tmp_path):
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert "OK (2 events" in out.stdout
+
+
+@pytest.mark.parametrize("path", [
+    "core/serving/disaggregation.py", "cluster/__init__.py",
+    "cluster/policies.py", "cluster/prefix_tier.py", "cluster/metrics.py",
+    "cluster/router.py", "control/__init__.py", "control/policy.py",
+    "control/controller.py", "control/sweep.py", "launch/__init__.py",
+    "launch/serve.py"])
+def test_cluster_control_and_launch_modules_are_ported(path):
+    """Each module of the cluster, disaggregation and control slice has
+    its reference, and imports neither JAX nor the JAX package (the probe
+    above imports it with JAX blocked)."""
+    _assert_ported(path)
+
+
+def test_serve_cli_runs_without_jax():
+    """``python -m repro_torch.launch.serve`` parses its flags with JAX
+    blocked (``--help`` lists the port's ``--device``)."""
+    probe = ("import sys, runpy; sys.modules['jax'] = None; "
+             "sys.argv = ['serve', '--help']; "
+             "runpy.run_module('repro_torch.launch.serve', "
+             "run_name='__main__')")
+    out = subprocess.run([sys.executable, "-c", probe],
+                         env=dict(os.environ, PYTHONPATH=str(ROOT / "src")),
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert "--device" in out.stdout and "--roles" in out.stdout

@@ -409,23 +409,30 @@ def test_wall_pacing_sleeps_per_step_virtual_durations(pair, monkeypatch):
 
 
 def test_bad_pacing_and_unported_paths_rejected(pair):
+    """Bad knobs are refused; ``control=`` and the migration methods are
+    served (tests/test_torch_control.py, test_torch_disaggregation.py),
+    and on a bare server they refuse an unknown rid or a bad ticket
+    without registering anything, as the reference's do."""
     t = pair[1]
     with pytest.raises(ValueError, match="pacing"):
         t.serve_async(_ec(tapi), gen=_gen(tapi), pacing="warp")
-    with pytest.raises(NotImplementedError, match="item 15"):
-        t.serve_async(_ec(tapi), gen=_gen(tapi), control=True)
-    with pytest.raises(NotImplementedError, match="item 15"):
+    with pytest.raises(TypeError, match="control="):
+        t.serve_async(_ec(tapi), gen=_gen(tapi), control="aggressive")
+    with pytest.raises(TypeError, match="control="):
         t.serve(_reqs(tapi, _prompts(1)), _ec(tapi), gen=_gen(tapi),
-                control=True)
+                control="aggressive")
+    assert isinstance(t.serve_async(_ec(tapi), gen=_gen(tapi),
+                                    control=True).control, tapi.Controller)
     server = t.serve_async(_ec(tapi), gen=_gen(tapi))
-    for call in (lambda: server.request_migration(0),
-                 lambda: server.complete_export(0),
-                 lambda: server.cancel_export(0),
-                 lambda: server.release_migrated(0),
-                 lambda: asyncio.run(server.import_stream(
-                     tapi.Request(rid=0, tokens=[1], max_new_tokens=1), {}))):
-        with pytest.raises(NotImplementedError, match="slice 6"):
-            call()
+    assert server.request_migration(0) is False
+    with pytest.raises(KeyError):
+        server.complete_export(0)
+    server.cancel_export(0)                   # no ticket: nothing to undo
+    server.release_migrated(0)
+    with pytest.raises(KeyError):
+        asyncio.run(server.import_stream(
+            tapi.Request(rid=0, tokens=[1], max_new_tokens=1), {}))
+    assert server._streams == {} and server.engine.running == []
 
 
 def test_disconnect_timeout_aborts_stalled_consumer(pair):
