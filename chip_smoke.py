@@ -22,13 +22,17 @@ cluster phases serve ``LVLM.serve_cluster`` (prefill / decode roles
 with KV migrated between replicas on the card, drain, the shared prefix
 tier) and the SLO-adaptive controller, card against CPU on the smoke
 config and at full width, and run the ``repro_torch.launch.serve`` CLI.
-Each phase prints one JSON line; the last two lines are the kernel summary
-and ``{"ok": true, "device": {...}}``. Any failure
-raises and exits non-zero before that line. Needs one CUDA device of
-compute capability 9.0.
+The architecture phases hold both kernels at head dim 192 and at 48 q
+heads per kv head, compare granite, mistral, nemotron and arctic smoke
+card against CPU, and serve each of the four at full published width
+(cut in depth to fit the card). Each phase prints one JSON line; the
+last two lines are the kernel summary and ``{"ok": true, "device":
+{...}}``. Any failure raises and exits non-zero before that line.
+Needs one CUDA device of compute capability 9.0.
 """
 from __future__ import annotations
 
+import gc
 import json
 import os
 import subprocess
@@ -226,7 +230,7 @@ def phase_build() -> None:
         fn = getattr(build.load(name), f"{name}_smem_bytes")
         smem[name] = {f"{dt}/d{d}": fn(code, d)
                       for dt, code in (("float32", 0), ("bfloat16", 1))
-                      for d in (32, 64, 128)}
+                      for d in (32, 64, 128, 192)}
     cuobjdump = os.path.join(os.path.dirname(build.nvcc_path()), "cuobjdump")
     sass = subprocess.run([cuobjdump, "-sass",
                            str(build.library_path("flash_attention"))],
@@ -3205,6 +3209,481 @@ def phase_cluster_serve(lvlm) -> dict:
     return launches
 
 
+# ------------------------------------------- other architectures (dim 3) --
+
+#: full-width configs, each cut in depth to fit one 80 GB card with its
+#: float32 init draw (PERF.md section 4): (arch, layers kept)
+ARCH_FULL = (("granite-34b", 24), ("mistral-large-123b", 8),
+             ("nemotron-4-340b", 2), ("arctic-480b", 1))
+#: their serve: 4 text prompts of these lengths, ARCH_NEW new tokens each
+ARCH_PROMPTS, ARCH_NEW = (64, 300, 700, 1024), 16
+#: smoke configs held card against CPU (float32, head dim 32)
+ARCH_SMOKE = (("granite-34b", {}), ("mistral-large-123b", {}),
+              ("nemotron-4-340b", {}), ("arctic-480b", {}),
+              ("arctic-480b", dict(first_k_dense_layers=1,
+                                   num_shared_experts=1)))
+#: decode after an S-1 prefill against forward at S-1, bf16 at full width:
+#: flash and paged kernels round P and every activation differently, over
+#: up to 24 layers; the bar is on max|diff| / max|forward logit|
+CONSISTENCY_TOL = 5e-2
+
+
+def _timed_row(fn, plain, library, flush, nbytes, flops, dtype, err,
+               **extra):
+    return dict(_kernel_row(fn, plain, library, flush, nbytes, flops, dtype,
+                            err), **extra)
+
+
+def _paged_onequery_case(rng, dtype, b, h, kvh, d, length=SERVE_CACHE_LEN,
+                         page=16):
+    """One-query decode over a dense ``length``-slot cache viewed as pages
+    (identity table), seq_lens 1056-1103: (args, dense k, v)."""
+    pps = length // page
+    k = randn(rng, (b, length, kvh, d), dtype)
+    v = randn(rng, (b, length, kvh, d), dtype)
+    q = randn(rng, (b, h, d), dtype)
+    seqs = torch.from_numpy(rng.integers(1056, length, b).astype(np.int32)
+                            ).cuda()
+    ident = torch.arange(b * pps, dtype=torch.int32,
+                         device="cuda").view(b, pps)
+    return (q, k.view(b * pps, page, kvh, d), v.view(b * pps, page, kvh, d),
+            ident, seqs), (k, v)
+
+
+def phase_kernels_new_shapes(flush) -> dict:
+    """The kernels at the shapes the dense-family and MoE configs add, in
+    float32 and bf16 against their plain versions (TOL; the multi-query
+    mode also REL_TOL): head dim 192 (nemotron-4-340b, 96 / 8 heads) --
+    flash causal over 1056 tokens, paged one-query at batch 4 over 1104
+    slots, masked (the compacted, ring, window and ahead cases at batch 8)
+    and multi-query S = 5 -- and 48 q heads per kv head (granite-34b,
+    48 / 1, D 128) -- flash over 1056 tokens, paged one-query, masked,
+    multi-query S = 5 and 9 (240 and 432 rows a kv head: 4 and 7 row
+    tiles). Each bf16 case is timed beside its bound, its plain version
+    and SDPA; float32 flash at D = 192 too."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels.ref import paged_key_mask
+    rng = np.random.default_rng(18)
+    shapes = {"head_dim_192": dict(h=96, kvh=8, d=192),
+              "group_48": dict(h=48, kvh=1, d=128)}
+    errs, rel, timed = {}, {}, {k: {} for k in shapes}
+    for key, hk in shapes.items():
+        h, kvh, d = hk["h"], hk["kvh"], hk["d"]
+        for dtype in (torch.float32, torch.bfloat16):
+            dt = str(dtype)[6:]
+            c = dict(b=1, sq=1056, sk=1056, **hk)
+            q, k, v = _flash_inputs(rng, c, dtype)
+            got = fa.flash_attention(q, k, v)
+            torch.cuda.synchronize()
+            e = errs[f"{key}/flash/{dt}"] = max_err(
+                got, fa.flash_attention_plain(q, k, v))
+            check(e <= TOL[dtype], f"flash {key} {dtype}: err {e}")
+            if dtype == torch.bfloat16 or key == "head_dim_192":
+                timed[key][f"flash_{dt}"] = _timed_row(
+                    lambda q=q, k=k, v=v: fa.flash_attention(q, k, v),
+                    lambda q=q, k=k, v=v: fa.flash_attention_plain(q, k, v),
+                    lambda q=q, k=k, v=v: F.scaled_dot_product_attention(
+                        q, k, v, is_causal=True, enable_gqa=True),
+                    flush, q.element_size() * (2 * q.numel() + k.numel()
+                                               + v.numel()),
+                    4 * d * h * 1056 * 1057 / 2, dtype, e, shape=c)
+            # one-query decode, batch 4 over 1104 slots
+            args, (kd, vd) = _paged_onequery_case(rng, dtype, 4, h, kvh, d)
+            got = pa.paged_attention(*args)
+            torch.cuda.synchronize()
+            e = errs[f"{key}/paged/{dt}"] = max_err(
+                got, pa.paged_attention_plain(*args))
+            check(e <= TOL[dtype], f"paged {key} {dtype}: err {e}")
+            if dtype == torch.bfloat16:
+                qd, seqs = args[0], args[4]
+                n_tok = int(seqs.sum())
+                mask = (torch.arange(SERVE_CACHE_LEN, device="cuda")[None]
+                        < seqs[:, None])[:, None, None, :]
+                timed[key]["paged_one_query"] = _timed_row(
+                    lambda args=args: pa.paged_attention(*args),
+                    lambda args=args: pa.paged_attention_plain(*args),
+                    lambda qd=qd, kd=kd, vd=vd, mask=mask:
+                        F.scaled_dot_product_attention(
+                            qd[:, :, None], kd.transpose(1, 2),
+                            vd.transpose(1, 2), attn_mask=mask,
+                            enable_gqa=True),
+                    flush, qd.element_size() * (2 * qd.numel()
+                                                + 2 * n_tok * kvh * d)
+                    + 4 * (args[3].numel() + 4), 4 * h * d * n_tok, dtype,
+                    e, shape=dict(b=4, cache_len=SERVE_CACHE_LEN, page=16,
+                                  seq_lens=seqs.tolist(), **hk))
+            # masked mode, batch 8 over KV_CACHE_LEN slots
+            cases, (kc, vc, sp, q_comp) = _masked_cases(rng, dtype, h, kvh,
+                                                       d, 16)
+            for name, margs, kw in cases:
+                got = pa.paged_attention(*margs, **kw)
+                torch.cuda.synchronize()
+                e = errs[f"{key}/paged_masked/{name}/{dt}"] = max_err(
+                    got, pa.paged_attention_plain(*margs, **kw))
+                check(e <= TOL[dtype], f"paged masked {key} {name} {dtype}:"
+                      f" err {e}")
+            if dtype == torch.bfloat16:
+                _, margs, kw = cases[0]          # compacted, identity table
+                qm, _, _, table, seq = margs
+                read, keys = paged_key_mask(seq, table, 16, **kw)
+                n_read, n_key = int(read.sum()), int(keys.sum())
+                mask = ((sp >= 0) & (sp <= q_comp[:, None]))[:, None, None]
+                timed[key]["paged_masked_compacted"] = _timed_row(
+                    lambda margs=margs, kw=kw: pa.paged_attention(*margs,
+                                                                  **kw),
+                    lambda margs=margs, kw=kw: pa.paged_attention_plain(
+                        *margs, **kw),
+                    lambda qm=qm, kc=kc, vc=vc, mask=mask:
+                        F.scaled_dot_product_attention(
+                            qm[:, :, None], kc.transpose(1, 2),
+                            vc.transpose(1, 2), attn_mask=mask,
+                            enable_gqa=True),
+                    flush, qm.element_size() * (2 * qm.numel()
+                                                + 2 * n_key * kvh * d)
+                    + 4 * (table.numel() + 2 * len(seq) + n_read),
+                    4 * h * d * n_key, dtype,
+                    errs[f"{key}/paged_masked/compacted_identity/{dt}"],
+                    shape=dict(b=8, cache_len=KV_CACHE_LEN, page=16,
+                               budget=KV_BUDGET, **hk))
+            # multi-query: the verify of gamma 4 (and 8 at G = 48)
+            for s in ((VERIFY_S, 9) if key == "group_48" else (VERIFY_S,)):
+                serve = 1056 + rng.integers(0, SERVE_NEW - s, 8)
+                qargs, qp, (kq, vq) = _mq_case(rng, dtype, s=s, starts=serve,
+                                               **hk)
+                got = pa.paged_attention(*qargs, q_pos=qp)
+                torch.cuda.synchronize()
+                want = pa.paged_attention_plain(*qargs, q_pos=qp)
+                name = f"{key}/paged_multi_query_s{s}/{dt}"
+                e = errs[name] = max_err(got, want)
+                r = rel[name] = e / float(want.float().abs().max())
+                check(e <= TOL[dtype] and r <= REL_TOL[dtype],
+                      f"paged multi-query {name}: err {e}, {r} of max|ref|")
+                if dtype != torch.bfloat16:
+                    continue
+                qm, _, _, table, seq = qargs
+                n_keys = int(torch.minimum(qp + 1, seq[:, None]).sum())
+                rows = torch.arange(SERVE_CACHE_LEN, device="cuda")
+                mask = ((rows[None, None] < seq[:, None, None])
+                        & (rows[None, None] <= qp[:, :, None]))[:, None]
+                timed[key][f"paged_multi_query_s{s}"] = _timed_row(
+                    lambda qargs=qargs, qp=qp: pa.paged_attention(
+                        *qargs, q_pos=qp),
+                    lambda qargs=qargs, qp=qp: pa.paged_attention_plain(
+                        *qargs, q_pos=qp),
+                    lambda qs=qm.transpose(1, 2), ks=kq.transpose(1, 2),
+                    vs=vq.transpose(1, 2), mask=mask:
+                        F.scaled_dot_product_attention(
+                            qs, ks, vs, attn_mask=mask, enable_gqa=True),
+                    flush, qm.element_size() * (2 * qm.numel() + 2 * int(
+                        seq.sum()) * kvh * d)
+                    + 4 * (table.numel() + 8 + qp.numel()),
+                    4 * h * d * n_keys, dtype, e,
+                    rows_per_kv_head=s * h // kvh,
+                    row_tiles=-(-s * h // kvh // 64))
+    emit("kernels_new_shapes", errors=errs, rel_errors=rel,
+         tolerance={"float32": TOL[torch.float32],
+                    "bfloat16": TOL[torch.bfloat16]},
+         rel_tolerance={"float32": REL_TOL[torch.float32],
+                        "bfloat16": REL_TOL[torch.bfloat16]},
+         timed=timed)
+    return timed
+
+
+def phase_arch_smoke() -> dict:
+    """granite, mistral, nemotron and arctic smoke (float32, head dim 32)
+    and arctic smoke with a dense prefix layer and a shared expert, each
+    built with no ``device=`` (so on the card) against the same weights on
+    the CPU: prefill and decode logits within SMOKE_LOGIT_TOL, identical
+    greedy tokens from ``generate`` and a continuous ``serve``, and on
+    arctic smoke a self-draft speculative serve (gamma 4). Returns the
+    card runs' kernel launches."""
+    from repro_torch.api import EngineConfig, GenerationConfig, LVLM, Request
+    gen = GenerationConfig(max_new_tokens=8, decoder="greedy")
+    spec = GenerationConfig(max_new_tokens=11, decoder="speculative",
+                            gamma=GAMMA, temperature=0.0)
+    ec = EngineConfig(max_batch=3, cache_len=96, scheduler="continuous")
+    total = dict.fromkeys(("flash_attention", "paged_attention"), 0)
+    rows = {}
+    for arch, kw in ARCH_SMOKE:
+        card = LVLM.from_pretrained(arch, smoke=True, seed=0, **kw)
+        check(card.device.type == "cuda", f"{arch} smoke not on cuda")
+        cpu = card.with_params(_tree_to(card.params, "cpu"))
+        cfg = card.cfg
+        rng = np.random.default_rng(19)
+        prompts = [rng.integers(0, cfg.vocab_size, n).tolist()
+                   for n in (20, 61, 9)]
+        toks = torch.tensor([prompts[1]])
+        lc, cc = cpu.model.prefill(cpu.params, {"tokens": toks},
+                                   cache_len=80)
+        lg, cg = card.model.prefill(card.params, {"tokens": toks.cuda()},
+                                    cache_len=80)
+        e_pre = max_err(lg.cpu(), lc)
+        nxt, pos = torch.tensor([[3]]), torch.tensor([61])
+        dc, _ = cpu.model.decode_step(cpu.params, cc, nxt, pos)
+        dg, _ = card.model.decode_step(card.params, cg, nxt.cuda(),
+                                       pos.cuda())
+        e_dec = max_err(dg.cpu(), dc)
+        res = {}
+        _reset_counts()
+        for name, t in (("card", card), ("cpu", cpu)):
+            reqs = _requests(Request, prompts, [None] * 3, 8)
+            res[name] = [[r.tokens for r in t.generate(prompts, gen)],
+                         {r.rid: r.generated
+                          for r in t.serve(reqs, ec, gen).requests}]
+            if kw == {} and cfg.family == "moe":
+                res[name].append({r.rid: r.generated for r in t.serve(
+                    _requests(Request, prompts, [None] * 3, 11),
+                    EngineConfig(max_batch=3, cache_len=96), spec).requests})
+            if name == "card":
+                torch.cuda.synchronize()
+                counts = _counts()
+        same = [a == b for a, b in zip(res["card"], res["cpu"])]
+        label = cfg.name + ("+dense_prefix+shared" if kw else "")
+        rows[label] = dict(prefill_logit_err=e_pre, decode_logit_err=e_dec,
+                           tokens_equal=same, launches=counts)
+        check(e_pre <= SMOKE_LOGIT_TOL and e_dec <= SMOKE_LOGIT_TOL,
+              f"{label} logits card vs CPU: prefill {e_pre}, decode {e_dec}")
+        check(all(same), f"{label} tokens card != CPU: {same}")
+        check(all(counts.values()), f"{label}: a kernel was not launched: "
+              f"{counts}")
+        total = {k: total[k] + counts[k] for k in total}
+        del card, cpu
+    emit("arch_smoke", tolerance=SMOKE_LOGIT_TOL, configs=rows,
+         checks=["generate", "continuous_serve", "speculative_serve (moe)"])
+    return total
+
+
+class _CallRecorder:
+    """Records every kernel-wrapper call (cloned inputs and output) made
+    inside the ``with`` block, to be held against the plain versions."""
+
+    def __enter__(self):
+        from repro_torch.kernels import ops
+        self.ops, self.real = ops, (ops._flash, ops._paged)
+        self.calls = {"flash_attention": [], "paged_attention": []}
+
+        def rec(name, fn):
+            def recorded(*args, **kw):
+                out = fn(*args, **kw)
+                self.calls[name].append((
+                    [t.clone() for t in args],
+                    {k: v.clone() if torch.is_tensor(v) else v
+                     for k, v in kw.items()}, out.clone()))
+                return out
+            return recorded
+        ops._flash = rec("flash_attention", self.real[0])
+        ops._paged = rec("paged_attention", self.real[1])
+        return self
+
+    def __exit__(self, *exc):
+        self.ops._flash, self.ops._paged = self.real
+
+    def check(self) -> dict:
+        """max err and err / max|ref| of every call against its plain
+        version; fails past REL_TOL of max|ref| (and past TOL for the
+        paged calls). At full width the flash outputs reach |x| ~ 4,
+        where one bf16 ulp (3.1e-2) is past TOL: REL_TOL is 1.3 ulp of
+        the largest output."""
+        from repro_torch.kernels import flash_attention as fa
+        from repro_torch.kernels import paged_attention as pa
+        plain = {"flash_attention": fa.flash_attention_plain,
+                 "paged_attention": pa.paged_attention_plain}
+        out = {}
+        for name, calls in self.calls.items():
+            errs, rels = [], []
+            for args, kw, got in calls:
+                want = plain[name](*args, **kw)
+                e = max_err(got, want)
+                errs.append(e)
+                rels.append(e / float(want.float().abs().max()))
+                dtype = got.dtype
+                check(rels[-1] <= REL_TOL[dtype] and (
+                    name == "flash_attention" or e <= TOL[dtype]),
+                      f"recorded {name} call: err {e}, {rels[-1]} rel")
+            out[name] = {"calls": len(calls),
+                         "max_abs_err": max(errs) if errs else None,
+                         "max_rel_err": max(rels) if rels else None}
+        return out
+
+
+def _arch_full_one(arch, layers) -> dict:
+    """One config at full published width, ``layers`` deep, bf16, random
+    weights from seed 0 (see ``phase_arch_full``)."""
+    from repro_torch.api import EngineConfig, GenerationConfig, LVLM, Request
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import paged_attention as pa
+    gc.collect()                  # the last config's engines hold cycles
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    lvlm = LVLM.from_pretrained(arch, seed=0, num_layers=layers)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    init_peak = torch.cuda.max_memory_allocated()
+    cfg, model, params = lvlm.cfg, lvlm.model, lvlm.params
+    check(lvlm.device.type == "cuda", f"{arch}: not on cuda")
+    n_params = sum(v.numel() for v in _leaves(params))
+    rng = np.random.default_rng(20)
+    prompts = [rng.integers(0, cfg.vocab_size, n).tolist()
+               for n in ARCH_PROMPTS]
+    cls = type(model)
+
+    # decode after an S-1 prefill against forward at S-1 (dropless MoE on
+    # both sides), every kernel call of the prefill and of the decode step
+    # held against the plain version
+    s = 256
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, s))).cuda()
+    full, _ = cls.forward(model, params, {"tokens": toks}, moe_cap=None)
+    want = full[:, -1].float()
+    del full
+    with _CallRecorder() as rec:
+        _, cache = cls.prefill(model, params, {"tokens": toks[:, :-1]},
+                               cache_len=s + 16, moe_cap=None,
+                               last_only=True)
+        got, _ = cls.decode_step(model, params, cache, toks[:, -1:], s - 1,
+                                 moe_cap=None)
+    torch.cuda.synchronize()
+    del cache
+    recorded = rec.check()
+    del rec
+    scale = float(want.abs().max())
+    cons = max_err(got, want) / scale
+    check(bool(torch.isfinite(got).all()) and bool(torch.isfinite(
+        want).all()), f"{arch}: NaN or inf logits")
+    check(cons <= CONSISTENCY_TOL, f"{arch}: decode after prefill vs "
+          f"forward differ by {cons} of the logit scale")
+    check(recorded["flash_attention"]["calls"] == cfg.num_layers
+          and recorded["paged_attention"]["calls"] == cfg.num_layers,
+          f"{arch}: recorded {recorded}")
+
+    # generate and a continuous serve of the 4 prompts
+    gen = GenerationConfig(max_new_tokens=ARCH_NEW, decoder="greedy")
+    timer = CallTimer(model)
+    _reset_counts()
+    t0 = time.perf_counter()
+    res = lvlm.generate(prompts, gen)
+    torch.cuda.synchronize()
+    gen_wall = time.perf_counter() - t0
+    gen_counts, gen_calls = _counts(), dict(timer.calls)
+    gen_secs = dict(timer.seconds)
+    toks_gen = [r.tokens for r in res]
+    check(all(len(t) == ARCH_NEW and all(0 <= x < cfg.vocab_size for x in t)
+              for t in toks_gen), f"{arch}: generate returned bad tokens")
+    L = cfg.num_layers
+    check(gen_counts["flash_attention"] >= L * gen_calls["prefill"] > 0
+          and gen_counts["paged_attention"] >= L * gen_calls["decode_step"]
+          > 0, f"{arch}: launches {gen_counts} vs calls {gen_calls}")
+    timer.reset()
+    reqs = _requests(Request, prompts, [None] * 4, ARCH_NEW)
+    ec = EngineConfig(max_batch=4, cache_len=LVLM._cache_len(reqs, gen),
+                      scheduler="continuous")
+    _reset_counts()
+    t0 = time.perf_counter()
+    rep = lvlm.serve(reqs, ec, gen)
+    torch.cuda.synchronize()
+    serve_wall = time.perf_counter() - t0
+    serve_counts, serve_calls = _counts(), dict(timer.calls)
+    served = {r.rid: r.generated for r in rep.requests}
+    check(len(served) == 4 and all(len(t) == ARCH_NEW
+                                   for t in served.values()),
+          f"{arch}: the serve did not finish every request")
+    check(all(serve_counts.values()), f"{arch}: serve launches "
+          f"{serve_counts}")
+    agree = float(np.mean([a == b for r, t in zip(res, toks_gen)
+                           for a, b in zip(t, served[r.request.rid])]))
+    counts = {k: gen_counts[k] + serve_counts[k] for k in gen_counts}
+    row = {"layers": L, "of_layers": get_config(arch).num_layers,
+           "params": n_params,
+           "init_seconds": init_s,
+           "init_peak_gib": init_peak / 2 ** 30,
+           "decode_vs_forward_rel": cons, "recorded_calls": recorded,
+           "generate": {"wall_seconds": gen_wall, "calls": gen_calls,
+                        "prefill_wall_seconds": gen_secs["prefill"],
+                        "decode_wall_seconds": gen_secs["decode_step"],
+                        "launches": gen_counts},
+           "serve_continuous": {"wall_seconds": serve_wall,
+                                "calls": serve_calls,
+                                "launches": serve_counts,
+                                "token_agreement_with_generate": agree}}
+    if cfg.num_kv_heads == 1:
+        # granite: a gamma-4 self-draft speculative serve puts the
+        # multi-query mode at G = 48 (5 x 48 = 240 rows a kv head)
+        spec = GenerationConfig(max_new_tokens=ARCH_NEW, temperature=0.0,
+                                decoder="speculative", gamma=GAMMA)
+        reqs = _requests(Request, prompts, [None] * 4, ARCH_NEW)
+        timer.reset()
+        _reset_counts()
+        pa.paged_attention.multi_query_launches = 0
+        t0 = time.perf_counter()
+        srep = lvlm.serve(reqs, EngineConfig(
+            max_batch=4, cache_len=LVLM._cache_len(reqs, spec)), spec)
+        torch.cuda.synchronize()
+        mq = pa.paged_attention.multi_query_launches
+        spec_counts = _counts()
+        check(mq > 0 and all(len(r.generated) == ARCH_NEW
+                             for r in srep.requests),
+              f"{arch}: speculative serve, {mq} multi-query launches")
+        row["speculative_serve"] = {
+            "wall_seconds": time.perf_counter() - t0,
+            "multi_query_launches": mq, "launches": spec_counts,
+            "acceptance": srep.stats.get("acceptance"),
+            "token_agreement_with_greedy": float(np.mean(
+                [a == b for r in srep.requests
+                 for a, b in zip(r.generated, served[r.rid])]))}
+        counts = {k: counts[k] + spec_counts[k] for k in counts}
+    # wall and device busy per prefill (the 1024-token prompt) and per
+    # decode step of a 4-slot pool at the prompts' lengths
+    cache_len = ec.cache_len
+    pool = model.init_cache(4, cache_len, device="cuda")
+    dtoks = torch.zeros((4, 1), dtype=torch.long, device="cuda")
+    dpos = torch.tensor(list(ARCH_PROMPTS), device="cuda")
+    batch = {"tokens": torch.tensor([prompts[-1]], device="cuda")}
+    prof = _profile_calls({
+        "prefill_1024": (lambda: cls.prefill(model, params, batch,
+                                             cache_len=cache_len,
+                                             last_only=True), 2),
+        "decode_step_b4": (lambda: cls.decode_step(model, params, pool,
+                                                   dtoks, dpos), 5)})
+    for p in prof.values():
+        p.pop("by_kernel")
+    row["profile"] = prof
+    row["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    row["launches"] = counts
+    return row
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+def phase_arch_full() -> dict:
+    """granite-34b, mistral-large-123b, nemotron-4-340b and arctic-480b at
+    full published width, bf16, random weights from seed 0, each cut in
+    depth to fit the card (ARCH_FULL) and freed before the next: decode
+    after an S-1 prefill against forward at S-1 within CONSISTENCY_TOL
+    of the logit scale, every kernel call of that prefill and decode step
+    against the plain version, no NaN; 4 text requests (ARCH_PROMPTS
+    tokens, ARCH_NEW new) through ``generate`` and a continuous ``serve``;
+    granite also a gamma-4 speculative serve (the multi-query mode at
+    G = 48); wall and device-busy ms per 1024-token prefill and per
+    batch-4 decode step; the peak of device memory. Arctic's dropless
+    decode runs every expert on its buffer, as the reference does."""
+    total = dict.fromkeys(("flash_attention", "paged_attention"), 0)
+    for arch, layers in ARCH_FULL:
+        row = _arch_full_one(arch, layers)
+        total = {k: total[k] + row["launches"][k] for k in total}
+        emit("arch_full", config=arch, dtype="bfloat16", **row)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return total
+
+
 def phase_serve_cli() -> None:
     """``python -m repro_torch.launch.serve --roles prefill:1,decode:1
     --control --open-loop 2000 --requests 8`` on the card, in a
@@ -3307,6 +3786,7 @@ def main() -> int:
     verify = phase_paged_verify(flush)
     d32 = phase_kernels_d32(flush)
     verify_long = phase_paged_verify_long(flush)
+    new_shapes = phase_kernels_new_shapes(flush)
     del flush
     kv_launches = phase_kv_compaction_serve(full[0])
     prefix_launches = phase_prefix_cache_serve(full[0])
@@ -3315,15 +3795,18 @@ def main() -> int:
     ee_launches = phase_early_exit_serve(full[0], timer)
     phase_decoding_smoke()
     phi4_launches = phase_phi4_smoke()
+    arch_smoke_launches = phase_arch_smoke()
     async_launches = phase_async_serve(full[0])
     cluster_smoke_launches = phase_cluster_smoke()
     cluster_launches = phase_cluster_serve(full[0])
     phase_serve_cli()
     phase_profile(*full)
+    arch_full_launches = phase_arch_full()
     launches = {k: launches[k] + comp_launches[k] + kv_launches[k]
                 + prefix_launches[k] + spec_launches[k] + ee_launches[k]
                 + phi4_launches[k] + async_launches[k]
                 + cluster_smoke_launches[k] + cluster_launches[k]
+                + arch_smoke_launches[k] + arch_full_launches[k]
                 for k in launches}
     for name, n in launches.items():
         check(n > 0, f"kernel {name} was not launched on the main path")
@@ -3332,10 +3815,16 @@ def main() -> int:
     kernels["paged_attention"]["long_verify"] = verify_long
     for name, row in d32.items():
         kernels[name]["head_dim_32"] = row
+    for shape, rows in new_shapes.items():
+        kernels["flash_attention"][shape] = {
+            k: v for k, v in rows.items() if k.startswith("flash")}
+        kernels["paged_attention"][shape] = {
+            k: v for k, v in rows.items() if k.startswith("paged")}
     emit("done", seconds=time.perf_counter() - t_start)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    extra = ("head_dim_32", "multi_query", "long_verify")
+    extra = ("head_dim_32", "multi_query", "long_verify", "head_dim_192",
+             "group_48")
     print(env["smi"])
     print(json.dumps({"kernels": [
         {k: kv[k] for k in keys + tuple(x for x in extra if x in kv)}

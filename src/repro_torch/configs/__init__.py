@@ -1,20 +1,41 @@
 """Architecture configs of the port: ``get_config(arch_id)`` / ``ARCHS``.
 
-Only the architectures the port can build are listed (the dense and
-``vlm`` families); the others arrive with their model families.
+All ten of the reference's architectures are listed, with the same
+``CONFIG`` / ``SMOKE_CONFIG`` values (``repro.configs``). The port builds
+the dense, ``vlm`` and ``moe`` families; building deepseek-v3 (MLA),
+rwkv6, whisper or zamba2 raises ``NotImplementedError`` naming its
+ROADMAP item.
 """
 from __future__ import annotations
 
 import importlib
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import CompressionConfig, ModelConfig, \
+    ShapeConfig
+from repro_torch.configs.shapes import DECODE_32K, LONG_500K, PREFILL_32K, \
+    SHAPES, TRAIN_4K
 
 _MODULES = {
+    "mistral-large-123b": "repro_torch.configs.mistral_large_123b",
+    "deepseek-v3-671b": "repro_torch.configs.deepseek_v3_671b",
     "qwen2-vl-2b": "repro_torch.configs.qwen2_vl_2b",
+    "arctic-480b": "repro_torch.configs.arctic_480b",
     "phi4-mini-3.8b": "repro_torch.configs.phi4_mini_3_8b",
+    "rwkv6-3b": "repro_torch.configs.rwkv6_3b",
+    "nemotron-4-340b": "repro_torch.configs.nemotron_4_340b",
+    "whisper-tiny": "repro_torch.configs.whisper_tiny",
+    "granite-34b": "repro_torch.configs.granite_34b",
+    "zamba2-1.2b": "repro_torch.configs.zamba2_1_2b",
 }
 
 ARCHS = tuple(_MODULES)
+
+# (arch, shape) pairs excluded from the dry-run grid, with reasons
+SKIPS = {
+    ("whisper-tiny", "long_500k"):
+        "enc-dec audio: source context <=1500 frames, decoder max 448; "
+        "524288-token decode context is architecturally meaningless",
+}
 
 
 def get_config(arch_id: str, smoke: bool = False) -> ModelConfig:
@@ -24,4 +45,8 @@ def get_config(arch_id: str, smoke: bool = False) -> ModelConfig:
     return mod.SMOKE_CONFIG if smoke else mod.CONFIG
 
 
-__all__ = ["ModelConfig", "ARCHS", "get_config"]
+__all__ = [
+    "ModelConfig", "ShapeConfig", "CompressionConfig",
+    "SHAPES", "TRAIN_4K", "PREFILL_32K", "DECODE_32K", "LONG_500K",
+    "ARCHS", "SKIPS", "get_config",
+]

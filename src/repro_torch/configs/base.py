@@ -1,7 +1,8 @@
 """Model and compression configuration for the PyTorch port.
 
-Copies of ``repro.configs.base.ModelConfig`` and ``CompressionConfig``
-(the port imports nothing of the JAX package). The fields, defaults and
+Copies of ``repro.configs.base.ModelConfig``, ``ShapeConfig`` and
+``CompressionConfig`` (the port imports nothing of the JAX package). The
+fields, defaults and
 derived properties are the reference's, so a config built here describes
 the same network as the reference config of the same name.
 """
@@ -99,13 +100,47 @@ class ModelConfig:
         return _walk(build(self).param_specs())
 
     def active_param_count(self) -> int:
-        """Activated params per token: all of them for the dense and vlm
-        families the port builds (the reference discounts inactive MoE
-        experts; MoE is not ported)."""
-        return self.param_count()
+        """Activated params per token: MoE discounts its routed experts to
+        the ``experts_per_token / num_experts`` share (the reference's
+        rule: leaves under a path naming ``expert`` and not ``shared``)."""
+        from repro_torch.models.registry import build
+        specs = build(self).param_specs()
+        total = expert = 0
+
+        def _walk(node, path=()):
+            nonlocal total, expert
+            if isinstance(node, dict):
+                for k, v in node.items():
+                    _walk(v, path + (k,))
+                return
+            n = 1
+            for s in node.shape:
+                n *= s
+            total += n
+            if any("expert" in p for p in path) \
+                    and "shared" not in "/".join(path):
+                expert += n
+        _walk(specs)
+        if not self.num_experts:
+            return total
+        frac = self.experts_per_token / self.num_experts
+        return total - expert + int(expert * frac)
 
     def with_(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    """One assigned input shape (a copy of ``repro.configs.base.ShapeConfig``)."""
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                       # train | prefill | decode
+
+    @property
+    def is_decode(self) -> bool:
+        return self.kind == "decode"
 
 
 @dataclasses.dataclass(frozen=True)

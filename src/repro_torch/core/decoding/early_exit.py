@@ -50,13 +50,16 @@ def _lens(params, x, cfg):
 
 
 def layer_confidences(model, params, cache, tokens, pos) -> torch.Tensor:
-    """Diagnostic: run ALL layers, return [num_layers, B] logit-lens
-    max-prob."""
+    """Diagnostic: run the ``layers`` stack, return [n, B] logit-lens
+    max-prob (n = num_layers, less a MoE model's dense prefix, which the
+    reference does not run here either)."""
     cfg = model.cfg
     x = L.embed_tokens(params["embed"], tokens)
     pos, (cos, sin) = _positions(model, x, pos)
     confs = []
-    for i in range(cfg.num_layers):
+    n = cfg.num_layers - cfg.first_k_dense_layers \
+        if cfg.family == "moe" else cfg.num_layers
+    for i in range(n):
         x, _ = _dense_layer_decode(cfg, _layer(params["layers"], i), x, cos,
                                    sin, _layer_cache(cache, i), pos,
                                    window=0)
@@ -76,8 +79,10 @@ def early_exit_decode_step(model, params, cache, tokens, pos, *,
     batch exits jointly (min confidence across the batch).
     """
     cfg = model.cfg
-    if cfg.family not in ("dense", "vlm"):
+    if cfg.family not in ("dense", "vlm", "moe"):
         raise NotImplementedError("early exit targets attention families")
+    if cfg.family == "moe" and cfg.first_k_dense_layers:
+        raise NotImplementedError("early exit w/ dense-prefix MoE unsupported")
     x = L.embed_tokens(params["embed"], tokens)
     pos, (cos, sin) = _positions(model, x, pos)
     n = cfg.num_layers

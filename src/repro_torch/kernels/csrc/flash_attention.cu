@@ -24,7 +24,11 @@
 //    zero-fills rows past the end of the view. At D = 32 a row is 64 bytes:
 //    one 32-column box with the 64-byte swizzle (the wgmma descriptors take
 //    its layout type and 512-byte row groups), S = Q K^T takes two k-steps
-//    and P V is an m64n32k16;
+//    and P V is an m64n32k16. At D = 192 (nemotron-4-340b) a row is three
+//    128-byte boxes, S = Q K^T takes 12 k-steps and P V is an m64n192k16
+//    whose O accumulator is 96 registers a thread; the Q tile and the two
+//    K/V stages take 121 KB, so one CTA fits an SM and its launch bound
+//    gives it up to 255 registers;
 //  - one consumer warpgroup (warps 0-3) owns the 64 q rows, 16 per warp.
 //    S = Q K^T is a `wgmma` with both operands in shared memory (K-major).
 //    The online softmax runs on the accumulator registers: each thread
@@ -50,7 +54,8 @@
 // 132 SMs at the main shape).
 //
 // float32 inputs take a plain FMA path (synchronous tile loads into
-// shared memory), kept so that the float32 result can be checked tightly.
+// shared memory), kept so that the float32 result can be checked tightly
+// (211 KB of shared memory at D = 192, inside the 227 KB opt-in).
 //
 // Rows with no valid key: the reference kernels visit every key and return
 // the mean of V for such a row. When a q tile holds such a row this kernel
@@ -466,6 +471,41 @@ __device__ __forceinline__ void wgmma_rs_m64n128k16_tb(float (&d)[64],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
 }
 
+// D[64 x 192] += A[64 x 16] * B[16 x 192], A in registers (bf16 pairs), B
+// in shared memory MN-major (transposed, 128-byte swizzle): head dim 192's
+// P V, three 64-column boxes of V, a 96-register accumulator per thread.
+__device__ __forceinline__ void wgmma_rs_m64n192k16_tb(float (&d)[96],
+                                                     const uint32_t (&a)[4],
+                                                     uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %101, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 "
+      "{%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15,"
+      "%16,%17,%18,%19,%20,%21,%22,%23,%24,%25,%26,%27,%28,%29,%30,%31,"
+      "%32,%33,%34,%35,%36,%37,%38,%39,%40,%41,%42,%43,%44,%45,%46,%47,"
+      "%48,%49,%50,%51,%52,%53,%54,%55,%56,%57,%58,%59,%60,%61,%62,%63,"
+      "%64,%65,%66,%67,%68,%69,%70,%71,%72,%73,%74,%75,%76,%77,%78,%79,"
+      "%80,%81,%82,%83,%84,%85,%86,%87,%88,%89,%90,%91,%92,%93,%94,%95}, "
+      "{%96, %97, %98, %99}, %100, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]),
+        "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]),
+        "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
 // D[64 x 32] += A[64 x 16] * B[16 x 32], A in registers (bf16 pairs), B in
 // shared memory MN-major (transposed, 64-byte swizzle).
 __device__ __forceinline__ void wgmma_rs_m64n32k16_tb(float (&d)[16],
@@ -503,6 +543,12 @@ __device__ __forceinline__ void wgmma_pv<128>(float (&o)[64],
                                               const uint32_t (&a)[4],
                                               uint64_t desc_b) {
   wgmma_rs_m64n128k16_tb(o, a, desc_b);
+}
+template <>
+__device__ __forceinline__ void wgmma_pv<192>(float (&o)[96],
+                                              const uint32_t (&a)[4],
+                                              uint64_t desc_b) {
+  wgmma_rs_m64n192k16_tb(o, a, desc_b);
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -636,8 +682,11 @@ __device__ __forceinline__ void issue_pv(float (&o)[D / 2],
   wgmma_commit();
 }
 
+// Two CTAs a SM up to D = 128; at D = 192 one CTA's 121 KB of shared
+// memory leaves no room for a second, so its threads may take up to 255
+// registers (the 96-register O accumulator).
 template <int D>
-__global__ void __launch_bounds__(THREADS, 2)
+__global__ void __launch_bounds__(THREADS, D == 192 ? 1 : 2)
     flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
                      const __grid_constant__ CUtensorMap tm_k,
                      const __grid_constant__ CUtensorMap tm_v,
@@ -864,7 +913,8 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
 }  // namespace
 
 // q [B,H,Sq,D], k/v [B,KVH,Sk,D], o [B,H,Sq,D]: views of one dtype
-// (0 float32, 1 bfloat16), D in {32, 64, 128}, last dimension contiguous.
+// (0 float32, 1 bfloat16), D in {32, 64, 128, 192}, last dimension
+// contiguous.
 // `strides` holds the element strides (b, head, seq) of q, k, v and o, in
 // that order (12 values), each a multiple of 16 bytes. kv_len and q_offset
 // are already resolved as the Pallas wrapper resolves them. Returns the CUDA
@@ -883,38 +933,43 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
                 *kf = static_cast<const float*>(k),
                 *vf = static_cast<const float*>(v);
     float* of = static_cast<float*>(o);
-    if (D == 32)
-      return f32::launch<32>(qf, kf, vf, of, B, H, KVH, Sq, Sk, kv_len,
-                             q_offset, causal, window, st, s);
-    if (D == 64)
-      return f32::launch<64>(qf, kf, vf, of, B, H, KVH, Sq, Sk, kv_len,
-                             q_offset, causal, window, st, s);
-    if (D == 128)
-      return f32::launch<128>(qf, kf, vf, of, B, H, KVH, Sq, Sk, kv_len,
-                              q_offset, causal, window, st, s);
+#define REPRO_F32(DD)                                                       \
+  if (D == DD)                                                              \
+    return f32::launch<DD>(qf, kf, vf, of, B, H, KVH, Sq, Sk, kv_len,       \
+                           q_offset, causal, window, st, s);
+    REPRO_F32(32)
+    REPRO_F32(64)
+    REPRO_F32(128)
+    REPRO_F32(192)
+#undef REPRO_F32
   }
   if (dtype == repro::kBFloat16) {
-    if (D == 32)
-      return bf16::launch<32>(q, k, v, o, B, H, KVH, Sq, Sk, kv_len, q_offset,
-                              causal, window, st, s);
-    if (D == 64)
-      return bf16::launch<64>(q, k, v, o, B, H, KVH, Sq, Sk, kv_len, q_offset,
-                              causal, window, st, s);
-    if (D == 128)
-      return bf16::launch<128>(q, k, v, o, B, H, KVH, Sq, Sk, kv_len, q_offset,
-                               causal, window, st, s);
+#define REPRO_BF16(DD)                                                      \
+  if (D == DD)                                                              \
+    return bf16::launch<DD>(q, k, v, o, B, H, KVH, Sq, Sk, kv_len, q_offset, \
+                            causal, window, st, s);
+    REPRO_BF16(32)
+    REPRO_BF16(64)
+    REPRO_BF16(128)
+    REPRO_BF16(192)
+#undef REPRO_BF16
   }
   return (int)cudaErrorInvalidValue;
 }
 
 // Dynamic shared memory of one CTA of the kernel for (dtype, D), in bytes
-// (reported by chip_smoke.py's build phase; ptxas prints only static).
+// (reported by chip_smoke.py's build phase; ptxas prints only static), or
+// -1 for a head dim the kernel does not take.
 extern "C" int flash_attention_smem_bytes(int dtype, int D) {
   if (dtype == repro::kFloat32)
-    return D == 32   ? (int)f32::Layout<32>::bytes
-           : D == 64 ? (int)f32::Layout<64>::bytes
-                     : (int)f32::Layout<128>::bytes;
-  return D == 32   ? (int)bf16::Smem<32>::bytes
-         : D == 64 ? (int)bf16::Smem<64>::bytes
-                   : (int)bf16::Smem<128>::bytes;
+    return D == 32    ? (int)f32::Layout<32>::bytes
+           : D == 64  ? (int)f32::Layout<64>::bytes
+           : D == 128 ? (int)f32::Layout<128>::bytes
+           : D == 192 ? (int)f32::Layout<192>::bytes
+                      : -1;
+  return D == 32    ? (int)bf16::Smem<32>::bytes
+         : D == 64  ? (int)bf16::Smem<64>::bytes
+         : D == 128 ? (int)bf16::Smem<128>::bytes
+         : D == 192 ? (int)bf16::Smem<192>::bytes
+                    : -1;
 }

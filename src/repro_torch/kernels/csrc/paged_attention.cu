@@ -29,8 +29,13 @@
 //     running max and sum, and writes the probabilities; then each thread
 //     accumulates P V for a pair of columns over its heads. The kernel is
 //     instantiated for G <= 4, 8 and 16, so the per-head loops of G = 6 run
-//     8 predicated iterations, not 16. The CTA writes the partial
-//     (m, l, acc[G, D]) of its split to float32 scratch.
+//     8 predicated iterations, not 16. G up to 64 (granite-34b's MQA has
+//     48 query heads on its one kv head) takes a 64-row instantiation:
+//     the CTA still reads each K/V row once for all its heads. The CTA
+//     writes the partial (m, l, acc[G, D]) of its split to float32
+//     scratch. D = 192 (nemotron-4-340b) is 24 bf16 or 48 float32 pieces
+//     a row, the swizzle permuting each run of 8; its P V has 96 column
+//     pairs for 128 threads, so threads 96-127 sit that product out.
 //  2. Grid (B * H), 4 * D threads. One CTA per output row merges the
 //     partials: out = sum_s e^(m_s - M) acc_s / sum_s e^(m_s - M) l_s,
 //     M = max_s m_s. The weights are computed once, in parallel; four
@@ -128,13 +133,13 @@ namespace {
 constexpr int THREADS = 128;  // 4 warps
 constexpr int WARPS = THREADS / 32;
 constexpr int CHUNK = 32;     // tokens per cp.async stage (one per lane)
-constexpr int MAXG = 16;      // query heads per kv head
-constexpr int MAXROWS = 64;   // query rows per CTA (multi-query mode)
+constexpr int MAXG = 16;      // rows of the smallest shared-memory layout
+constexpr int MAXROWS = 64;   // query rows per CTA: G, or S * G a tile
 
 // Modes of the split kernel (a template argument: each its own code).
 enum Mode : int { kPlain = 0, kMasked = 1, kMulti = 2 };
 
-// ROWS: query rows a CTA holds (MAXG for the one-query kernels).
+// ROWS: query rows a CTA holds (MAXG for instantiations of <= 16 rows).
 template <typename T, int D, int ROWS = MAXG>
 struct Layout {
   static constexpr int VEC = 16 / sizeof(T);  // elements per 16-byte piece
@@ -195,7 +200,7 @@ __device__ __forceinline__ float2 load2<__nv_bfloat16>(const __nv_bfloat16* p) {
   return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
 }
 
-// GMAX (4, 8 or 16; 32 and 64 in multi-query mode) bounds the query rows
+// GMAX (4, 8, 16 or 64; also 32 in float32 multi-query mode) bounds the rows
 // of a CTA, R = G = H / KVH (S * G in multi-query mode), so the per-row
 // loops run no more predicated-off iterations than needed (G = 6 takes
 // GMAX = 8). kMasked takes k_pos (may be null), q_pos [B] and window (the
@@ -214,7 +219,7 @@ __global__ void __launch_bounds__(THREADS)
                        int page, int pps, int split, float scale) {
   constexpr bool MASKED = MODE == kMasked;
   constexpr bool MULTI = MODE == kMulti;
-  static_assert(MULTI || GMAX <= MAXG, "one-query rows are heads");
+  static_assert(GMAX <= MAXROWS, "a CTA holds at most MAXROWS rows");
   static_assert(GMAX <= THREADS, "one thread per row writes empty splits");
   using L = Layout<T, D, (GMAX > MAXG ? GMAX : MAXG)>;
   extern __shared__ __align__(128) unsigned char smem[];
@@ -330,10 +335,13 @@ __global__ void __launch_bounds__(THREADS)
       qp_r[gi] = g < R ? q_pos[(size_t)b * S + (row0 + g) / G] : 0;
     }
   }
-  // P V role: thread owns columns d2, d2 + 1 of heads set + NS * gi
+  // P V role: thread owns columns d2, d2 + 1 of heads set + NS * gi. At
+  // D = 192 the 96 column pairs leave NS = 1 set: threads 96-127 idle here
+  // (pv is false; true for every thread at D = 32, 64 and 128)
   constexpr int NS = THREADS / (D / 2);
   constexpr int GPS = (GMAX + NS - 1) / NS;  // NS = 8 > GMAX = 4 at D = 32
   const int d2 = 2 * (threadIdx.x % (D / 2)), set = threadIdx.x / (D / 2);
+  const bool pv = set < NS;
   float acc[GPS][2];
 #pragma unroll
   for (int gi = 0; gi < GPS; ++gi) acc[gi][0] = acc[gi][1] = 0.0f;
@@ -404,7 +412,7 @@ __global__ void __launch_bounds__(THREADS)
 #pragma unroll
     for (int gi = 0; gi < GPS; ++gi) {
       const int g = set + NS * gi;
-      if (g < R) {
+      if (pv && g < R) {
         const float cr = corr_s[g];
         acc[gi][0] *= cr;
         acc[gi][1] *= cr;
@@ -416,7 +424,7 @@ __global__ void __launch_bounds__(THREADS)
 #pragma unroll
       for (int gi = 0; gi < GPS; ++gi) {
         const int g = set + NS * gi;
-        if (g < R) {
+        if (pv && g < R) {
           const float pr = P[g * CHUNK + t];
           acc[gi][0] = fmaf(pr, vv.x, acc[gi][0]);
           acc[gi][1] = fmaf(pr, vv.y, acc[gi][1]);
@@ -442,7 +450,7 @@ __global__ void __launch_bounds__(THREADS)
 #pragma unroll
   for (int gi = 0; gi < GPS; ++gi) {
     const int g = set + NS * gi;
-    if (g < R)
+    if (pv && g < R)
       *reinterpret_cast<float2*>(part_acc + prow(g) * D + d2) =
           make_float2(acc[gi][0], acc[gi][1]);
   }
@@ -878,8 +886,9 @@ cudaError_t launch_merge(float* part_acc, float* part_ml, void* o, int rows,
 }
 
 // The instantiation whose GMAX bounds the CTA's rows R = S * H / KVH, at
-// most MAXROWS (more rows take more row-tile CTAs; 32 and 64 exist only in
-// float32 multi-query mode); bf16 multi-query with S >= 2 takes the
+// most MAXROWS (more rows take more row-tile CTAs): 4, 8 and 16, then 64
+// (one-query G = 48 of granite-34b, and multi-query rows past 16; float32
+// multi-query also has 32); bf16 multi-query with S >= 2 takes the
 // tensor-core kernel.
 template <typename T, int D, int MODE>
 cudaError_t launch_g(const void* q, const void* kp, const void* vp,
@@ -912,10 +921,8 @@ cudaError_t launch_g(const void* q, const void* kp, const void* vp,
   if (R <= 16) REPRO_LAUNCH(16);
   if constexpr (MODE == kMulti && std::is_same<T, float>::value) {
     if (R <= 32) REPRO_LAUNCH(32);
-    REPRO_LAUNCH(64);
-  } else {  // bf16 takes more rows only on tensor cores (S >= 2)
-    return cudaErrorInvalidValue;
   }
+  REPRO_LAUNCH(64);
 #undef REPRO_LAUNCH
 }
 
@@ -945,27 +952,23 @@ cudaError_t dispatch(const void* q, const void* k_pages, const void* v_pages,
                      float* pa, float* pm, int B, int S, int H, int KVH,
                      int D, int page, int pps, int split, int dtype,
                      cudaStream_t s) {
-  if (dtype == repro::kFloat32 && D == 32)
-    return launch_m<float, 32>(q, k_pages, v_pages, bt, sl, mask, o, pa, pm,
-                               B, S, H, KVH, page, pps, split, s);
-  if (dtype == repro::kFloat32 && D == 64)
-    return launch_m<float, 64>(q, k_pages, v_pages, bt, sl, mask, o, pa, pm,
-                               B, S, H, KVH, page, pps, split, s);
-  if (dtype == repro::kFloat32 && D == 128)
-    return launch_m<float, 128>(q, k_pages, v_pages, bt, sl, mask, o, pa, pm,
-                                B, S, H, KVH, page, pps, split, s);
-  if (dtype == repro::kBFloat16 && D == 32)
-    return launch_m<__nv_bfloat16, 32>(q, k_pages, v_pages, bt, sl, mask, o,
-                                       pa, pm, B, S, H, KVH, page, pps,
-                                       split, s);
-  if (dtype == repro::kBFloat16 && D == 64)
-    return launch_m<__nv_bfloat16, 64>(q, k_pages, v_pages, bt, sl, mask, o,
-                                       pa, pm, B, S, H, KVH, page, pps,
-                                       split, s);
-  if (dtype == repro::kBFloat16 && D == 128)
-    return launch_m<__nv_bfloat16, 128>(q, k_pages, v_pages, bt, sl, mask, o,
-                                        pa, pm, B, S, H, KVH, page, pps,
-                                        split, s);
+#define REPRO_D(T, DD)                                                      \
+  if (D == DD)                                                              \
+    return launch_m<T, DD>(q, k_pages, v_pages, bt, sl, mask, o, pa, pm, B, \
+                           S, H, KVH, page, pps, split, s);
+  if (dtype == repro::kFloat32) {
+    REPRO_D(float, 32)
+    REPRO_D(float, 64)
+    REPRO_D(float, 128)
+    REPRO_D(float, 192)
+  }
+  if (dtype == repro::kBFloat16) {
+    REPRO_D(__nv_bfloat16, 32)
+    REPRO_D(__nv_bfloat16, 64)
+    REPRO_D(__nv_bfloat16, 128)
+    REPRO_D(__nv_bfloat16, 192)
+  }
+#undef REPRO_D
   return cudaErrorInvalidValue;
 }
 
@@ -975,7 +978,7 @@ cudaError_t dispatch(const void* q, const void* k_pages, const void* v_pages,
 // rows of a kv head go to row tiles of MAXROWS), k/v pages [P,page,KVH,D],
 // block_table [B,pps] int32 (entries in [0, P)), seq_lens [B] int32, o
 // shaped as q; all contiguous, one dtype (0 float32, 1 bfloat16), D in
-// {32, 64, 128}, H / KVH <= 16.
+// {32, 64, 128, 192}, H / KVH <= 64.
 // One-query masked mode: k_pos [P,page] int32 or null, q_pos [B] int32
 // (needed when k_pos is given or window > 0, else may be null),
 // window >= 0. Multi-query mode: q_pos [B,S] int32 (each query's
@@ -1002,7 +1005,7 @@ extern "C" int paged_attention_fwd(const void* q, const void* k_pages,
   float* pm = static_cast<float*>(part_ml);
   // the merge keeps one weight per split in shared memory: at most 192 KB
   // beside its ~2 KB of static arrays, inside a CTA's 227 KB
-  if (H % KVH != 0 || H / KVH > MAXG || split < 1 ||
+  if (H % KVH != 0 || H / KVH > MAXROWS || split < 1 ||
       (pps * page + split - 1) / split > 48 * 1024 || window < 0 ||
       ((k_pos != nullptr || window > 0) && q_pos == nullptr))
     return (int)cudaErrorInvalidValue;
@@ -1012,14 +1015,19 @@ extern "C" int paged_attention_fwd(const void* q, const void* k_pages,
                        KVH, D, page, pps, split, dtype, s);
 }
 
-// Dynamic shared memory of one split-kernel CTA for (dtype, D), in bytes
-// (reported by chip_smoke.py's build phase; ptxas prints only static).
+// Dynamic shared memory of one split-kernel CTA for (dtype, D) at up to
+// 16 rows, in bytes (reported by chip_smoke.py's build phase; ptxas prints
+// only static), or -1 for a head dim the kernel does not take.
 extern "C" int paged_attention_smem_bytes(int dtype, int D) {
   if (dtype == repro::kFloat32)
-    return D == 32   ? (int)Layout<float, 32>::bytes
-           : D == 64 ? (int)Layout<float, 64>::bytes
-                     : (int)Layout<float, 128>::bytes;
-  return D == 32   ? (int)Layout<__nv_bfloat16, 32>::bytes
-         : D == 64 ? (int)Layout<__nv_bfloat16, 64>::bytes
-                   : (int)Layout<__nv_bfloat16, 128>::bytes;
+    return D == 32    ? (int)Layout<float, 32>::bytes
+           : D == 64  ? (int)Layout<float, 64>::bytes
+           : D == 128 ? (int)Layout<float, 128>::bytes
+           : D == 192 ? (int)Layout<float, 192>::bytes
+                      : -1;
+  return D == 32    ? (int)Layout<__nv_bfloat16, 32>::bytes
+         : D == 64  ? (int)Layout<__nv_bfloat16, 64>::bytes
+         : D == 128 ? (int)Layout<__nv_bfloat16, 128>::bytes
+         : D == 192 ? (int)Layout<__nv_bfloat16, 192>::bytes
+                    : -1;
 }

@@ -23,7 +23,7 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.kernels.ref import flash_attention_ref
 
-HEAD_DIMS = (32, 64, 128)
+HEAD_DIMS = (32, 64, 128, 192)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -86,7 +86,7 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     absolute position of q[..., 0, :] for the causal and window masks,
     with the Pallas wrapper's default. A CPU tensor takes the plain
     version; a CUDA tensor takes the kernel (float32 or bfloat16, D in
-    {32, 64, 128}, views with a contiguous last dimension and other strides
+    {32, 64, 128, 192}, views with a contiguous last dimension and other strides
     that are multiples of 16 bytes) or raises. The result has q's strides
     when q is a dense view, so ``flash_attention(q.transpose(1, 2), ...)``
     transposes back to a contiguous tensor.

@@ -27,8 +27,9 @@ from repro_torch.kernels import build
 from repro_torch.kernels.ref import (NEG_INF, multi_query_rows,
                                      paged_attention_ref, paged_key_mask)
 
-HEAD_DIMS = (32, 64, 128)
-MAX_GROUP = 16
+HEAD_DIMS = (32, 64, 128, 192)
+#: query heads per kv head the kernel takes (granite-34b's MQA has 48)
+MAX_GROUP = 64
 #: Tokens the kernel stages per cp.async chunk, and the tokens of each CTA
 #: of its split kernel: one chunk at every batch (the source's header says
 #: why).
@@ -120,8 +121,8 @@ def paged_attention(q, k_pages, v_pages, block_table, seq_lens, *,
     given, else t); ``ref.paged_key_mask`` is the rule in plain PyTorch.
 
     A CPU tensor takes the plain version; a CUDA tensor takes the kernel
-    (float32 or bfloat16, D in {32, 64, 128}, H/KVH <= 16, contiguous) or
-    raises. The table's entries are not range-checked on the card (that
+    (float32 or bfloat16, D in {32, 64, 128, 192}, H/KVH <= 64,
+    contiguous) or raises. The table's entries are not range-checked on the card (that
     would synchronize every step); the caller builds them.
 
     Multi-query mode: q [B,S,H,D] and ``q_pos`` [B,S] int32, no ``k_pos``

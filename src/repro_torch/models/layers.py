@@ -25,7 +25,7 @@ import torch.nn.functional as F
 # --------------------------------------------------------------------------
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
-          "int32": torch.int32}
+          "int32": torch.int32, "int8": torch.int8}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -61,7 +61,8 @@ def init_params(specs, seed: int, default_dtype: str, device):
     Each leaf draws from its own ``torch.Generator`` seeded from ``seed``
     and the crc32 of its path, so a leaf's values do not depend on the
     order of the walk. The draws are not the reference's ``jax.random``
-    numbers; the fan-in scales are the same.
+    numbers; the fan-in scales are the same, and int8 leaves (quantized
+    FFN weights) draw integers in [-64, 64] as the reference's.
     """
     device = torch.device(device)
 
@@ -73,9 +74,12 @@ def init_params(specs, seed: int, default_dtype: str, device):
             return torch.ones(s.shape, dtype=dt, device=device)
         gen = torch.Generator(device=device)
         gen.manual_seed(seed * 1_000_003 + zlib.crc32("/".join(path).encode()))
+        if dt == torch.int8:
+            return torch.randint(-64, 65, s.shape, generator=gen,
+                                 dtype=torch.int8, device=device)
         w = torch.randn(s.shape, generator=gen, dtype=torch.float32,
                         device=device)
-        return (w * s.scale).to(dt)
+        return w.mul_(s.scale).to(dt)
     return tree_map_specs(_one, specs)
 
 
@@ -83,21 +87,56 @@ def init_params(specs, seed: int, default_dtype: str, device):
 # norms
 # --------------------------------------------------------------------------
 
-def norm_specs(cfg) -> Dict[str, ParamSpec]:
-    if cfg.norm != "rmsnorm":
-        raise NotImplementedError(
-            f"{cfg.norm} is not ported yet (ROADMAP queue A, slice 7)")
-    return {"scale": spec((cfg.d_model,), ("embed",), init="ones")}
+def norm_specs(cfg, with_bias: Optional[bool] = None) -> Dict[str, ParamSpec]:
+    use_bias = cfg.norm == "layernorm" if with_bias is None else with_bias
+    out = {"scale": spec((cfg.d_model,), ("embed",), init="ones")}
+    if use_bias:
+        out["bias"] = spec((cfg.d_model,), ("embed",), init="zeros")
+    return out
 
 
 def apply_norm(p, x, kind: str, eps: float = 1e-6):
-    """RMSNorm (the only norm of the ported families)."""
-    if kind != "rmsnorm":
-        raise NotImplementedError(
-            f"{kind} is not ported yet (ROADMAP queue A, slice 7)")
+    """RMSNorm, or LayerNorm with the population variance (``jnp.var``),
+    in float32; a ``bias`` leaf is added when present."""
     xf = x.float()
-    y = xf * torch.rsqrt(xf.square().mean(-1, keepdim=True) + eps)
-    return (y * p["scale"].float()).to(x.dtype)
+    if kind == "rmsnorm":
+        y = xf * torch.rsqrt(xf.square().mean(-1, keepdim=True) + eps)
+    else:  # layernorm
+        mu = xf.mean(-1, keepdim=True)
+        var = xf.var(-1, keepdim=True, correction=0)
+        y = (xf - mu) * torch.rsqrt(var + eps)
+    y = y * p["scale"].float()
+    if "bias" in p:
+        y = y + p["bias"].float()
+    return y.to(x.dtype)
+
+
+def quantize_ffn_params(params):
+    """Post-training int8 quantization of FFN weights (per output
+    channel), the reference's ``quantize_ffn_params``: every MLP dict
+    ({wi | wi_gate, wi_up}, wo) gets int8 weights and float32 ``<name>_s``
+    scales, the ``weight_quant='int8_ffn'`` layout. Stacked leading dims
+    are kept (the max is over the input dim only). Returns a new tree."""
+    def quant(w):
+        wf = w.float()
+        scale = torch.clamp(wf.abs().amax(-2, keepdim=True) / 127.0,
+                            min=1e-8)
+        q = torch.clamp(torch.round(wf / scale), -127, 127).to(torch.int8)
+        return q, scale.squeeze(-2)
+
+    def walk(node):
+        if not isinstance(node, dict):
+            return node
+        if "wo" in node and ("wi" in node or "wi_gate" in node) \
+                and not any(k.endswith("_s") for k in node):
+            out = dict(node)
+            for k in ("wi", "wi_gate", "wi_up", "wo"):
+                if k in node:
+                    out[k], out[k + "_s"] = quant(node[k])
+            return out
+        return {k: walk(v) for k, v in node.items()}
+
+    return walk(params)
 
 
 # --------------------------------------------------------------------------
@@ -172,27 +211,51 @@ def apply_rope(x, cos, sin):
 
 
 # --------------------------------------------------------------------------
-# MLP (SwiGLU)
+# MLPs (SwiGLU / squared-ReLU / GELU, optionally int8 weights)
 # --------------------------------------------------------------------------
 
-def mlp_specs(cfg) -> Dict[str, ParamSpec]:
-    if cfg.activation != "swiglu" or cfg.weight_quant != "none":
-        raise NotImplementedError(
-            f"{cfg.activation} / {cfg.weight_quant} FFNs are not ported yet "
-            "(ROADMAP queue A, slice 7)")
-    d, d_ff = cfg.d_model, cfg.d_ff
-    return {
-        "wi_gate": spec((d, d_ff), ("embed", "ffn")),
-        "wi_up": spec((d, d_ff), ("embed", "ffn")),
-        "wo": spec((d_ff, d), ("ffn", "embed")),
-    }
+def mlp_specs(cfg, d_ff: Optional[int] = None) -> Dict[str, ParamSpec]:
+    d_ff = d_ff or cfg.d_ff
+    d = cfg.d_model
+    quant = cfg.weight_quant == "int8_ffn"
+    wdt = "int8" if quant else None
+    names = ("wi_gate", "wi_up") if cfg.activation == "swiglu" else ("wi",)
+    out = {n: spec((d, d_ff), ("embed", "ffn"), dtype=wdt) for n in names}
+    out["wo"] = spec((d_ff, d), ("ffn", "embed"), dtype=wdt)
+    if quant:
+        for n in names:
+            out[n + "_s"] = spec((d_ff,), ("ffn",), init="ones",
+                                 dtype="float32")
+        out["wo_s"] = spec((d,), ("embed",), init="ones", dtype="float32")
+    return out
+
+
+def _qmm(x, w, scale):
+    """x @ int8 w with the per-output-channel scale applied after the
+    product (float32), as the reference's ``_qmm``."""
+    return torch.matmul(x, w.to(x.dtype)).float() * scale.float()
+
+
+def _mm(p, x, name: str):
+    """x @ p[name] in float32 (dequantized when p holds ``<name>_s``)."""
+    if name + "_s" in p:
+        return _qmm(x, p[name], p[name + "_s"])
+    return torch.matmul(x, p[name]).float()
 
 
 def apply_mlp(p, x, activation: str):
-    """SwiGLU: silu(x Wg) * (x Wu) in float32, back to x's dtype, then Wo."""
-    if activation != "swiglu":
-        raise NotImplementedError(
-            f"{activation} is not ported yet (ROADMAP queue A, slice 7)")
-    h = F.silu(torch.matmul(x, p["wi_gate"]).float()) \
-        * torch.matmul(x, p["wi_up"]).float()
-    return torch.matmul(h.to(x.dtype), p["wo"]).to(x.dtype)
+    """SwiGLU silu(x Wg) * (x Wu), or act(x Wi) for ``relu2`` (squared
+    ReLU) and ``gelu`` (tanh approximation, ``jax.nn.gelu``'s default),
+    in float32, back to x's dtype, then Wo."""
+    if activation == "swiglu":
+        h = F.silu(_mm(p, x, "wi_gate")) * _mm(p, x, "wi_up")
+    elif activation == "relu2":
+        h = torch.relu(_mm(p, x, "wi")).square()
+    elif activation == "gelu":
+        h = F.gelu(_mm(p, x, "wi"), approximate="tanh")
+    else:
+        raise ValueError(activation)
+    h = h.to(x.dtype)
+    if "wo_s" in p:
+        return _qmm(h, p["wo"], p["wo_s"]).to(x.dtype)
+    return torch.matmul(h, p["wo"]).to(x.dtype)

@@ -1,11 +1,16 @@
-"""Model assembly: the dense and ``vlm`` families.
+"""Model assembly: the dense, ``vlm`` and ``moe`` families.
 
 Port of ``repro.models.transformer``. Parameters keep the reference's
 stacked layout (every layer leaf has a leading [num_layers] dim) so a
 reference checkpoint carries over key for key; the reference's
 ``lax.scan`` over the stacked layers is a Python loop here, each layer
 reading its slice of the stacked params and cache (views, so cache
-writes land in the stacked cache).
+writes land in the stacked cache). The ``moe`` family's first
+``first_k_dense_layers`` layers are a stack of their own
+(``dense_layers``, dense MLPs), then ``layers`` with the MoE FFN; the
+MoE capacity defaults are the reference's (1.25 for ``forward``,
+``prefill`` and ``extend``, dropless for ``decode_step``), so a chunked
+prefill drops tokens chunk by chunk as the reference does.
 
 Entry points (as the reference):
   forward(params, batch)                      -> (logits [B,S,V], aux)
@@ -24,6 +29,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import layers as L
+from repro_torch.models import moe as MOE
 from repro_torch.models.layers import ParamSpec, spec
 
 
@@ -47,55 +53,71 @@ def _layer(tree, i: int):
 # --------------------------------------------------------------------------
 
 def _dense_layer_specs(cfg: ModelConfig) -> Dict[str, Any]:
-    return {
+    out = {
         "ln1": L.norm_specs(cfg),
         "attn": attn.attn_specs(cfg),
         "ln2": L.norm_specs(cfg),
-        "mlp": L.mlp_specs(cfg),
     }
+    if cfg.num_experts:
+        out["moe"] = MOE.moe_specs(cfg)
+    else:
+        out["mlp"] = L.mlp_specs(cfg)
+    return out
 
 
-def _dense_layer_fwd(cfg, p, x, cos, sin, *, positions, window, causal=True):
-    """Full-seq layer (forward without cache)."""
-    h = L.apply_norm(p["ln1"], x, cfg.norm)
-    x = x + attn.full_attention(p["attn"], h, cos, sin, cfg, causal=causal,
-                                window=window, positions=positions)
+def _ffn(cfg, p, x, a, moe_cap):
+    """The residual around attention output ``a``, then the FFN residual
+    (the MoE layer where the layer has one). Returns (x, aux)."""
+    x = x + a
     h = L.apply_norm(p["ln2"], x, cfg.norm)
-    return x + L.apply_mlp(p["mlp"], h, cfg.activation)
+    if cfg.num_experts and "moe" in p:
+        f, aux = MOE.apply_moe(p["moe"], h, cfg, capacity_factor=moe_cap)
+        return x + f, aux
+    return x + L.apply_mlp(p["mlp"], h, cfg.activation), {}
 
 
-def _dense_layer_prefill(cfg, p, x, cos, sin, cache, *, positions, window):
+def _dense_layer_fwd(cfg, p, x, cos, sin, *, positions, window, causal=True,
+                     moe_cap=1.25):
+    """Full-seq layer (forward without cache). Returns (x, aux)."""
+    h = L.apply_norm(p["ln1"], x, cfg.norm)
+    a = attn.full_attention(p["attn"], h, cos, sin, cfg, causal=causal,
+                            window=window, positions=positions)
+    return _ffn(cfg, p, x, a, moe_cap)
+
+
+def _dense_layer_prefill(cfg, p, x, cos, sin, cache, *, positions, window,
+                         moe_cap=1.25):
     h = L.apply_norm(p["ln1"], x, cfg.norm)
     a, cache = attn.prefill_into_cache(p["attn"], h, cos, sin, cfg, cache,
                                        window=window, positions=positions)
-    x = x + a
-    h = L.apply_norm(p["ln2"], x, cfg.norm)
-    return x + L.apply_mlp(p["mlp"], h, cfg.activation), cache
+    return _ffn(cfg, p, x, a, moe_cap)[0], cache
 
 
-def _dense_layer_extend(cfg, p, x, cos, sin, cache, start, *, window):
+def _dense_layer_extend(cfg, p, x, cos, sin, cache, start, *, window,
+                        moe_cap=1.25):
     h = L.apply_norm(p["ln1"], x, cfg.norm)
     a, cache = attn.append_attention(p["attn"], h, cos, sin, cfg, cache,
                                      start, window=window)
-    x = x + a
-    h = L.apply_norm(p["ln2"], x, cfg.norm)
-    return x + L.apply_mlp(p["mlp"], h, cfg.activation), cache
+    return _ffn(cfg, p, x, a, moe_cap)[0], cache
 
 
-def _dense_layer_decode(cfg, p, x, cos, sin, cache, pos, *, window):
+def _dense_layer_decode(cfg, p, x, cos, sin, cache, pos, *, window,
+                        moe_cap=None):
     h = L.apply_norm(p["ln1"], x, cfg.norm)
     a, cache = attn.decode_attention(p["attn"], h, cos, sin, cfg, cache, pos,
                                      window=window)
-    x = x + a
-    h = L.apply_norm(p["ln2"], x, cfg.norm)
-    return x + L.apply_mlp(p["mlp"], h, cfg.activation), cache
+    return _ffn(cfg, p, x, a, moe_cap)[0], cache
 
 
 # --------------------------------------------------------------------------
 # Model
 # --------------------------------------------------------------------------
 
-_FAMILIES = ("dense", "vlm")
+_FAMILIES = ("dense", "vlm", "moe")
+#: families and features the port does not build yet, by ROADMAP item
+_NOT_PORTED = {"ssm": "item 18 (models/rwkv.py)",
+               "hybrid": "items 18-19 (models/mamba.py, the hybrid family)",
+               "audio": "item 19 (the audio family)"}
 
 
 @dataclasses.dataclass
@@ -104,22 +126,39 @@ class Model:
 
     def __post_init__(self):
         cfg = self.cfg
-        if cfg.family not in _FAMILIES or cfg.num_experts:
+        if cfg.family in _NOT_PORTED:
             raise NotImplementedError(
                 f"family {cfg.family!r} is not ported yet (ROADMAP queue A, "
-                "slice 7); the port builds the dense and vlm families")
+                f"{_NOT_PORTED[cfg.family]}); the port builds the "
+                f"{', '.join(_FAMILIES)} families")
+        if cfg.family not in _FAMILIES:
+            raise ValueError(f"unknown family {cfg.family!r}")
+        if cfg.use_mla:
+            raise NotImplementedError(
+                "MLA attention is not ported yet (ROADMAP queue A, item 17)")
         if cfg.family == "vlm" and cfg.projector != "mlp":
             raise NotImplementedError(
                 "the perceiver projector is not ported yet (ROADMAP queue A, "
-                "slice 7)")
+                "item 18, models/resampler.py)")
+
+    def segments(self) -> Tuple[Tuple[str, ModelConfig, int], ...]:
+        """The stacked layer segments in order: (params / cache key, the
+        config its layers run with, depth). The ``moe`` family's dense
+        prefix runs with ``num_experts=0`` (dense MLPs)."""
+        cfg = self.cfg
+        kd = cfg.first_k_dense_layers if cfg.family == "moe" else 0
+        out = (("layers", cfg, cfg.num_layers - kd),)
+        if kd:
+            out = (("dense_layers", cfg.with_(num_experts=0), kd),) + out
+        return out
 
     # ------------------------------------------------------------- specs --
     def param_specs(self) -> Dict[str, Any]:
         cfg = self.cfg
         out: Dict[str, Any] = {"embed": L.embed_specs(cfg),
-                               "final_norm": L.norm_specs(cfg),
-                               "layers": stack_specs(_dense_layer_specs(cfg),
-                                                     cfg.num_layers)}
+                               "final_norm": L.norm_specs(cfg)}
+        for key, lcfg, n in self.segments():
+            out[key] = stack_specs(_dense_layer_specs(lcfg), n)
         if cfg.family == "vlm":
             out["projector"] = {
                 "w1": spec((cfg.d_model, cfg.d_model), ("embed", "embed_out")),
@@ -133,9 +172,8 @@ class Model:
     # ------------------------------------------------------------- cache --
     def cache_specs(self, batch: int, cache_len: int,
                     windowed: bool = False) -> Dict[str, Any]:
-        return {"layers": stack_specs(
-            attn.kv_cache_specs(self.cfg, batch, cache_len, windowed),
-            self.cfg.num_layers)}
+        one = attn.kv_cache_specs(self.cfg, batch, cache_len, windowed)
+        return {key: stack_specs(one, n) for key, _, n in self.segments()}
 
     def init_cache(self, batch, cache_len, windowed=False, device="cpu"):
         return attn.zeros_from_specs(
@@ -186,22 +224,29 @@ class Model:
         return L.unembed(params["embed"], x, self.cfg.logits_softcap)
 
     # ----------------------------------------------------------- forward --
-    def forward(self, params, batch, *, window: Optional[int] = None):
-        """Full-sequence logits (scoring)."""
-        cfg = self.cfg
+    def forward(self, params, batch, *, window: Optional[int] = None,
+                moe_cap: Optional[float] = 1.25):
+        """Full-sequence logits (scoring) and aux (the MoE layers' mean
+        ``lb_loss``)."""
         window = 0 if window is None else window
         x, positions = self._embed_inputs(params, batch)
         cos, sin = self._cos_sin(positions)
         pos_1d = self._attn_positions(batch, positions)
-        for i in range(cfg.num_layers):
-            x = _dense_layer_fwd(cfg, _layer(params["layers"], i), x, cos, sin,
-                                 positions=pos_1d, window=window)
-        return self._head(params, x), {}
+        lbs = []
+        for key, lcfg, n in self.segments():
+            for i in range(n):
+                x, aux = _dense_layer_fwd(
+                    lcfg, _layer(params[key], i), x, cos, sin,
+                    positions=pos_1d, window=window, moe_cap=moe_cap)
+                if "lb_loss" in aux:
+                    lbs.append(aux["lb_loss"])
+        aux_acc = {"lb_loss": torch.stack(lbs).mean()} if lbs else {}
+        return self._head(params, x), aux_acc
 
     # ----------------------------------------------------------- prefill --
     def prefill(self, params, batch, *, cache_len: Optional[int] = None,
                 windowed: bool = False, window: Optional[int] = None,
-                last_only: bool = False):
+                moe_cap: Optional[float] = 1.25, last_only: bool = False):
         """Run the full prompt, returning (logits, filled cache).
 
         ``last_only``: unembed only the final position (logits [B,1,V]).
@@ -216,36 +261,41 @@ class Model:
         cache = self.init_cache(b, cache_len, windowed, device=x.device)
         cos, sin = self._cos_sin(positions)
         pos_1d = self._attn_positions(batch, positions)
-        for i in range(cfg.num_layers):
-            x, _ = _dense_layer_prefill(
-                cfg, _layer(params["layers"], i), x, cos, sin,
-                _layer(cache["layers"], i), positions=pos_1d, window=window)
+        for key, lcfg, n in self.segments():
+            for i in range(n):
+                x, _ = _dense_layer_prefill(
+                    lcfg, _layer(params[key], i), x, cos, sin,
+                    _layer(cache[key], i), positions=pos_1d, window=window,
+                    moe_cap=moe_cap)
         if last_only:
             x = x[:, -1:]
         return self._head(params, x), cache
 
     # ------------------------------------------------------------ extend --
     def extend(self, params, cache, tokens, start, *,
-               window: Optional[int] = None):
+               window: Optional[int] = None,
+               moe_cap: Optional[float] = 1.25):
         """Chunked continuation: score ``tokens [B,S_new]`` appended to an
         existing cache at offset ``start`` -- a scalar (the batch extends
         from one position) or [B] per-request offsets."""
-        cfg = self.cfg
         window = window or 0
         x = L.embed_tokens(params["embed"], tokens)
         b, s_new = tokens.shape
         positions = attn._extend_positions(start, s_new, x.device
                                            ).expand(b, s_new)
         cos, sin = self._cos_sin(positions)
-        for i in range(cfg.num_layers):
-            x, _ = _dense_layer_extend(
-                cfg, _layer(params["layers"], i), x, cos, sin,
-                _layer(cache["layers"], i), start, window=window)
+        for key, lcfg, n in self.segments():
+            for i in range(n):
+                x, _ = _dense_layer_extend(
+                    lcfg, _layer(params[key], i), x, cos, sin,
+                    _layer(cache[key], i), start, window=window,
+                    moe_cap=moe_cap)
         return self._head(params, x), cache
 
     # ------------------------------------------------------------ decode --
     def decode_step(self, params, cache, tokens, pos, *,
-                    windowed: bool = False, window: Optional[int] = None):
+                    windowed: bool = False, window: Optional[int] = None,
+                    moe_cap: Optional[float] = None):
         """tokens [B,1] -> (logits [B,V], cache).
 
         pos: scalar (all requests at one position) or [B] per-request
@@ -259,8 +309,10 @@ class Model:
         pos = torch.as_tensor(pos, device=x.device).long().reshape(-1
                                                                    ).expand(b)
         cos, sin = self._cos_sin(pos[:, None])
-        for i in range(cfg.num_layers):
-            x, _ = _dense_layer_decode(
-                cfg, _layer(params["layers"], i), x, cos, sin,
-                _layer(cache["layers"], i), pos, window=window)
+        for key, lcfg, n in self.segments():
+            for i in range(n):
+                x, _ = _dense_layer_decode(
+                    lcfg, _layer(params[key], i), x, cos, sin,
+                    _layer(cache[key], i), pos, window=window,
+                    moe_cap=moe_cap)
         return self._head(params, x)[:, 0], cache

@@ -1,0 +1,63 @@
+"""The port's architecture configs against the JAX reference's.
+
+All ten archs' ``CONFIG`` / ``SMOKE_CONFIG`` carry the reference's field
+values (``dataclasses.asdict``), the shapes and skips are the same, and
+the parameter counts of the full configs the port builds equal the
+reference's, from the spec trees alone (nothing is allocated)."""
+import dataclasses
+
+import pytest
+
+from repro import configs as J
+from repro_torch import configs as T
+
+
+def test_arch_lists_match_reference():
+    assert T.ARCHS == J.ARCHS
+    assert T.SKIPS == J.SKIPS
+
+
+@pytest.mark.parametrize("arch", J.ARCHS)
+@pytest.mark.parametrize("smoke", [False, True])
+def test_config_fields_match_reference(arch, smoke):
+    assert dataclasses.asdict(T.get_config(arch, smoke)) == \
+        dataclasses.asdict(J.get_config(arch, smoke))
+
+
+def test_shapes_match_reference():
+    assert sorted(T.SHAPES) == sorted(J.SHAPES)
+    for name, shape in J.SHAPES.items():
+        assert dataclasses.asdict(T.SHAPES[name]) == dataclasses.asdict(shape)
+        assert T.SHAPES[name].is_decode == shape.is_decode
+
+
+def test_unknown_arch_raises():
+    with pytest.raises(KeyError):
+        T.get_config("llama-7b")
+
+
+@pytest.mark.parametrize("arch", ["granite-34b", "mistral-large-123b",
+                                  "nemotron-4-340b", "arctic-480b",
+                                  "qwen2-vl-2b", "phi4-mini-3.8b"])
+def test_param_counts_match_reference(arch):
+    """Full widths and depths, counted from the spec trees. The
+    reference discounts leaves whose path names ``expert``; its MoE leaves
+    are ``moe/wi_gate`` and so on, so arctic's active count is its total
+    there, and here."""
+    t, j = T.get_config(arch), J.get_config(arch)
+    assert t.param_count() == j.param_count()
+    assert t.active_param_count() == j.active_param_count()
+    if t.family == "moe":
+        variant = dict(first_k_dense_layers=1, num_shared_experts=1)
+        assert t.with_(**variant).active_param_count() == \
+            j.with_(**variant).active_param_count()
+
+
+@pytest.mark.parametrize("arch,item", [("deepseek-v3-671b", "item 17"),
+                                       ("rwkv6-3b", "item 18"),
+                                       ("whisper-tiny", "item 19"),
+                                       ("zamba2-1.2b", "items 18-19")])
+def test_unported_families_raise_naming_their_item(arch, item):
+    from repro_torch.models import build
+    with pytest.raises(NotImplementedError, match=item):
+        build(T.get_config(arch, smoke=True))

@@ -183,15 +183,16 @@ def test_paged_merge_takes_its_most_splits(dev):
         pa._launch(q, kp, vp, table, seq, 1)
 
 
-def _masked_inputs(rng, case, b, dtype, dev, permute, length=1152, d=128):
+def _masked_inputs(rng, case, b, dtype, dev, permute, length=1152, d=128,
+                   h=12, kvh=2):
     """Masked decode at the qwen2-vl-2b layout (12 / 2 heads, D 128, pages
-    of 16; ``d`` another head dim) over a ``length``-slot ring cache: (q, k, v, table, seq_lens,
+    of 16; ``d``, ``h`` and ``kvh`` others) over a ``length``-slot ring cache: (q, k, v, table, seq_lens,
     k_pos [P, page], q_pos, window). ``ring``: positions wrapped past the
     cache; ``compacted``: 256 kept positions, -1 rows, then 32 decoded
     past a gap; ``window``: a plain cache with window 256 and no k_pos;
     ``own_key``: the query's own row is its only key; ``ahead``: every
     row read, those past the query's position masked."""
-    h, kvh, page = 12, 2, 16
+    page = 16
     pps = length // page
     q = _randn(rng, (b, h, d), dtype, dev)
     kp = _randn(rng, (b * pps, page, kvh, d), dtype, dev)
@@ -870,3 +871,126 @@ def test_shared_tier_snapshot_on_card_survives_slot_reuse(dev):
     assert b.remote_prefix_hits == 1
     for k in ("k", "v"):
         assert torch.equal(b.pool["layers"][k][:, 0, :32], before[k][:, 0])
+
+
+# ---- head dim 192 (nemotron-4-340b) and 48 q heads per kv head (granite-34b)
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", [
+    dict(b=1, h=12, kvh=1, sq=300, sk=300),               # G = 12
+    dict(b=2, h=4, kvh=2, sq=130, sk=130, window=40),
+    dict(b=1, h=2, kvh=2, sq=17, sk=96, kv_len=80, q_offset=50),
+    dict(b=1, h=2, kvh=1, sq=90, sk=64, q_offset=-20),    # keyless rows
+    dict(b=1, h=4, kvh=1, sq=70, sk=64, causal=False, kv_len=40),
+    dict(b=1, h=48, kvh=1, sq=200, sk=200, d=128),        # granite's G
+])
+def test_flash_kernel_head_dim_192_matches_plain(dev, dtype, case):
+    """Flash at head dim 192 (three 64-column TMA boxes, an m64n192k16 P V
+    and a 96-register O in bf16; the float32 layout's 211 KB), and at
+    granite's 48 q heads per kv head (D = 128)."""
+    rng = np.random.default_rng(60)
+    c = dict(case)
+    b, h, kvh, sq, sk = (c.pop(x) for x in ("b", "h", "kvh", "sq", "sk"))
+    d = c.pop("d", 192)
+    q = _randn(rng, (b, h, sq, d), dtype, dev)
+    k = _randn(rng, (b, kvh, sk, d), dtype, dev)
+    v = _randn(rng, (b, kvh, sk, d), dtype, dev)
+    n0 = fa.flash_attention.launches
+    out = fa.flash_attention(q, k, v, **c)
+    torch.cuda.synchronize()
+    assert fa.flash_attention.launches == n0 + 1
+    ref = fa.flash_attention_plain(q, k, v, **c)
+    assert (out.float() - ref.float()).abs().max().item() <= TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_head_dim_192_takes_strided_views(dev, dtype):
+    """The model's layout at head dim 192: q [B,S,H,D] and a cache prefix,
+    passed transposed."""
+    rng = np.random.default_rng(61)
+    q = _randn(rng, (2, 70, 4, 192), dtype, dev)
+    cache = _randn(rng, (2, 160, 2, 192), dtype, dev)
+    qv, kv = q.transpose(1, 2), cache[:, :150].transpose(1, 2)
+    got = fa.flash_attention(qv, kv, kv, kv_len=150, q_offset=80)
+    torch.cuda.synchronize()
+    assert got.stride() == qv.stride()
+    ref = fa.flash_attention_plain(qv, kv, kv, kv_len=150, q_offset=80)
+    assert (got.float() - ref.float()).abs().max().item() <= TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d,h,kvh", [(192, 24, 2), (192, 8, 8),
+                                     (128, 48, 1), (192, 48, 1),
+                                     (64, 64, 1), (32, 48, 1)])
+def test_paged_kernel_new_shapes_match_plain(dev, dtype, d, h, kvh):
+    """One-query decode at head dim 192 (nemotron's 96 / 8 heads are G =
+    12) and at G = 48 (granite: 48 / 1) up to the 64-row limit, over a
+    permuted table with seq_len 0, 1 and a split-straddling length."""
+    rng = np.random.default_rng(62)
+    b, pps, page = 4, 9, 16
+    q = _randn(rng, (b, h, d), dtype, dev)
+    kp = _randn(rng, (b * pps + 1, page, kvh, d), dtype, dev)
+    vp = _randn(rng, (b * pps + 1, page, kvh, d), dtype, dev)
+    table = torch.from_numpy(rng.permutation(b * pps + 1)[:b * pps]
+                             .reshape(b, pps).astype(np.int32)).to(dev)
+    seq = torch.tensor([0, 1, 65, pps * page], dtype=torch.int32, device=dev)
+    n0 = pa.paged_attention.launches
+    out = pa.paged_attention(q, kp, vp, table, seq)
+    torch.cuda.synchronize()
+    assert pa.paged_attention.launches == n0 + 1
+    ref = pa.paged_attention_plain(q, kp, vp, table, seq)
+    assert (out.float() - ref.float()).abs().max().item() <= TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d,h,kvh", [(192, 24, 2), (128, 48, 1)])
+@pytest.mark.parametrize("case", ["ring", "compacted", "window", "own_key",
+                                  "ahead"])
+def test_paged_kernel_masked_new_shapes_match_plain(dev, dtype, d, h, kvh,
+                                                    case):
+    """The masked mode at head dim 192 and at G = 48."""
+    args, kw = _masked_inputs(np.random.default_rng(63), case, 4, dtype, dev,
+                              True, length=640, d=d, h=h, kvh=kvh)
+    out = pa.paged_attention(*args, **kw)
+    torch.cuda.synchronize()
+    ref = pa.paged_attention_plain(*args, **kw)
+    assert (out.float() - ref.float()).abs().max().item() <= TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("g,d,kvh", [(12, 192, 2), (48, 128, 1),
+                                     (4, 192, 2)])
+@pytest.mark.parametrize("s", [1, 2, 5, 9])
+def test_paged_kernel_multi_query_new_shapes_match_plain(dev, dtype, g, d,
+                                                         kvh, s):
+    """The multi-query mode at head dim 192 (one, two and four 16-row
+    tiles on tensor cores, row tiles past 64 rows) and at G = 48 (S = 5:
+    granite's gamma-4 verify, 240 rows in 4 row tiles)."""
+    rng = np.random.default_rng(64 + s)
+    for permute, page in ((False, 16), (True, 5)):
+        *args, q_pos = _mq_inputs(rng, s, g, dtype, dev, permute=permute,
+                                  page=page, length=320, d=d, kvh=kvh)
+        m0 = pa.paged_attention.multi_query_launches
+        out = pa.paged_attention(*args, q_pos=q_pos)
+        torch.cuda.synchronize()
+        assert pa.paged_attention.multi_query_launches == m0 + 1
+        ref = pa.paged_attention_plain(*args, q_pos=q_pos)
+        _assert_mq_close(out, ref, dtype, (permute, page))
+
+
+def test_kernels_refuse_shapes_past_the_new_ones(dev):
+    """Head dims other than 32 / 64 / 128 / 192 and more than 64 q heads
+    per kv head raise on the card."""
+    q = torch.zeros(1, 2, 8, 256, device=dev)
+    with pytest.raises(ValueError):        # head dim 256 has no kernel
+        fa.flash_attention(q, q[:, :1], q[:, :1])
+    table = torch.zeros(1, 2, dtype=torch.int32, device=dev)
+    seq = torch.ones(1, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError):        # nor in the paged kernel
+        pa.paged_attention(q[:, :, 0].contiguous(),
+                           torch.zeros(2, 16, 1, 256, device=dev),
+                           torch.zeros(2, 16, 1, 256, device=dev), table, seq)
+    pages = torch.zeros(2, 16, 1, 128, device=dev)
+    with pytest.raises(ValueError):        # 65 q heads on one kv head
+        pa.paged_attention(torch.zeros(1, 65, 128, device=dev), pages, pages,
+                           table, seq)

@@ -38,8 +38,102 @@ def test_apply_norm(rng, shape):
                          jnp.asarray(x), "rmsnorm"),
            TL.apply_norm({k: torch.from_numpy(v) for k, v in p.items()},
                          torch.from_numpy(x), "rmsnorm"))
-    with pytest.raises(NotImplementedError):     # layernorm: slice 7
-        TL.apply_norm(p, torch.from_numpy(x), "layernorm")
+    p["bias"] = rng.standard_normal(shape[-1]).astype(np.float32)
+    _close(JL.apply_norm({k: jnp.asarray(v) for k, v in p.items()},
+                         jnp.asarray(x), "layernorm"),
+           TL.apply_norm({k: torch.from_numpy(v) for k, v in p.items()},
+                         torch.from_numpy(x), "layernorm"))
+
+
+NEW_TOL = 1e-6       # the layers this slice adds, float32 on the CPU
+
+
+def _params(rng, specs):
+    """numpy leaves for a spec tree: normals at the fan-in scale, int8 in
+    [-64, 64] (as the reference draws them), scales near 1."""
+    out = {}
+    for k, s in specs.items():
+        if s.dtype == "int8":
+            out[k] = rng.integers(-64, 65, s.shape).astype(np.int8)
+        elif k.endswith("_s"):
+            out[k] = rng.uniform(0.5, 1.5, s.shape).astype(np.float32) / 64
+        else:
+            out[k] = (rng.standard_normal(s.shape) * s.scale
+                      ).astype(np.float32)
+    return out
+
+
+@pytest.mark.parametrize("shape", [(2, 5, 64), (3, 256)])
+@pytest.mark.parametrize("with_bias", [None, False, True])
+def test_layernorm_matches_reference(rng, shape, with_bias):
+    """LayerNorm with the population variance (``jnp.var``), its spec's
+    bias by default and on request."""
+    cfg = tget("nemotron-4-340b", smoke=True).with_(d_model=shape[-1])
+    specs = TL.norm_specs(cfg, with_bias)
+    assert specs.keys() == JL.norm_specs(cfg, with_bias).keys()
+    x = (rng.standard_normal(shape) * 3 + 1).astype(np.float32)
+    p = {k: rng.standard_normal(s.shape).astype(np.float32)
+         for k, s in specs.items()}
+    _close(JL.apply_norm({k: jnp.asarray(v) for k, v in p.items()},
+                         jnp.asarray(x), "layernorm"),
+           TL.apply_norm({k: torch.from_numpy(v) for k, v in p.items()},
+                         torch.from_numpy(x), "layernorm"), NEW_TOL)
+
+
+@pytest.mark.parametrize("activation", ["swiglu", "relu2", "gelu"])
+@pytest.mark.parametrize("quant", [False, True])
+def test_mlp_variants_match_reference(rng, activation, quant):
+    """relu2, gelu (tanh approximation) and the int8 FFN (weights int8,
+    per-channel float32 scales after each product) against the
+    reference's ``apply_mlp``, specs included."""
+    cfg = tget("nemotron-4-340b", smoke=True).with_(
+        activation=activation, weight_quant="int8_ffn" if quant else "none")
+    jcfg = get_config("nemotron-4-340b", smoke=True).with_(
+        activation=activation, weight_quant="int8_ffn" if quant else "none")
+    specs = TL.mlp_specs(cfg, d_ff=192)
+    jspecs = JL.mlp_specs(jcfg, d_ff=192)
+    assert {k: (s.shape, s.dtype, s.init) for k, s in specs.items()} == \
+        {k: (s.shape, s.dtype, s.init) for k, s in jspecs.items()}
+    p = _params(rng, specs)
+    x = rng.standard_normal((2, 3, cfg.d_model)).astype(np.float32)
+    _close(JL.apply_mlp({k: jnp.asarray(v) for k, v in p.items()},
+                        jnp.asarray(x), activation),
+           TL.apply_mlp({k: torch.from_numpy(v) for k, v in p.items()},
+                        torch.from_numpy(x), activation), NEW_TOL)
+
+
+def test_quantize_ffn_params_matches_reference(rng):
+    """Post-training int8 quantization: the same int8 weights and scales
+    over a stacked tree (MLP dicts found at any depth, other leaves
+    untouched)."""
+    tree = {"layers": {"mlp": {
+        "wi_gate": rng.standard_normal((2, 16, 24)).astype(np.float32),
+        "wi_up": rng.standard_normal((2, 16, 24)).astype(np.float32),
+        "wo": rng.standard_normal((2, 24, 16)).astype(np.float32)},
+        "ln": {"scale": np.ones((2, 16), np.float32)}},
+        "head": {"wi": rng.standard_normal((16, 8)).astype(np.float32),
+                 "wo": rng.standard_normal((8, 16)).astype(np.float32)}}
+
+    def conv(t, fn):
+        return {k: conv(v, fn) if isinstance(v, dict) else fn(v)
+                for k, v in t.items()}
+    j = JL.quantize_ffn_params(conv(tree, jnp.asarray))
+    t = TL.quantize_ffn_params(conv(tree, torch.from_numpy))
+
+    jl = {p: np.asarray(x) for p, x in _leaves(j)}
+    tl = {p: x.numpy() for p, x in _leaves(t)}
+    assert jl.keys() == tl.keys()
+    for k in jl:
+        assert jl[k].dtype == tl[k].dtype, k
+        np.testing.assert_allclose(tl[k], jl[k], rtol=1e-6, atol=0)
+
+
+def _leaves(x, path=()):
+    if isinstance(x, dict):
+        for k, v in x.items():
+            yield from _leaves(v, path + (k,))
+    else:
+        yield path, x
 
 
 @pytest.mark.parametrize("theta", [1.0e4, 1.0e6])
@@ -79,8 +173,10 @@ def test_apply_mlp(rng, arch):
                         jnp.asarray(x), "swiglu"),
            TL.apply_mlp({k: torch.from_numpy(v) for k, v in p.items()},
                         torch.from_numpy(x), "swiglu"))
-    with pytest.raises(NotImplementedError):     # relu2/gelu: slice 7
-        TL.mlp_specs(cfg.with_(activation="gelu"))
+    assert set(TL.mlp_specs(cfg.with_(activation="gelu"))) == {"wi", "wo"}
+    with pytest.raises(ValueError):              # no such activation
+        TL.apply_mlp({k: torch.from_numpy(v) for k, v in p.items()},
+                     torch.from_numpy(x), "tanh")
 
 
 @pytest.mark.parametrize("softcap", [0.0, 30.0])
