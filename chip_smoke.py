@@ -25,7 +25,13 @@ config and at full width, and run the ``repro_torch.launch.serve`` CLI.
 The architecture phases hold both kernels at head dim 192 and at 48 q
 heads per kv head, compare granite, mistral, nemotron and arctic smoke
 card against CPU, and serve each of the four at full published width
-(cut in depth to fit the card). Each phase prints one JSON line; the
+(cut in depth to fit the card). The MLA phases hold the latent kernel
+(deepseek-v3's absorbed decode) against its plain version at both of its
+instantiations, flash at MLA's prefill shapes with an explicit scale and
+every earlier flash shape's output bits, compare deepseek-v3 smoke card
+against CPU through every serving path (a latent-cache migration
+included), and serve deepseek-v3-671b at full width, cut to 4 of its 61
+layers. Each phase prints one JSON line; the
 last two lines are the kernel summary and ``{"ok": true, "device":
 {...}}``. Any failure raises and exits non-zero before that line.
 Needs one CUDA device of compute capability 9.0.
@@ -101,6 +107,49 @@ BITS_SHA = {
         "0ead15c29905f2ef1cc9dee1d99775c953e3d572bb76df9de87ed928bbc0c71a",
     "serve_b8_s1/bfloat16":
         "0fec139e5906004c61b97c6b0e4551acc96ce58ed92b450ece3bcaa7aabb8f23",
+}
+#: sha256 (first 16 hex digits) of the flash kernel's outputs on
+#: ``_flash_bits_cases`` at the default scale, from the kernel as it was
+#: before its ``scale=`` argument existed (read on an NVIDIA H100 80GB HBM3)
+FLASH_BITS_SHA = {
+    "d128/main/float32": "2665a0c2af374a3b",
+    "d128/prefill_0.5/float32": "2e597b0cbf76e292",
+    "d128/prefill_0.25/float32": "ef9e7b4d227cf349",
+    "d128/sq_not_tile_multiple/float32": "b5f16d78d3213f28",
+    "d128/kv_len_lt_sk/float32": "41c4ca7e938703d5",
+    "d128/q_offset/float32": "998c305080778e36",
+    "d128/window/float32": "5573a9dd6379536c",
+    "d128/head_dim_64/float32": "da2f9fec41e958e1",
+    "d128/keyless_rows/float32": "19933a32c2c96a3e",
+    "d128/sq_sk_2048/float32": "011075fdc711a593",
+    "d128/strided_views/float32": "05d5bca0b536f657",
+    "d32/main/float32": "db1691da3d9e3a00",
+    "d32/window_64/float32": "2f5973209cd1b44f",
+    "d32/kv_len_lt_sk/float32": "06495d8fe4911430",
+    "d32/keyless_rows/float32": "8191e3e61bbfcea3",
+    "d32/non_causal/float32": "73544a6909ad274b",
+    "d192/main/float32": "c43d8c23bb8375d5",
+    "g48/main/float32": "5ef9195579fd8b67",
+    "g48/window/float32": "5096cce3d8a70d49",
+    "d128/main/bfloat16": "2c90a83209044845",
+    "d128/prefill_0.5/bfloat16": "4ff29f841e97d0a0",
+    "d128/prefill_0.25/bfloat16": "b46af49fa405f92c",
+    "d128/sq_not_tile_multiple/bfloat16": "646dc1cbfc4e5d68",
+    "d128/kv_len_lt_sk/bfloat16": "c534a361bb0681f8",
+    "d128/q_offset/bfloat16": "2b2b4f9e647286b2",
+    "d128/window/bfloat16": "bfc9f280ece59a03",
+    "d128/head_dim_64/bfloat16": "ecd631660a623227",
+    "d128/keyless_rows/bfloat16": "f20a6c7ed382ff01",
+    "d128/sq_sk_2048/bfloat16": "10c5a017f11f66f1",
+    "d128/strided_views/bfloat16": "7dbc5af1b9d4b2c1",
+    "d32/main/bfloat16": "36bcd4a18dafc0f3",
+    "d32/window_64/bfloat16": "83e22c84e0ebdc7c",
+    "d32/kv_len_lt_sk/bfloat16": "d36ce14319f9cdf2",
+    "d32/keyless_rows/bfloat16": "1359ab4c91a6576c",
+    "d32/non_causal/bfloat16": "792a2bc7069728ee",
+    "d192/main/bfloat16": "0be08a9c95d21ff3",
+    "g48/main/bfloat16": "440b6fba41f519e6",
+    "g48/window/bfloat16": "8e0bc62220c72257",
 }
 
 #: the disaggregation phases' traffic (``disagg_burst`` of
@@ -217,9 +266,10 @@ def _ptxas_report(log: str) -> list:
 
 
 def phase_build() -> None:
-    """Build both kernels from the checkout's sources (one nvcc each, in
-    parallel); print ptxas's registers and spills, each kernel's dynamic
-    shared memory and the count of HGMMA (wgmma) instructions in the flash
+    """Build the three kernels from the checkout's sources (one nvcc each,
+    in parallel); print ptxas's registers and spills, each kernel's
+    dynamic shared memory (per head dim; the latent kernel's per latent
+    rank) and the count of HGMMA (wgmma) instructions in the flash
     library's SASS, which must not be 0."""
     from repro_torch.kernels import build
     t0 = time.perf_counter()
@@ -228,9 +278,10 @@ def phase_build() -> None:
     smem = {}
     for name in build.KERNELS:
         fn = getattr(build.load(name), f"{name}_smem_bytes")
+        dims = (32, 512) if name == "mla_attention" else (32, 64, 128, 192)
         smem[name] = {f"{dt}/d{d}": fn(code, d)
                       for dt, code in (("float32", 0), ("bfloat16", 1))
-                      for d in (32, 64, 128, 192)}
+                      for d in dims}
     cuobjdump = os.path.join(os.path.dirname(build.nvcc_path()), "cuobjdump")
     sass = subprocess.run([cuobjdump, "-sass",
                            str(build.library_path("flash_attention"))],
@@ -561,9 +612,11 @@ class CallTimer:
 
 def _reset_counts():
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import mla_attention as ma
     from repro_torch.kernels import paged_attention as pa
     fa.flash_attention.launches = 0
     pa.paged_attention.launches = 0
+    ma.mla_attention.launches = 0
 
 
 def _counts() -> dict:
@@ -571,6 +624,12 @@ def _counts() -> dict:
     from repro_torch.kernels import paged_attention as pa
     return {"flash_attention": fa.flash_attention.launches,
             "paged_attention": pa.paged_attention.launches}
+
+
+def _mla_counts() -> dict:
+    """``_counts`` and the latent kernel's launches (the MLA phases)."""
+    from repro_torch.kernels import mla_attention as ma
+    return dict(_counts(), mla_attention=ma.mla_attention.launches)
 
 
 def _requests(Request, prompts, ves, max_new):
@@ -1363,7 +1422,8 @@ def _profile_calls(runs: dict) -> dict:
                      "port_kernels_ms_per_launch": {
                          k: _device_ms(e) / e.count for e in evts
                          for k in ("flash_fwd_kernel", "paged_split_kernel",
-                                   "paged_mma_kernel", "paged_combine_kernel")
+                                   "paged_mma_kernel", "paged_combine_kernel",
+                                   "mla_split_kernel", "mla_merge_kernel")
                          if k in e.key},
                      "by_kernel": {e.key[:60]: _device_ms(e) / n
                                    for e in evts}}
@@ -3461,8 +3521,9 @@ class _CallRecorder:
 
     def __enter__(self):
         from repro_torch.kernels import ops
-        self.ops, self.real = ops, (ops._flash, ops._paged)
-        self.calls = {"flash_attention": [], "paged_attention": []}
+        self.ops, self.real = ops, (ops._flash, ops._paged, ops._mla)
+        self.calls = {"flash_attention": [], "paged_attention": [],
+                      "mla_attention": []}
 
         def rec(name, fn):
             def recorded(*args, **kw):
@@ -3475,21 +3536,25 @@ class _CallRecorder:
             return recorded
         ops._flash = rec("flash_attention", self.real[0])
         ops._paged = rec("paged_attention", self.real[1])
+        ops._mla = rec("mla_attention", self.real[2])
         return self
 
     def __exit__(self, *exc):
-        self.ops._flash, self.ops._paged = self.real
+        self.ops._flash, self.ops._paged, self.ops._mla = self.real
 
     def check(self) -> dict:
         """max err and err / max|ref| of every call against its plain
         version; fails past REL_TOL of max|ref| (and past TOL for the
         paged calls). At full width the flash outputs reach |x| ~ 4,
         where one bf16 ulp (3.1e-2) is past TOL: REL_TOL is 1.3 ulp of
-        the largest output."""
+        the largest output. The latent kernel's calls are all float32
+        arithmetic: MLA_REL_TOL."""
         from repro_torch.kernels import flash_attention as fa
+        from repro_torch.kernels import mla_attention as ma
         from repro_torch.kernels import paged_attention as pa
         plain = {"flash_attention": fa.flash_attention_plain,
-                 "paged_attention": pa.paged_attention_plain}
+                 "paged_attention": pa.paged_attention_plain,
+                 "mla_attention": ma.mla_attention_plain}
         out = {}
         for name, calls in self.calls.items():
             errs, rels = [], []
@@ -3499,6 +3564,10 @@ class _CallRecorder:
                 errs.append(e)
                 rels.append(e / float(want.float().abs().max()))
                 dtype = got.dtype
+                if name == "mla_attention":
+                    check(rels[-1] <= MLA_REL_TOL, f"recorded {name} call: "
+                          f"err {e}, {rels[-1]} rel")
+                    continue
                 check(rels[-1] <= REL_TOL[dtype] and (
                     name == "flash_attention" or e <= TOL[dtype]),
                       f"recorded {name} call: err {e}, {rels[-1]} rel")
@@ -3684,6 +3753,495 @@ def phase_arch_full() -> dict:
     return total
 
 
+# ------------------------------------------------------------------ MLA --
+
+#: the latent kernel's bar: its arithmetic is float32 in both cache
+#: dtypes (q_lat, scores, softmax, o_lat), so it must agree with the plain
+#: version within this share of the plain version's largest output
+MLA_REL_TOL = 1e-4
+#: (kv_lora_rank, qk_rope_head_dim, heads, q/k width nope + rope) of
+#: deepseek-v3 smoke and full: the latent kernel's two instantiations
+MLA_SHAPES = {"smoke": (32, 16, 4, 48), "full": (512, 64, 128, 192)}
+#: deepseek-v3-671b at full width is cut to its 3 dense layers + 1 MoE
+#: layer. Its decode after prefill is held against forward at the bar of
+#: the other full-width configs (CONSISTENCY_TOL): forward runs the naive
+#: form (k_nope, v and flash's P rounded to bf16), decode the absorbed
+#: one in float32, and the two differ by 1.1e-2 of the logit scale on
+#: this seed (PERF.md, PR 19). The check runs 2 sequences of this length:
+#: dropless MoE (C = T * k, as the reference) gives each of the 256
+#: experts a [T * 8, 7168] buffer, 4.7 GB at T = 160
+MLA_FULL_LAYERS, MLA_CONSISTENCY_LEN = 4, 80
+
+
+def _flash_bits_cases():
+    """Every flash shape of the earlier slices whose output bits the
+    ``scale=`` argument (left at None) must not change: the kernels
+    phase's cases at D = 128 and 64, head dim 32 at phi4-mini smoke's
+    heads, head dim 192 and 48 q heads per kv head."""
+    _, cases = _flash_cases()
+    d32 = dict(b=1, h=8, kvh=2, sq=1056, sk=1056, d=32)
+    g48 = dict(b=1, h=48, kvh=1, sq=1056, sk=1056, d=128)
+    return [(f"d128/{n}", c, kw) for n, c, kw in cases] + [
+        ("d32/main", d32, {}), ("d32/window_64", d32, dict(window=64)),
+        ("d32/kv_len_lt_sk", dict(d32, sq=64, sk=1104), dict(kv_len=1072)),
+        ("d32/keyless_rows", dict(d32, sq=200, sk=200), dict(q_offset=-30)),
+        ("d32/non_causal", dict(d32, sq=70, sk=64),
+         dict(causal=False, kv_len=40)),
+        ("d192/main", dict(b=1, h=96, kvh=8, sq=1056, sk=1056, d=192), {}),
+        ("g48/main", g48, {}),
+        ("g48/window", dict(g48, sq=300, sk=300), dict(window=100))]
+
+
+def flash_bits() -> dict:
+    """The first 16 hex digits of the sha256 of the flash kernel's output
+    on every ``_flash_bits_cases`` case in float32 and bf16 at the default
+    scale, inputs drawn from a generator seeded by the case's name."""
+    import zlib
+    from repro_torch.kernels import flash_attention as fa
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        for name, c, kw in _flash_bits_cases():
+            rng = np.random.default_rng(zlib.crc32(name.encode()))
+            q, k, v = _flash_inputs(rng, c, dtype)
+            out[f"{name}/{str(dtype)[6:]}"] = _sha(
+                fa.flash_attention(q, k, v, **kw))[:16]
+    return out
+
+
+def _mla_cases(rng, dtype, r, rr, h):
+    """The latent kernel's cases at one instantiation: (name, args, kw).
+    one_query: decode at batch 4 over 1104-row slots (q_pos 1055-1103);
+    short_row: a row at q_pos 39 among them (splits past it are empty);
+    multi_query: the [B]-start verify, S = 5 at batch 8 (the last row
+    routed to start L - 1, so its queries sit past the cache); window: a
+    100-key window on the plain cache; k_pos: a 256-slot ring after 100 to
+    600 writes (slot_pos, window 256), one row with holes (-1) and one
+    with no valid key (the mean of ckv)."""
+    length = SERVE_CACHE_LEN
+
+    def inputs(b, sq, n):
+        return (randn(rng, (b, sq, h, r), torch.float32),
+                randn(rng, (b, sq, h, rr), torch.float32),
+                randn(rng, (b, n, r), dtype), randn(rng, (b, n, rr), dtype))
+
+    def pos(x):
+        return torch.tensor(x, dtype=torch.int32, device="cuda")
+    one = pos(rng.integers(1055, length, 4)[:, None])
+    starts = np.array([1056, 1060, 1063, 1070, 1075, 1080, 1083, length - 1])
+    multi = pos(starts[:, None] + np.arange(VERIFY_S)[None])
+    ring, written = 256, np.array([100, 300, 600, 257])
+    slot = np.full((4, ring), -1, np.int64)
+    for b, n in enumerate(written):
+        for p in range(n):
+            slot[b, p % ring] = p
+    slot[1, rng.choice(ring, 40, replace=False)] = -1     # holes
+    slot[3] = -1                                          # no valid key
+    kw_ring = dict(k_pos=pos(slot), window=ring)
+    return [
+        ("one_query", inputs(4, 1, length) + (one,), {}),
+        ("short_row", inputs(4, 1, length) + (pos([[1059], [39], [1103],
+                                                   [1080]]),), {}),
+        ("multi_query", inputs(8, VERIFY_S, length) + (multi,), {}),
+        ("window", inputs(4, 1, length) + (one,), dict(window=100)),
+        ("k_pos", inputs(4, 1, ring) + (pos(written[:, None] - 1),),
+         kw_ring),
+    ]
+
+
+def _mla_row(args, kw, scale, flush, err, **extra):
+    """The latent kernel's timed row on ``args``: ms, the plain version
+    (the reference's einsum formulation: matmul, softmax, matmul), SDPA
+    in float32 as the library call (keys ckv | k_rope and values ckv
+    upcast and concatenated once, outside the timing), and the bound over
+    the keys each query sees."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import mla_attention as ma
+    from repro_torch.kernels.ref import mla_key_mask
+    q_lat, q_rope, ckv, k_rope, q_pos = args
+    b, sq, h, r = q_lat.shape
+    rr, length = k_rope.shape[-1], ckv.shape[1]
+    mask = mla_key_mask(q_pos, length, **kw)                # [B, Sq, L]
+    n_keys = int(mask.sum())
+    elt = ckv.element_size()
+    rows_read = int(mask.any(1).sum())
+    nbytes = 4 * (q_lat.numel() + q_rope.numel() + b * sq * h * r
+                  + q_pos.numel()) + elt * rows_read * (r + rr)
+    flops = 2 * h * (r + rr + r) * n_keys
+    qs = torch.cat([q_lat, q_rope], -1).transpose(1, 2)
+    ks = torch.cat([ckv, k_rope], -1).float()[:, None]
+    vs = ckv.float()[:, None]
+    am = mask[:, None]
+    return _timed_row(
+        lambda: ma.mla_attention(*args, **kw, scale=scale),
+        lambda: ma.mla_attention_plain(*args, **kw, scale=scale),
+        lambda: F.scaled_dot_product_attention(qs, ks, vs, attn_mask=am,
+                                               scale=scale, enable_gqa=True),
+        flush, nbytes, flops, torch.float32, err, keys=n_keys,
+        cache_dtype=str(ckv.dtype)[6:], **extra)
+
+
+def phase_mla_kernels(flush) -> dict:
+    """The latent kernel against its plain version at both
+    instantiations (deepseek-v3 smoke: R 32, Rr 16, 4 heads; full: 512,
+    64, 128 heads) and both cache dtypes on every ``_mla_cases`` case,
+    within MLA_REL_TOL of the plain version's largest output; the bf16
+    full-width one-query and verify cases timed. Flash with an explicit
+    ``scale=`` at MLA's prefill shapes (B = 1, H = KVH = 128, D = 192 over
+    1024 tokens with v zero-padded from 128, timed; the smoke's 48-wide
+    q/k and 32-wide v zero-padded to 64, scale 1/sqrt(48)) within TOL,
+    and every earlier flash shape's bits at the default scale
+    (FLASH_BITS_SHA). Returns the kernels-line rows."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import mla_attention as ma
+    rng = np.random.default_rng(19)
+    errs, timed = {}, {}
+    for key, (r, rr, h, dqk) in MLA_SHAPES.items():
+        scale = 1.0 / dqk ** 0.5
+        for dtype in (torch.float32, torch.bfloat16):
+            dt = str(dtype)[6:]
+            for name, args, kw in _mla_cases(rng, dtype, r, rr, h):
+                got = ma.mla_attention(*args, **kw, scale=scale)
+                torch.cuda.synchronize()
+                want = ma.mla_attention_plain(*args, **kw, scale=scale)
+                e = max_err(got, want)
+                rel = e / float(want.abs().max())
+                errs[f"{key}/{name}/{dt}"] = rel
+                check(bool(torch.isfinite(got).all()) and rel <= MLA_REL_TOL,
+                      f"mla {key} {name} {dt}: err {e}, {rel} of max|ref|")
+                if key == "full" and dtype == torch.bfloat16 \
+                        and name in ("one_query", "multi_query"):
+                    timed[name] = _mla_row(args, kw, scale, flush, e,
+                                           shape=dict(r=r, rr=rr, h=h,
+                                                      b=args[0].shape[0],
+                                                      sq=args[0].shape[1],
+                                                      cache_len=args[2]
+                                                      .shape[1]))
+    # flash at MLA's prefill shapes, explicit scale
+    flash = {}
+    for key, (h, s, dqk, dv, d) in {"full": (128, 1024, 192, 128, 192),
+                                    "smoke": (4, 61, 48, 32, 64)}.items():
+        scale = 1.0 / dqk ** 0.5
+        for dtype in (torch.float32, torch.bfloat16):
+            dt = str(dtype)[6:]
+            q = F.pad(randn(rng, (1, s, h, dqk), dtype), (0, d - dqk))
+            k = F.pad(randn(rng, (1, s, h, dqk), dtype), (0, d - dqk))
+            v = randn(rng, (1, s, h, dv), dtype)
+            vp = F.pad(v, (0, d - dv))
+            args = (q.transpose(1, 2), k.transpose(1, 2), vp.transpose(1, 2))
+            got = fa.flash_attention(*args, scale=scale)
+            torch.cuda.synchronize()
+            want = fa.flash_attention_plain(*args, scale=scale)
+            e = max_err(got, want)
+            check(e <= TOL[dtype] and max_err(got[..., dv:], 0 * got[
+                ..., dv:]) == 0.0, f"flash mla {key} {dt}: err {e}")
+            errs[f"flash_{key}/{dt}"] = e
+            if key == "full" and dtype == torch.bfloat16:
+                qs, ks = args[0][..., :dqk], args[1][..., :dqk]
+                vs = v.transpose(1, 2)
+                n = s * (s + 1) / 2
+                flash["mla_prefill"] = _timed_row(
+                    lambda: fa.flash_attention(*args, scale=scale),
+                    lambda: fa.flash_attention_plain(*args, scale=scale),
+                    lambda: F.scaled_dot_product_attention(
+                        qs, ks, vs, is_causal=True, scale=scale),
+                    flush, q.element_size() * (2 * h * s * dqk
+                                               + 2 * h * s * dv),
+                    2 * h * n * (dqk + dv), dtype, e,
+                    shape=dict(b=1, h=h, kvh=h, sq=s, sk=s, d=d, d_qk=dqk,
+                               d_v=dv))
+    bits = flash_bits()
+    same = {k: v == FLASH_BITS_SHA.get(k) for k, v in bits.items()}
+    emit("mla_kernels", rel_errors={k: v for k, v in errs.items()
+                                    if not k.startswith("flash")},
+         flash_errors={k: v for k, v in errs.items()
+                       if k.startswith("flash")},
+         rel_tolerance=MLA_REL_TOL, timed=timed, flash=flash,
+         flash_bits_unchanged=sum(same.values()), flash_bits_cases=len(same))
+    check(all(same.values()) and len(same) == len(FLASH_BITS_SHA),
+          f"flash bits changed: {[k for k, v in same.items() if not v]}")
+    main = timed["one_query"]
+    return {"mla_attention": {
+        "name": "mla_attention", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/mla_attention.cu",
+        "replaces": "src/repro/models/attention.py:503",
+        **{k: main[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                "bound_by", "library_ms")},
+        "multi_query": timed["multi_query"]},
+        "flash_mla_prefill": flash["mla_prefill"]}
+
+
+def _latent_serves(t, prompts, Request, serves=None):
+    """deepseek-v3 smoke through every serving path the phase holds
+    (``serves`` names a subset):
+    generate, continuous and chunked serves, a gamma-4 self-draft
+    speculative serve, a prefix-cache serve (three prompts on a shared
+    16-token head, the first one block-aligned at it; one slot, so each
+    later request finds the block its predecessor published at retire)
+    and a prefill / decode fleet that migrates every
+    request's latent cache."""
+    from repro_torch.api import EngineConfig, GenerationConfig
+    gen = GenerationConfig(max_new_tokens=8, decoder="greedy",
+                           temperature=0.0)
+    spec = GenerationConfig(max_new_tokens=9, decoder="speculative",
+                            gamma=GAMMA, temperature=0.0)
+    ec = dict(max_batch=3, cache_len=96)
+    out = {}
+    for name, g in (("speculative", spec), ("greedy_9", gen)):
+        out[name] = {r.rid: r.generated for r in t.serve(
+            _requests(Request, prompts, [None] * 3, 9), EngineConfig(**ec),
+            g).requests}
+    if serves is not None:
+        return {k: out[k] for k in serves}
+    out["generate"] = [r.tokens for r in t.generate(prompts, gen)]
+    for sched, kw in (("continuous", {}),
+                      ("chunked", dict(chunk_size=16, token_budget=48))):
+        out[sched] = {r.rid: r.generated for r in t.serve(
+            _requests(Request, prompts, [None] * 3, 8),
+            EngineConfig(scheduler=sched, **ec, **kw), gen).requests}
+    head = prompts[1][:16]
+    shared = [Request(rid=i, tokens=head + p[:n], max_new_tokens=8,
+                      arrival=0.002 * i)
+              for i, (p, n) in enumerate(zip(prompts, (5, 12, 7)))]
+    rep = t.serve(shared, EngineConfig(
+        prefix_cache=True, prefix_block=8, scheduler="continuous",
+        max_batch=1, cache_len=96), gen)   # a block is published at retire
+    out["prefix"] = {r.rid: r.generated for r in rep.requests}
+    out["prefix_hits"] = rep.stats["prefix_hit_tokens"]
+    front = t.serve_cluster(2, EngineConfig(temperature=0.0, sanitize=True,
+                                            **ec), gen=gen,
+                            roles=["prefill", "decode"])
+    out["disaggregated"], _ = _drive(front, _requests(
+        Request, prompts, [None] * 3, 8))
+    out["migrations"] = len(front.migrations)
+    return out
+
+
+def phase_mla_smoke() -> dict:
+    """deepseek-v3 smoke in float32, built with no ``device=`` (so on the
+    card), against the same weights on the CPU: prefill, decode and a
+    [B]-start extend (the verify, absorbed on the latent kernel) logits
+    within SMOKE_LOGIT_TOL; one prefill launches flash num_layers times
+    and nothing else, one decode step and one [B]-start extend the latent
+    kernel num_layers times and nothing else; then ``_latent_serves``
+    tokens equal on both devices, prefix hits > 0 and every request
+    migrated; and the speculative serve equal to greedy on the smoke
+    config with dense FFNs (its MoE verify may drop tokens that greedy's
+    dropless decode keeps). Returns the card runs' kernel launches."""
+    from repro_torch.api import LVLM, Request
+    card = LVLM.from_pretrained("deepseek-v3-671b", smoke=True, seed=0)
+    check(card.device.type == "cuda", "deepseek smoke not on cuda")
+    cpu = card.with_params(_tree_to(card.params, "cpu"))
+    cfg, L = card.cfg, card.cfg.num_layers
+    rng = np.random.default_rng(21)
+    prompts = [rng.integers(0, cfg.vocab_size, n).tolist()
+               for n in (20, 61, 9)]
+    toks = torch.tensor([prompts[1], prompts[1]])
+    steps = {}
+    _reset_counts()
+    lc, cc = cpu.model.prefill(cpu.params, {"tokens": toks}, cache_len=80)
+    lg, cg = card.model.prefill(card.params, {"tokens": toks.cuda()},
+                                cache_len=80)
+    torch.cuda.synchronize()
+    steps["prefill"] = _mla_counts()
+    e_pre = max_err(lg.cpu(), lc)
+    nxt, pos = torch.tensor([[3], [5]]), torch.tensor([61, 61])
+    _reset_counts()
+    dc, cc = cpu.model.decode_step(cpu.params, cc, nxt, pos)
+    dg, cg = card.model.decode_step(card.params, cg, nxt.cuda(), pos.cuda())
+    torch.cuda.synchronize()
+    steps["decode_step"] = _mla_counts()
+    e_dec = max_err(dg.cpu(), dc)
+    ext, starts = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 5))
+                                   ), torch.tensor([62, 58])
+    _reset_counts()
+    xc, _ = cpu.model.extend(cpu.params, cc, ext, starts)
+    xg, _ = card.model.extend(card.params, cg, ext.cuda(), starts.cuda())
+    torch.cuda.synchronize()
+    steps["extend_rows"] = _mla_counts()
+    e_ext = max_err(xg.cpu(), xc)
+    check(max(e_pre, e_dec, e_ext) <= SMOKE_LOGIT_TOL,
+          f"deepseek smoke logits card vs CPU: prefill {e_pre}, decode "
+          f"{e_dec}, [B]-start extend {e_ext}")
+    want = {"prefill": (L, 0, 0), "decode_step": (0, 0, L),
+            "extend_rows": (0, 0, L)}
+    for step, (f, p, m) in want.items():
+        got = steps[step]
+        check((got["flash_attention"], got["paged_attention"],
+               got["mla_attention"]) == (f, p, m),
+              f"deepseek smoke {step}: launches {got}")
+    res = {}
+    for name, t in (("card", card), ("cpu", cpu)):
+        _reset_counts()
+        res[name] = _latent_serves(t, prompts, Request)
+        if name == "card":
+            torch.cuda.synchronize()
+            counts = _mla_counts()
+    same = {k: res["card"][k] == res["cpu"][k] for k in res["card"]}
+    emit("mla_smoke", config=cfg.name, dtype=cfg.dtype,
+         prefill_logit_err=e_pre, decode_logit_err=e_dec,
+         extend_rows_logit_err=e_ext, tolerance=SMOKE_LOGIT_TOL,
+         step_launches=steps, tokens_equal=same,
+         prefix_hit_tokens=res["card"]["prefix_hits"],
+         migrations=res["card"]["migrations"], launches=counts)
+    check(all(same.values()), f"deepseek smoke card != CPU: {same}")
+    # speculative == greedy where the verify's MoE cannot drop a token
+    # (its extend runs at capacity 1.25, greedy's decode dropless: the
+    # reference quirk of ROADMAP C5): MLA with dense FFNs on the card
+    dense = LVLM.from_pretrained("deepseek-v3-671b", smoke=True, seed=0,
+                                 num_experts=0)
+    _reset_counts()
+    dres = _latent_serves(dense, prompts, Request, serves=("speculative",
+                                                           "greedy_9"))
+    torch.cuda.synchronize()
+    counts = {k: v + _mla_counts()[k] for k, v in counts.items()}
+    emit("mla_smoke_speculative",
+         moe_speculative_equals_greedy=res["card"]["speculative"]
+         == res["card"]["greedy_9"],
+         dense_ffn_speculative_equals_greedy=dres["speculative"]
+         == dres["greedy_9"],
+         moe_speculative=res["card"]["speculative"],
+         moe_greedy=res["card"]["greedy_9"])
+    check(dres["speculative"] == dres["greedy_9"],
+          "deepseek smoke (dense FFNs) speculative serve != greedy")
+    check(res["card"]["prefix_hits"] > 0 and res["card"]["migrations"] == 3,
+          f"prefix hits {res['card']['prefix_hits']}, migrations "
+          f"{res['card']['migrations']}")
+    check(counts["flash_attention"] > 0 and counts["mla_attention"] > 0,
+          f"deepseek smoke: a kernel was not launched: {counts}")
+    return counts
+
+
+def phase_mla_full() -> dict:
+    """deepseek-v3-671b at full published width, bf16, random weights
+    from seed 0, cut to MLA_FULL_LAYERS of 61 layers (the 3 dense layers
+    and 1 MoE layer): decode after an S-1 prefill against forward at S-1
+    within CONSISTENCY_TOL of the logit scale (dropless MoE on both
+    sides), every kernel call of that prefill and decode step against its
+    plain version; the 4 ARCH_PROMPTS requests (ARCH_NEW new tokens)
+    through ``generate``, a continuous serve and a gamma-4 self-draft
+    speculative serve (the verify on the latent kernel, S = 5); wall and
+    device busy per 1024-token prefill and per 4-slot decode step, each
+    kernel's device ms per launch; peak memory."""
+    from repro_torch.api import EngineConfig, GenerationConfig, LVLM, Request
+    from repro_torch.configs import get_config
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    lvlm = LVLM.from_pretrained("deepseek-v3-671b", seed=0,
+                                num_layers=MLA_FULL_LAYERS)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    init_peak = torch.cuda.max_memory_allocated()
+    gc.collect()
+    cfg, model, params = lvlm.cfg, lvlm.model, lvlm.params
+    check(lvlm.device.type == "cuda", "deepseek full: not on cuda")
+    n_params = sum(v.numel() for v in _leaves(params))
+    rng = np.random.default_rng(20)
+    prompts = [rng.integers(0, cfg.vocab_size, n).tolist()
+               for n in ARCH_PROMPTS]
+    cls, L = type(model), cfg.num_layers
+
+    s = MLA_CONSISTENCY_LEN
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, s))).cuda()
+    full, _ = cls.forward(model, params, {"tokens": toks}, moe_cap=None)
+    want = full[:, -1].float()
+    del full
+    with _CallRecorder() as rec:
+        _, cache = cls.prefill(model, params, {"tokens": toks[:, :-1]},
+                               cache_len=s + 16, moe_cap=None,
+                               last_only=True)
+        got, _ = cls.decode_step(model, params, cache, toks[:, -1:], s - 1,
+                                 moe_cap=None)
+    torch.cuda.synchronize()
+    del cache
+    recorded = rec.check()
+    del rec
+    scale = float(want.abs().max())
+    cons = max_err(got, want) / scale
+    check(bool(torch.isfinite(got).all()) and bool(torch.isfinite(
+        want).all()), "deepseek full: NaN or inf logits")
+    check(cons <= CONSISTENCY_TOL, f"deepseek full: decode after prefill "
+          f"vs forward differ by {cons} of the logit scale")
+    check(recorded["flash_attention"]["calls"] == L
+          and recorded["mla_attention"]["calls"] == L
+          and recorded["paged_attention"]["calls"] == 0,
+          f"deepseek full: recorded {recorded}")
+
+    gen = GenerationConfig(max_new_tokens=ARCH_NEW, decoder="greedy")
+    timer = CallTimer(model)
+    row = {"layers": L, "of_layers": get_config("deepseek-v3-671b"
+                                                ).num_layers,
+           "params": n_params, "init_seconds": init_s,
+           "init_peak_gib": init_peak / 2 ** 30,
+           "decode_vs_forward_rel": cons, "logit_scale": scale,
+           "recorded_calls": recorded}
+    counts = dict.fromkeys(("flash_attention", "paged_attention",
+                            "mla_attention"), 0)
+    runs = {}
+    spec = GenerationConfig(max_new_tokens=ARCH_NEW, temperature=0.0,
+                            decoder="speculative", gamma=GAMMA)
+    for name in ("generate", "serve_continuous", "serve_speculative"):
+        timer.reset()
+        _reset_counts()
+        t0 = time.perf_counter()
+        if name == "generate":
+            res = lvlm.generate(prompts, gen)
+            runs[name] = {i: r.tokens for i, r in enumerate(res)}
+        else:
+            g = gen if name == "serve_continuous" else spec
+            reqs = _requests(Request, prompts, [None] * 4, ARCH_NEW)
+            rep = lvlm.serve(reqs, EngineConfig(
+                max_batch=4, cache_len=LVLM._cache_len(reqs, g),
+                scheduler="continuous"), g)
+            runs[name] = {r.rid: r.generated for r in rep.requests}
+        torch.cuda.synchronize()
+        c = _mla_counts()
+        row[name] = {"wall_seconds": time.perf_counter() - t0,
+                     "calls": dict(timer.calls), "launches": c,
+                     "prefill_wall_seconds": timer.seconds["prefill"],
+                     "decode_wall_seconds": timer.seconds["decode_step"]}
+        check(len(runs[name]) == 4 and all(
+            len(t) == ARCH_NEW and all(0 <= x < cfg.vocab_size for x in t)
+            for t in runs[name].values()), f"deepseek full {name}: tokens")
+        check(c["flash_attention"] >= L * timer.calls["prefill"] > 0
+              and c["mla_attention"] >= L * (timer.calls["decode_step"]
+                                             + timer.calls["extend"]) > 0
+              and c["paged_attention"] == 0,
+              f"deepseek full {name}: launches {c} vs {timer.calls}")
+        counts = {k: counts[k] + c[k] for k in counts}
+    for name in ("serve_continuous", "serve_speculative"):
+        row[name]["token_agreement_with_generate"] = float(np.mean(
+            [a == b for i, t in runs["generate"].items()
+             for a, b in zip(t, runs[name][i])]))
+    check(runs["serve_continuous"] == runs["generate"],
+          "deepseek full: the continuous serve != generate")
+    cache_len = LVLM._cache_len(_requests(Request, prompts, [None] * 4,
+                                          ARCH_NEW), gen)
+    pool = model.init_cache(4, cache_len, device="cuda")
+    dtoks = torch.zeros((4, 1), dtype=torch.long, device="cuda")
+    dpos = torch.tensor(list(ARCH_PROMPTS), device="cuda")
+    batch = {"tokens": torch.tensor([prompts[-1]], device="cuda")}
+    prof = _profile_calls({
+        "prefill_1024": (lambda: cls.prefill(model, params, batch,
+                                             cache_len=cache_len,
+                                             last_only=True), 2),
+        "decode_step_b4": (lambda: cls.decode_step(model, params, pool,
+                                                   dtoks, dpos), 5)})
+    for p in prof.values():
+        p.pop("by_kernel")
+    row["profile"] = prof
+    row["cache_bytes_per_token"] = cfg.kv_head_dim * L * 2
+    row["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    row["launches"] = counts
+    emit("mla_full", config=cfg.name, dtype=cfg.dtype, **row)
+    del lvlm, model, params, pool, timer, res, rep, prof
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
 def phase_serve_cli() -> None:
     """``python -m repro_torch.launch.serve --roles prefill:1,decode:1
     --control --open-loop 2000 --requests 8`` on the card, in a
@@ -3787,6 +4345,7 @@ def main() -> int:
     d32 = phase_kernels_d32(flush)
     verify_long = phase_paged_verify_long(flush)
     new_shapes = phase_kernels_new_shapes(flush)
+    mla_rows = phase_mla_kernels(flush)
     del flush
     kv_launches = phase_kv_compaction_serve(full[0])
     prefix_launches = phase_prefix_cache_serve(full[0])
@@ -3802,12 +4361,20 @@ def main() -> int:
     phase_serve_cli()
     phase_profile(*full)
     arch_full_launches = phase_arch_full()
+    mla_smoke_launches = phase_mla_smoke()
+    mla_full_launches = phase_mla_full()
     launches = {k: launches[k] + comp_launches[k] + kv_launches[k]
                 + prefix_launches[k] + spec_launches[k] + ee_launches[k]
                 + phi4_launches[k] + async_launches[k]
                 + cluster_smoke_launches[k] + cluster_launches[k]
                 + arch_smoke_launches[k] + arch_full_launches[k]
+                + mla_smoke_launches[k] + mla_full_launches[k]
                 for k in launches}
+    # the latent kernel runs on the MLA path only
+    launches["mla_attention"] = mla_smoke_launches["mla_attention"] \
+        + mla_full_launches["mla_attention"]
+    kernels["mla_attention"] = mla_rows["mla_attention"]
+    kernels["flash_attention"]["mla_prefill"] = mla_rows["flash_mla_prefill"]
     for name, n in launches.items():
         check(n > 0, f"kernel {name} was not launched on the main path")
         kernels[name]["launches"] = n
@@ -3824,7 +4391,7 @@ def main() -> int:
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     extra = ("head_dim_32", "multi_query", "long_verify", "head_dim_192",
-             "group_48")
+             "group_48", "mla_prefill")
     print(env["smi"])
     print(json.dumps({"kernels": [
         {k: kv[k] for k in keys + tuple(x for x in extra if x in kv)}

@@ -2,9 +2,9 @@
 
 All ten of the reference's architectures are listed, with the same
 ``CONFIG`` / ``SMOKE_CONFIG`` values (``repro.configs``). The port builds
-the dense, ``vlm`` and ``moe`` families; building deepseek-v3 (MLA),
-rwkv6, whisper or zamba2 raises ``NotImplementedError`` naming its
-ROADMAP item.
+the dense, ``vlm`` and ``moe`` families, deepseek-v3's MLA included;
+building rwkv6, whisper or zamba2 raises ``NotImplementedError`` naming
+its ROADMAP item.
 """
 from __future__ import annotations
 

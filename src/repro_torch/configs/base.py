@@ -86,6 +86,13 @@ class ModelConfig:
         if self.num_experts and self.moe_d_ff == 0:
             object.__setattr__(self, "moe_d_ff", self.d_ff)
 
+    @property
+    def kv_head_dim(self) -> int:
+        """Width of one KV entry per layer per token (for cache sizing)."""
+        if self.use_mla:
+            return self.kv_lora_rank + self.qk_rope_head_dim  # latent cache
+        return 2 * self.num_kv_heads * self.head_dim
+
     def param_count(self) -> int:
         """Exact parameter count from the built model's spec tree."""
         from repro_torch.models.registry import build

@@ -3,8 +3,8 @@
 The assignment's "GQA kv=128" reflects MLA's 128 effective heads; the cache
 is the compressed latent (kv_lora_rank + rope dim), which is itself a
 KV-cache-compression technique in the survey's dimension 2.
-MTP (multi-token prediction) is implemented as an extra prediction head
-(see models/transformer.py mtp option) used by speculative decoding (dim 4).
+The paper's MTP (multi-token prediction) head is not built here, nor in
+the reference: speculative decoding on this config self-drafts.
 """
 from repro_torch.configs.base import ModelConfig
 

@@ -9,8 +9,9 @@ params and cache are views), so the exit is a real ``break``: the layers
 after it never run. Each logit-lens check reads its confidence and argmax
 on the host (one sync per layer): that is the algorithm. The skipped
 layers' KV is back-filled with the exit hidden state through
-``decode_attention`` (the paged kernel on the card), so later tokens see a
-consistent cache. The caller's cache is updated in place: every layer's
+``decode_attention`` (the paged kernel on the card; ``mla_decode_attention``
+and the latent kernel on an MLA model), so later tokens see a consistent
+cache. The caller's cache is updated in place: every layer's
 cache is a view of it (asserted), so a batch-1 view of an engine's slot
 pool receives the writes.
 """
@@ -115,11 +116,12 @@ def early_exit_decode_step(model, params, cache, tokens, pos, *,
     if exited:
         # identity skip: back-fill skipped layers' KV with the exit hidden
         # state so FUTURE tokens see a consistent cache
+        decode = attn.mla_decode_attention if cfg.use_mla \
+            else attn.decode_attention
         for i in range(used, n):
             lp = _layer(params["layers"], i)
             h = L.apply_norm(lp["ln1"], x, cfg.norm)
-            attn.decode_attention(lp["attn"], h, cos, sin, cfg,
-                                  _layer_cache(cache, i), pos)
+            decode(lp["attn"], h, cos, sin, cfg, _layer_cache(cache, i), pos)
 
     info = {"layers_used": used, "exited": exited, "flops_frac": used / n}
     return logits, cache, info

@@ -2,8 +2,9 @@
 //
 // Replaces the Pallas TPU kernel `flash_attention` / `_flash_kernel` of
 // src/repro/kernels/flash_attention.py. Same function: online softmax
-// (running max m, sum l and output accumulator in float32), scale 1/sqrt(D),
-// masks k < kv_len, causal k <= q + q_offset, window k > q + q_offset - window.
+// (running max m, sum l and output accumulator in float32), scale 1/sqrt(D)
+// unless the caller gives one (MLA's prefill pads q/k with zero columns and
+// keeps the scale of the unpadded width), masks k < kv_len, causal k <= q + q_offset, window k > q + q_offset - window.
 // q, k, v and o are [B, N, S, D] views whose last dimension is contiguous;
 // the other strides are arguments (multiples of 16 bytes).
 //
@@ -251,8 +252,8 @@ __global__ void __launch_bounds__(THREADS)
 template <int D>
 cudaError_t launch(const float* q, const float* k, const float* v, float* o,
                    int B, int H, int KVH, int Sq, int Sk, int kv_len,
-                   int q_offset, int causal, int window, const Strides* st,
-                   cudaStream_t stream) {
+                   int q_offset, int causal, int window, float scale,
+                   const Strides* st, cudaStream_t stream) {
   const size_t smem = Layout<D>::bytes;
   cudaError_t err = cudaFuncSetAttribute(
       flash_fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -261,7 +262,8 @@ cudaError_t launch(const float* q, const float* k, const float* v, float* o,
   const dim3 grid((Sq + BQ - 1) / BQ, H, B);
   flash_fwd_kernel<D><<<grid, THREADS, smem, stream>>>(
       q, k, v, o, H, KVH, Sq, Sk, kv_len, q_offset, causal, window,
-      1.0f / sqrtf((float)D), st[0], st[1], st[2], st[3]);
+      scale > 0.0f ? scale : 1.0f / sqrtf((float)D), st[0], st[1], st[2],
+      st[3]);
   return cudaGetLastError();
 }
 
@@ -558,7 +560,7 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 
 struct Problem {
   int H, KVH, Sq, Sk, kv_len, q_offset, causal, window, n_qt;
-  float scale_log2;  // log2(e) / sqrt(D)
+  float scale_log2;  // log2(e) * the softmax scale (1/sqrt(D) by default)
 };
 
 // The key tiles [lo, hi) (in units of BN keys) a q tile visits.
@@ -887,8 +889,8 @@ bool make_map(CUtensorMap* map, const void* ptr, int B, int N, int S, int D,
 template <int D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
                    int B, int H, int KVH, int Sq, int Sk, int kv_len,
-                   int q_offset, int causal, int window, const Strides* st,
-                   cudaStream_t stream) {
+                   int q_offset, int causal, int window, float scale,
+                   const Strides* st, cudaStream_t stream) {
   CUtensorMap tm_q, tm_k, tm_v;
   if (!make_map(&tm_q, q, B, H, Sq, D, st[0]) ||
       !make_map(&tm_k, k, B, KVH, Sk, D, st[1]) ||
@@ -902,7 +904,9 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
   const int n_qt = (Sq + BM - 1) / BM;
   const Problem p{H,      KVH,    Sq,   Sk,
                   kv_len, q_offset, causal, window,
-                  n_qt,   1.4426950408889634f / sqrtf((float)D)};
+                  n_qt,
+                  scale > 0.0f ? 1.4426950408889634f * scale
+                               : 1.4426950408889634f / sqrtf((float)D)};
   flash_fwd_kernel<D><<<dim3(H, n_qt, B), THREADS, smem, stream>>>(
       tm_q, tm_k, tm_v, static_cast<__nv_bfloat16*>(o), st[3], p);
   return cudaGetLastError();
@@ -914,7 +918,8 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
 
 // q [B,H,Sq,D], k/v [B,KVH,Sk,D], o [B,H,Sq,D]: views of one dtype
 // (0 float32, 1 bfloat16), D in {32, 64, 128, 192}, last dimension
-// contiguous.
+// contiguous. `scale` > 0 is the softmax scale; 0 keeps 1/sqrt(D), computed
+// as before the argument existed, so those results keep their bits.
 // `strides` holds the element strides (b, head, seq) of q, k, v and o, in
 // that order (12 values), each a multiple of 16 bytes. kv_len and q_offset
 // are already resolved as the Pallas wrapper resolves them. Returns the CUDA
@@ -922,8 +927,9 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
                                    void* o, int B, int H, int KVH, int Sq,
                                    int Sk, int D, int kv_len, int q_offset,
-                                   int causal, int window, int dtype,
-                                   const long long* strides, void* stream) {
+                                   int causal, int window, float scale,
+                                   int dtype, const long long* strides,
+                                   void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   Strides st[4];
   for (int i = 0; i < 4; ++i)
@@ -936,7 +942,7 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
 #define REPRO_F32(DD)                                                       \
   if (D == DD)                                                              \
     return f32::launch<DD>(qf, kf, vf, of, B, H, KVH, Sq, Sk, kv_len,       \
-                           q_offset, causal, window, st, s);
+                           q_offset, causal, window, scale, st, s);
     REPRO_F32(32)
     REPRO_F32(64)
     REPRO_F32(128)
@@ -947,7 +953,7 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
 #define REPRO_BF16(DD)                                                      \
   if (D == DD)                                                              \
     return bf16::launch<DD>(q, k, v, o, B, H, KVH, Sq, Sk, kv_len, q_offset, \
-                            causal, window, st, s);
+                            causal, window, scale, st, s);
     REPRO_BF16(32)
     REPRO_BF16(64)
     REPRO_BF16(128)

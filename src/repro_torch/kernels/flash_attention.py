@@ -40,19 +40,21 @@ def resolve_offsets(sq: int, sk: int, causal: bool,
 
 
 def flash_attention_plain(q, k, v, *, causal: bool = True, window: int = 0,
-                          kv_len: Optional[int] = None, q_offset: int = 0):
+                          kv_len: Optional[int] = None, q_offset: int = 0,
+                          scale: Optional[float] = None):
     """The kernel's function in plain PyTorch (same arguments)."""
     kv_len, q_offset = resolve_offsets(q.shape[2], k.shape[2], causal,
                                        kv_len, q_offset)
     return flash_attention_ref(q, k, v, causal=causal, kv_len=kv_len,
-                               window=window, q_offset=q_offset)
+                               window=window, q_offset=q_offset, scale=scale)
 
 
 def _lib():
     fn = build.load("flash_attention").flash_attention_fwd
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 11 \
-            + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 10 \
+            + [ctypes.c_float, ctypes.c_int,
+               ctypes.POINTER(ctypes.c_longlong), ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -79,12 +81,16 @@ def _strides(name: str, t) -> list:
 
 
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
-                    kv_len: Optional[int] = None, q_offset: int = 0):
+                    kv_len: Optional[int] = None, q_offset: int = 0,
+                    scale: Optional[float] = None):
     """q [B,H,Sq,D]; k, v [B,KVH,Sk,D] -> [B,H,Sq,D] in q's dtype.
 
     ``kv_len`` marks the valid keys (default Sk); ``q_offset`` is the
     absolute position of q[..., 0, :] for the causal and window masks,
-    with the Pallas wrapper's default. A CPU tensor takes the plain
+    with the Pallas wrapper's default. ``scale`` is the softmax scale;
+    None keeps 1/sqrt(D), bit for bit as before the argument existed (MLA
+    pads q and k with zero columns and passes the unpadded width's
+    scale). A CPU tensor takes the plain
     version; a CUDA tensor takes the kernel (float32 or bfloat16, D in
     {32, 64, 128, 192}, views with a contiguous last dimension and other strides
     that are multiples of 16 bytes) or raises. The result has q's strides
@@ -93,7 +99,8 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     """
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, window=window,
-                                     kv_len=kv_len, q_offset=q_offset)
+                                     kv_len=kv_len, q_offset=q_offset,
+                                     scale=scale)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: unsupported device {q.device}")
     b, h, sq, d = q.shape
@@ -113,13 +120,16 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
                          f"{HEAD_DIMS}, not {d}")
     if sq == 0 or sk == 0:
         raise ValueError("flash_attention kernel needs Sq, Sk >= 1")
+    if scale is not None and not scale > 0:
+        raise ValueError(f"flash_attention: scale must be > 0, got {scale}")
     out = torch.empty_like(q)          # q's strides when q is dense
     strides = [x for name, t in (("q", q), ("k", k), ("v", v), ("out", out))
                for x in _strides(name, t)]
     kv_len, q_offset = resolve_offsets(sq, sk, causal, kv_len, q_offset)
     err = _lib()(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                  b, h, kvh, sq, sk, d, kv_len, q_offset, int(causal),
-                 int(window), _DTYPES[q.dtype],
+                 int(window), 0.0 if scale is None else float(scale),
+                 _DTYPES[q.dtype],
                  (ctypes.c_longlong * 12)(*strides),
                  torch.cuda.current_stream(q.device).cuda_stream)
     if err:

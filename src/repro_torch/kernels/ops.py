@@ -10,12 +10,15 @@ from __future__ import annotations
 from typing import Optional
 
 from repro_torch.kernels.flash_attention import flash_attention as _flash
+from repro_torch.kernels.mla_attention import mla_attention as _mla
 from repro_torch.kernels.paged_attention import paged_attention as _paged
 
 
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
-                    kv_len: Optional[int] = None, q_offset: int = 0):
-    """GQA flash attention. q [B,H,Sq,D]; k,v [B,KVH,Sk,D] -> [B,H,Sq,D]."""
+                    kv_len: Optional[int] = None, q_offset: int = 0,
+                    scale: Optional[float] = None):
+    """GQA flash attention. q [B,H,Sq,D]; k,v [B,KVH,Sk,D] -> [B,H,Sq,D].
+    ``scale`` None is 1/sqrt(D)."""
     if q.ndim != 4 or k.ndim != 4 or v.ndim != 4:
         raise ValueError("flash_attention expects rank-4 q/k/v")
     if k.shape != v.shape:
@@ -27,7 +30,7 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     if q.shape[1] % k.shape[1]:
         raise ValueError("H must be a multiple of KVH")
     return _flash(q, k, v, causal=causal, window=window, kv_len=kv_len,
-                  q_offset=q_offset)
+                  q_offset=q_offset, scale=scale)
 
 
 def paged_attention(q, k_pages, v_pages, block_table, seq_lens, *,
@@ -56,3 +59,33 @@ def paged_attention(q, k_pages, v_pages, block_table, seq_lens, *,
         raise ValueError("k_pos, window or a multi-query q needs q_pos")
     return _paged(q, k_pages, v_pages, block_table, seq_lens, k_pos=k_pos,
                   q_pos=q_pos, window=window)
+
+
+def mla_attention(q_lat, q_rope, ckv, k_rope, q_pos, *, k_pos=None,
+                  window: int = 0, scale: float):
+    """Absorbed MLA attention over a latent cache. q_lat [B,Sq,H,R],
+    q_rope [B,Sq,H,Rr] float32; ckv [B,L,R], k_rope [B,L,Rr]; q_pos
+    [B,Sq]; ``k_pos`` [B,L] (a windowed cache's slot positions) and
+    ``window`` as the reference's decode mask -> o_lat [B,Sq,H,R] f32."""
+    if q_lat.ndim != 4 or q_rope.ndim != 4 or ckv.ndim != 3 \
+            or k_rope.ndim != 3:
+        raise ValueError("mla_attention expects rank-4 queries and a rank-3 "
+                         "latent cache")
+    if q_lat.shape[:3] != q_rope.shape[:3]:
+        raise ValueError(f"q_lat/q_rope mismatch: {tuple(q_lat.shape)} vs "
+                         f"{tuple(q_rope.shape)}")
+    if ckv.shape[:2] != k_rope.shape[:2] or ckv.shape[0] != q_lat.shape[0]:
+        raise ValueError(f"ckv/k_rope/q incompatible: {tuple(ckv.shape)}, "
+                         f"{tuple(k_rope.shape)}, {tuple(q_lat.shape)}")
+    if q_lat.shape[3] != ckv.shape[2] or q_rope.shape[3] != k_rope.shape[2]:
+        raise ValueError(f"latent widths differ: q_lat {q_lat.shape[3]} vs "
+                         f"ckv {ckv.shape[2]}, q_rope {q_rope.shape[3]} vs "
+                         f"k_rope {k_rope.shape[2]}")
+    if tuple(q_pos.shape) != tuple(q_lat.shape[:2]):
+        raise ValueError(f"q_pos must be {list(q_lat.shape[:2])}, got "
+                         f"{list(q_pos.shape)}")
+    if k_pos is not None and tuple(k_pos.shape) != tuple(ckv.shape[:2]):
+        raise ValueError(f"k_pos must be {list(ckv.shape[:2])}, got "
+                         f"{list(k_pos.shape)}")
+    return _mla(q_lat, q_rope, ckv, k_rope, q_pos, k_pos=k_pos, window=window,
+                scale=scale)

@@ -14,7 +14,8 @@ NEG_INF = -1e30
 
 def flash_attention_ref(q, k, v, *, causal: bool = True,
                         kv_len: Optional[int] = None, window: int = 0,
-                        q_offset: Optional[int] = None):
+                        q_offset: Optional[int] = None,
+                        scale: Optional[float] = None):
     """Grouped-query attention oracle.
 
     q: [B, H, Sq, D];  k, v: [B, KVH, Sk, D];  H = KVH * G.
@@ -23,12 +24,14 @@ def flash_attention_ref(q, k, v, *, causal: bool = True,
     ``q_offset``: absolute position of q[..., 0, :]; None is the
     reference oracle's convention, ``kv_len - Sq`` (the q block sits at
     the end of the kv sequence).
+    ``scale``: the softmax scale, default 1/sqrt(D).
     Returns [B, H, Sq, D] in q.dtype (accumulation in f32).
     """
     b, h, sq, d = q.shape
     kvh, sk = k.shape[1], k.shape[2]
     g = h // kvh
-    qf = q.reshape(b, kvh, g, sq, d).float() / (d ** 0.5)
+    qf = q.reshape(b, kvh, g, sq, d).float()
+    qf = qf / (d ** 0.5) if scale is None else qf * scale
     s = torch.einsum("bkgqd,bkcd->bkgqc", qf, k.float())
     q_pos = torch.arange(sq, device=q.device)
     k_pos = torch.arange(sk, device=q.device)
@@ -136,6 +139,45 @@ def _paged_ref(q, k_pages, v_pages, block_table, seq_lens, *, k_pos=None,
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bkgc,bckd->bkgd", p, v_log.float())
     return o.reshape(b, h, d).to(q.dtype)
+
+
+def mla_key_mask(q_pos, length: int, *, k_pos=None, window: int = 0):
+    """Which keys each query of the latent attention sees: [B, Sq, L].
+
+    Key t is valid for query i of row b iff p_t >= 0 and p_t <= q_pos[b, i],
+    and p_t > q_pos[b, i] - window when ``window`` > 0, where p_t is
+    ``k_pos[b, t]`` when given, else t."""
+    qp = q_pos.long()[:, :, None]
+    p_t = (torch.arange(length, device=q_pos.device)[None, None]
+           if k_pos is None else k_pos.to(q_pos.device).long()[:, None])
+    valid = (p_t >= 0) & (p_t <= qp)
+    if window > 0:
+        valid = valid & (p_t > qp - window)
+    return valid
+
+
+def mla_attention_ref(q_lat, q_rope, ckv, k_rope, q_pos, *, k_pos=None,
+                      window: int = 0, scale: float):
+    """Absorbed MLA attention in the latent space, oracle (the reference's
+    ``mla_decode_attention`` einsums, ``repro/models/attention.py``).
+
+    q_lat  : [B, Sq, H, R]  float32 (q_nope with wk_b absorbed)
+    q_rope : [B, Sq, H, Rr] float32
+    ckv    : [B, L, R]      the latent cache, bfloat16 or float32
+    k_rope : [B, L, Rr]     the shared rope key
+    q_pos  : [B, Sq] int32; ``k_pos`` [B, L] int32 and ``window`` as
+    ``mla_key_mask``. Scores and softmax run in float32; an invalid key
+    scores the -1e30 sentinel, so a query with no valid key averages ckv
+    over all L rows. Returns o_lat [B, Sq, H, R] float32.
+    """
+    ckv_f = ckv.float()
+    s = (torch.einsum("bshr,bcr->bhsc", q_lat.float(), ckv_f)
+         + torch.einsum("bshe,bce->bhsc", q_rope.float(), k_rope.float())
+         ) * scale
+    valid = mla_key_mask(q_pos, ckv.shape[1], k_pos=k_pos, window=window)
+    s = torch.where(valid[:, None], s, torch.full_like(s, NEG_INF))
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bhsc,bcr->bshr", p, ckv_f)
 
 
 def rmsnorm_ref(x, scale, eps: float = 1e-6):

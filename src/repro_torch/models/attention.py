@@ -1,9 +1,10 @@
-"""Attention: GQA full, prefill-into-cache, chunk continuation and decode.
+"""Attention: GQA full, prefill-into-cache, chunk continuation and decode,
+and MLA (DeepSeek-V3 multi-head latent attention).
 
-Port of ``repro.models.attention`` (GQA path; MLA comes with the other
-architectures). Layouts are the reference's: q [B,S,H,D], caches
-[B,L,K,D], GQA computed grouped (q viewed [B,S,K,G,D]) so KV heads are
-never repeated.
+Port of ``repro.models.attention``. Layouts are the reference's: q
+[B,S,H,D], caches [B,L,K,D] (MLA: the latent ``ckv`` [B,L,R] and the
+shared rope key ``k_rope`` [B,L,rope]), GQA computed grouped (q viewed
+[B,S,K,G,D]) so KV heads are never repeated.
 
 Where the reference attends with its pure-jnp ``blockwise_sdpa`` (prefill)
 and ``simple_sdpa`` (continuation, decode), the port calls the kernels of
@@ -18,12 +19,26 @@ kernels too: prefill attends over the fresh prompt with flash (only the
 ring write differs), a scalar-start extend that has not wrapped attends
 over the cache's first rows with flash, and decode (windowed, or with
 ``window > 0``) takes the paged kernel's masked mode with ``slot_pos`` as
-the key positions. Three paths do not fit the kernels: caller-supplied
+the key positions. Three GQA paths do not fit the kernels: caller-supplied
 positions, an extend into a ring that has wrapped, and [B] starts on a
 windowed cache or with ``window > 0`` (the speculative decoder refuses a
 compacting engine, so the engine never makes one). On CPU tensors they
 take the plain ``blockwise_sdpa`` / ``simple_sdpa`` below, on CUDA
 tensors they raise ``NotImplementedError`` (ROADMAP).
+
+MLA runs the reference's two forms. Prefill, forward and a scalar-start
+extend take the naive form on the flash kernel (per-head k and v expanded
+from the latent by ``wk_b`` / ``wv_b``, heads ungrouped, q/k and v
+zero-padded to one of the kernel's head dims, the softmax scale of the
+unpadded width). Decode takes the absorbed form on the latent kernel
+(``kernels.mla_attention``: q_lat = q_nope wk_b, scores, softmax and
+o_lat in float32, then wv_b and wo), and so do [B]-start extends (the
+speculative verify) and an extend into a wrapped ring, where the
+reference uses the naive form (ROADMAP C3). Windowed latent caches take
+the latent kernel's ``k_pos`` mode with ``slot_pos`` as the key
+positions; the engine never makes one (its compaction refuses MLA).
+Caller-supplied positions take the plain path on CPU tensors and raise on
+CUDA, as for GQA.
 
 Caches are updated in place (the reference returns updated copies); every
 function still returns the cache it was given, as the reference does.
@@ -33,8 +48,10 @@ from __future__ import annotations
 from typing import Dict
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.kernels import ops
+from repro_torch.kernels.flash_attention import HEAD_DIMS as _FLASH_HEAD_DIMS
 from repro_torch.models.layers import DTYPES, ParamSpec, apply_rope, spec, \
     tree_map_specs
 
@@ -46,10 +63,27 @@ NEG_INF = -1e30
 # --------------------------------------------------------------------------
 
 def attn_specs(cfg) -> Dict[str, ParamSpec]:
-    if cfg.use_mla:
-        raise NotImplementedError(
-            "MLA attention is not ported yet (ROADMAP queue A, slice 7)")
     d, h, k, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    if cfg.use_mla:
+        qk_hd = cfg.qk_nope_head_dim + cfg.qk_rope_head_dim
+        out = {
+            "wkv_a": spec((d, cfg.kv_lora_rank + cfg.qk_rope_head_dim),
+                          ("embed", None)),
+            "kv_norm": spec((cfg.kv_lora_rank,), (None,), init="ones"),
+            "wk_b": spec((cfg.kv_lora_rank, h, cfg.qk_nope_head_dim),
+                         (None, "heads", None)),
+            "wv_b": spec((cfg.kv_lora_rank, h, cfg.v_head_dim),
+                         (None, "heads", None)),
+            "wo": spec((h, cfg.v_head_dim, d), ("heads", None, "embed")),
+        }
+        if cfg.q_lora_rank:
+            out["wq_a"] = spec((d, cfg.q_lora_rank), ("embed", None))
+            out["q_norm"] = spec((cfg.q_lora_rank,), (None,), init="ones")
+            out["wq_b"] = spec((cfg.q_lora_rank, h, qk_hd),
+                               (None, "heads", None))
+        else:
+            out["wq"] = spec((d, h, qk_hd), ("embed", "heads", None))
+        return out
     return {
         "wq": spec((d, h, hd), ("embed", "heads", None)),
         "wk": spec((d, k, hd), ("embed", "kv_heads", None)),
@@ -190,18 +224,25 @@ def full_attention(p, x, cos, sin, cfg, *, causal=True, window=0,
 # ---------------------------- KV cache ------------------------------------
 
 def kv_cache_specs(cfg, batch: int, cache_len: int, windowed: bool):
-    """ParamSpec tree for one layer's cache (shape + logical axes)."""
-    if cfg.use_mla:
-        raise NotImplementedError(
-            "MLA latent caches are not ported yet (ROADMAP queue A, slice 7)")
+    """ParamSpec tree for one layer's cache (shape + logical axes): K and
+    V, or MLA's latent ``ckv`` [B,L,kv_lora_rank] and shared rope key
+    ``k_rope`` [B,L,qk_rope_head_dim]."""
     k, hd = cfg.num_kv_heads, cfg.head_dim
     length = min(cache_len, cfg.sliding_window) if windowed else cache_len
-    tree = {
-        "k": spec((batch, length, k, hd),
-                  ("batch", "cache_seq", "kv_heads", None), init="zeros"),
-        "v": spec((batch, length, k, hd),
-                  ("batch", "cache_seq", "kv_heads", None), init="zeros"),
-    }
+    if cfg.use_mla:
+        tree = {
+            "ckv": spec((batch, length, cfg.kv_lora_rank),
+                        ("batch", "cache_seq", None), init="zeros"),
+            "k_rope": spec((batch, length, cfg.qk_rope_head_dim),
+                           ("batch", "cache_seq", None), init="zeros"),
+        }
+    else:
+        tree = {
+            "k": spec((batch, length, k, hd),
+                      ("batch", "cache_seq", "kv_heads", None), init="zeros"),
+            "v": spec((batch, length, k, hd),
+                      ("batch", "cache_seq", "kv_heads", None), init="zeros"),
+        }
     if windowed:
         tree["slot_pos"] = spec((batch, length), ("batch", "cache_seq"),
                                 init="zeros", dtype="int32")
@@ -225,31 +266,36 @@ def init_kv_cache(cfg, batch, cache_len, windowed, dtype, device):
                             dtype, device)
 
 
-def _cache_write_prefill(cache, new_k, new_v, windowed):
-    """Write the whole prompt starting at position 0."""
-    length = cache["k"].shape[1]
-    s_new = new_k.shape[1]
+def _cache_write_prefill(cache, new, windowed):
+    """Write the whole prompt starting at position 0. ``new`` maps cache
+    keys (``k`` and ``v``, or MLA's ``ckv`` and ``k_rope``) to their
+    [B,S_new,...] entries."""
+    first = next(iter(new.values()))
+    length = cache[next(iter(new))].shape[1]
+    s_new = first.shape[1]
     if windowed:
         # keep only the last ``length`` entries if the prompt overflows
         take = min(s_new, length)
-        pos = torch.arange(s_new - take, s_new, device=new_k.device)
+        pos = torch.arange(s_new - take, s_new, device=first.device)
         idx = pos % length
-        cache["k"][:, idx] = new_k[:, -take:]
-        cache["v"][:, idx] = new_v[:, -take:]
+        for key, val in new.items():
+            cache[key][:, idx] = val[:, -take:]
         cache["slot_pos"][:, idx] = pos.to(torch.int32)[None]
         return cache
-    cache["k"][:, :s_new] = new_k
-    cache["v"][:, :s_new] = new_v
+    for key, val in new.items():
+        cache[key][:, :s_new] = val
     return cache
 
 
-def _cache_write_decode(cache, new_k, new_v, pos, windowed):
-    """Write ONE token per request at per-request position ``pos [B]``."""
-    length = cache["k"].shape[1]
-    bidx = torch.arange(new_k.shape[0], device=new_k.device)
+def _cache_write_decode(cache, new, pos, windowed):
+    """Write ONE token per request at per-request position ``pos [B]``
+    (``new`` as ``_cache_write_prefill``)."""
+    first = next(iter(new.values()))
+    length = cache[next(iter(new))].shape[1]
+    bidx = torch.arange(first.shape[0], device=first.device)
     slot = pos % length if windowed else pos
-    cache["k"][bidx, slot] = new_k[:, 0]
-    cache["v"][bidx, slot] = new_v[:, 0]
+    for key, val in new.items():
+        cache[key][bidx, slot] = val[:, 0]
     if windowed:
         cache["slot_pos"][bidx, slot] = pos.to(torch.int32)
     return cache
@@ -264,7 +310,7 @@ def prefill_into_cache(p, x, cos, sin, cfg, cache, *, window=0,
         k = apply_rope(k, cos, sin)
     # a windowed (ring) cache differs only in where the prompt is written:
     # the attention is over the fresh prompt itself
-    cache = _cache_write_prefill(cache, k, v, "slot_pos" in cache)
+    cache = _cache_write_prefill(cache, {"k": k, "v": v}, "slot_pos" in cache)
     o = _prompt_attention(q, k, v, cfg, causal=True, window=window,
                           positions=positions)
     return out_proj(p, o), cache
@@ -278,19 +324,21 @@ def _extend_positions(start, s_new: int, device=None):
     return pos[None] if pos.ndim == 1 else pos
 
 
-def _cache_write_extend(cache, new_k, new_v, start, windowed):
+def _cache_write_extend(cache, new, start, windowed):
     """Write S_new entries at offset ``start``: a scalar (chunked prefill)
-    or [B] per-request starts. Per-request rows routed past the end are
-    clipped onto the last position, the engine's scratch slot."""
-    length = cache["k"].shape[1]
-    s_new = new_k.shape[1]
-    dev = new_k.device
+    or [B] per-request starts (``new`` as ``_cache_write_prefill``).
+    Per-request rows routed past the end are clipped onto the last
+    position, the engine's scratch slot."""
+    first = next(iter(new.values()))
+    length = cache[next(iter(new))].shape[1]
+    s_new = first.shape[1]
+    dev = first.device
     if torch.as_tensor(start).ndim:              # per-request starts [B]
         pos = _extend_positions(start, s_new, dev)          # [B, S_new]
         idx = pos % length if windowed else pos.clamp(0, length - 1)
-        bidx = torch.arange(new_k.shape[0], device=dev)[:, None]
-        cache["k"][bidx, idx] = new_k
-        cache["v"][bidx, idx] = new_v
+        bidx = torch.arange(first.shape[0], device=dev)[:, None]
+        for key, val in new.items():
+            cache[key][bidx, idx] = val
         if windowed:
             cache["slot_pos"][bidx, idx] = pos.to(torch.int32)
         return cache
@@ -298,14 +346,14 @@ def _cache_write_extend(cache, new_k, new_v, start, windowed):
     if windowed:
         pos = start + torch.arange(s_new, device=dev)
         idx = pos % length
-        cache["k"][:, idx] = new_k
-        cache["v"][:, idx] = new_v
+        for key, val in new.items():
+            cache[key][:, idx] = val
         cache["slot_pos"][:, idx] = pos.to(torch.int32)[None]
         return cache
     # the reference's dynamic_update_slice clamps the start into range
     start = min(max(start, 0), length - s_new)
-    cache["k"][:, start:start + s_new] = new_k
-    cache["v"][:, start:start + s_new] = new_v
+    for key, val in new.items():
+        cache[key][:, start:start + s_new] = val
     return cache
 
 
@@ -335,7 +383,7 @@ def append_attention(p, x, cos, sin, cfg, cache, start, *, window=0):
         k = apply_rope(k, cos, sin)
     windowed = "slot_pos" in cache
     per_row = torch.as_tensor(start).ndim > 0
-    cache = _cache_write_extend(cache, k, v, start, windowed)
+    cache = _cache_write_extend(cache, {"k": k, "v": v}, start, windowed)
     wrapped = windowed and not per_row \
         and int(start) + s_new > cache["k"].shape[1]
     if not per_row and not wrapped:
@@ -400,7 +448,7 @@ def decode_attention(p, x, cos, sin, cfg, cache, pos, *, window=0):
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
     windowed = "slot_pos" in cache
-    cache = _cache_write_decode(cache, k, v, pos, windowed)
+    cache = _cache_write_decode(cache, {"k": k, "v": v}, pos, windowed)
     length = cache["k"].shape[1]
     k_pages, v_pages, table = _paged_view(cache, b)
     masked = {}
@@ -413,3 +461,162 @@ def decode_attention(p, x, cos, sin, cfg, cache, pos, *, window=0):
     o = ops.paged_attention(q[:, 0], k_pages, v_pages, table,
                             seq_lens.to(torch.int32), **masked)
     return out_proj(p, o[:, None]), cache
+
+
+# --------------------------------------------------------------------------
+# MLA (DeepSeek-V3 multi-head latent attention)
+# --------------------------------------------------------------------------
+
+def _rms(x, scale, eps=1e-6):
+    """RMSNorm in float32 (the result stays float32, as the reference's)."""
+    xf = x.float()
+    y = xf * torch.rsqrt(xf.square().mean(-1, keepdim=True) + eps)
+    return y * scale.float()
+
+
+def _mla_q(p, x, cfg, cos, sin):
+    """(q_nope [B,S,H,nope], q_rope [B,S,H,rope]) in x's dtype."""
+    b, s, d = x.shape
+    if cfg.q_lora_rank:
+        ql = _rms(torch.matmul(x, p["wq_a"]), p["q_norm"]).to(x.dtype)
+        q = torch.matmul(ql, p["wq_b"].reshape(cfg.q_lora_rank, -1))
+    else:
+        q = torch.matmul(x, p["wq"].reshape(d, -1))
+    q = q.reshape(b, s, cfg.num_heads, -1)
+    q_nope = q[..., :cfg.qk_nope_head_dim]
+    q_rope = apply_rope(q[..., cfg.qk_nope_head_dim:], cos, sin)
+    return q_nope, q_rope
+
+
+def _mla_latent(p, x, cfg, cos, sin):
+    """The cache entries of x: (ckv [B,S,R], k_rope [B,S,rope])."""
+    kv = torch.matmul(x, p["wkv_a"])
+    ckv = _rms(kv[..., :cfg.kv_lora_rank], p["kv_norm"]).to(x.dtype)
+    k_rope = kv[..., cfg.kv_lora_rank:].to(x.dtype)
+    # rope applied to the shared (MQA-style) rope key
+    k_rope = apply_rope(k_rope[:, :, None, :], cos, sin)[:, :, 0, :]
+    return ckv, k_rope
+
+
+def _mla_scale(cfg) -> float:
+    return 1.0 / ((cfg.qk_nope_head_dim + cfg.qk_rope_head_dim) ** 0.5)
+
+
+def _mla_naive_kv(p, cfg, ckv, k_rope, dtype):
+    """The naive form's per-head keys and values over latent rows:
+    k = [ckv wk_b | k_rope] [B,S,H,nope+rope], v = ckv wv_b [B,S,H,v]."""
+    k_nope = torch.einsum("bsr,rhe->bshe", ckv, p["wk_b"]).to(dtype)
+    v = torch.einsum("bsr,rhe->bshe", ckv, p["wv_b"]).to(dtype)
+    kr = k_rope[:, :, None, :].expand(k_rope.shape[:2] + (cfg.num_heads,
+                                                          k_rope.shape[-1]))
+    return torch.cat([k_nope, kr], -1), v
+
+
+def _mla_flash(cfg, q, k, v, *, window, kv_len=None, q_offset=0):
+    """The naive form on the flash kernel, heads ungrouped (K = H, G = 1).
+
+    q, k [B,S,H,nope+rope] and v [B,S,H,v] are zero-padded to the kernel's
+    head dim ``pad`` (the least of its head dims that holds both widths:
+    192 at deepseek-v3's 192 / 128, 64 at the smoke config's 48 / 32). Zero
+    columns add exactly 0 to q . k; the scale stays the unpadded width's,
+    and the padded v columns are sliced off the output."""
+    dqk, dv = q.shape[-1], v.shape[-1]
+    pad = next(d for d in _FLASH_HEAD_DIMS if d >= max(dqk, dv))
+    q, k, v = (F.pad(t, (0, pad - t.shape[-1])) if t.shape[-1] < pad else t
+               for t in (q, k, v))
+    o = ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                            v.transpose(1, 2), causal=True, window=window,
+                            kv_len=kv_len, q_offset=q_offset,
+                            scale=_mla_scale(cfg))
+    return o.transpose(1, 2)[..., :dv]
+
+
+def _mla_absorbed(p, cfg, q_nope, q_rope, cache, q_pos, *, window, dtype):
+    """Attention in the latent space, the reference's absorbed decode:
+    q_lat = q_nope wk_b in float32, the latent kernel over the cache
+    (``slot_pos`` as its key positions on a windowed cache), then
+    o_lat wv_b in float32 and wo. ``q_pos`` [B,Sq]."""
+    q_lat = torch.einsum("bshe,rhe->bshr", q_nope.float(),
+                         p["wk_b"].float()).contiguous()
+    o_lat = ops.mla_attention(
+        q_lat, q_rope.float().contiguous(), cache["ckv"], cache["k_rope"],
+        q_pos.to(torch.int32).contiguous(), k_pos=cache.get("slot_pos"),
+        window=window, scale=_mla_scale(cfg))
+    o = torch.einsum("bshr,rhe->bshe", o_lat, p["wv_b"].float())
+    return out_proj(p, o.to(dtype))
+
+
+def mla_full_attention(p, x, cos, sin, cfg, *, window=0, positions=None,
+                       cache=None):
+    """Naive (non-absorbed) MLA for forward / prefill; with ``cache`` it
+    also writes the prompt's latent rows (ring order on a windowed cache)
+    and returns (out, cache). Attention is over the fresh prompt: the
+    flash kernel at the default positions, the plain blockwise path at
+    caller-supplied ones (CPU only)."""
+    q_nope, q_rope = _mla_q(p, x, cfg, cos, sin)
+    ckv, k_rope = _mla_latent(p, x, cfg, cos, sin)
+    if cache is not None:
+        cache = _cache_write_prefill(cache, {"ckv": ckv, "k_rope": k_rope},
+                                     "slot_pos" in cache)
+    k, v = _mla_naive_kv(p, cfg, ckv, k_rope, x.dtype)
+    q = torch.cat([q_nope, q_rope], -1)
+    if positions is None:
+        o = _mla_flash(cfg, q, k, v, window=window)
+    else:
+        _off_kernel(x, "attention at caller-supplied positions")
+        b, s, h, dqk = q.shape
+        o = blockwise_sdpa(q.reshape(b, s, h, 1, dqk), k, v,
+                           q_pos=positions, k_pos=positions, causal=True,
+                           window=window)
+    out = out_proj(p, o)
+    return (out, cache) if cache is not None else out
+
+
+def mla_append_attention(p, x, cos, sin, cfg, cache, start, *, window=0):
+    """MLA chunk continuation against the latent cache: ``start`` scalar
+    or [B] per-request offsets.
+
+    A scalar start on a plain cache, or on a ring that has not wrapped,
+    takes the reference's naive form on the flash kernel over the cache's
+    first ``start + S_new`` rows (``append_attention``'s rule). [B]
+    starts (the speculative verify) and an extend into a wrapped ring take
+    the absorbed form on the latent kernel: query i of row b at
+    ``start[b] + i`` over the whole cache, ``slot_pos`` as the key
+    positions on a windowed cache. The reference computes those in the
+    naive form; the two agree to float32 rounding (ROADMAP C3)."""
+    s_new = x.shape[1]
+    q_nope, q_rope = _mla_q(p, x, cfg, cos, sin)
+    ckv_t, k_rope_t = _mla_latent(p, x, cfg, cos, sin)
+    windowed = "slot_pos" in cache
+    per_row = torch.as_tensor(start).ndim > 0
+    cache = _cache_write_extend(cache, {"ckv": ckv_t, "k_rope": k_rope_t},
+                                start, windowed)
+    length = cache["ckv"].shape[1]
+    if per_row or (windowed and int(start) + s_new > length):
+        q_pos = _extend_positions(start, s_new, x.device
+                                  ).expand(x.shape[0], s_new)
+        return _mla_absorbed(p, cfg, q_nope, q_rope, cache, q_pos,
+                             window=window, dtype=x.dtype), cache
+    start = int(start)
+    kv_len = start + s_new
+    k, v = _mla_naive_kv(p, cfg, cache["ckv"][:, :kv_len],
+                         cache["k_rope"][:, :kv_len], x.dtype)
+    o = _mla_flash(cfg, torch.cat([q_nope, q_rope], -1), k, v, window=window,
+                   kv_len=kv_len, q_offset=start)
+    return out_proj(p, o), cache
+
+
+def mla_decode_attention(p, x, cos, sin, cfg, cache, pos, *, window=0):
+    """Absorbed-form MLA decode: attention runs in the latent space on the
+    latent kernel. The per-head key projection wk_b is absorbed into the
+    query and wv_b into the output, so the cache holds only [B,L,R] +
+    [B,L,rope]: the survey's dimension-2 cache compression built into the
+    architecture. pos: [B] per-request positions (or a scalar)."""
+    b = x.shape[0]
+    pos = torch.as_tensor(pos, device=x.device).long().reshape(-1).expand(b)
+    q_nope, q_rope = _mla_q(p, x, cfg, cos, sin)         # [B,1,H,*]
+    ckv_t, k_rope_t = _mla_latent(p, x, cfg, cos, sin)    # [B,1,R], [B,1,rope]
+    cache = _cache_write_decode(cache, {"ckv": ckv_t, "k_rope": k_rope_t},
+                                pos, "slot_pos" in cache)
+    return _mla_absorbed(p, cfg, q_nope, q_rope, cache, pos[:, None],
+                         window=window, dtype=x.dtype), cache

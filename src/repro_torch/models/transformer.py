@@ -1,4 +1,4 @@
-"""Model assembly: the dense, ``vlm`` and ``moe`` families.
+"""Model assembly: the dense, ``vlm`` and ``moe`` families (MLA included).
 
 Port of ``repro.models.transformer``. Parameters keep the reference's
 stacked layout (every layer leaf has a leading [num_layers] dim) so a
@@ -10,7 +10,9 @@ writes land in the stacked cache). The ``moe`` family's first
 (``dense_layers``, dense MLPs), then ``layers`` with the MoE FFN; the
 MoE capacity defaults are the reference's (1.25 for ``forward``,
 ``prefill`` and ``extend``, dropless for ``decode_step``), so a chunked
-prefill drops tokens chunk by chunk as the reference does.
+prefill drops tokens chunk by chunk as the reference does. A config with
+``use_mla`` (deepseek-v3) runs every layer's attention through the MLA
+functions of ``models.attention``, with rope over ``qk_rope_head_dim``.
 
 Entry points (as the reference):
   forward(params, batch)                      -> (logits [B,S,V], aux)
@@ -80,32 +82,45 @@ def _dense_layer_fwd(cfg, p, x, cos, sin, *, positions, window, causal=True,
                      moe_cap=1.25):
     """Full-seq layer (forward without cache). Returns (x, aux)."""
     h = L.apply_norm(p["ln1"], x, cfg.norm)
-    a = attn.full_attention(p["attn"], h, cos, sin, cfg, causal=causal,
-                            window=window, positions=positions)
+    if cfg.use_mla:
+        a = attn.mla_full_attention(p["attn"], h, cos, sin, cfg,
+                                    window=window, positions=positions)
+    else:
+        a = attn.full_attention(p["attn"], h, cos, sin, cfg, causal=causal,
+                                window=window, positions=positions)
     return _ffn(cfg, p, x, a, moe_cap)
 
 
 def _dense_layer_prefill(cfg, p, x, cos, sin, cache, *, positions, window,
                          moe_cap=1.25):
     h = L.apply_norm(p["ln1"], x, cfg.norm)
-    a, cache = attn.prefill_into_cache(p["attn"], h, cos, sin, cfg, cache,
-                                       window=window, positions=positions)
+    if cfg.use_mla:
+        a, cache = attn.mla_full_attention(p["attn"], h, cos, sin, cfg,
+                                           window=window, positions=positions,
+                                           cache=cache)
+    else:
+        a, cache = attn.prefill_into_cache(p["attn"], h, cos, sin, cfg,
+                                           cache, window=window,
+                                           positions=positions)
     return _ffn(cfg, p, x, a, moe_cap)[0], cache
 
 
 def _dense_layer_extend(cfg, p, x, cos, sin, cache, start, *, window,
                         moe_cap=1.25):
     h = L.apply_norm(p["ln1"], x, cfg.norm)
-    a, cache = attn.append_attention(p["attn"], h, cos, sin, cfg, cache,
-                                     start, window=window)
+    append = attn.mla_append_attention if cfg.use_mla \
+        else attn.append_attention
+    a, cache = append(p["attn"], h, cos, sin, cfg, cache, start,
+                      window=window)
     return _ffn(cfg, p, x, a, moe_cap)[0], cache
 
 
 def _dense_layer_decode(cfg, p, x, cos, sin, cache, pos, *, window,
                         moe_cap=None):
     h = L.apply_norm(p["ln1"], x, cfg.norm)
-    a, cache = attn.decode_attention(p["attn"], h, cos, sin, cfg, cache, pos,
-                                     window=window)
+    decode = attn.mla_decode_attention if cfg.use_mla \
+        else attn.decode_attention
+    a, cache = decode(p["attn"], h, cos, sin, cfg, cache, pos, window=window)
     return _ffn(cfg, p, x, a, moe_cap)[0], cache
 
 
@@ -133,9 +148,6 @@ class Model:
                 f"{', '.join(_FAMILIES)} families")
         if cfg.family not in _FAMILIES:
             raise ValueError(f"unknown family {cfg.family!r}")
-        if cfg.use_mla:
-            raise NotImplementedError(
-                "MLA attention is not ported yet (ROADMAP queue A, item 17)")
         if cfg.family == "vlm" and cfg.projector != "mlp":
             raise NotImplementedError(
                 "the perceiver projector is not ported yet (ROADMAP queue A, "
@@ -184,12 +196,13 @@ class Model:
     def _cos_sin(self, positions):
         """positions: [S] or [B,S] text pos, or [3,B,S] for M-RoPE."""
         cfg = self.cfg
+        hd = cfg.qk_rope_head_dim if cfg.use_mla else cfg.head_dim
         if cfg.use_mrope:
             if positions.ndim == 2:     # text-only fallback: t=h=w
                 positions = positions[None].expand((3,) + positions.shape)
-            return L.mrope_cos_sin(positions, cfg.head_dim, cfg.rope_theta,
+            return L.mrope_cos_sin(positions, hd, cfg.rope_theta,
                                    cfg.mrope_sections)
-        return L.rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta)
+        return L.rope_cos_sin(positions, hd, cfg.rope_theta)
 
     # ------------------------------------------------------------ embed --
     def _embed_inputs(self, params, batch) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -994,3 +994,135 @@ def test_kernels_refuse_shapes_past_the_new_ones(dev):
     with pytest.raises(ValueError):        # 65 q heads on one kv head
         pa.paged_attention(torch.zeros(1, 65, 128, device=dev), pages, pages,
                            table, seq)
+
+
+# ---------------------------------------------------------------- MLA --
+
+#: the latent kernel is float32 arithmetic in both cache dtypes: within
+#: this share of the plain version's largest output
+MLA_REL_TOL = 1e-4
+
+
+def _mla_inputs(rng, dtype, dev, b, sq, h, r, rr, length):
+    return (_randn(rng, (b, sq, h, r), torch.float32, dev),
+            _randn(rng, (b, sq, h, rr), torch.float32, dev),
+            _randn(rng, (b, length, r), dtype, dev),
+            _randn(rng, (b, length, rr), dtype, dev))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("r,rr,h", [(32, 16, 4), (512, 64, 128),
+                                    (512, 64, 20)])
+@pytest.mark.parametrize("case", ["decode", "verify", "window", "k_pos",
+                                  "short_and_past"])
+def test_mla_kernel_matches_plain(dev, dtype, r, rr, h, case):
+    """Both instantiations (deepseek-v3 smoke and full; 20 heads: a
+    partial head tile) in each mode: one-query decode over 300 rows, the
+    S = 5 verify with a row past the cache, a 37-key window, the k_pos
+    mode (a ring with holes and a row with no valid key: the mean of
+    ckv), rows at position 0 and past L."""
+    from repro_torch.kernels import mla_attention as ma
+    rng = np.random.default_rng(80)
+    length = 300
+    b, sq = (3, 5) if case == "verify" else (4, 1)
+    args = _mla_inputs(rng, dtype, dev, b, sq, h, r, rr, length)
+    base = {"decode": [299, 120, 33, 250], "verify": [290, 100, 299],
+            "window": [299, 120, 33, 250], "k_pos": [299, 120, 33, 250],
+            "short_and_past": [0, 1, 400, 128]}[case]
+    q_pos = torch.tensor(base, dtype=torch.int32, device=dev)[:, None] \
+        + torch.arange(sq, dtype=torch.int32, device=dev)
+    kw = {"window": 37} if case == "window" else {}
+    if case == "k_pos":
+        kp = torch.from_numpy(rng.permutation(length)[None].repeat(
+            b, 0).astype(np.int32)).to(dev)
+        kp[1, ::4] = -1
+        kp[3] = -1
+        kw = dict(k_pos=kp.contiguous(), window=200)
+    scale = (r + rr) ** -0.5
+    n0 = ma.mla_attention.launches
+    out = ma.mla_attention(*args, q_pos.contiguous(), scale=scale, **kw)
+    torch.cuda.synchronize()
+    assert ma.mla_attention.launches == n0 + 1
+    ref = ma.mla_attention_plain(*args, q_pos, scale=scale, **kw)
+    assert out.dtype == torch.float32 and out.shape == ref.shape
+    err = (out - ref).abs().max().item()
+    assert err <= MLA_REL_TOL * ref.abs().max().item(), err
+
+
+def test_mla_kernel_refuses_what_it_does_not_instantiate(dev):
+    from repro_torch.kernels import mla_attention as ma
+    z = torch.zeros
+    qp = z(1, 1, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="SHAPES|R, Rr"):     # rank 64
+        ma.mla_attention(z(1, 1, 4, 64, device=dev), z(1, 1, 4, 16,
+                                                        device=dev),
+                         z(1, 8, 64, device=dev), z(1, 8, 16, device=dev),
+                         qp, scale=1.0)
+    with pytest.raises(ValueError, match="float32"):          # bf16 q_lat
+        ma.mla_attention(z(1, 1, 4, 32, device=dev, dtype=torch.bfloat16),
+                         z(1, 1, 4, 16, device=dev), z(1, 8, 32, device=dev),
+                         z(1, 8, 16, device=dev), qp, scale=1.0)
+    with pytest.raises(ValueError, match="contiguous"):
+        ma.mla_attention(z(1, 1, 8, 32, device=dev)[:, :, ::2],
+                         z(1, 1, 4, 16, device=dev), z(1, 8, 32, device=dev),
+                         z(1, 8, 16, device=dev), qp, scale=1.0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h,s,dqk,dv,d", [(4, 61, 48, 32, 64),
+                                          (16, 200, 192, 128, 192)])
+def test_flash_kernel_explicit_scale_at_mla_widths(dev, dtype, h, s, dqk, dv,
+                                                   d):
+    """MLA's naive prefill: q and k zero-padded from 48 to 64 (smoke) and v
+    from 32 / 128 to the q/k width, H = KVH, scale 1/sqrt(unpadded)."""
+    import torch.nn.functional as F
+    rng = np.random.default_rng(81)
+    q = F.pad(_randn(rng, (1, h, s, dqk), dtype, dev), (0, d - dqk))
+    k = F.pad(_randn(rng, (1, h, s, dqk), dtype, dev), (0, d - dqk))
+    v = F.pad(_randn(rng, (1, h, s, dv), dtype, dev), (0, d - dv))
+    out = fa.flash_attention(q, k, v, scale=dqk ** -0.5)
+    torch.cuda.synchronize()
+    ref = fa.flash_attention_plain(q, k, v, scale=dqk ** -0.5)
+    assert (out.float() - ref.float()).abs().max().item() <= TOL[dtype]
+    assert not out[..., dv:].any()                # padded v columns stay 0
+
+
+def test_flash_kernel_default_scale_keeps_its_bits(dev):
+    """Without ``scale=`` every earlier flash shape gives the bits of the
+    kernel before the argument existed (``chip_smoke.FLASH_BITS_SHA``)."""
+    import importlib.util
+    from pathlib import Path
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    assert cs.flash_bits() == cs.FLASH_BITS_SHA
+
+
+def test_deepseek_smoke_on_card_matches_cpu(dev):
+    """deepseek-v3 smoke (float32) on the card against the CPU: prefill
+    (flash, num_layers launches), decode and a [B]-start extend (the
+    latent kernel, num_layers launches each) logits within 1e-3."""
+    from repro_torch.kernels import mla_attention as ma
+    cpu, card = _smoke_pair("deepseek-v3-671b")
+    n = cpu.cfg.num_layers
+    toks = torch.from_numpy(np.random.default_rng(82).integers(
+        0, cpu.cfg.vocab_size, (2, 23)))
+    lc, cc = cpu.model.prefill(cpu.params, {"tokens": toks}, cache_len=40)
+    f0 = fa.flash_attention.launches
+    lg, cg = card.model.prefill(card.params, {"tokens": toks.to(dev)},
+                                cache_len=40)
+    assert fa.flash_attention.launches == f0 + n
+    assert (lg.cpu() - lc).abs().max().item() <= 1e-3
+    m0 = ma.mla_attention.launches
+    nxt, pos = torch.tensor([[3], [4]]), torch.tensor([23, 20])
+    dc, cc = cpu.model.decode_step(cpu.params, cc, nxt, pos)
+    dg, cg = card.model.decode_step(card.params, cg, nxt.to(dev),
+                                    pos.to(dev))
+    assert (dg.cpu() - dc).abs().max().item() <= 1e-3
+    ext, starts = toks[:, :5], torch.tensor([24, 21])
+    ec_, _ = cpu.model.extend(cpu.params, cc, ext, starts)
+    eg, _ = card.model.extend(card.params, cg, ext.to(dev), starts.to(dev))
+    torch.cuda.synchronize()
+    assert ma.mla_attention.launches == m0 + 2 * n
+    assert (eg.cpu() - ec_).abs().max().item() <= 1e-3

@@ -178,7 +178,7 @@ def test_architecture_modules_are_ported(path):
 
 
 def test_every_arch_config_loads_without_jax():
-    """All ten configs load with JAX blocked; the four new dense and MoE
+    """All ten configs load with JAX blocked; the dense, MoE and MLA
     archs build (spec trees only) and the others raise."""
     probe = (
         "import sys; sys.modules['jax'] = None\n"
@@ -198,5 +198,28 @@ def test_every_arch_config_loads_without_jax():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.split("\n")[0] == (
-        "10 ['arctic-480b', 'granite-34b', 'mistral-large-123b', "
-        "'nemotron-4-340b', 'phi4-mini-3.8b', 'qwen2-vl-2b']")
+        "10 ['arctic-480b', 'deepseek-v3-671b', 'granite-34b', "
+        "'mistral-large-123b', 'nemotron-4-340b', 'phi4-mini-3.8b', "
+        "'qwen2-vl-2b']")
+
+
+def test_mla_kernel_module_imports_without_jax():
+    """The latent kernel's module (a port-only kernel: the reference runs
+    MLA's absorbed decode in jnp einsums, so there is no reference file to
+    mirror) imports with JAX blocked, loads no module of the JAX package,
+    builds nothing at import, and its C source is in the build list."""
+    probe = (
+        "import sys; sys.modules['jax'] = None\n"
+        "from repro_torch.kernels import build, mla_attention, ops\n"
+        "assert 'mla_attention' in build.KERNELS\n"
+        "assert (build.CSRC / 'mla_attention.cu').is_file()\n"
+        "assert mla_attention.mla_attention.launches == 0\n"
+        "assert ops.mla_attention is not None\n"
+        "assert not [m for m in sys.modules if m.split('.')[0] in "
+        "('repro', 'jaxlib')]\n"
+        "print(mla_attention.SHAPES)")
+    out = subprocess.run([sys.executable, "-c", probe],
+                         env=dict(os.environ, PYTHONPATH=str(ROOT / "src")),
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "((32, 16), (512, 64))"
