@@ -26,7 +26,8 @@ The architecture phases hold both kernels at head dim 192 and at 48 q
 heads per kv head, compare granite, mistral, nemotron and arctic smoke
 card against CPU, and serve each of the four at full published width
 (cut in depth to fit the card). The MLA phases hold the latent kernel
-(deepseek-v3's absorbed decode) against its plain version at both of its
+(deepseek-v3's absorbed decode; the bf16 full-width instantiation on
+the tensor cores) against its plain version at both of its
 instantiations, flash at MLA's prefill shapes with an explicit scale and
 every earlier flash shape's output bits, compare deepseek-v3 smoke card
 against CPU through every serving path (a latent-cache migration
@@ -35,6 +36,11 @@ layers. Each phase prints one JSON line; the
 last two lines are the kernel summary and ``{"ok": true, "device":
 {...}}``. Any failure raises and exits non-zero before that line.
 Needs one CUDA device of compute capability 9.0.
+
+    python3 chip_smoke.py --mla-split-sweep
+
+times the latent kernel's tensor-core route at split counts around the
+wrapper's choice instead (``mla_split_sweep``).
 """
 from __future__ import annotations
 
@@ -282,12 +288,8 @@ def phase_build() -> None:
         smem[name] = {f"{dt}/d{d}": fn(code, d)
                       for dt, code in (("float32", 0), ("bfloat16", 1))
                       for d in dims}
-    cuobjdump = os.path.join(os.path.dirname(build.nvcc_path()), "cuobjdump")
-    sass = subprocess.run([cuobjdump, "-sass",
-                           str(build.library_path("flash_attention"))],
-                          capture_output=True, text=True, check=True,
-                          timeout=120).stdout
-    hgmma = sum("HGMMA" in ln for ln in sass.splitlines())
+    hgmma = _hgmma_count("flash_attention")
+    routes = _mla_routes(res["mla_attention"]["log"])
     emit("build", seconds=seconds, flash_sass_hgmma=hgmma,
          kernels={k: {"seconds": v["seconds"], "cached": v["cached"],
                       "dynamic_smem_bytes": smem[k],
@@ -295,8 +297,57 @@ def phase_build() -> None:
                       "warnings": [ln.strip() for ln in v["log"].splitlines()
                                    if "warning" in ln.lower()
                                    or "Performance Loss" in ln]}
-                  for k, v in res.items()})
+                  for k, v in res.items()}, mla_routes=routes)
     check(hgmma > 0, "the flash library's SASS has no HGMMA instruction")
+    check(routes["bfloat16/R512"]["route"] == "wgmma"
+          and routes["bfloat16/R512"]["hgmma"] > 0
+          and all(r["route"] == "fma" for k, r in routes.items()
+                  if k != "bfloat16/R512"),
+          f"latent kernel routes: {routes}")
+
+
+def _hgmma_count(name: str, function: str = "") -> int:
+    """HGMMA (wgmma) instructions in kernel ``name``'s library SASS, from
+    the first function whose name holds ``function`` on."""
+    from repro_torch.kernels import build
+    sass = subprocess.run([os.path.join(os.path.dirname(build.nvcc_path()),
+                                        "cuobjdump"), "-sass",
+                           str(build.library_path(name))],
+                          capture_output=True, text=True, check=True,
+                          timeout=120).stdout
+    at = sass.find(function)
+    return 0 if at < 0 else sum("HGMMA" in ln
+                                for ln in sass[at:].splitlines())
+
+
+def _mla_routes(log: str) -> dict:
+    """Per instantiation of the latent kernel (cache dtype, latent rank):
+    the route the library takes (``mla_attention_route``, which the
+    wrapper's ``route`` must repeat), its entry's ptxas registers and
+    spills, its dynamic shared memory and, for the tensor-core route, the
+    HGMMA count of its SASS."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels import mla_attention as ma
+    lib = build.load("mla_attention")
+    entries = _ptxas_report(log)
+    tc_hgmma = _hgmma_count("mla_attention", "mla_tc_kernel")
+    out = {}
+    for dtype, code, mangled in ((torch.float32, 0, "If"),
+                                 (torch.bfloat16, 1, "I13__nv_bfloat16")):
+        for r in (32, 512):
+            route = {1: "wgmma", 0: "fma"}[lib.mla_attention_route(code, r)]
+            check(route == ma.route(dtype, r),
+                  f"mla route of {dtype} R {r}: library {route}, wrapper "
+                  f"{ma.route(dtype, r)}")
+            name = "mla_tc_kernel" if route == "wgmma" else \
+                f"mla_split_kernel{mangled}Li{r}E"
+            ptx = [e for e in entries if name in e["entry"]]
+            out[f"{str(dtype)[6:]}/R{r}"] = {
+                "route": route, "dynamic_smem_bytes":
+                    lib.mla_attention_smem_bytes(code, r),
+                "ptxas": ptx[0] if ptx else None,
+                "hgmma": tc_hgmma if route == "wgmma" else 0}
+    return out
 
 
 def _serve_prompt_lens(nv: int) -> list:
@@ -1423,7 +1474,8 @@ def _profile_calls(runs: dict) -> dict:
                          k: _device_ms(e) / e.count for e in evts
                          for k in ("flash_fwd_kernel", "paged_split_kernel",
                                    "paged_mma_kernel", "paged_combine_kernel",
-                                   "mla_split_kernel", "mla_merge_kernel")
+                                   "mla_split_kernel", "mla_tc_kernel",
+                                   "mla_merge_kernel")
                          if k in e.key},
                      "by_kernel": {e.key[:60]: _device_ms(e) / n
                                    for e in evts}}
@@ -3759,6 +3811,10 @@ def phase_arch_full() -> dict:
 #: dtypes (q_lat, scores, softmax, o_lat), so it must agree with the plain
 #: version within this share of the plain version's largest output
 MLA_REL_TOL = 1e-4
+#: the latent kernel's times on ``_mla_cases``' timed cases (bf16 cache)
+#: when it ran float32 FMAs, before its tensor-core route, as this script
+#: measured them on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md §6)
+MLA_FMA_MS = {"one_query": 0.076189, "multi_query": 0.54775}
 #: (kv_lora_rank, qk_rope_head_dim, heads, q/k width nope + rope) of
 #: deepseek-v3 smoke and full: the latent kernel's two instantiations
 MLA_SHAPES = {"smoke": (32, 16, 4, 48), "full": (512, 64, 128, 192)}
@@ -3852,8 +3908,12 @@ def _mla_row(args, kw, scale, flush, err, **extra):
     """The latent kernel's timed row on ``args``: ms, the plain version
     (the reference's einsum formulation: matmul, softmax, matmul), SDPA
     in float32 as the library call (keys ckv | k_rope and values ckv
-    upcast and concatenated once, outside the timing), and the bound over
-    the keys each query sees."""
+    upcast and concatenated once, outside the timing), the route, the
+    split count and the bound over the keys each query sees: on the
+    tensor-core route the function's operations at the bf16 rate
+    (``bound_ms``), beside the split design's twice as many
+    (``bound_split_ms``: q_lat and P each as two bf16 products) and the
+    float32 FMA bound (``bound_f32_ms``)."""
     import torch.nn.functional as F
     from repro_torch.kernels import mla_attention as ma
     from repro_torch.kernels.ref import mla_key_mask
@@ -3871,13 +3931,24 @@ def _mla_row(args, kw, scale, flush, err, **extra):
     ks = torch.cat([ckv, k_rope], -1).float()[:, None]
     vs = ckv.float()[:, None]
     am = mask[:, None]
+    route = ma.route(ckv.dtype, r)
+    if route == "wgmma":
+        extra["bound_split_ms"] = bound(nbytes, 2 * flops,
+                                        torch.bfloat16)[0]
+        extra["bound_f32_ms"] = bound(nbytes, flops, torch.float32)[0]
+        dtype = torch.bfloat16
+        split = ma.tc_split(b, sq, h, length, torch.cuda
+                            .get_device_properties(0).multi_processor_count)
+    else:
+        dtype, split = torch.float32, ma.SPLIT
+    extra["n_split"] = -(-length // split)
     return _timed_row(
         lambda: ma.mla_attention(*args, **kw, scale=scale),
         lambda: ma.mla_attention_plain(*args, **kw, scale=scale),
         lambda: F.scaled_dot_product_attention(qs, ks, vs, attn_mask=am,
                                                scale=scale, enable_gqa=True),
-        flush, nbytes, flops, torch.float32, err, keys=n_keys,
-        cache_dtype=str(ckv.dtype)[6:], **extra)
+        flush, nbytes, flops, dtype, err, keys=n_keys,
+        cache_dtype=str(ckv.dtype)[6:], route=route, **extra)
 
 
 def phase_mla_kernels(flush) -> dict:
@@ -3885,7 +3956,10 @@ def phase_mla_kernels(flush) -> dict:
     instantiations (deepseek-v3 smoke: R 32, Rr 16, 4 heads; full: 512,
     64, 128 heads) and both cache dtypes on every ``_mla_cases`` case,
     within MLA_REL_TOL of the plain version's largest output; the bf16
-    full-width one-query and verify cases timed. Flash with an explicit
+    full-width one-query and verify cases (the tensor-core route) timed
+    beside both bounds, with the split count the wrapper picked and the
+    FMA route's times (MLA_FMA_MS); the verify must beat the plain
+    einsums. Flash with an explicit
     ``scale=`` at MLA's prefill shapes (B = 1, H = KVH = 128, D = 192 over
     1024 tokens with v zero-padded from 128, timed; the smoke's 48-wide
     q/k and 32-wide v zero-padded to 64, scale 1/sqrt(48)) within TOL,
@@ -3956,19 +4030,73 @@ def phase_mla_kernels(flush) -> dict:
                                     if not k.startswith("flash")},
          flash_errors={k: v for k, v in errs.items()
                        if k.startswith("flash")},
-         rel_tolerance=MLA_REL_TOL, timed=timed, flash=flash,
-         flash_bits_unchanged=sum(same.values()), flash_bits_cases=len(same))
+         rel_tolerance=MLA_REL_TOL, timed=timed, fma_route_ms=MLA_FMA_MS,
+         flash=flash, flash_bits_unchanged=sum(same.values()),
+         flash_bits_cases=len(same))
     check(all(same.values()) and len(same) == len(FLASH_BITS_SHA),
           f"flash bits changed: {[k for k, v in same.items() if not v]}")
+    mq = timed["multi_query"]
+    check(mq["route"] == "wgmma" and mq["ms"] < mq["plain_ms"],
+          f"the S = {VERIFY_S} verify on the latent kernel is not faster "
+          f"than its plain version: {mq}")
     main = timed["one_query"]
     return {"mla_attention": {
         "name": "mla_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/mla_attention.cu",
         "replaces": "src/repro/models/attention.py:503",
         **{k: main[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
-                                "bound_by", "library_ms")},
+                                "bound_by", "library_ms", "bound_split_ms",
+                                "bound_f32_ms", "n_split")},
         "multi_query": timed["multi_query"]},
         "flash_mla_prefill": flash["mla_prefill"]}
+
+
+def mla_split_sweep() -> None:
+    """``python3 chip_smoke.py --mla-split-sweep``, a measurement outside
+    the standing check: the tensor-core latent kernel at ``_mla_cases``'
+    timed shapes (one-query B = 4 and the S = 5 verify B = 8, 1104 rows,
+    bf16) at 1-18 CTAs a row tile and at the wrapper's choice
+    (``tc_split``), each held to MLA_REL_TOL before it is timed, and at
+    one split over the first 32 rows (a single key tile): with one split
+    over every row, device us per key tile and per CTA besides its
+    tiles. Prints the env line and one JSON line."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels import mla_attention as ma
+    phase_env()
+    build.load("mla_attention")
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device="cuda")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    r, rr, h, dqk = MLA_SHAPES["full"]
+    scale = 1.0 / dqk ** 0.5
+    cases = {name: args for name, args, kw in
+             _mla_cases(np.random.default_rng(19), torch.bfloat16, r, rr, h)
+             if name in ("one_query", "multi_query")}
+    out = {}
+    for name, args in cases.items():
+        q_lat, q_rope, ckv, k_rope, q_pos = args
+        b, sq, h, _ = q_lat.shape
+        length = ckv.shape[1]
+        key_tiles = -(-length // ma.TC_KEYS)
+        want = ma.mla_attention_plain(*args, scale=scale)
+        chosen = ma.tc_split(b, sq, h, length, sms)
+        splits = {ma.TC_KEYS * -(-key_tiles // n)
+                  for n in (1, 2, 3, 4, 6, 9, 12, 16, 18)} | {chosen}
+        ms = {}
+        for split in sorted(splits, reverse=True):
+            fn = (lambda split=split: ma._launch(*args, None, 0, scale,
+                                                 split))
+            rel = max_err(fn(), want) / float(want.abs().max())
+            check(rel <= MLA_REL_TOL, f"mla sweep {name} split {split}: {rel}")
+            ms[-(-length // split)] = time_ms(fn, flush)
+        short = (q_lat, q_rope, ckv[:, :32].contiguous(),
+                 k_rope[:, :32].contiguous(), q_pos.clamp(max=31))
+        one_tile = time_ms(lambda: ma._launch(*short, None, 0, scale, 32),
+                           flush)
+        tile_us = (ms[1] - one_tile) * 1e3 / (key_tiles - 1)
+        out[name] = {"chosen_n_split": -(-length // chosen),
+                     "ms_by_n_split": ms, "one_split_one_tile_ms": one_tile,
+                     "tile_us": tile_us, "cta_us": one_tile * 1e3 - tile_us}
+    emit("mla_split_sweep", sms=sms, **out)
 
 
 def _latent_serves(t, prompts, Request, serves=None):
@@ -4121,8 +4249,9 @@ def phase_mla_full() -> dict:
     plain version; the 4 ARCH_PROMPTS requests (ARCH_NEW new tokens)
     through ``generate``, a continuous serve and a gamma-4 self-draft
     speculative serve (the verify on the latent kernel, S = 5); wall and
-    device busy per 1024-token prefill and per 4-slot decode step, each
-    kernel's device ms per launch; peak memory."""
+    device busy per 1024-token prefill, per 4-slot decode step and per
+    4-slot S = 5 verify extend (the speculative serve's), each kernel's
+    device ms per launch; peak memory."""
     from repro_torch.api import EngineConfig, GenerationConfig, LVLM, Request
     from repro_torch.configs import get_config
     gc.collect()
@@ -4221,6 +4350,7 @@ def phase_mla_full() -> dict:
                                           ARCH_NEW), gen)
     pool = model.init_cache(4, cache_len, device="cuda")
     dtoks = torch.zeros((4, 1), dtype=torch.long, device="cuda")
+    vtoks = torch.zeros((4, VERIFY_S), dtype=torch.long, device="cuda")
     dpos = torch.tensor(list(ARCH_PROMPTS), device="cuda")
     batch = {"tokens": torch.tensor([prompts[-1]], device="cuda")}
     prof = _profile_calls({
@@ -4228,7 +4358,9 @@ def phase_mla_full() -> dict:
                                              cache_len=cache_len,
                                              last_only=True), 2),
         "decode_step_b4": (lambda: cls.decode_step(model, params, pool,
-                                                   dtoks, dpos), 5)})
+                                                   dtoks, dpos), 5),
+        "verify_b4_s5": (lambda: cls.extend(model, params, pool, vtoks,
+                                            dpos), 5)})
     for p in prof.values():
         p.pop("by_kernel")
     row["profile"] = prof
@@ -4328,6 +4460,10 @@ def main() -> int:
         return 1
     sys.path.insert(0, os.path.join(HERE, "src"))
     import repro_torch  # noqa: F401  (fails outside a checkout)
+    if sys.argv[1:] == ["--mla-split-sweep"]:
+        mla_split_sweep()
+        return 0
+    check(not sys.argv[1:], f"unknown arguments {sys.argv[1:]}")
     t_start = time.perf_counter()
     env = phase_env()
     phase_build()
@@ -4391,7 +4527,8 @@ def main() -> int:
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     extra = ("head_dim_32", "multi_query", "long_verify", "head_dim_192",
-             "group_48", "mla_prefill")
+             "group_48", "mla_prefill", "bound_split_ms", "bound_f32_ms",
+             "n_split")
     print(env["smi"])
     print(json.dumps({"kernels": [
         {k: kv[k] for k in keys + tuple(x for x in extra if x in kv)}

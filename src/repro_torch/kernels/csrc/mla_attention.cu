@@ -16,18 +16,67 @@
 // -1e30 sentinel, as the reference's jnp.where does; a query with no valid
 // key visits all L keys and so returns the mean of ckv, as the reference.
 //
-// What bounds it. Per query and key the H heads do 2 * H * (R + RR + R)
-// float32 operations on (R + RR) cache elements: 2 * 128 * 1088 = 278,528
-// operations per 1,152 bf16 bytes of deepseek-v3's 576-wide latent row, 242
-// per byte, far above the float32 FMA rate's 20 per byte (67 TFLOP/s over
-// 3.35 TB/s). So the kernel is bounded by float32 operations: the one-query
-// decode at batch 4 over 1104 rows is 1.23 GFLOP, 0.018 ms at 67 TFLOP/s,
-// against 7.3 MB, 0.0022 ms. The float32 queries rule out the bf16 tensor
-// cores without rounding q_lat, which the reference does not do; a
-// tensor-core design is later work (ROADMAP).
+// Two routes, one function. The tensor-core route takes the bf16 cache at
+// deepseek-v3's widths (R = 512, RR = 64), the serving path's; the float32
+// cache and the smoke widths (R = 32, RR = 16) take the FMA route, kept so
+// that the card = CPU checks hold in float32 (mla_attention_route says
+// which).
 //
-// Design (split-KV, as the paged kernel). Two kernels, launched back to
-// back by the one C entry:
+// What bounds it. Per query and key the H heads do 2 * H * (R + RR + R)
+// operations on (R + RR) cache elements: 2 * 128 * 1088 = 278,528 per
+// 1,152 bf16 bytes of a 576-wide latent row, 242 per byte. In float32 FMAs
+// (67 TFLOP/s, 20 per byte of 3.35 TB/s) that bounds the one-query decode
+// at batch 4 over 1104 rows by operations: 1.23 GFLOP, 0.018 ms, against
+// 7.3 MB, 0.0022 ms. The bf16 tensor cores (989 TFLOP/s, 295 per byte)
+// bring the operations under the bytes' line, but the reference keeps
+// q_lat and P in float32, and one bf16 rounding of either misses the
+// kernel's bar (1e-4 of the largest output) by 20-100x, TF32 by 2-12x
+// (tests/test_torch_mla_split.py). So each is split into a bf16 high part
+// and a bf16 remainder, x = hi + lo to 2^-16, and each product runs twice:
+// S = q_hi K^T + q_lo K^T and O = P_hi V + P_lo V (the cache is bf16, so
+// K and V enter exactly; sums are float32). The function's bound stays
+// max(bytes, its own operations at the bf16 rate): 0.0022 ms one-query, by
+// bytes. The split's doubled products, 2.5 GFLOP, 0.0025 ms, are the
+// design's own floor above it.
+//
+// Tensor-core route (one kernel, plus the merge below when a row tile's
+// keys are split over CTAs). Grid (splits, row tiles, B): a CTA owns 64
+// rows (query i, head h) of one request, row i * H + h (one-query decode
+// at H = 128 is 2 row tiles a request, the S = 5 verify 10; each row masks
+// by its own query's q_pos), and the keys [s * split, (s + 1) * split) of
+// the range those rows can see. 384 threads, three warpgroups:
+//  - one thread of warpgroup 2 issues TMA loads of key tiles of 32 rows
+//    into a ring of 2 stages under mbarriers: 3-d tensor maps over ckv
+//    [B, L, 512] and k_rope [B, L, 64], nine 64-column boxes with the
+//    128-byte swizzle per tile (36 KB), rows past L zero-filled;
+//  - warpgroups 0 and 1 first write q_hi and q_lo of the 64 rows (float32
+//    q_lat | q_rope from global memory, split in registers) into shared
+//    memory in the swizzled layout the TMA would give;
+//  - warpgroup 0 computes S (72 m64n32k16 wgmmas, both operands in shared
+//    memory, K-major; q_hi K^T and q_lo K^T in two interleaved
+//    accumulators, added in float32), runs the online softmax on the
+//    accumulators (quad shuffles; base 2 on the special-function unit;
+//    -inf past the split, the -1e30 sentinel for an invalid key inside
+//    it), splits P and hands P_hi / P_lo (its A fragments) and the rescale
+//    factors to warpgroup 1 through 9 KB of shared memory under two named
+//    barriers;
+//  - the O accumulator, 64 x 512 float32, is 256 registers a thread for
+//    one warpgroup, so warpgroups 0 and 1 own 256 of the output columns
+//    each (128 registers) and issue O += P_hi V + P_lo V for them
+//    (m64n256k16, A from registers, V = the tile's ckv boxes read
+//    MN-major). Warpgroup 0 issues S of tile i behind its P V of tile
+//    i - 1. With O, S and P warpgroup 0 needs ~190 registers a thread:
+//    warpgroup 2 gives its registers to the other two (setmaxnreg 24 /
+//    240), else ptxas serialises the wgmmas.
+// Shared memory: q_hi + q_lo 144 KB, 2 stages of 32 keys 72 KB, the P
+// exchange 9 KB: 226 KB of the 227 KB a CTA may have (64-key stages do not
+// fit beside both halves of q), so one CTA a SM. The wrapper picks the
+// split count from the grid (tc_split in kernels/mla_attention.py): row
+// tiles x splits about the SMs, at least one key tile a split; with one
+// split the CTA writes O / l itself and no partial exists.
+//
+// FMA route (float32 cache, smoke widths), split-KV as the paged kernel.
+// Two kernels, launched back to back by the one C entry:
 //  1. Grid (splits, head tiles, B * Sq). A CTA of 256 threads takes one
 //     query (b, i), a tile of HT = 16 heads and the keys
 //     [s * split, (s + 1) * split) that the query can see. Its q rows
@@ -55,13 +104,15 @@
 // (Sq = gamma + 1, each query its own q_pos); a verify's queries each read
 // the split's rows once, and share them through L2.
 //
-// Instantiated for (R, RR) = (32, 16) (the smoke config) and (512, 64)
-// (deepseek-v3-671b), for a float32 or bfloat16 cache; anything else is
-// refused (cudaErrorInvalidValue).
+// Instantiated for (R, RR) = (32, 16) (the smoke config) in both cache
+// dtypes and (512, 64) (deepseek-v3-671b) with a float32 cache on the FMA
+// route, and (512, 64) with a bf16 cache on the tensor-core route; anything
+// else is refused (cudaErrorInvalidValue).
 
 #include <stdint.h>
 
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
@@ -418,14 +469,462 @@ cudaError_t launch(const float* q_lat, const float* q_rope, const void* ckv,
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// bfloat16 cache at deepseek-v3's widths: TMA + split-bf16 wgmma
+// ---------------------------------------------------------------------------
+
+namespace tc {
+
+using namespace repro::sm90;
+
+constexpr int R = 512, RR = 64, DK = R + RR;  // latent, rope and key width
+constexpr int BM = 64;                        // rows (query, head) per CTA
+constexpr int BN = 32;                        // keys per stage
+constexpr int STAGES = 2;
+constexpr int NB = DK / 64;                   // 64-column boxes of a key row
+constexpr int KSTEPS = DK / 16;               // k-steps of q . k
+constexpr int WG = 128;                       // threads of a warpgroup
+constexpr int CONSUMERS = 2 * WG;             // warps 0-7
+constexpr int THREADS = CONSUMERS + WG;       // + the producer warpgroup
+// registers a thread after setmaxnreg: the producer gives its share to
+// the consumers (O, both S accumulators and P take ~190 in warpgroup 0);
+// 128 x 24 + 256 x 240 <= 65,536
+constexpr int PRODUCER_REGS = 24, CONSUMER_REGS = 240;
+constexpr int OC = R / 2;                     // output columns a warpgroup
+constexpr int XW = 18;  // exchange words a thread: P hi/lo fragments + corr
+// named barriers (0 is __syncthreads)
+constexpr int kQReady = 1, kPFull = 2, kPEmpty = 3;
+
+// Byte offsets from the 1024-byte aligned base. Boxes are [rows][64]
+// bf16 with the 128-byte swizzle: 8 KB for the 64 q rows, 4 KB for 32 keys.
+struct Smem {
+  static constexpr uint32_t q_box = BM * 128;
+  static constexpr uint32_t k_box = BN * 128;
+  static constexpr uint32_t q_hi = 0;
+  static constexpr uint32_t q_lo = q_hi + NB * q_box;
+  static constexpr uint32_t stage = NB * k_box;
+  static constexpr uint32_t kv = q_lo + NB * q_box;
+  static constexpr uint32_t x = kv + STAGES * stage;
+  static constexpr uint32_t bars = x + XW * WG * 4;
+  // full[STAGES], empty[STAGES]; + 1 KB to align the base
+  static constexpr size_t bytes = bars + 8 * 2 * STAGES + 1024;
+  static_assert(bytes <= 232448, "over the 227 KB a CTA may opt into");
+};
+
+__device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo) {
+  return wgmma_desc(addr, lbo, 1024, kSwizzle128B);
+}
+
+// O[64 x 256] += P_hi V + P_lo V over a stage's BN keys: this warpgroup's
+// half of the ckv columns (v_off into the stage), read MN-major.
+__device__ __forceinline__ void issue_pv(float (&o)[OC / 2],
+                                         const uint32_t (&ph)[2][4],
+                                         const uint32_t (&pl)[2][4],
+                                         uint32_t v) {
+  fence_regs(o);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < BN / 16; ++kk) {
+    const uint64_t dv = desc(v + kk * 16 * 128, Smem::k_box);
+    wgmma_rs_m64n256k16_tb(o, ph[kk], dv);
+    wgmma_rs_m64n256k16_tb(o, pl[kk], dv);
+  }
+  wgmma_commit();
+}
+
+// O's rows r0 (c0) and r1 (c1) times the online softmax's rescale factors.
+__device__ __forceinline__ void rescale(float (&o)[OC / 2], float c0,
+                                        float c1) {
+#pragma unroll
+  for (int j = 0; j < OC / 8; ++j) {
+    o[4 * j] *= c0;
+    o[4 * j + 1] *= c0;
+    o[4 * j + 2] *= c1;
+    o[4 * j + 3] *= c1;
+  }
+}
+
+// f = hi + lo to 2^-16: hi = bf16(f), lo = bf16(f - hi), as bf16 pairs.
+__device__ __forceinline__ void split2(float a, float b, uint32_t& hi,
+                                       uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+  const float2 hf = __bfloat1622float2(h);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = pack_bf16(a - hf.x, b - hf.y);
+}
+
+__global__ void __launch_bounds__(THREADS, 1)
+    mla_tc_kernel(const __grid_constant__ CUtensorMap tm_ckv,
+                  const __grid_constant__ CUtensorMap tm_kr,
+                  const float* __restrict__ q_lat,
+                  const float* __restrict__ q_rope,
+                  const int* __restrict__ q_pos, const int* __restrict__ k_pos,
+                  int window, float* __restrict__ out,
+                  float* __restrict__ part_acc, float* __restrict__ part_ml,
+                  int Sq, int H, int L, int split, float scale_log2) {
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  unsigned char* gbase = smem_raw + (base - raw);
+  const int s = blockIdx.x, b = blockIdx.z, n_split = gridDim.x;
+  const int rows = Sq * H;           // rows (i, h) of request b
+  const int g0 = blockIdx.y * BM;    // the tile's first row
+  const int nrows = min(BM, rows - g0);
+  const size_t row0 = (size_t)b * rows + g0;
+
+  // the keys the tile's rows visit: [lo, hi), or all L when one sees none
+  int lo = 0, hi = L;
+  if (k_pos == nullptr) {
+    lo = L;
+    hi = 0;
+    for (int i = g0 / H; i <= (g0 + nrows - 1) / H; ++i) {
+      const int qp = q_pos[b * Sq + i];
+      const int h_i = qp < 0 ? 0 : min(L, qp + 1);
+      const int l_i = window > 0 ? max(0, qp - window + 1) : 0;
+      if (l_i >= h_i) {
+        lo = 0;
+        hi = L;
+        break;
+      }
+      lo = min(lo, l_i);
+      hi = max(hi, h_i);
+    }
+  }
+  const int start = max(lo, s * split), end = min(hi, (s + 1) * split);
+  if (start >= end) {  // nothing to see in this split (never with one)
+    for (int r = threadIdx.x; r < nrows; r += THREADS) {
+      part_ml[((row0 + r) * n_split + s) * 2] = -INFINITY;
+      part_ml[((row0 + r) * n_split + s) * 2 + 1] = 0.0f;
+    }
+    return;
+  }
+  const int n_tiles = (end - start + BN - 1) / BN;
+
+  const uint32_t bars = base + Smem::bars;
+  auto full = [&](int st) { return bars + 8u * st; };
+  auto empty = [&](int st) { return bars + 8u * (STAGES + st); };
+  if (threadIdx.x == 0) {
+    for (int st = 0; st < STAGES; ++st) {
+      mbar_init(full(st), 1);
+      mbar_init(empty(st), CONSUMERS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+
+  if (warp >= CONSUMERS / 32) {
+    // ------------------------------------------- producer warpgroup ----
+    // Stage i % STAGES holds key tile i: 8 ckv boxes and the k_rope box,
+    // rows past L zero-filled; free once both warpgroups' P V is done.
+    // One thread issues the loads.
+    setmaxnreg_dec<PRODUCER_REGS>();
+    if (threadIdx.x == CONSUMERS) {
+      for (int i = 0; i < n_tiles; ++i) {
+        const int st = i % STAGES, t0 = start + i * BN;
+        const uint32_t dst = base + Smem::kv + st * Smem::stage;
+        mbar_wait(empty(st), ((i / STAGES) & 1) ^ 1);
+        mbar_expect_tx(full(st), Smem::stage);
+        for (int c = 0; c < R / 64; ++c)
+          tma_load_3d(dst + c * Smem::k_box, &tm_ckv, full(st), 64 * c, t0, b);
+        tma_load_3d(dst + (R / 64) * Smem::k_box, &tm_kr, full(st), 0, t0, b);
+      }
+    }
+    return;
+  }
+
+  setmaxnreg_inc<CONSUMER_REGS>();
+  // ------------------------------------------------ both warpgroups ----
+  // q_hi and q_lo of the tile's rows (zeros past the request's rows),
+  // written in the swizzled K-major layout the TMA would give, while the
+  // first key tiles fly. Chunk c of row r (8 columns, 16 bytes) sits at
+  // box c / 8, row r, 16-byte slot (c % 8) ^ (r % 8).
+  {
+    constexpr int CHUNKS = DK / 8, PER = BM * CHUNKS / CONSUMERS, U = 9;
+    static_assert(PER % U == 0, "whole load batches");
+    for (int k0 = 0; k0 < PER; k0 += U) {
+      float4 v[U][2];
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int idx = threadIdx.x + (k0 + u) * CONSUMERS;
+        const int r = idx / CHUNKS, c = idx % CHUNKS;
+        v[u][0] = v[u][1] = make_float4(0.f, 0.f, 0.f, 0.f);
+        if (r < nrows) {
+          const float* src =
+              c < R / 8 ? q_lat + (row0 + r) * R + 8 * c
+                        : q_rope + (row0 + r) * RR + 8 * (c - R / 8);
+          v[u][0] = *reinterpret_cast<const float4*>(src);
+          v[u][1] = *reinterpret_cast<const float4*>(src + 4);
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int idx = threadIdx.x + (k0 + u) * CONSUMERS;
+        const int r = idx / CHUNKS, c = idx % CHUNKS;
+        uint4 h, l;
+        split2(v[u][0].x, v[u][0].y, h.x, l.x);
+        split2(v[u][0].z, v[u][0].w, h.y, l.y);
+        split2(v[u][1].x, v[u][1].y, h.z, l.z);
+        split2(v[u][1].z, v[u][1].w, h.w, l.w);
+        const uint32_t off =
+            (c / 8) * Smem::q_box + r * 128 + (((c % 8) ^ (r % 8)) << 4);
+        *reinterpret_cast<uint4*>(gbase + Smem::q_hi + off) = h;
+        *reinterpret_cast<uint4*>(gbase + Smem::q_lo + off) = l;
+      }
+    }
+    fence_proxy_async();
+    named_sync(kQReady, CONSUMERS);
+  }
+
+  const int wg = threadIdx.x / WG, t = threadIdx.x % WG;
+  const int r0 = 16 * (t / 32) + lane / 4, r1 = r0 + 8, col0 = 2 * (lane % 4);
+  uint32_t* xw = reinterpret_cast<uint32_t*>(gbase + Smem::x);  // [XW][WG]
+  const uint32_t kv0 = base + Smem::kv;
+  const uint32_t v_off = wg * (OC / 64) * Smem::k_box;  // this half's ckv
+  float o[OC / 2];
+#pragma unroll
+  for (int k = 0; k < OC / 2; ++k) o[k] = 0.0f;
+  uint32_t ph[2][4], pl[2][4];
+  float l0 = 0.0f, l1 = 0.0f;
+  float m0 = repro::kNegBig, m1 = repro::kNegBig;
+
+  if (wg == 0) {
+    // -------------------------------------- warpgroup 0: scores too ----
+    // S = q_hi K^T + q_lo K^T (72 m64n32k16 from shared memory, the two
+    // products in two accumulators, interleaved, then added), the
+    // online softmax on the accumulators, P split into bf16 hi + lo and
+    // handed to warpgroup 1 with the rescale factors, then O[:, :256] +=
+    // P_hi V + P_lo V. S of tile i is issued behind P V of tile i - 1.
+    const int qp0 = q_pos[b * Sq + min(g0 + r0, rows - 1) / H];
+    const int qp1 = q_pos[b * Sq + min(g0 + r1, rows - 1) / H];
+    const int* kp = k_pos == nullptr ? nullptr : k_pos + (size_t)b * L;
+    const uint64_t dq = desc(base, 16);
+    float sc[BN / 2], sc_lo[BN / 2];  // q_hi K^T and q_lo K^T
+    for (int i = 0; i < n_tiles; ++i) {
+      const int st = i % STAGES, t0 = start + i * BN;
+      const uint32_t kt = kv0 + st * Smem::stage;
+      mbar_wait(full(st), (i / STAGES) & 1);
+      // a descriptor's address field is addr >> 4: offsets add to it
+      const uint64_t dk = desc(kt, 16);
+      wgmma_fence();
+#pragma unroll
+      for (int k = 0; k < KSTEPS; ++k) {
+        const uint32_t qo = (k / 4) * Smem::q_box + (k % 4) * 32;
+        const uint32_t ko = (k / 4) * Smem::k_box + (k % 4) * 32;
+        wgmma_ss_m64n32k16(sc, dq + ((Smem::q_hi + qo) >> 4),
+                           dk + (ko >> 4), k > 0);
+        wgmma_ss_m64n32k16(sc_lo, dq + ((Smem::q_lo + qo) >> 4),
+                           dk + (ko >> 4), k > 0);
+      }
+      wgmma_commit();
+      if (i > 0) {
+        wgmma_wait<1>();  // P V of tile i - 1 is done: its stage is free
+        fence_regs(o);
+        mbar_arrive(empty((i - 1) % STAGES));
+      }
+      wgmma_wait<0>();
+      fence_regs(sc);
+      fence_regs(sc_lo);
+#pragma unroll
+      for (int j = 0; j < BN / 2; ++j) sc[j] += sc_lo[j];
+
+      // masks: -inf past the split (not keys), -1e30 for an invalid key
+      float mx0 = -INFINITY, mx1 = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int key = t0 + 8 * j + col0 + e;
+          float s0 = sc[4 * j + e] * scale_log2;
+          float s1 = sc[4 * j + 2 + e] * scale_log2;
+          if (key >= end) {
+            s0 = s1 = -INFINITY;
+          } else {
+            const int p_t = kp != nullptr ? kp[key] : key;
+            if (!(p_t >= 0 && p_t <= qp0 &&
+                  (window <= 0 || p_t > qp0 - window)))
+              s0 = repro::kNegBig;
+            if (!(p_t >= 0 && p_t <= qp1 &&
+                  (window <= 0 || p_t > qp1 - window)))
+              s1 = repro::kNegBig;
+          }
+          sc[4 * j + e] = s0;
+          sc[4 * j + 2 + e] = s1;
+          mx0 = fmaxf(mx0, s0);
+          mx1 = fmaxf(mx1, s1);
+        }
+      }
+      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
+      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
+      const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
+      const float c0 = fast_exp2(m0 - mn0), c1 = fast_exp2(m1 - mn1);
+      m0 = mn0;
+      m1 = mn1;
+      float sum0 = 0.0f, sum1 = 0.0f;
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j) {
+        sc[4 * j] = fast_exp2(sc[4 * j] - mn0);
+        sc[4 * j + 1] = fast_exp2(sc[4 * j + 1] - mn0);
+        sc[4 * j + 2] = fast_exp2(sc[4 * j + 2] - mn1);
+        sc[4 * j + 3] = fast_exp2(sc[4 * j + 3] - mn1);
+        sum0 += sc[4 * j] + sc[4 * j + 1];
+        sum1 += sc[4 * j + 2] + sc[4 * j + 3];
+        split2(sc[4 * j], sc[4 * j + 1], ph[j / 2][(j % 2) * 2],
+               pl[j / 2][(j % 2) * 2]);
+        split2(sc[4 * j + 2], sc[4 * j + 3], ph[j / 2][(j % 2) * 2 + 1],
+               pl[j / 2][(j % 2) * 2 + 1]);
+      }
+      l0 = l0 * c0 + sum0;
+      l1 = l1 * c1 + sum1;
+      rescale(o, c0, c1);
+
+      named_sync(kPEmpty, CONSUMERS);  // warpgroup 1 has read tile i - 1's
+#pragma unroll
+      for (int k = 0; k < 8; ++k) {
+        xw[k * WG + t] = ph[k / 4][k % 4];
+        xw[(8 + k) * WG + t] = pl[k / 4][k % 4];
+      }
+      xw[16 * WG + t] = __float_as_uint(c0);
+      xw[17 * WG + t] = __float_as_uint(c1);
+      named_arrive(kPFull, CONSUMERS);
+      issue_pv(o, ph, pl, kt + v_off);
+    }
+    wgmma_wait<0>();
+    fence_regs(o);
+    mbar_arrive(empty((n_tiles - 1) % STAGES));
+    l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
+    l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
+    if (n_split == 1) {  // warpgroup 1 normalises with the same sums
+      named_sync(kPEmpty, CONSUMERS);
+      xw[t] = __float_as_uint(l0);
+      xw[WG + t] = __float_as_uint(l1);
+      named_arrive(kPFull, CONSUMERS);
+    } else if (lane % 4 == 0) {
+      // the split's partial softmax: m in natural-log units of the scores
+      const float ln2 = 0.6931471805599453f;
+      if (r0 < nrows) {
+        float* ml = part_ml + ((row0 + r0) * n_split + s) * 2;
+        ml[0] = m0 * ln2;
+        ml[1] = l0;
+      }
+      if (r1 < nrows) {
+        float* ml = part_ml + ((row0 + r1) * n_split + s) * 2;
+        ml[0] = m1 * ln2;
+        ml[1] = l1;
+      }
+    }
+  } else {
+    // ------------------------------------ warpgroup 1: O[:, 256:] ----
+    named_arrive(kPEmpty, CONSUMERS);  // the exchange starts free
+    for (int i = 0; i < n_tiles; ++i) {
+      const int st = i % STAGES;
+      named_sync(kPFull, CONSUMERS);
+#pragma unroll
+      for (int k = 0; k < 8; ++k) {
+        ph[k / 4][k % 4] = xw[k * WG + t];
+        pl[k / 4][k % 4] = xw[(8 + k) * WG + t];
+      }
+      const float c0 = __uint_as_float(xw[16 * WG + t]);
+      const float c1 = __uint_as_float(xw[17 * WG + t]);
+      if (i + 1 < n_tiles || n_split == 1) named_arrive(kPEmpty, CONSUMERS);
+      rescale(o, c0, c1);  // P V of tile i - 1 was waited for below
+      mbar_wait(full(st), (i / STAGES) & 1);
+      issue_pv(o, ph, pl, kv0 + st * Smem::stage + v_off);
+      wgmma_wait<0>();
+      fence_regs(o);
+      mbar_arrive(empty(st));
+    }
+    if (n_split == 1) {
+      named_sync(kPFull, CONSUMERS);
+      l0 = __uint_as_float(xw[t]);
+      l1 = __uint_as_float(xw[WG + t]);
+    }
+  }
+
+  // epilogue: O / l (one split) or the split's partial accumulator
+  const int c_base = wg * OC + col0;
+  if (n_split == 1) {
+    const float inv0 = 1.0f / fmaxf(l0, 1e-30f), inv1 = 1.0f / fmaxf(l1, 1e-30f);
+#pragma unroll
+    for (int j = 0; j < OC / 8; ++j) {
+      const int c = c_base + 8 * j;
+      if (r0 < nrows)
+        *reinterpret_cast<float2*>(out + (row0 + r0) * R + c) =
+            make_float2(o[4 * j] * inv0, o[4 * j + 1] * inv0);
+      if (r1 < nrows)
+        *reinterpret_cast<float2*>(out + (row0 + r1) * R + c) =
+            make_float2(o[4 * j + 2] * inv1, o[4 * j + 3] * inv1);
+    }
+  } else {
+    float* a0 = part_acc + ((row0 + r0) * n_split + s) * R;
+    float* a1 = part_acc + ((row0 + r1) * n_split + s) * R;
+#pragma unroll
+    for (int j = 0; j < OC / 8; ++j) {
+      const int c = c_base + 8 * j;
+      if (r0 < nrows)
+        *reinterpret_cast<float2*>(a0 + c) = make_float2(o[4 * j], o[4 * j + 1]);
+      if (r1 < nrows)
+        *reinterpret_cast<float2*>(a1 + c) =
+            make_float2(o[4 * j + 2], o[4 * j + 3]);
+    }
+  }
+}
+
+// A 3-d map of a [B, L, cols] bf16 tensor: boxes of 64 columns x BN rows
+// of one request with the 128-byte swizzle, zero fill past L.
+bool make_map(CUtensorMap* map, const void* ptr, int B, int L, int cols) {
+  EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[3] = {(cuuint64_t)cols, (cuuint64_t)L, (cuuint64_t)B};
+  const cuuint64_t strides[2] = {(cuuint64_t)cols * 2,
+                                 (cuuint64_t)cols * 2 * L};
+  const cuuint32_t box[3] = {64, BN, 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr),
+            dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+cudaError_t launch(const float* q_lat, const float* q_rope, const void* ckv,
+                   const void* k_rope, const int* q_pos, const int* k_pos,
+                   int window, float* out, float* part_acc, float* part_ml,
+                   int B, int Sq, int H, int L, int split, float scale,
+                   cudaStream_t stream) {
+  CUtensorMap tm_ckv, tm_kr;
+  if (!make_map(&tm_ckv, ckv, B, L, R) || !make_map(&tm_kr, k_rope, B, L, RR))
+    return cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      mla_tc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)Smem::bytes);
+  if (err != cudaSuccess) return err;
+  const int n_split = (L + split - 1) / split;
+  const dim3 grid(n_split, (Sq * H + BM - 1) / BM, B);
+  mla_tc_kernel<<<grid, THREADS, Smem::bytes, stream>>>(
+      tm_ckv, tm_kr, q_lat, q_rope, q_pos, k_pos, window, out, part_acc,
+      part_ml, Sq, H, L, split, 1.4426950408889634f * scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || n_split == 1) return err;
+  mla_merge_kernel<<<B * Sq * H, MERGE_THREADS, n_split * sizeof(float),
+                     stream>>>(part_acc, part_ml, out, n_split, R);
+  return cudaGetLastError();
+}
+
+}  // namespace tc
+
 }  // namespace
 
 // q_lat [B,Sq,H,R] and q_rope [B,Sq,H,RR] float32; ckv [B,L,R] and k_rope
 // [B,L,RR] of one dtype (0 float32, 1 bfloat16); q_pos [B,Sq] int32; k_pos
 // [B,L] int32 or null; all contiguous and 16-byte aligned. o_lat
-// [B,Sq,H,R] float32. Scratch: part_acc [B*Sq*H, n_split, R] and part_ml
-// [B*Sq*H, n_split, 2] float32, n_split = ceil(L / split). Returns the CUDA
-// error of the launches (0 on success).
+// [B,Sq,H,R] float32. `split` keys per CTA; scratch: part_acc [B*Sq*H,
+// n_split, R] and part_ml [B*Sq*H, n_split, 2] float32, n_split =
+// ceil(L / split) (the tensor-core route takes none when n_split is 1).
+// Returns the CUDA error of the launches (0 on success).
 extern "C" int mla_attention_fwd(const void* q_lat, const void* q_rope,
                                  const void* ckv, const void* k_rope,
                                  const void* q_pos, const void* k_pos,
@@ -455,10 +954,19 @@ extern "C" int mla_attention_fwd(const void* q_lat, const void* q_rope,
   }
   if (dtype == repro::kBFloat16) {
     REPRO_MLA(__nv_bfloat16, 32, 16)
-    REPRO_MLA(__nv_bfloat16, 512, 64)
+    if (R == tc::R && RR == tc::RR)
+      return (int)tc::launch(ql, qr, ckv, k_rope, qp, kp, window, o, pa, pm,
+                             B, Sq, H, L, split, scale, s);
   }
 #undef REPRO_MLA
   return (int)cudaErrorInvalidValue;
+}
+
+// Which route the instantiation for (dtype, R) takes: 1 the tensor-core
+// kernel (TMA + split-bf16 wgmma), 0 the float32 FMA kernel, -1 none.
+extern "C" int mla_attention_route(int dtype, int R) {
+  if (R != 32 && R != 512) return -1;
+  return dtype == repro::kBFloat16 && R == tc::R ? 1 : 0;
 }
 
 // Dynamic shared memory of one split-kernel CTA for (dtype, R), in bytes
@@ -470,6 +978,6 @@ extern "C" int mla_attention_smem_bytes(int dtype, int R) {
            : R == 512 ? (int)Layout<float, 512, 64>::bytes
                       : -1;
   return R == 32 ? (int)Layout<__nv_bfloat16, 32, 16>::bytes
-         : R == 512 ? (int)Layout<__nv_bfloat16, 512, 64>::bytes
+         : R == 512 ? (int)tc::Smem::bytes
                     : -1;
 }

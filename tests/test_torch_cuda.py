@@ -1049,6 +1049,70 @@ def test_mla_kernel_matches_plain(dev, dtype, r, rr, h, case):
     assert err <= MLA_REL_TOL * ref.abs().max().item(), err
 
 
+@pytest.mark.parametrize("length", [1104, 1024, 20])
+@pytest.mark.parametrize("sq", [1, 2, 5, 9, 17])
+@pytest.mark.parametrize("h", [128, 20])
+@pytest.mark.parametrize("q_scale", [1.0, 4.0])
+def test_mla_tensor_core_route_matches_plain(dev, length, sq, h, q_scale):
+    """The tensor-core route (bf16 cache at R 512, Rr 64) over 1104 rows
+    (34.5 key tiles of 32), 1024 (whole tiles) and 20 (less than one
+    tile: the TMA box reads past L), S = 1 to 17 (gamma up
+    to 16), 20 heads (row tiles that straddle queries, a partial last
+    tile), q_lat scaled by 4: rows near the end, one at the start, and a
+    verify whose last row's queries sit past the cache."""
+    from repro_torch.kernels import mla_attention as ma
+    rng = np.random.default_rng(83)
+    args = list(_mla_inputs(rng, torch.bfloat16, dev, 3, sq, h, 512, 64,
+                            length))
+    args[0] = args[0] * q_scale
+    q_pos = torch.tensor([length - sq, 0, length - 1], dtype=torch.int32,
+                         device=dev)[:, None] \
+        + torch.arange(sq, dtype=torch.int32, device=dev)
+    assert ma.route(torch.bfloat16, 512) == "wgmma"
+    n0 = ma.mla_attention.launches
+    out = ma.mla_attention(*args, q_pos.contiguous(), scale=192 ** -0.5)
+    torch.cuda.synchronize()
+    assert ma.mla_attention.launches == n0 + 1
+    ref = ma.mla_attention_plain(*args, q_pos, scale=192 ** -0.5)
+    err = (out - ref).abs().max().item()
+    assert bool(torch.isfinite(out).all())
+    assert err <= MLA_REL_TOL * ref.abs().max().item(), err
+
+
+@pytest.mark.parametrize("b,sq", [(4, 1), (8, 5)])
+def test_mla_kernel_counts_one_launch_per_call(dev, b, sq):
+    """The main path's two shapes, one-query decode at batch 4 and the
+    S = 5 verify at batch 8 over 1104 rows, each add exactly one to the
+    launch count, whatever the split count the wrapper picks."""
+    from repro_torch.kernels import mla_attention as ma
+    rng = np.random.default_rng(84)
+    args = _mla_inputs(rng, torch.bfloat16, dev, b, sq, 128, 512, 64, 1104)
+    q_pos = torch.full((b, sq), 1103 - sq, dtype=torch.int32, device=dev) \
+        + torch.arange(sq, dtype=torch.int32, device=dev)
+    n0 = ma.mla_attention.launches
+    ma.mla_attention(*args, q_pos, scale=192 ** -0.5)
+    torch.cuda.synchronize()
+    assert ma.mla_attention.launches == n0 + 1
+
+
+@pytest.mark.parametrize("split", [32, 96, 352, 1120])
+def test_mla_tensor_core_route_at_any_split(dev, split):
+    """The tensor-core route's C entry at 35 to 1 CTAs a row tile over
+    1104 rows (the last split partial), the S = 5 verify at batch 2: the
+    merge of many partials and the one-split epilogue agree with the
+    plain version."""
+    from repro_torch.kernels import mla_attention as ma
+    rng = np.random.default_rng(85)
+    args = _mla_inputs(rng, torch.bfloat16, dev, 2, 5, 128, 512, 64, 1104)
+    q_pos = torch.tensor([1098, 700], dtype=torch.int32, device=dev)[:, None] \
+        + torch.arange(5, dtype=torch.int32, device=dev)
+    out = ma._launch(*args, q_pos.contiguous(), None, 0, 192 ** -0.5, split)
+    torch.cuda.synchronize()
+    ref = ma.mla_attention_plain(*args, q_pos, scale=192 ** -0.5)
+    err = (out - ref).abs().max().item()
+    assert err <= MLA_REL_TOL * ref.abs().max().item(), err
+
+
 def test_mla_kernel_refuses_what_it_does_not_instantiate(dev):
     from repro_torch.kernels import mla_attention as ma
     z = torch.zeros

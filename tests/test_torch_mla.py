@@ -410,3 +410,22 @@ def test_early_exit_backfill_of_latent_cache_matches_reference(
     assert bool((tc["layers"]["ckv"][:, :, 9] != before[:, :, 9])
                 .any(-1).all())
 
+
+
+@pytest.mark.parametrize("b,sq,h,length,keys", [
+    (4, 1, 128, 1104, 96),       # one-query decode: 8 row tiles, 12 CTAs
+    (8, 5, 128, 1104, 1120),     # the S = 5 verify: 80 row tiles, 1 CTA
+    (1, 1, 128, 131072, 2016),   # a 128K-row slot: 2 row tiles, 66 CTAs
+    (4, 1, 128, 20, 32),         # less than one key tile
+    (2, 17, 20, 1104, 128),      # 12 row tiles of 20 heads, 9 CTAs
+])
+def test_tensor_core_split_fills_the_sms(b, sq, h, length, keys):
+    """The tensor-core route's keys per CTA: whole key tiles, row tiles x
+    CTAs within the 132 SMs of an H100 where the keys allow, at least one
+    key tile a CTA."""
+    split = ma.tc_split(b, sq, h, length, 132)
+    assert split == keys
+    tiles = b * -(-sq * h // ma.TC_ROWS)
+    n = -(-length // split)
+    assert split % ma.TC_KEYS == 0 and n >= 1
+    assert tiles * n <= max(132, tiles)
