@@ -87,6 +87,14 @@ class ModelConfig:
             object.__setattr__(self, "moe_d_ff", self.d_ff)
 
     @property
+    def is_attention_free(self) -> bool:
+        return self.family == "ssm"
+
+    @property
+    def q_per_kv(self) -> int:
+        return max(1, self.num_heads // max(1, self.num_kv_heads))
+
+    @property
     def kv_head_dim(self) -> int:
         """Width of one KV entry per layer per token (for cache sizing)."""
         if self.use_mla:

@@ -40,6 +40,12 @@ positions; the engine never makes one (its compaction refuses MLA).
 Caller-supplied positions take the plain path on CPU tensors and raise on
 CUDA, as for GQA.
 
+Cross-attention (whisper's decoder over its encoder's frames) takes the
+kernels too: its prefill runs the flash kernel's non-causal mode, the
+prompt's queries over every encoder key (Sq != Sk, no mask), and its
+decode the paged kernel's one-query mode over the cross cache viewed as
+pages, every row read.
+
 Caches are updated in place (the reference returns updated copies); every
 function still returns the cache it was given, as the reference does.
 """
@@ -90,6 +96,10 @@ def attn_specs(cfg) -> Dict[str, ParamSpec]:
         "wv": spec((d, k, hd), ("embed", "kv_heads", None)),
         "wo": spec((h, hd, d), ("heads", None, "embed")),
     }
+
+
+def cross_attn_specs(cfg) -> Dict[str, ParamSpec]:
+    return attn_specs(cfg)
 
 
 # --------------------------------------------------------------------------
@@ -177,15 +187,14 @@ def _off_kernel(x, what: str):
 # standard GQA layer
 # --------------------------------------------------------------------------
 
-def qkv_proj(p, x):
+def _heads(x, w):
+    """x [B,S,d] through w [d,N,D] -> [B,S,N,D]."""
     b, s, d = x.shape
-    q = torch.matmul(x, p["wq"].reshape(d, -1)).reshape(b, s, -1,
-                                                        p["wq"].shape[-1])
-    k = torch.matmul(x, p["wk"].reshape(d, -1)).reshape(b, s, -1,
-                                                        p["wk"].shape[-1])
-    v = torch.matmul(x, p["wv"].reshape(d, -1)).reshape(b, s, -1,
-                                                        p["wv"].shape[-1])
-    return q, k, v
+    return torch.matmul(x, w.reshape(d, -1)).reshape(b, s, -1, w.shape[-1])
+
+
+def qkv_proj(p, x):
+    return _heads(x, p["wq"]), _heads(x, p["wk"]), _heads(x, p["wv"])
 
 
 def out_proj(p, o):
@@ -461,6 +470,46 @@ def decode_attention(p, x, cos, sin, cfg, cache, pos, *, window=0):
     o = ops.paged_attention(q[:, 0], k_pages, v_pages, table,
                             seq_lens.to(torch.int32), **masked)
     return out_proj(p, o[:, None]), cache
+
+
+# ---------------------------- cross-attention ------------------------------
+
+def cross_kv(p, enc):
+    """The encoder's keys and values for one layer's cross-attention:
+    enc [B,Se,d] -> (k, v) [B,Se,K,D] in enc's dtype."""
+    return _heads(enc, p["wk"]), _heads(enc, p["wv"])
+
+
+def cross_attention(p, x, k, v):
+    """Every decoder token of x [B,S,d] over all the encoder's keys k, v
+    [B,Se,K,D], unmasked (the reference's ``blockwise_sdpa(...,
+    causal=False)``): the flash kernel's non-causal mode on the [B,N,S,D]
+    views, Sq = S beside Sk = Se."""
+    q = _heads(x, p["wq"])
+    o = ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                            v.transpose(1, 2), causal=False)
+    return out_proj(p, o.transpose(1, 2))
+
+
+def cross_decode_attention(p, x, cross):
+    """One decoder token x [B,1,d] over the cross cache ``cross`` {"k",
+    "v"} [B,Se,K,D] (the reference's ``simple_sdpa(..., causal=False)``):
+    the paged kernel's one-query mode over the cache viewed as pages with
+    the identity table, and ``seq_lens = Se`` (every key read).
+
+    The cache keeps the reference's unpadded [B,Se,K,D] layout, so whisper's
+    1500 encoder frames page by 4 tokens (``_page_size``). The paged
+    kernel takes the page size as a run-time argument (its chunks gather
+    tokens through the table one by one), so page 4 needs no instantiation
+    of its own, and the card check holds it there."""
+    b = x.shape[0]
+    q = _heads(x, p["wq"])
+    k_pages, v_pages, table = _paged_view(cross, b)
+    seq_lens = torch.full((b,), cross["k"].shape[1], dtype=torch.int32,
+                          device=x.device)
+    o = ops.paged_attention(q[:, 0].contiguous(), k_pages, v_pages, table,
+                            seq_lens)
+    return out_proj(p, o[:, None])
 
 
 # --------------------------------------------------------------------------

@@ -1,24 +1,43 @@
-"""Model assembly: the dense, ``vlm`` and ``moe`` families (MLA included).
+"""Model assembly for all six architecture families.
 
 Port of ``repro.models.transformer``. Parameters keep the reference's
 stacked layout (every layer leaf has a leading [num_layers] dim) so a
 reference checkpoint carries over key for key; the reference's
 ``lax.scan`` over the stacked layers is a Python loop here, each layer
 reading its slice of the stacked params and cache (views, so cache
-writes land in the stacked cache). The ``moe`` family's first
-``first_k_dense_layers`` layers are a stack of their own
-(``dense_layers``, dense MLPs), then ``layers`` with the MoE FFN; the
-MoE capacity defaults are the reference's (1.25 for ``forward``,
-``prefill`` and ``extend``, dropless for ``decode_step``), so a chunked
-prefill drops tokens chunk by chunk as the reference does. A config with
-``use_mla`` (deepseek-v3) runs every layer's attention through the MLA
-functions of ``models.attention``, with rope over ``qk_rope_head_dim``.
+writes land in the stacked cache).
+
+* ``dense`` / ``vlm`` / ``moe``: the ``moe`` family's first
+  ``first_k_dense_layers`` layers are a stack of their own
+  (``dense_layers``, dense MLPs), then ``layers`` with the MoE FFN; the
+  MoE capacity defaults are the reference's (1.25 for ``forward``,
+  ``prefill`` and ``extend``, dropless for ``decode_step``). A config
+  with ``use_mla`` (deepseek-v3) runs every layer's attention through the
+  MLA functions of ``models.attention``. A ``vlm`` with
+  ``projector="perceiver"`` resamples the patches to ``num_latents``
+  visual tokens (``models.resampler``).
+* ``ssm`` (RWKV-6): time-mix and channel-mix per layer
+  (``models.rwkv``), an O(1) state cache and no rope.
+* ``hybrid`` (Zamba2): groups of ``attn_layer_period`` Mamba-2 layers
+  (``models.mamba``), each group followed by one parameter-tied
+  attention + MLP block with a windowed KV ring per group.
+* ``audio`` (Whisper): a non-causal encoder over ``frames``, a decoder
+  with causal self-attention and cross-attention over the encoder.
+
+Every attention call of these families takes the kernels of
+``models.attention`` on the card: the shared block's prefill the flash
+kernel's window mode and its decode the paged kernel's masked mode,
+whisper's encoder and cross prefill the flash kernel's non-causal mode,
+its cross decode the paged kernel over the cross cache. The recurrences
+are plain PyTorch, as the reference's are jnp.
 
 Entry points (as the reference):
   forward(params, batch)                      -> (logits [B,S,V], aux)
   prefill(params, batch, cache_len, windowed) -> (logits [B,S,V], cache)
   extend(params, cache, tokens, start)        -> (logits [B,S_new,V], cache)
   decode_step(params, cache, tokens, pos)     -> (logits [B,V], cache)
+``extend`` takes the attention-cache families (dense, vlm, moe) only, as
+the reference's.
 """
 from __future__ import annotations
 
@@ -31,7 +50,10 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import layers as L
+from repro_torch.models import mamba as M
 from repro_torch.models import moe as MOE
+from repro_torch.models import rwkv as R
+from repro_torch.models.resampler import apply_resampler, resampler_specs
 from repro_torch.models.layers import ParamSpec, spec
 
 
@@ -48,6 +70,13 @@ def _layer(tree, i: int):
     if isinstance(tree, dict):
         return {k: _layer(v, i) for k, v in tree.items()}
     return tree[i]
+
+
+def _store(cache, new) -> None:
+    """Copy the leaves of ``new`` into the cache views ``cache`` (a
+    layer's recurrent state: the reference's scan returns it as ys)."""
+    for k, v in new.items():
+        cache[k].copy_(v)
 
 
 # --------------------------------------------------------------------------
@@ -128,11 +157,9 @@ def _dense_layer_decode(cfg, p, x, cos, sin, cache, pos, *, window,
 # Model
 # --------------------------------------------------------------------------
 
-_FAMILIES = ("dense", "vlm", "moe")
-#: families and features the port does not build yet, by ROADMAP item
-_NOT_PORTED = {"ssm": "item 18 (models/rwkv.py)",
-               "hybrid": "items 18-19 (models/mamba.py, the hybrid family)",
-               "audio": "item 19 (the audio family)"}
+_FAMILIES = ("dense", "vlm", "moe", "ssm", "hybrid", "audio")
+#: the families with an attention KV cache: the ones ``extend`` takes
+_KV_FAMILIES = ("dense", "vlm", "moe")
 
 
 @dataclasses.dataclass
@@ -140,23 +167,14 @@ class Model:
     cfg: ModelConfig
 
     def __post_init__(self):
-        cfg = self.cfg
-        if cfg.family in _NOT_PORTED:
-            raise NotImplementedError(
-                f"family {cfg.family!r} is not ported yet (ROADMAP queue A, "
-                f"{_NOT_PORTED[cfg.family]}); the port builds the "
-                f"{', '.join(_FAMILIES)} families")
-        if cfg.family not in _FAMILIES:
-            raise ValueError(f"unknown family {cfg.family!r}")
-        if cfg.family == "vlm" and cfg.projector != "mlp":
-            raise NotImplementedError(
-                "the perceiver projector is not ported yet (ROADMAP queue A, "
-                "item 18, models/resampler.py)")
+        if self.cfg.family not in _FAMILIES:
+            raise ValueError(f"unknown family {self.cfg.family!r}")
 
     def segments(self) -> Tuple[Tuple[str, ModelConfig, int], ...]:
-        """The stacked layer segments in order: (params / cache key, the
-        config its layers run with, depth). The ``moe`` family's dense
-        prefix runs with ``num_experts=0`` (dense MLPs)."""
+        """The stacked transformer-layer segments in order: (params /
+        cache key, the config its layers run with, depth). The ``moe``
+        family's dense prefix runs with ``num_experts=0`` (dense MLPs).
+        Only the dense, vlm and moe families have them."""
         cfg = self.cfg
         kd = cfg.first_k_dense_layers if cfg.family == "moe" else 0
         out = (("layers", cfg, cfg.num_layers - kd),)
@@ -169,23 +187,86 @@ class Model:
         cfg = self.cfg
         out: Dict[str, Any] = {"embed": L.embed_specs(cfg),
                                "final_norm": L.norm_specs(cfg)}
-        for key, lcfg, n in self.segments():
-            out[key] = stack_specs(_dense_layer_specs(lcfg), n)
-        if cfg.family == "vlm":
-            out["projector"] = {
-                "w1": spec((cfg.d_model, cfg.d_model), ("embed", "embed_out")),
-                "w2": spec((cfg.d_model, cfg.d_model), ("embed_out", "embed")),
+        if cfg.family in _KV_FAMILIES:
+            for key, lcfg, n in self.segments():
+                out[key] = stack_specs(_dense_layer_specs(lcfg), n)
+        elif cfg.family == "ssm":
+            out["layers"] = stack_specs(
+                {"ln1": L.norm_specs(cfg), "ln2": L.norm_specs(cfg),
+                 **R.rwkv_specs(cfg)}, cfg.num_layers)
+        elif cfg.family == "hybrid":
+            out["layers"] = stack_specs(
+                {"ln": L.norm_specs(cfg), "mamba": M.mamba_specs(cfg)},
+                cfg.num_layers)
+            out["shared_attn"] = {
+                "ln": L.norm_specs(cfg), "attn": attn.attn_specs(cfg),
+                "ln2": L.norm_specs(cfg), "mlp": L.mlp_specs(cfg)}
+        else:                                                  # audio
+            out["encoder"] = {
+                "layers": stack_specs(_dense_layer_specs(cfg),
+                                      cfg.encoder_layers),
+                "norm": L.norm_specs(cfg),
+                "pos_embed": spec((cfg.encoder_seq, cfg.d_model),
+                                  (None, "embed"), scale=0.02),
             }
+            out["layers"] = stack_specs(
+                {"ln1": L.norm_specs(cfg), "attn": attn.attn_specs(cfg),
+                 "ln_x": L.norm_specs(cfg),
+                 "xattn": attn.cross_attn_specs(cfg),
+                 "ln2": L.norm_specs(cfg), "mlp": L.mlp_specs(cfg)},
+                cfg.num_layers)
+        if cfg.family == "vlm":
+            if cfg.projector == "perceiver":
+                out["projector"] = resampler_specs(
+                    cfg, num_latents=cfg.num_latents)
+            else:
+                out["projector"] = {
+                    "w1": spec((cfg.d_model, cfg.d_model),
+                               ("embed", "embed_out")),
+                    "w2": spec((cfg.d_model, cfg.d_model),
+                               ("embed_out", "embed")),
+                }
         return out
 
     def init(self, seed: int, device) -> Dict[str, Any]:
         return L.init_params(self.param_specs(), seed, self.cfg.dtype, device)
 
     # ------------------------------------------------------------- cache --
+    def n_hybrid_groups(self) -> Tuple[int, int]:
+        """(shared-block calls, trailing Mamba-2 layers) of the hybrid
+        family."""
+        cfg = self.cfg
+        g = cfg.num_layers // cfg.attn_layer_period
+        return g, cfg.num_layers - g * cfg.attn_layer_period
+
     def cache_specs(self, batch: int, cache_len: int,
                     windowed: bool = False) -> Dict[str, Any]:
-        one = attn.kv_cache_specs(self.cfg, batch, cache_len, windowed)
-        return {key: stack_specs(one, n) for key, _, n in self.segments()}
+        cfg = self.cfg
+        if cfg.family in _KV_FAMILIES:
+            one = attn.kv_cache_specs(cfg, batch, cache_len, windowed)
+            return {key: stack_specs(one, n)
+                    for key, _, n in self.segments()}
+        if cfg.family == "ssm":
+            return {"layers": stack_specs(R.rwkv_cache_specs(cfg, batch),
+                                          cfg.num_layers)}
+        if cfg.family == "hybrid":
+            g, _ = self.n_hybrid_groups()
+            return {
+                "layers": stack_specs(M.mamba_cache_specs(cfg, batch),
+                                      cfg.num_layers),
+                # the shared block: one windowed KV ring per call
+                "shared_attn": stack_specs(
+                    attn.kv_cache_specs(cfg, batch, cache_len,
+                                        windowed=True), g),
+            }
+        cross = spec((batch, cfg.encoder_seq, cfg.num_kv_heads, cfg.head_dim),
+                     ("batch", "enc_seq", "kv_heads", None), init="zeros")
+        return {
+            "layers": stack_specs(
+                attn.kv_cache_specs(cfg, batch, cache_len, windowed),
+                cfg.num_layers),
+            "cross": stack_specs({"k": cross, "v": cross}, cfg.num_layers),
+        }
 
     def init_cache(self, batch, cache_len, windowed=False, device="cpu"):
         return attn.zeros_from_specs(
@@ -196,6 +277,8 @@ class Model:
     def _cos_sin(self, positions):
         """positions: [S] or [B,S] text pos, or [3,B,S] for M-RoPE."""
         cfg = self.cfg
+        if cfg.is_attention_free:
+            return None, None
         hd = cfg.qk_rope_head_dim if cfg.use_mla else cfg.head_dim
         if cfg.use_mrope:
             if positions.ndim == 2:     # text-only fallback: t=h=w
@@ -211,11 +294,16 @@ class Model:
         x = L.embed_tokens(params["embed"], batch["tokens"])
         if cfg.family == "vlm" and "visual_embeds" in batch:
             ve = batch["visual_embeds"].to(x.dtype)
-            w1, w2 = params["projector"]["w1"], params["projector"]["w2"]
-            # jax.nn.gelu defaults to the tanh approximation
-            ve = F.gelu(torch.matmul(ve, w1).float(),
-                        approximate="tanh").to(x.dtype)
-            ve = torch.matmul(ve, w2).to(x.dtype)
+            if cfg.projector == "perceiver":
+                # Flamingo resampler: any number of patches -> num_latents
+                # fixed visual tokens (survey dim 3a)
+                ve = apply_resampler(params["projector"], ve)
+            else:
+                w1, w2 = params["projector"]["w1"], params["projector"]["w2"]
+                # jax.nn.gelu defaults to the tanh approximation
+                ve = F.gelu(torch.matmul(ve, w1).float(),
+                            approximate="tanh").to(x.dtype)
+                ve = torch.matmul(ve, w2).to(x.dtype)
             x = torch.cat([ve, x], dim=1)
         b, s = x.shape[0], x.shape[1]
         if "positions" in batch:
@@ -236,23 +324,125 @@ class Model:
         x = L.apply_norm(params["final_norm"], x, self.cfg.norm)
         return L.unembed(params["embed"], x, self.cfg.logits_softcap)
 
+    # ------------------------------------------------ ssm / hybrid layers --
+    def _rwkv_layer(self, p, x, state=None):
+        """One RWKV-6 layer: (x, its new state {tm_shift, wkv, cm_shift})."""
+        cfg = self.cfg
+        h = L.apply_norm(p["ln1"], x, cfg.norm)
+        tm, tm_state = R.time_mix_forward(p["time_mix"], h, cfg, state=state)
+        x = x + tm
+        h = L.apply_norm(p["ln2"], x, cfg.norm)
+        cm, cm_state = R.channel_mix_forward(p["channel_mix"], h, cfg,
+                                             state=state)
+        return x + cm, dict(tm_state, **cm_state)
+
+    def _shared_block(self, sp, x, attend):
+        """The hybrid family's tied attention + MLP block; ``attend(p, h)``
+        is its attention."""
+        cfg = self.cfg
+        x = x + attend(sp["attn"], L.apply_norm(sp["ln"], x, cfg.norm))
+        h = L.apply_norm(sp["ln2"], x, cfg.norm)
+        return x + L.apply_mlp(sp["mlp"], h, cfg.activation)
+
+    def _hybrid(self, params, x, mamba, attend):
+        """The hybrid family's layers in order: Mamba-2 layer i is
+        ``mamba(i, p, h)``; after every ``attn_layer_period`` of them the
+        shared block runs, its attention ``attend(group, p, h)``."""
+        cfg = self.cfg
+        for i in range(cfg.num_layers):
+            lp = _layer(params["layers"], i)
+            x = x + mamba(i, lp["mamba"], L.apply_norm(lp["ln"], x,
+                                                       cfg.norm))
+            if (i + 1) % cfg.attn_layer_period == 0:
+                x = self._shared_block(
+                    params["shared_attn"], x,
+                    lambda p, h, gi=i // cfg.attn_layer_period:
+                        attend(gi, p, h))
+        return x
+
+    @staticmethod
+    def _chunk(x):
+        """The SSD chunk of a [B,T,d] input: the largest of 128 ... 1 that
+        divides T (the reference's rule)."""
+        t = x.shape[1]
+        return next(c for c in (128, 64, 32, 16, 8, 4, 2, 1) if t % c == 0)
+
+    # ------------------------------------------------------------- audio --
+    def _encode(self, params, frames):
+        """Whisper's encoder: non-causal self-attention layers over the
+        frame embeddings, then its norm. frames [B,Se,d]."""
+        cfg = self.cfg
+        ep = params["encoder"]
+        x = frames.to(L.DTYPES[cfg.dtype]) \
+            + ep["pos_embed"][None, :frames.shape[1]]
+        for i in range(cfg.encoder_layers):
+            x, _ = _dense_layer_fwd(cfg, _layer(ep["layers"], i), x, None,
+                                    None, positions=None, window=0,
+                                    causal=False)
+        return L.apply_norm(ep["norm"], x, cfg.norm)
+
+    def _audio_embed(self, params, tokens):
+        """(x [B,S,d], cos, sin) of the decoder's prompt at 0 .. S-1."""
+        x = L.embed_tokens(params["embed"], tokens)
+        cos, sin = L.rope_cos_sin(torch.arange(x.shape[1], device=x.device),
+                                  self.cfg.head_dim, self.cfg.rope_theta)
+        return x, cos, sin
+
+    def _audio_decoder(self, params, x, self_attend, cross_attend):
+        """Whisper's decoder layers over the embedded tokens x [B,S,d]:
+        causal self-attention ``self_attend(i, p, h)``, cross-attention
+        ``cross_attend(i, p, h)``, MLP."""
+        cfg = self.cfg
+        for i in range(cfg.num_layers):
+            lp = _layer(params["layers"], i)
+            x = x + self_attend(i, lp["attn"],
+                                L.apply_norm(lp["ln1"], x, cfg.norm))
+            x = x + cross_attend(i, lp["xattn"],
+                                 L.apply_norm(lp["ln_x"], x, cfg.norm))
+            h = L.apply_norm(lp["ln2"], x, cfg.norm)
+            x = x + L.apply_mlp(lp["mlp"], h, cfg.activation)
+        return x
+
     # ----------------------------------------------------------- forward --
     def forward(self, params, batch, *, window: Optional[int] = None,
                 moe_cap: Optional[float] = 1.25):
         """Full-sequence logits (scoring) and aux (the MoE layers' mean
         ``lb_loss``)."""
+        cfg = self.cfg
         window = 0 if window is None else window
+        if cfg.family == "audio":
+            enc = self._encode(params, batch["frames"])
+            x, cos, sin = self._audio_embed(params, batch["tokens"])
+            x = self._audio_decoder(
+                params, x,
+                lambda i, p, h: attn.full_attention(p, h, cos, sin, cfg,
+                                                    causal=True),
+                lambda i, p, h: attn.cross_attention(
+                    p, h, *attn.cross_kv(p, enc)))
+            return self._head(params, x), {}
         x, positions = self._embed_inputs(params, batch)
         cos, sin = self._cos_sin(positions)
         pos_1d = self._attn_positions(batch, positions)
         lbs = []
-        for key, lcfg, n in self.segments():
-            for i in range(n):
-                x, aux = _dense_layer_fwd(
-                    lcfg, _layer(params[key], i), x, cos, sin,
-                    positions=pos_1d, window=window, moe_cap=moe_cap)
-                if "lb_loss" in aux:
-                    lbs.append(aux["lb_loss"])
+        if cfg.family == "ssm":
+            for i in range(cfg.num_layers):
+                x, _ = self._rwkv_layer(_layer(params["layers"], i), x)
+        elif cfg.family == "hybrid":
+            x = self._hybrid(
+                params, x,
+                lambda i, p, h: M.mamba_forward(p, h, cfg,
+                                                chunk=self._chunk(h))[0],
+                lambda gi, p, h: attn.full_attention(
+                    p, h, cos, sin, cfg, causal=True,
+                    window=cfg.sliding_window, positions=pos_1d))
+        else:
+            for key, lcfg, n in self.segments():
+                for i in range(n):
+                    x, aux = _dense_layer_fwd(
+                        lcfg, _layer(params[key], i), x, cos, sin,
+                        positions=pos_1d, window=window, moe_cap=moe_cap)
+                    if "lb_loss" in aux:
+                        lbs.append(aux["lb_loss"])
         aux_acc = {"lb_loss": torch.stack(lbs).mean()} if lbs else {}
         return self._head(params, x), aux_acc
 
@@ -265,24 +455,71 @@ class Model:
         ``last_only``: unembed only the final position (logits [B,1,V]).
         """
         cfg = self.cfg
-        window = (cfg.sliding_window if windowed else 0) if window is None \
-            else window
-        x, positions = self._embed_inputs(params, batch)
-        b, s = x.shape[0], x.shape[1]
-        # cache must cover the full (visual + text) prefill length
-        cache_len = max(cache_len or 0, s)
-        cache = self.init_cache(b, cache_len, windowed, device=x.device)
-        cos, sin = self._cos_sin(positions)
-        pos_1d = self._attn_positions(batch, positions)
-        for key, lcfg, n in self.segments():
-            for i in range(n):
-                x, _ = _dense_layer_prefill(
-                    lcfg, _layer(params[key], i), x, cos, sin,
-                    _layer(cache[key], i), positions=pos_1d, window=window,
-                    moe_cap=moe_cap)
+        if cfg.family == "audio":
+            x, cache = self._prefill_audio(params, batch, cache_len)
+        else:
+            window = (cfg.sliding_window if windowed else 0) \
+                if window is None else window
+            x, positions = self._embed_inputs(params, batch)
+            b, s = x.shape[0], x.shape[1]
+            # cache must cover the full (visual + text) prefill length
+            cache_len = max(cache_len or 0, s)
+            cache = self.init_cache(b, cache_len, windowed, device=x.device)
+            cos, sin = self._cos_sin(positions)
+            pos_1d = self._attn_positions(batch, positions)
+            if cfg.family == "ssm":
+                for i in range(cfg.num_layers):
+                    x, st = self._rwkv_layer(_layer(params["layers"], i), x)
+                    _store(_layer(cache["layers"], i), st)
+            elif cfg.family == "hybrid":
+                x = self._hybrid_prefill(params, x, cache, cos, sin, pos_1d)
+            else:
+                for key, lcfg, n in self.segments():
+                    for i in range(n):
+                        x, _ = _dense_layer_prefill(
+                            lcfg, _layer(params[key], i), x, cos, sin,
+                            _layer(cache[key], i), positions=pos_1d,
+                            window=window, moe_cap=moe_cap)
         if last_only:
             x = x[:, -1:]
         return self._head(params, x), cache
+
+    def _hybrid_prefill(self, params, x, cache, cos, sin, pos_1d):
+        cfg = self.cfg
+
+        def mamba(i, p, h):
+            st = _layer(cache["layers"], i)
+            y, new = M.mamba_forward(p, h, cfg, chunk=self._chunk(h),
+                                     cache=st)
+            _store(st, new)
+            return y
+
+        def attend(gi, p, h):
+            return attn.prefill_into_cache(
+                p, h, cos, sin, cfg, _layer(cache["shared_attn"], gi),
+                window=cfg.sliding_window, positions=pos_1d)[0]
+        return self._hybrid(params, x, mamba, attend)
+
+    def _prefill_audio(self, params, batch, cache_len):
+        """(decoder output [B,S,d], cache): the encoder's keys and values
+        of every layer land in ``cache["cross"]``."""
+        cfg = self.cfg
+        enc = self._encode(params, batch["frames"])
+        x, cos, sin = self._audio_embed(params, batch["tokens"])
+        cache = self.init_cache(x.shape[0], cache_len or x.shape[1],
+                                device=x.device)
+
+        def self_attend(i, p, h):
+            return attn.prefill_into_cache(
+                p, h, cos, sin, cfg, _layer(cache["layers"], i))[0]
+
+        def cross_attend(i, p, h):
+            xkv = _layer(cache["cross"], i)
+            k, v = attn.cross_kv(p, enc)
+            _store(xkv, {"k": k, "v": v})
+            return attn.cross_attention(p, h, k, v)
+        return self._audio_decoder(params, x, self_attend,
+                                   cross_attend), cache
 
     # ------------------------------------------------------------ extend --
     def extend(self, params, cache, tokens, start, *,
@@ -290,7 +527,12 @@ class Model:
                moe_cap: Optional[float] = 1.25):
         """Chunked continuation: score ``tokens [B,S_new]`` appended to an
         existing cache at offset ``start`` -- a scalar (the batch extends
-        from one position) or [B] per-request offsets."""
+        from one position) or [B] per-request offsets. The attention-cache
+        families only (the ssm and hybrid prefill already streams into an
+        O(1) state), as the reference."""
+        if self.cfg.family not in _KV_FAMILIES:
+            raise NotImplementedError(
+                f"extend() not supported for family {self.cfg.family!r}")
         window = window or 0
         x = L.embed_tokens(params["embed"], tokens)
         b, s_new = tokens.shape
@@ -322,10 +564,45 @@ class Model:
         pos = torch.as_tensor(pos, device=x.device).long().reshape(-1
                                                                    ).expand(b)
         cos, sin = self._cos_sin(pos[:, None])
-        for key, lcfg, n in self.segments():
-            for i in range(n):
-                x, _ = _dense_layer_decode(
-                    lcfg, _layer(params[key], i), x, cos, sin,
-                    _layer(cache[key], i), pos, window=window,
-                    moe_cap=moe_cap)
+        if cfg.family == "ssm":
+            for i in range(cfg.num_layers):
+                st = _layer(cache["layers"], i)
+                x, new = self._rwkv_layer(_layer(params["layers"], i), x,
+                                          state=st)
+                _store(st, new)
+        elif cfg.family == "hybrid":
+            x = self._hybrid_decode(params, x, cache, cos, sin, pos)
+        elif cfg.family == "audio":
+            x = self._decode_audio(params, x, cache, cos, sin, pos)
+        else:
+            for key, lcfg, n in self.segments():
+                for i in range(n):
+                    x, _ = _dense_layer_decode(
+                        lcfg, _layer(params[key], i), x, cos, sin,
+                        _layer(cache[key], i), pos, window=window,
+                        moe_cap=moe_cap)
         return self._head(params, x)[:, 0], cache
+
+    def _hybrid_decode(self, params, x, cache, cos, sin, pos):
+        cfg = self.cfg
+
+        def mamba(i, p, h):
+            st = _layer(cache["layers"], i)
+            y, new = M.mamba_decode_step(p, h, cfg, st)
+            _store(st, new)
+            return y
+
+        def attend(gi, p, h):
+            return attn.decode_attention(
+                p, h, cos, sin, cfg, _layer(cache["shared_attn"], gi), pos,
+                window=cfg.sliding_window)[0]
+        return self._hybrid(params, x, mamba, attend)
+
+    def _decode_audio(self, params, x, cache, cos, sin, pos):
+        cfg = self.cfg
+        return self._audio_decoder(
+            params, x,
+            lambda i, p, h: attn.decode_attention(
+                p, h, cos, sin, cfg, _layer(cache["layers"], i), pos)[0],
+            lambda i, p, h: attn.cross_decode_attention(
+                p, h, _layer(cache["cross"], i)))

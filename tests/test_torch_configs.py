@@ -39,7 +39,8 @@ def test_unknown_arch_raises():
 @pytest.mark.parametrize("arch", ["granite-34b", "mistral-large-123b",
                                   "nemotron-4-340b", "arctic-480b",
                                   "deepseek-v3-671b", "qwen2-vl-2b",
-                                  "phi4-mini-3.8b"])
+                                  "phi4-mini-3.8b", "rwkv6-3b",
+                                  "zamba2-1.2b", "whisper-tiny"])
 def test_param_counts_match_reference(arch):
     """Full widths and depths, counted from the spec trees. The
     reference discounts leaves whose path names ``expert``; its MoE leaves
@@ -54,10 +55,41 @@ def test_param_counts_match_reference(arch):
             j.with_(**variant).active_param_count()
 
 
-@pytest.mark.parametrize("arch,item", [("rwkv6-3b", "item 18"),
-                                       ("whisper-tiny", "item 19"),
-                                       ("zamba2-1.2b", "items 18-19")])
-def test_unported_families_raise_naming_their_item(arch, item):
+def test_perceiver_param_count_matches_reference():
+    """qwen2-vl with the perceiver projector (64 latents, the default)."""
+    t = T.get_config("qwen2-vl-2b").with_(projector="perceiver")
+    j = J.get_config("qwen2-vl-2b").with_(projector="perceiver")
+    assert t.param_count() == j.param_count()
+
+
+@pytest.mark.parametrize("arch", J.ARCHS)
+def test_derived_properties_match_reference(arch):
+    t, j = T.get_config(arch), J.get_config(arch)
+    assert t.is_attention_free == j.is_attention_free
+    assert t.q_per_kv == j.q_per_kv
+    assert t.kv_head_dim == j.kv_head_dim
+
+
+@pytest.mark.parametrize("arch,kw", [
+    ("rwkv6-3b", {}), ("zamba2-1.2b", {}), ("whisper-tiny", {}),
+    ("qwen2-vl-2b", dict(projector="perceiver", num_latents=8))])
+def test_params_from_flat_round_trip(arch, kw):
+    """The reference's flattened ``a.b.c`` params of each new family come
+    across whole: the port's spec tree has exactly those leaves, at their
+    shapes, with the same values."""
+    import jax
+    import numpy as np
+    from repro.models import build as j_build
+    from repro.training.checkpoint import _flatten
     from repro_torch.models import build
-    with pytest.raises(NotImplementedError, match=item):
-        build(T.get_config(arch, smoke=True))
+    from repro_torch.models.convert import params_from_flat
+    jm = j_build(J.get_config(arch, smoke=True).with_(**kw))
+    flat = {k: np.asarray(v) for k, v in _flatten(
+        jm.init(jax.random.PRNGKey(0))).items()}
+    got = _flatten(params_from_flat(flat, "cpu"))
+    specs = _flatten(build(T.get_config(arch, smoke=True).with_(
+        **kw)).param_specs())
+    assert got.keys() == flat.keys() == specs.keys()
+    for k, v in flat.items():
+        assert tuple(got[k].shape) == specs[k].shape == v.shape
+        assert np.array_equal(got[k].numpy(), v)

@@ -1190,3 +1190,109 @@ def test_deepseek_smoke_on_card_matches_cpu(dev):
     torch.cuda.synchronize()
     assert ma.mla_attention.launches == m0 + 2 * n
     assert (eg.cpu() - ec_).abs().max().item() <= 1e-3
+
+
+# ------------------------------------------- the remaining model families --
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", [
+    # whisper-tiny's encoder: non-causal self-attention over 1500 frames
+    dict(b=2, h=6, kvh=6, sq=1500, sk=1500, d=64, causal=False),
+    # its cross-attention prefill: a 16-token prompt over 1500 frames
+    dict(b=2, h=6, kvh=6, sq=16, sk=1500, d=64, causal=False),
+    # zamba2-1.2b's shared block: window 4096, 32 / 32 heads, D 64, over
+    # a 1024-token prompt and one past the window
+    dict(b=1, h=32, kvh=32, sq=1024, sk=1024, d=64, window=4096),
+    dict(b=1, h=32, kvh=32, sq=4200, sk=4200, d=64, window=4096),
+])
+def test_flash_kernel_family_shapes_match_plain(dev, dtype, case):
+    rng = np.random.default_rng(90)
+    c = dict(case)
+    b, h, kvh, sq, sk, d = (c.pop(x) for x in ("b", "h", "kvh", "sq", "sk",
+                                                "d"))
+    q = _randn(rng, (b, h, sq, d), dtype, dev)
+    k = _randn(rng, (b, kvh, sk, d), dtype, dev)
+    v = _randn(rng, (b, kvh, sk, d), dtype, dev)
+    n0 = fa.flash_attention.launches
+    out = fa.flash_attention(q, k, v, **c)
+    torch.cuda.synchronize()
+    assert fa.flash_attention.launches == n0 + 1
+    ref = fa.flash_attention_plain(q, k, v, **c)
+    assert (out.float() - ref.float()).abs().max().item() <= TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case,length", [("ring", 640), ("ring", 4096),
+                                         ("window", 640), ("own_key", 640)])
+def test_paged_kernel_masked_at_d64_g1_matches_plain(dev, dtype, case,
+                                                     length):
+    """zamba2's shared-block decode: the masked mode at D 64, 32 / 32
+    heads (G = 1) over a wrapped ring of 640 slots and of the full
+    window's 4096."""
+    args, kw = _masked_inputs(np.random.default_rng(91), case, 4, dtype,
+                              dev, False, length=length, d=64, h=32, kvh=32)
+    out = pa.paged_attention(*args, **kw)
+    torch.cuda.synchronize()
+    ref = pa.paged_attention_plain(*args, **kw)
+    assert (out.float() - ref.float()).abs().max().item() <= TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_kernel_over_the_cross_cache_matches_plain(dev, dtype):
+    """whisper's cross decode: one query over the 1500-row cross cache
+    [B,1500,6,64] viewed as pages of 4 tokens (``_page_size(1500)``),
+    identity table, every key read."""
+    from repro_torch.models.attention import _page_size, _paged_view
+    rng = np.random.default_rng(92)
+    b, se, h, d = 4, 1500, 6, 64
+    cross = {"k": _randn(rng, (b, se, h, d), dtype, dev),
+             "v": _randn(rng, (b, se, h, d), dtype, dev)}
+    kp, vp, table = _paged_view(cross, b)
+    assert _page_size(se) == kp.shape[1] == 4
+    q = _randn(rng, (b, h, d), dtype, dev)
+    seq = torch.full((b,), se, dtype=torch.int32, device=dev)
+    n0 = pa.paged_attention.launches
+    out = pa.paged_attention(q, kp, vp, table, seq)
+    torch.cuda.synchronize()
+    assert pa.paged_attention.launches == n0 + 1
+    ref = pa.paged_attention_plain(q, kp, vp, table, seq)
+    assert (out.float() - ref.float()).abs().max().item() <= TOL[dtype]
+
+
+@pytest.mark.parametrize("arch", ["zamba2-1.2b", "whisper-tiny"])
+def test_family_smoke_on_card_matches_cpu(dev, arch):
+    """zamba2 smoke (a 75-token prompt: the shared block's ring of 64
+    wraps) and whisper smoke (float32) on the card against the CPU:
+    prefill and two decode steps within 1e-3, every attention call on the
+    kernels (zamba2: one flash and one paged launch per shared-block
+    call; whisper: encoder, self and cross prefill on flash, self and
+    cross decode on the paged kernel)."""
+    cpu, card = _smoke_pair(arch)
+    cfg = cpu.cfg
+    rng = np.random.default_rng(93)
+    s = 75 if arch.startswith("zamba") else 10
+    batch = {"tokens": torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                                     (2, s)))}
+    if cfg.family == "audio":
+        batch["frames"] = torch.from_numpy(rng.standard_normal(
+            (2, cfg.encoder_seq, cfg.d_model)).astype(np.float32))
+        n_flash = cfg.encoder_layers + 2 * cfg.num_layers
+        n_paged = 2 * cfg.num_layers
+    else:
+        n_flash = n_paged = cpu.model.n_hybrid_groups()[0]
+    lc, cc = cpu.model.prefill(cpu.params, batch, cache_len=96)
+    f0, p0 = fa.flash_attention.launches, pa.paged_attention.launches
+    lg, cg = card.model.prefill(card.params, {k: v.to(dev)
+                                              for k, v in batch.items()},
+                                cache_len=96)
+    assert fa.flash_attention.launches == f0 + n_flash
+    assert (lg.cpu() - lc).abs().max().item() <= 1e-3
+    for step in range(2):
+        nxt = torch.tensor([[3 + step], [4 + step]])
+        pos = torch.tensor([s + step, s + step])
+        dc, cc = cpu.model.decode_step(cpu.params, cc, nxt, pos)
+        dg, cg = card.model.decode_step(card.params, cg, nxt.to(dev),
+                                        pos.to(dev))
+        assert (dg.cpu() - dc).abs().max().item() <= 1e-3
+    torch.cuda.synchronize()
+    assert pa.paged_attention.launches == p0 + 2 * n_paged

@@ -6,8 +6,8 @@ same synthetic requests (numpy seeds); every number in their JSON
 report lives on the virtual clock and, at temperature 0 with no eos,
 does not depend on the weights, so the two reports are equal -- for a
 plain run, a prefix-affinity fleet with a shared prefix, a
-prefill/decode fleet (with its Prometheus text) and an adaptive-control
-run.
+prefill/decode fleet (with its Prometheus text), an adaptive-control
+run, and runs of the rwkv6-3b and zamba2-1.2b smoke models.
 """
 import json
 import sys
@@ -26,6 +26,8 @@ CASES = {
     "roles": ["--roles", "prefill:1,decode:1", "--open-loop", "2000",
               "--metrics-out", "-"],
     "control": ["--control", "--open-loop", "2000", "--max-batch", "2"],
+    "rwkv6": ["--arch", "rwkv6-3b"],
+    "zamba2": ["--arch", "zamba2-1.2b"],
 }
 
 

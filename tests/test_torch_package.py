@@ -169,7 +169,8 @@ def test_serve_cli_runs_without_jax():
     "configs/mistral_large_123b.py", "configs/nemotron_4_340b.py",
     "configs/arctic_480b.py", "configs/deepseek_v3_671b.py",
     "configs/rwkv6_3b.py", "configs/whisper_tiny.py",
-    "configs/zamba2_1_2b.py"])
+    "configs/zamba2_1_2b.py", "models/resampler.py", "models/rwkv.py",
+    "models/mamba.py"])
 def test_architecture_modules_are_ported(path):
     """Each module of the other-architectures slice has its reference, and
     imports neither JAX nor the JAX package (the probe above imports it
@@ -178,8 +179,8 @@ def test_architecture_modules_are_ported(path):
 
 
 def test_every_arch_config_loads_without_jax():
-    """All ten configs load with JAX blocked; the dense, MoE and MLA
-    archs build (spec trees only) and the others raise."""
+    """All ten configs load and build (spec trees only) with JAX
+    blocked."""
     probe = (
         "import sys; sys.modules['jax'] = None\n"
         "from repro_torch.configs import ARCHS, get_config\n"
@@ -200,7 +201,7 @@ def test_every_arch_config_loads_without_jax():
     assert out.stdout.split("\n")[0] == (
         "10 ['arctic-480b', 'deepseek-v3-671b', 'granite-34b', "
         "'mistral-large-123b', 'nemotron-4-340b', 'phi4-mini-3.8b', "
-        "'qwen2-vl-2b']")
+        "'qwen2-vl-2b', 'rwkv6-3b', 'whisper-tiny', 'zamba2-1.2b']")
 
 
 def test_mla_kernel_module_imports_without_jax():
