@@ -37,7 +37,13 @@ the ssm, hybrid, perceiver-vlm and audio families add (flash's window
 and non-causal modes, the paged kernel's masked mode at head dim 64 and
 over whisper's cross cache), compare rwkv6, zamba2, the perceiver vlm
 and whisper smoke card against CPU, and serve the four at full published
-width and depth, uncut. Each phase prints one JSON line; the
+width (depth uncut, but rwkv6's, cut to 8 of 32 layers). The training
+phases hold the flash backward kernel against its plain version and time
+it beside the backward of ``scaled_dot_product_attention``, train every
+smoke config 3 steps card against CPU, and train qwen2-vl-2b at full
+width and depth (bf16, remat, batch 4 of 1024 visual + 64 text tokens)
+10 steps through ``train_loop`` with a checkpoint at step 5 and a resume
+from it, then run the training CLI. Each phase prints one JSON line; the
 last two lines are the kernel summary and ``{"ok": true, "device":
 {...}}``. Any failure raises and exits non-zero before that line.
 Needs one CUDA device of compute capability 9.0.
@@ -49,6 +55,7 @@ wrapper's choice instead (``mla_split_sweep``).
 """
 from __future__ import annotations
 
+import functools
 import gc
 import json
 import os
@@ -60,10 +67,13 @@ import numpy as np
 import torch
 
 HERE = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, os.path.join(HERE, "src"))
+from repro_torch.roofline.hw import H100_SXM  # noqa: E402 (fails outside a checkout)
 
 # published H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, dense FLOP/s
-HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+HBM_BYTES_PER_S = H100_SXM.hbm_bw
+PEAK_FLOPS = {torch.bfloat16: H100_SXM.peak_flops_bf16,
+              torch.float32: H100_SXM.peak_flops_f32}
 # float32 kernels repeat the plain arithmetic up to summation order; the
 # bfloat16 flash kernel rounds its probabilities to bf16 for the
 # tensor-core product, and both round the output to bf16 (one bf16 ulp
@@ -179,8 +189,13 @@ KV_BYTES_PER_TOKEN = 28 * 2 * 2 * 128 * 2
 PREFIX_SEED = 40
 
 
+T_START = time.perf_counter()
+
+
 def emit(phase: str, **fields) -> None:
-    print(json.dumps({"phase": phase, **fields}), flush=True)
+    """One phase's JSON line; ``t`` is the script's seconds so far."""
+    print(json.dumps({"phase": phase, "t": time.perf_counter() - T_START,
+                      **fields}), flush=True)
 
 
 def check(cond: bool, what: str) -> None:
@@ -276,7 +291,7 @@ def _ptxas_report(log: str) -> list:
     return out
 
 
-def phase_build() -> None:
+def phase_build() -> dict:
     """Build the three kernels from the checkout's sources (one nvcc each,
     in parallel); print ptxas's registers and spills, each kernel's
     dynamic shared memory (per head dim; the latent kernel's per latent
@@ -309,6 +324,7 @@ def phase_build() -> None:
           and all(r["route"] == "fma" for k, r in routes.items()
                   if k != "bfloat16/R512"),
           f"latent kernel routes: {routes}")
+    return res
 
 
 def _hgmma_count(name: str, function: str = "") -> int:
@@ -671,6 +687,7 @@ def _reset_counts():
     from repro_torch.kernels import mla_attention as ma
     from repro_torch.kernels import paged_attention as pa
     fa.flash_attention.launches = 0
+    fa.flash_attention_bwd.launches = 0
     pa.paged_attention.launches = 0
     ma.mla_attention.launches = 0
 
@@ -3855,10 +3872,13 @@ def _flash_bits_cases():
         ("g48/window", dict(g48, sq=300, sk=300), dict(window=100))]
 
 
+@functools.lru_cache(maxsize=1)
 def flash_bits() -> dict:
     """The first 16 hex digits of the sha256 of the flash kernel's output
     on every ``_flash_bits_cases`` case in float32 and bf16 at the default
-    scale, inputs drawn from a generator seeded by the case's name."""
+    scale, inputs drawn from a generator seeded by the case's name. Read
+    once a run (the flash backward and MLA phases both hold it against
+    FLASH_BITS_SHA)."""
     import zlib
     from repro_torch.kernels import flash_attention as fa
     out = {}
@@ -4388,9 +4408,12 @@ def phase_mla_full() -> dict:
 FAMILY_SMOKE = (("rwkv6-3b", {}), ("zamba2-1.2b", {}),
                 ("qwen2-vl-2b", dict(projector="perceiver", num_latents=8)),
                 ("whisper-tiny", {}))
-#: the same families at full published width and depth, uncut (bf16)
-FAMILY_FULL = (("rwkv6-3b", {}), ("zamba2-1.2b", {}), ("whisper-tiny", {}),
-               ("qwen2-vl-2b", dict(projector="perceiver")))
+#: the same families at full published width and depth, uncut (bf16), but
+#: rwkv6-3b at 8 of its 32 layers: its token loop is launch-bound (~27 us
+#: a launch, ~4 a token a layer) and at full depth took 67 of the script's
+#: seconds, which the training phases need
+FAMILY_FULL = (("rwkv6-3b", dict(num_layers=8)), ("zamba2-1.2b", {}),
+               ("whisper-tiny", {}), ("qwen2-vl-2b", dict(projector="perceiver")))
 #: decode after prefill against forward in float32 at full width (rwkv6)
 F32_CONSISTENCY_TOL = 1e-3
 #: whisper's decoder prompt and the perceiver's text prompt (tokens)
@@ -4892,10 +4915,10 @@ def _family_full_one(arch, kw) -> dict:
 
 
 def phase_families_full() -> dict:
-    """rwkv6-3b (32 layers, d 2560), zamba2-1.2b (38 Mamba-2 layers and 6
-    calls of the shared block, d 2048), whisper-tiny (4 + 4 layers, 1500
-    frames) and qwen2-vl-2b with the perceiver projector (1024 patches to
-    64 latents) at full published width and depth, uncut, bf16, random
+    """rwkv6-3b (8 of its 32 layers, d 2560), zamba2-1.2b (38 Mamba-2
+    layers and 6 calls of the shared block, d 2048), whisper-tiny (4 + 4
+    layers, 1500 frames) and qwen2-vl-2b with the perceiver projector
+    (1024 patches to 64 latents) at full published width, bf16, random
     weights from seed 0, each freed before the next: decode after an S-1
     prefill against forward at S-1 within CONSISTENCY_TOL of the logit
     scale with every kernel call held against the plain version; 4
@@ -4998,12 +5021,385 @@ def phase_profile(lvlm, prompts, ves) -> None:
         emit("profile", run=name, **row)
 
 
+# ------------------------------------------------------------- training --
+
+#: The flash backward's cases (name, shape, flash kwargs), timed in bf16
+#: and checked in both dtypes: the training shape (qwen2-vl-2b at batch 4
+#: of 1024 visual + 64 text tokens), a window that masks (zamba2's heads),
+#: whisper's cross attention (16 decoder tokens over 1500 frames), MLA's
+#: prefill at head dim 192 with ``scale=`` and v zero-padded from 128,
+#: head dim 32, and 48 q heads per kv head.
+FLASH_BWD_CASES = (
+    ("train", dict(b=4, h=12, kvh=2, sq=1088, sk=1088, d=128), {}),
+    ("window", dict(b=1, h=32, kvh=32, sq=1024, sk=1024, d=64),
+     dict(window=256)),
+    ("cross", dict(b=4, h=6, kvh=6, sq=16, sk=1500, d=64),
+     dict(causal=False)),
+    ("mla", dict(b=1, h=128, kvh=128, sq=1024, sk=1024, d=192, v_width=128),
+     dict(scale=192 ** -0.5)),
+    ("d32", dict(b=1, h=8, kvh=2, sq=1056, sk=1056, d=32), {}),
+    ("g48", dict(b=1, h=48, kvh=1, sq=1056, sk=1056, d=128), {}),
+)
+#: the backward's bars: float32 within 1e-4 of the largest gradient (it
+#: repeats the plain arithmetic up to summation order); bf16 within 1e-2
+#: of the largest gradient, and each element within 3e-2 or one bf16 ulp
+#: of its own size (2^-7 |x|), whichever is larger: both round a float32
+#: sum to bf16, and a sum near a rounding edge rounds either way (dv of
+#: 48 q heads reaches 31.5, where one ulp is 0.125)
+BWD_REL_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
+BWD_ABS_TOL = {torch.float32: float("inf"), torch.bfloat16: 3e-2}
+BWD_ULP = 2.0 ** -7
+#: the forward's log-sum-exp (float32 in both dtypes) against its plain
+#: version on the rows that see a key, relative to max(1, |lse|): both
+#: sum the same float32 scores, in another order
+LSE_REL_TOL = 1e-4
+#: train_smoke: card against CPU losses (float32, 3 steps)
+TRAIN_SMOKE_TOL = 1e-4
+#: train_full: resumed losses against the uninterrupted run (the
+#: reference's resume bar)
+TRAIN_RESUME_TOL = 1e-3
+TRAIN_FULL_STEPS, TRAIN_CKPT_AT = 10, 5
+
+
+def _train_counts() -> dict:
+    from repro_torch.kernels import flash_attention as fa
+    return dict(_mla_counts(),
+                flash_attention_bwd=fa.flash_attention_bwd.launches)
+
+
+def _bwd_inputs(rng, c, dtype):
+    """q, k, v as the model gives them ([B,S,N,D] tensors seen as
+    [B,N,S,D]) and a dense dO; MLA's v has zero columns past its width."""
+    b, h, kvh, sq, sk, d = (c[x] for x in ("b", "h", "kvh", "sq", "sk", "d"))
+    q = randn(rng, (b, sq, h, d), dtype).transpose(1, 2)
+    k = randn(rng, (b, sk, kvh, d), dtype).transpose(1, 2)
+    v = randn(rng, (b, sk, kvh, d), dtype).transpose(1, 2)
+    if c.get("v_width"):
+        v[..., c["v_width"]:] = 0
+    return q, k, v, randn(rng, (b, h, sq, d), dtype)
+
+
+def _bwd_visible(c, kw) -> torch.Tensor:
+    """[Sq, Sk] mask of a case: True where the query sees the key."""
+    from repro_torch.kernels import flash_attention as fa
+    causal = kw.get("causal", True)
+    kv_len, q_off = fa.resolve_offsets(c["sq"], c["sk"], causal,
+                                       kw.get("kv_len"),
+                                       kw.get("q_offset", 0))
+    qp = torch.arange(c["sq"])[:, None] + q_off
+    kp = torch.arange(c["sk"])[None]
+    valid = kp < kv_len
+    if causal:
+        valid = valid & (kp <= qp)
+        if kw.get("window"):
+            valid = valid & (kp > qp - kw["window"])
+    return valid.expand(c["sq"], c["sk"])   # non-causal: every query alike
+
+
+def phase_kernels_flash_bwd(flush, ptxas) -> dict:
+    """The flash backward kernel (``csrc/flash_attention_bwd.cu``) against
+    its plain version on the card at every ``FLASH_BWD_CASES`` shape, in
+    float32 and bf16, from the forward kernel's own output and
+    log-sum-exp; the forward's output with its lse epilogue equals its
+    output without (bits), its lse is within LSE_REL_TOL of
+    ``flash_attention_lse_plain`` on every row that sees a key (the
+    gradients' check reads the kernel's own lse, so it alone would not
+    see a wrong one), and every pinned flash shape keeps its bits
+    (``FLASH_BITS_SHA``). bf16 times (L2 flushed, graph-replayed) beside
+    the bound -- 5 products of 2 D operations a visible pair at the bf16
+    peak, or its bytes (q, k, v, o, dO and lse read, dq, dk, dv written
+    once) at the HBM rate -- the plain version and the backward alone of
+    ``scaled_dot_product_attention(..., enable_gqa=True)`` (a boolean mask
+    for the window; its forward + backward less its forward). Prints ptxas's registers and spills of the backward's
+    instantiations. Returns the kernels-line row."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    rng = np.random.default_rng(22)
+    errs, rows = {}, {}
+    for dtype in (torch.float32, torch.bfloat16):
+        for name, c, kw in FLASH_BWD_CASES:
+            q, k, v, do = _bwd_inputs(rng, c, dtype)
+            o, lse = fa.flash_attention_fwd(q, k, v, **kw)
+            check(torch.equal(o, fa.flash_attention(q, k, v, **kw)),
+                  f"flash {name} {dtype}: the lse epilogue changed O")
+            visible = _bwd_visible(c, kw)
+            seen = visible.any(-1).to(lse.device)
+            want_lse = fa.flash_attention_lse_plain(q, k, **kw)
+            lse_err = float(((lse - want_lse).abs()
+                             / want_lse.abs().clamp(min=1.0))[..., seen].max())
+            check(lse_err <= LSE_REL_TOL,
+                  f"flash {name} {dtype}: lse off by {lse_err} (relative)")
+            got = fa.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+            torch.cuda.synchronize()
+            want = fa.flash_attention_bwd_plain(q, k, v, o, lse, do, **kw)
+            e = {"lse_rel": lse_err}
+            for g, w, what in zip(got, want, ("dq", "dk", "dv")):
+                scale = float(w.float().abs().max())
+                diff = (g.float() - w.float()).abs()
+                e[what] = float(diff.max())
+                e[what + "_rel"] = e[what] / max(scale, 1e-30)
+                e[what + "_over_elementwise_bar"] = int((diff > torch.clamp(
+                    w.float().abs() * BWD_ULP,
+                    min=BWD_ABS_TOL[dtype])).sum())
+                check(e[what + "_over_elementwise_bar"] == 0
+                      and e[what + "_rel"] <= BWD_REL_TOL[dtype],
+                      f"flash bwd {name} {dtype} {what}: {e}, largest "
+                      f"{scale}")
+            errs[f"{name}/{str(dtype)[6:]}"] = e
+            if dtype != torch.bfloat16:
+                continue
+            pairs = int(visible.sum()) * c["b"] * c["h"]
+            elt = q.element_size()
+            nbytes = elt * 4 * (q.numel() + k.numel()) + 4 * lse.numel()
+            leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+            causal = kw.get("causal", True)
+            mask = None
+            if kw.get("window"):
+                qp = torch.arange(c["sq"], device="cuda")[:, None]
+                kp = torch.arange(c["sk"], device="cuda")[None]
+                mask = (kp <= qp) & (kp > qp - kw["window"])
+
+            def sdpa():
+                return F.scaled_dot_product_attention(
+                    *leaves, attn_mask=mask,
+                    is_causal=causal and mask is None,
+                    scale=kw.get("scale"), enable_gqa=True)
+            # the library's backward alone: its forward + backward (one
+            # graph: autograd replays on the forward's stream) less its
+            # forward
+            row = _kernel_row(
+                lambda: fa.flash_attention_bwd(q, k, v, o, lse, do, **kw),
+                lambda: fa.flash_attention_bwd_plain(q, k, v, o, lse, do,
+                                                     **kw),
+                lambda: torch.autograd.grad(sdpa(), leaves, do),
+                flush, nbytes, 5 * 2 * c["d"] * pairs, dtype,
+                max(e[x] for x in ("dq", "dk", "dv")))
+            row["library_fwd_ms"] = time_ms(sdpa, flush)
+            row["library_ms"] -= row["library_fwd_ms"]
+            rows[name] = dict(shape=c, **kw, **row, pairs=pairs)
+            del leaves
+    bits = flash_bits()
+    same = {k_: v_ == FLASH_BITS_SHA.get(k_) for k_, v_ in bits.items()}
+    main = rows["train"]
+    emit("kernels_flash_bwd", errors=errs, rows=rows,
+         tolerance={"lse_rel": LSE_REL_TOL,
+                    "float32_rel": BWD_REL_TOL[torch.float32],
+                    "bfloat16_rel": BWD_REL_TOL[torch.bfloat16],
+                    "bfloat16_elementwise": f"max({BWD_ABS_TOL[torch.bfloat16]}"
+                                            f", 2^-7 |x|)"},
+         ptxas=ptxas, flash_bits_unchanged=all(same.values()))
+    check(all(same.values()) and len(same) == len(FLASH_BITS_SHA),
+          f"flash output bits changed: {[k_ for k_, v_ in same.items() if not v_]}")
+    return {"name": "flash_attention_bwd", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+            "replaces": "src/repro/models/attention.py:76",
+            **{k_: main[k_] for k_ in ("max_abs_err", "ms", "plain_ms",
+                                       "bound_ms", "bound_by",
+                                       "library_ms")},
+            "shapes": {n: {k_: r[k_] for k_ in ("ms", "plain_ms", "bound_ms",
+                                                "bound_by", "library_ms",
+                                                "max_abs_err")}
+                       for n, r in rows.items()}}
+
+
+def _smoke_train(model, ckpt, device, num_steps=3):
+    from repro_torch.training import (OptimizerConfig, SyntheticDataConfig,
+                                      train_loop)
+    seq = 80 if model.cfg.family == "hybrid" else 32   # past zamba2's window
+    return train_loop(
+        model, oc=OptimizerConfig(lr=1e-3, warmup_steps=1,
+                                  total_steps=num_steps),
+        dc=SyntheticDataConfig(batch=2, seq_len=seq), num_steps=num_steps,
+        ckpt_dir=ckpt, resume=True, log_every=0, device=device)
+
+
+def phase_train_smoke() -> dict:
+    """Every smoke arch (float32) trains 3 steps through ``train_loop`` on
+    the card and on the CPU, both resuming from one checkpoint of the CPU
+    init at step 0 (the devices' generators draw different weights):
+    losses within TRAIN_SMOKE_TOL relative; the flash forward and backward
+    launched for every arch with attention and not for rwkv6, the paged
+    and latent kernels never (training does not decode). Returns the card
+    runs' launches."""
+    import tempfile
+    from repro_torch.configs import ARCHS, get_config
+    from repro_torch.models import build
+    from repro_torch.training import adamw_init, save_checkpoint
+    total = dict.fromkeys(("flash_attention", "flash_attention_bwd",
+                           "paged_attention", "mla_attention"), 0)
+    rows = {}
+    for arch in ARCHS:
+        t0 = time.perf_counter()
+        model = build(get_config(arch, smoke=True))
+        params = model.init(0, "cpu")
+        with tempfile.TemporaryDirectory() as d:
+            save_checkpoint(d, {"params": params,
+                                "opt_state": adamw_init(params)}, 0)
+            _reset_counts()
+            card = _smoke_train(model, d, "cuda")
+            torch.cuda.synchronize()
+            counts = _train_counts()
+            cpu = _smoke_train(model, d, "cpu")
+        rel = max(abs(a - b) / abs(b) for a, b in zip(card["loss_curve"],
+                                                      cpu["loss_curve"]))
+        rows[arch] = dict(card=card["loss_curve"], cpu=cpu["loss_curve"],
+                          rel_err=rel, launches=counts,
+                          seconds=time.perf_counter() - t0)
+        attn = not model.cfg.is_attention_free
+        check(rel <= TRAIN_SMOKE_TOL, f"{arch} train card vs CPU: {rows[arch]}")
+        check((counts["flash_attention"] > 0) == attn
+              and (counts["flash_attention_bwd"] > 0) == attn
+              and counts["paged_attention"] == 0
+              and counts["mla_attention"] == 0,
+              f"{arch} train launches {counts}")
+        total = {k: total[k] + counts[k] for k in total}
+        del card, cpu, params
+    emit("train_smoke", tolerance=TRAIN_SMOKE_TOL, steps=3, archs=rows)
+    return total
+
+
+def _train_cli() -> dict:
+    """``python -m repro_torch.launch.train --arch phi4-mini-3.8b --smoke
+    --steps 14 --vocab 128`` on the card (no ``--device``), in a
+    subprocess: exit 0, the ``done:`` line, the loss falls."""
+    import re
+    cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+           "phi4-mini-3.8b", "--smoke", "--steps", "14", "--vocab", "128"]
+    t0 = time.perf_counter()
+    res = subprocess.run(cmd, cwd=HERE, capture_output=True, text=True,
+                         timeout=300, env=dict(
+                             os.environ, PYTHONPATH=os.path.join(HERE, "src")))
+    done = re.search(r"^done: loss (\S+) -> (\S+) in 14 steps", res.stdout,
+                     re.M)
+    check(res.returncode == 0 and done is not None
+          and float(done.group(2)) < float(done.group(1)),
+          f"train CLI failed: {res.stdout[-1000:]} {res.stderr[-2000:]}")
+    return {"seconds": time.perf_counter() - t0, "done": done.group(0)}
+
+
+def phase_train_full() -> dict:
+    """qwen2-vl-2b at full published width and depth, uncut (28 layers, d
+    1536, vocab 151936): bf16 params, float32 moments, remat on, batch 4
+    of 1024 visual + 64 text tokens (``SyntheticDataConfig(batch=4,
+    seq_len=64)``), through ``train_loop``: (A) TRAIN_FULL_STEPS steps
+    uninterrupted, (B) TRAIN_CKPT_AT steps, then ``save_checkpoint`` of
+    its params and moments (one 15 GB write; the loop's own cadence would
+    write it twice), (C) a resume from it to TRAIN_FULL_STEPS. Every loss finite (the loop
+    raises otherwise), the last below the first, C within
+    TRAIN_RESUME_TOL of A's; 2 forward and 1 backward flash launch a
+    layer a step (remat runs each layer's forward twice), no paged or
+    latent launch. Reports wall ms a step, device-busy ms, idle share and
+    the flash forward / backward ms of one profiled step, tokens/s, peak
+    GiB and the analytic MFU (``roofline.analytic`` step FLOPs over the
+    step's wall at the bf16 peak); then the training CLI on the card.
+    Returns run A's launches."""
+    import tempfile
+    from repro_torch.configs import ShapeConfig, get_config
+    from repro_torch.models import build
+    from repro_torch.roofline.analytic import flops_estimate
+    from repro_torch.training import (OptimizerConfig, SyntheticDataConfig,
+                                      make_train_step, save_checkpoint,
+                                      train_loop)
+    from repro_torch.training.data import make_batch
+    from repro_torch.training.loop import _batch_to
+    cfg = get_config("qwen2-vl-2b")
+    model = build(cfg)
+    dc = SyntheticDataConfig(batch=4, seq_len=64)
+    oc = OptimizerConfig(lr=1e-3, warmup_steps=1,
+                         total_steps=TRAIN_FULL_STEPS)
+    tokens = dc.batch * (cfg.num_visual_tokens + dc.seq_len)
+    stamps = []
+
+    def log(line):
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    t0 = time.perf_counter()
+    a = train_loop(model, oc=oc, dc=dc, num_steps=TRAIN_FULL_STEPS,
+                   log_every=1, log_fn=log, device="cuda")
+    torch.cuda.synchronize()
+    launches = _train_counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    steps_ms = [(b - a_) * 1e3 for a_, b in zip([t0] + stamps, stamps)]
+    # steps 2.. as one window (the first builds and warms up): a stall in
+    # any step counts
+    step_ms = (stamps[-1] - stamps[0]) * 1e3 / (len(stamps) - 1)
+    layers = cfg.num_layers
+    check(launches == {"flash_attention": 2 * layers * TRAIN_FULL_STEPS,
+                       "flash_attention_bwd": layers * TRAIN_FULL_STEPS,
+                       "paged_attention": 0, "mla_attention": 0},
+          f"train_full launches {launches}")
+    a_curve = a["loss_curve"]
+    check(a_curve[-1] < a_curve[0], f"train_full loss did not fall: {a_curve}")
+
+    # one profiled step (after a warm-up step) from run A's state
+    step_fn = make_train_step(model, oc)
+    batch = _batch_to(make_batch(cfg, dc, TRAIN_FULL_STEPS), "cuda")
+    state = [a["params"], a["opt_state"]]
+    del a
+
+    def one():
+        state[0], state[1], m = step_fn(state[0], state[1], batch)
+        float(m["loss"])
+    prof = _profile_calls({"train_step": (one, 1)})["train_step"]
+    by = prof.pop("by_kernel")
+    fwd_ms = sum(v for k, v in by.items() if "flash_fwd_kernel" in k)
+    bwd_ms = sum(v for k, v in by.items() if "flash_bwd_" in k)
+    del state, step_fn, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    with tempfile.TemporaryDirectory() as d:
+        b = train_loop(model, oc=oc, dc=dc, num_steps=TRAIN_CKPT_AT,
+                       log_every=0, device="cuda")
+        b_curve = b["loss_curve"]
+        t1 = time.perf_counter()
+        save_checkpoint(d, {"params": b["params"],
+                            "opt_state": b["opt_state"]}, TRAIN_CKPT_AT)
+        b_s = time.perf_counter() - t1
+        del b
+        gc.collect()
+        torch.cuda.empty_cache()
+        t1 = time.perf_counter()
+        c_curve = train_loop(model, oc=oc, dc=dc, num_steps=TRAIN_FULL_STEPS,
+                             ckpt_dir=d, resume=True, log_every=0,
+                             device="cuda")["loss_curve"]
+        c_s = time.perf_counter() - t1
+    gc.collect()
+    torch.cuda.empty_cache()
+    resume_err = max(abs(x - y) / abs(y) for x, y in
+                     zip(c_curve, a_curve[TRAIN_CKPT_AT:]))
+    flops = flops_estimate(cfg, ShapeConfig("train_full", tokens // dc.batch,
+                                            dc.batch, "train"))
+    row = dict(config="qwen2-vl-2b", dtype="bfloat16", remat=True,
+               params=cfg.param_count(), layers=layers,
+               batch=f"{dc.batch} x ({cfg.num_visual_tokens} visual + "
+                     f"{dc.seq_len} text)",
+               losses=a_curve, losses_to_ckpt=b_curve, losses_resumed=c_curve,
+               resume_rel_err=resume_err, step_wall_ms=steps_ms,
+               step_ms=step_ms, tokens_per_s=tokens / step_ms * 1e3,
+               profiled_step=prof, flash_fwd_ms_per_step=fwd_ms,
+               flash_bwd_ms_per_step=bwd_ms, peak_gib=peak,
+               analytic_flops=flops,
+               mfu=flops / (step_ms / 1e3 * H100_SXM.peak_flops_bf16),
+               ckpt_save_s=b_s, resume_run_s=c_s, launches=launches,
+               cli=_train_cli())
+    emit("train_full", **row)
+    check(len(c_curve) == TRAIN_FULL_STEPS - TRAIN_CKPT_AT
+          and resume_err <= TRAIN_RESUME_TOL,
+          f"train_full resume: {c_curve} vs {a_curve[TRAIN_CKPT_AT:]}")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this check runs on the GPU",
               file=sys.stderr)
         return 1
-    sys.path.insert(0, os.path.join(HERE, "src"))
     import repro_torch  # noqa: F401  (fails outside a checkout)
     if sys.argv[1:] == ["--mla-split-sweep"]:
         mla_split_sweep()
@@ -5011,9 +5407,11 @@ def main() -> int:
     check(not sys.argv[1:], f"unknown arguments {sys.argv[1:]}")
     t_start = time.perf_counter()
     env = phase_env()
-    phase_build()
+    built = phase_build()
     flush = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device="cuda")
     kernels = phase_kernels(flush)
+    kernels["flash_attention_bwd"] = phase_kernels_flash_bwd(
+        flush, _ptxas_report(built["flash_attention_bwd"]["log"]))
     del flush
     phase_main_path_smoke()
     launches, full, timer = phase_main_path_full()
@@ -5047,6 +5445,8 @@ def main() -> int:
     mla_full_launches = phase_mla_full()
     fam_smoke_launches = phase_families_smoke()
     fam_full_launches = phase_families_full()
+    train_smoke_launches = phase_train_smoke()
+    train_full_launches = phase_train_full()
     launches = {k: launches[k] + comp_launches[k] + kv_launches[k]
                 + prefix_launches[k] + spec_launches[k] + ee_launches[k]
                 + phi4_launches[k] + async_launches[k]
@@ -5054,7 +5454,12 @@ def main() -> int:
                 + arch_smoke_launches[k] + arch_full_launches[k]
                 + mla_smoke_launches[k] + mla_full_launches[k]
                 + fam_smoke_launches[k] + fam_full_launches[k]
+                + train_smoke_launches[k] + train_full_launches[k]
                 for k in launches}
+    # the flash backward runs on the training path only
+    launches["flash_attention_bwd"] = \
+        train_smoke_launches["flash_attention_bwd"] \
+        + train_full_launches["flash_attention_bwd"]
     # the latent kernel runs on the MLA path only
     launches["mla_attention"] = mla_smoke_launches["mla_attention"] \
         + mla_full_launches["mla_attention"]
@@ -5082,7 +5487,7 @@ def main() -> int:
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     extra = ("head_dim_32", "multi_query", "long_verify", "head_dim_192",
              "group_48", "mla_prefill", "families", "bound_split_ms",
-             "bound_f32_ms", "n_split")
+             "bound_f32_ms", "n_split", "shapes")
     print(env["smi"])
     print(json.dumps({"kernels": [
         {k: kv[k] for k in keys + tuple(x for x in extra if x in kv)}

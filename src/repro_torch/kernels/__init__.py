@@ -6,4 +6,13 @@ its kernel launches, the plain version the wrapper runs on CPU tensors,
 and a note naming what of the reference it replaces (a Pallas TPU kernel,
 or for ``mla_attention`` the jnp einsums of the absorbed MLA decode). ``ops`` adds the reference's shape checks;
 ``build.build_all()`` compiles every kernel from ``csrc/`` with nvcc.
+``flash_attention`` also holds the flash backward (``flash_attention_bwd``,
+``csrc/flash_attention_bwd.cu``), the gradient training runs through; the
+decode kernels have none and raise when asked for one.
 """
+import torch
+
+
+def needs_grad(*tensors) -> bool:
+    """Would autograd record a call on these tensors?"""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)

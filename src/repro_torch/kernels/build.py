@@ -22,9 +22,15 @@ from typing import Dict, Iterable
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-KERNELS = ("flash_attention", "paged_attention", "mla_attention")
+KERNELS = ("flash_attention", "flash_attention_bwd", "paged_attention",
+           "mla_attention")
+#: ``--split-compile=4`` optimises each source's kernels on 4 threads: the
+#: paged and latent sources instantiate many kernels and took ~100 s each
+#: on one thread, ~52 s this way (an H100 host's 8 cores), with the same
+#: output bits
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+              "--split-compile=4")
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 

@@ -63,6 +63,10 @@
 // visits all Sk keys too, masked, with the same -1e30 sentinel, and so
 // agrees; keys past Sk are not keys at all (probability 0).
 //
+// With a non-null `lse` [B, H, Sq] (float32) the epilogue also writes each
+// row's log-sum-exp of its scaled scores, m + log(l), which the backward
+// (flash_attention_bwd.cu) reads; O's arithmetic is the same either way.
+//
 // Tensor maps are encoded on the host per call with cuTensorMapEncodeTiled,
 // looked up at run time through the CUDA runtime (no -lcuda), and passed
 // as __grid_constant__ kernel parameters.
@@ -152,7 +156,7 @@ template <int D>
 __global__ void __launch_bounds__(THREADS)
     flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v, float* __restrict__ o,
-                     int H, int KVH, int Sq, int Sk, int kv_len, int q_offset,
+                     float* __restrict__ lse, int H, int KVH, int Sq, int Sk, int kv_len, int q_offset,
                      int causal, int window, float scale, Strides qs,
                      Strides ks, Strides vs, Strides os) {
   using L = Layout<D>;
@@ -240,6 +244,8 @@ __global__ void __launch_bounds__(THREADS)
     }
   }
   if (half == 0) l_s[r] = l;
+  if (lse != nullptr && half == 0 && r < nq)
+    lse[((long long)b * H + h) * Sq + q0 + r] = m + logf(l);
   __syncthreads();
   float* op = o + b * os.b + h * os.n + q0 * os.s;
   for (int i = threadIdx.x; i < nq * D; i += THREADS) {
@@ -250,7 +256,7 @@ __global__ void __launch_bounds__(THREADS)
 
 template <int D>
 cudaError_t launch(const float* q, const float* k, const float* v, float* o,
-                   int B, int H, int KVH, int Sq, int Sk, int kv_len,
+                   float* lse, int B, int H, int KVH, int Sq, int Sk, int kv_len,
                    int q_offset, int causal, int window, float scale,
                    const Strides* st, cudaStream_t stream) {
   const size_t smem = Layout<D>::bytes;
@@ -260,7 +266,7 @@ cudaError_t launch(const float* q, const float* k, const float* v, float* o,
   if (err != cudaSuccess) return err;
   const dim3 grid((Sq + BQ - 1) / BQ, H, B);
   flash_fwd_kernel<D><<<grid, THREADS, smem, stream>>>(
-      q, k, v, o, H, KVH, Sq, Sk, kv_len, q_offset, causal, window,
+      q, k, v, o, lse, H, KVH, Sq, Sk, kv_len, q_offset, causal, window,
       scale > 0.0f ? scale : 1.0f / sqrtf((float)D), st[0], st[1], st[2],
       st[3]);
   return cudaGetLastError();
@@ -487,7 +493,8 @@ __global__ void __launch_bounds__(THREADS, D == 192 ? 1 : 2)
     flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
                      const __grid_constant__ CUtensorMap tm_k,
                      const __grid_constant__ CUtensorMap tm_v,
-                     __nv_bfloat16* __restrict__ o, Strides os, Problem p) {
+                     __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
+                     Strides os, Problem p) {
   using L = Smem<D>;
   using X = Box<D>;
   extern __shared__ unsigned char smem_raw[];
@@ -621,6 +628,11 @@ __global__ void __launch_bounds__(THREADS, D == 192 ? 1 : 2)
     const float inv0 = 1.0f / fmaxf(l0, 1e-30f), inv1 = 1.0f / fmaxf(l1, 1e-30f);
     __nv_bfloat16* op = o + b * os.b + h * os.n;
     const int r0 = q0 + row0, r1 = r0 + 8;
+    if (lse != nullptr && (lane & 3) == 0) {  // m, l are in log2 units
+      float* lp = lse + ((long long)b * p.H + h) * p.Sq;
+      if (r0 < p.Sq) lp[r0] = (st.m0 + log2f(l0)) * 0.6931471805599453f;
+      if (r1 < p.Sq) lp[r1] = (st.m1 + log2f(l1)) * 0.6931471805599453f;
+    }
 #pragma unroll
     for (int j = 0; j < D / 8; ++j) {
       const int c = 8 * j + col0;
@@ -657,7 +669,7 @@ bool make_map(CUtensorMap* map, const void* ptr, int B, int N, int S, int D,
 
 template <int D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   int B, int H, int KVH, int Sq, int Sk, int kv_len,
+                   float* lse, int B, int H, int KVH, int Sq, int Sk, int kv_len,
                    int q_offset, int causal, int window, float scale,
                    const Strides* st, cudaStream_t stream) {
   CUtensorMap tm_q, tm_k, tm_v;
@@ -677,7 +689,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
                   scale > 0.0f ? 1.4426950408889634f * scale
                                : 1.4426950408889634f / sqrtf((float)D)};
   flash_fwd_kernel<D><<<dim3(H, n_qt, B), THREADS, smem, stream>>>(
-      tm_q, tm_k, tm_v, static_cast<__nv_bfloat16*>(o), st[3], p);
+      tm_q, tm_k, tm_v, static_cast<__nv_bfloat16*>(o), lse, st[3], p);
   return cudaGetLastError();
 }
 
@@ -691,10 +703,11 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
 // as before the argument existed, so those results keep their bits.
 // `strides` holds the element strides (b, head, seq) of q, k, v and o, in
 // that order (12 values), each a multiple of 16 bytes. kv_len and q_offset
-// are already resolved as the Pallas wrapper resolves them. Returns the CUDA
-// error of the launch (0 on success).
+// are already resolved as the Pallas wrapper resolves them. `lse`, when not
+// null, receives each row's log-sum-exp [B,H,Sq] (float32, contiguous).
+// Returns the CUDA error of the launch (0 on success).
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
-                                   void* o, int B, int H, int KVH, int Sq,
+                                   void* o, float* lse, int B, int H, int KVH, int Sq,
                                    int Sk, int D, int kv_len, int q_offset,
                                    int causal, int window, float scale,
                                    int dtype, const long long* strides,
@@ -710,7 +723,7 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
     float* of = static_cast<float*>(o);
 #define REPRO_F32(DD)                                                       \
   if (D == DD)                                                              \
-    return f32::launch<DD>(qf, kf, vf, of, B, H, KVH, Sq, Sk, kv_len,       \
+    return f32::launch<DD>(qf, kf, vf, of, lse, B, H, KVH, Sq, Sk, kv_len,       \
                            q_offset, causal, window, scale, st, s);
     REPRO_F32(32)
     REPRO_F32(64)
@@ -721,7 +734,7 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
   if (dtype == repro::kBFloat16) {
 #define REPRO_BF16(DD)                                                      \
   if (D == DD)                                                              \
-    return bf16::launch<DD>(q, k, v, o, B, H, KVH, Sq, Sk, kv_len, q_offset, \
+    return bf16::launch<DD>(q, k, v, o, lse, B, H, KVH, Sq, Sk, kv_len, q_offset, \
                             causal, window, scale, st, s);
     REPRO_BF16(32)
     REPRO_BF16(64)

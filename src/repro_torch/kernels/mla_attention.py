@@ -30,7 +30,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, needs_grad
 from repro_torch.kernels.ref import mla_attention_ref
 
 #: (kv_lora_rank, qk_rope_head_dim) pairs the kernel is instantiated for:
@@ -98,11 +98,18 @@ def mla_attention(q_lat, q_rope, ckv, k_rope, q_pos, *, k_pos=None,
     ``(q_lat . ckv + q_rope . k_rope) * scale``.
 
     A CPU tensor takes the plain version; a CUDA tensor takes the kernel
-    ((R, Rr) in ``SHAPES``, contiguous, 16-byte aligned) or raises.
+    ((R, Rr) in ``SHAPES``, contiguous, 16-byte aligned) or raises, as it
+    does when autograd would record the call (the kernel has no backward).
     """
     if q_lat.device.type == "cpu":
         return mla_attention_plain(q_lat, q_rope, ckv, k_rope, q_pos,
                                    k_pos=k_pos, window=window, scale=scale)
+    if needs_grad(q_lat, q_rope, ckv, k_rope):
+        raise NotImplementedError(
+            "mla_attention kernel has no backward: it serves the absorbed "
+            "decode, which is never differentiated (as in the reference); "
+            "run under torch.no_grad() or train through the naive form on "
+            "flash_attention")
     if q_lat.device.type != "cuda":
         raise ValueError(f"mla_attention: unsupported device {q_lat.device}")
     b, sq, h, r = q_lat.shape

@@ -23,7 +23,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, needs_grad
 from repro_torch.kernels.ref import (NEG_INF, multi_query_rows,
                                      paged_attention_ref, paged_key_mask)
 
@@ -122,7 +122,8 @@ def paged_attention(q, k_pages, v_pages, block_table, seq_lens, *,
 
     A CPU tensor takes the plain version; a CUDA tensor takes the kernel
     (float32 or bfloat16, D in {32, 64, 128, 192}, H/KVH <= 64,
-    contiguous) or raises. The table's entries are not range-checked on the card (that
+    contiguous) or raises, as it does when autograd would record the call
+    (the kernel has no backward). The table's entries are not range-checked on the card (that
     would synchronize every step); the caller builds them.
 
     Multi-query mode: q [B,S,H,D] and ``q_pos`` [B,S] int32, no ``k_pos``
@@ -143,6 +144,11 @@ def paged_attention(q, k_pages, v_pages, block_table, seq_lens, *,
         return paged_attention_plain(q, k_pages, v_pages, block_table,
                                      seq_lens, k_pos=k_pos, q_pos=q_pos,
                                      window=window)
+    if needs_grad(q, k_pages, v_pages):
+        raise NotImplementedError(
+            "paged_attention kernel has no backward: it serves decode, which "
+            "is never differentiated (as in the reference); run under "
+            "torch.no_grad() or train through flash_attention")
     if q.device.type != "cuda":
         raise ValueError(f"paged_attention: unsupported device {q.device}")
     if multi:

@@ -28,9 +28,20 @@ def flash_attention_ref(q, k, v, *, causal: bool = True,
     Returns [B, H, Sq, D] in q.dtype (accumulation in f32).
     """
     b, h, sq, d = q.shape
+    s, valid = _flash_scores(q, k, causal=causal, kv_len=kv_len,
+                             window=window, q_offset=q_offset, scale=scale)
+    s = torch.where(valid, s, torch.full_like(s, NEG_INF))
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bkgqc,bkcd->bkgqd", p, v.float())
+    return o.reshape(b, h, sq, d).to(q.dtype)
+
+
+def _flash_scores(q, k, *, causal, kv_len, window, q_offset, scale):
+    """Scaled float32 scores [B,KVH,G,Sq,Sk] of ``flash_attention_ref``
+    and its mask [Sq,Sk] (True = the key is visible to the query)."""
+    b, h, sq, d = q.shape
     kvh, sk = k.shape[1], k.shape[2]
-    g = h // kvh
-    qf = q.reshape(b, kvh, g, sq, d).float()
+    qf = q.reshape(b, kvh, h // kvh, sq, d).float()
     qf = qf / (d ** 0.5) if scale is None else qf * scale
     s = torch.einsum("bkgqd,bkcd->bkgqc", qf, k.float())
     q_pos = torch.arange(sq, device=q.device)
@@ -44,10 +55,63 @@ def flash_attention_ref(q, k, v, *, causal: bool = True,
         valid = valid & (k_pos[None, :] <= q_pos[:, None] + offset)
         if window:
             valid = valid & (k_pos[None, :] > q_pos[:, None] + offset - window)
+    return s, valid
+
+
+def flash_attention_lse_ref(q, k, *, causal: bool = True,
+                            kv_len: Optional[int] = None, window: int = 0,
+                            q_offset: Optional[int] = None,
+                            scale: Optional[float] = None):
+    """The log-sum-exp [B,H,Sq] (float32) of each query's scaled, masked
+    scores: what the flash kernel's forward keeps for its backward. A row
+    with no visible key has NEG_INF + log(Sk), as its sentinel scores
+    give; the backward does not read it."""
+    b, h, sq, _ = q.shape
+    s, valid = _flash_scores(q, k, causal=causal, kv_len=kv_len,
+                             window=window, q_offset=q_offset, scale=scale)
     s = torch.where(valid, s, torch.full_like(s, NEG_INF))
-    p = torch.softmax(s, dim=-1)
-    o = torch.einsum("bkgqc,bkcd->bkgqd", p, v.float())
-    return o.reshape(b, h, sq, d).to(q.dtype)
+    return torch.logsumexp(s, dim=-1).reshape(b, h, sq)
+
+
+def flash_attention_bwd_ref(q, k, v, o, lse, do, *, causal: bool = True,
+                            kv_len: Optional[int] = None, window: int = 0,
+                            q_offset: Optional[int] = None,
+                            scale: Optional[float] = None):
+    """Gradients (dq, dk, dv) of ``flash_attention_ref`` given its output
+    ``o``, the forward's log-sum-exp ``lse`` [B,H,Sq] and the output's
+    gradient ``do``, in the closed form the backward kernel computes:
+
+        P  = exp(S - lse)          (0 where the key is masked)
+        dV = P^T dO                summed over each kv head's G q heads
+        dP = dO V^T
+        dS = P * (dP - delta),     delta = rowsum(dO * O)
+        dQ = scale * dS K,  dK = scale * dS^T Q
+
+    A row with no visible key (the forward's mean of V over all Sk keys)
+    has P = 1/Sk on every key and dS = 0: it gives dV its share and
+    nothing to dq or dk, as autograd through the forward does. Results in
+    the inputs' dtypes, arithmetic in float32."""
+    b, h, sq, d = q.shape
+    kvh, sk = k.shape[1], k.shape[2]
+    g = h // kvh
+    s, valid = _flash_scores(q, k, causal=causal, kv_len=kv_len,
+                             window=window, q_offset=q_offset, scale=scale)
+    sc = 1.0 / (d ** 0.5) if scale is None else scale
+    lse_g = lse.float().reshape(b, kvh, g, sq, 1)
+    p = torch.where(valid, torch.exp(s - lse_g), torch.zeros_like(s))
+    keyless = ~valid.any(-1)                                     # [Sq]
+    p = torch.where(keyless[:, None], torch.full_like(p, 1.0 / sk), p)
+    dof = do.reshape(b, kvh, g, sq, d).float()
+    of = o.reshape(b, kvh, g, sq, d).float()
+    delta = (dof * of).sum(-1, keepdim=True)
+    dv = torch.einsum("bkgqc,bkgqd->bkcd", p, dof)
+    dp = torch.einsum("bkgqd,bkcd->bkgqc", dof, v.float())
+    ds = torch.where(valid, p * (dp - delta), torch.zeros_like(p))
+    dq = torch.einsum("bkgqc,bkcd->bkgqd", ds, k.float()) * sc
+    dk = torch.einsum("bkgqc,bkgqd->bkcd", ds,
+                      q.reshape(b, kvh, g, sq, d).float()) * sc
+    return (dq.reshape(b, h, sq, d).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
 
 
 def paged_key_mask(seq_lens, block_table, page: int, *, k_pos=None,

@@ -32,7 +32,8 @@ its cross decode the paged kernel over the cross cache. The recurrences
 are plain PyTorch, as the reference's are jnp.
 
 Entry points (as the reference):
-  forward(params, batch)                      -> (logits [B,S,V], aux)
+  forward(params, batch, remat)               -> (logits [B,S,V], aux)
+  loss(params, batch, remat=True)             -> (loss, {"nll", aux})
   prefill(params, batch, cache_len, windowed) -> (logits [B,S,V], cache)
   extend(params, cache, tokens, start)        -> (logits [B,S_new,V], cache)
   decode_step(params, cache, tokens, pos)     -> (logits [B,V], cache)
@@ -42,10 +43,12 @@ the reference's.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
@@ -70,6 +73,18 @@ def _layer(tree, i: int):
     if isinstance(tree, dict):
         return {k: _layer(v, i) for k, v in tree.items()}
     return tree[i]
+
+
+def _ckpt(fn, remat):
+    """``fn`` rematerialised in the backward where ``remat`` asks (the
+    reference's ``_ckpt`` around a scan body): its activations are not
+    kept, and autograd runs it again for the gradient. ``remat="dots"``
+    (the reference saves the matmul outputs) is full remat here: torch's
+    checkpoint has no policy for which outputs to keep."""
+    if not remat:
+        return fn
+    return functools.partial(torch.utils.checkpoint.checkpoint, fn,
+                             use_reentrant=False)
 
 
 def _store(cache, new) -> None:
@@ -344,21 +359,30 @@ class Model:
         h = L.apply_norm(sp["ln2"], x, cfg.norm)
         return x + L.apply_mlp(sp["mlp"], h, cfg.activation)
 
-    def _hybrid(self, params, x, mamba, attend):
+    def _hybrid(self, params, x, mamba, attend, remat=False):
         """The hybrid family's layers in order: Mamba-2 layer i is
         ``mamba(i, p, h)``; after every ``attn_layer_period`` of them the
-        shared block runs, its attention ``attend(group, p, h)``."""
+        shared block runs, its attention ``attend(group, p, h)``. With
+        ``remat`` each group (its Mamba-2 layers and the shared block) is
+        rematerialised, the trailing layers are not (the reference's)."""
         cfg = self.cfg
-        for i in range(cfg.num_layers):
-            lp = _layer(params["layers"], i)
-            x = x + mamba(i, lp["mamba"], L.apply_norm(lp["ln"], x,
-                                                       cfg.norm))
-            if (i + 1) % cfg.attn_layer_period == 0:
-                x = self._shared_block(
-                    params["shared_attn"], x,
-                    lambda p, h, gi=i // cfg.attn_layer_period:
-                        attend(gi, p, h))
-        return x
+        period = cfg.attn_layer_period
+        n_groups, _ = self.n_hybrid_groups()
+
+        def layers(x, lo, hi):
+            for i in range(lo, hi):
+                lp = _layer(params["layers"], i)
+                x = x + mamba(i, lp["mamba"], L.apply_norm(lp["ln"], x,
+                                                           cfg.norm))
+            return x
+
+        def group(x, gi):
+            x = layers(x, gi * period, (gi + 1) * period)
+            return self._shared_block(params["shared_attn"], x,
+                                      lambda p, h: attend(gi, p, h))
+        for gi in range(n_groups):
+            x = _ckpt(group, remat)(x, gi)
+        return layers(x, n_groups * period, cfg.num_layers)
 
     @staticmethod
     def _chunk(x):
@@ -388,26 +412,33 @@ class Model:
                                   self.cfg.head_dim, self.cfg.rope_theta)
         return x, cos, sin
 
-    def _audio_decoder(self, params, x, self_attend, cross_attend):
+    def _audio_decoder(self, params, x, self_attend, cross_attend,
+                       remat=False):
         """Whisper's decoder layers over the embedded tokens x [B,S,d]:
         causal self-attention ``self_attend(i, p, h)``, cross-attention
-        ``cross_attend(i, p, h)``, MLP."""
+        ``cross_attend(i, p, h)``, MLP; each layer rematerialised with
+        ``remat`` (the encoder is not, as in the reference)."""
         cfg = self.cfg
-        for i in range(cfg.num_layers):
+
+        def layer(x, i):
             lp = _layer(params["layers"], i)
             x = x + self_attend(i, lp["attn"],
                                 L.apply_norm(lp["ln1"], x, cfg.norm))
             x = x + cross_attend(i, lp["xattn"],
                                  L.apply_norm(lp["ln_x"], x, cfg.norm))
             h = L.apply_norm(lp["ln2"], x, cfg.norm)
-            x = x + L.apply_mlp(lp["mlp"], h, cfg.activation)
+            return x + L.apply_mlp(lp["mlp"], h, cfg.activation)
+        for i in range(cfg.num_layers):
+            x = _ckpt(layer, remat)(x, i)
         return x
 
     # ----------------------------------------------------------- forward --
     def forward(self, params, batch, *, window: Optional[int] = None,
-                moe_cap: Optional[float] = 1.25):
-        """Full-sequence logits (scoring) and aux (the MoE layers' mean
-        ``lb_loss``)."""
+                remat=False, moe_cap: Optional[float] = 1.25):
+        """Full-sequence logits (training / scoring) and aux (the MoE
+        layers' mean ``lb_loss``). ``remat`` rematerialises each layer in
+        the backward (``_ckpt``): each transformer and RWKV layer, each
+        hybrid group, each whisper decoder layer."""
         cfg = self.cfg
         window = 0 if window is None else window
         if cfg.family == "audio":
@@ -418,7 +449,7 @@ class Model:
                 lambda i, p, h: attn.full_attention(p, h, cos, sin, cfg,
                                                     causal=True),
                 lambda i, p, h: attn.cross_attention(
-                    p, h, *attn.cross_kv(p, enc)))
+                    p, h, *attn.cross_kv(p, enc)), remat=remat)
             return self._head(params, x), {}
         x, positions = self._embed_inputs(params, batch)
         cos, sin = self._cos_sin(positions)
@@ -426,7 +457,8 @@ class Model:
         lbs = []
         if cfg.family == "ssm":
             for i in range(cfg.num_layers):
-                x, _ = self._rwkv_layer(_layer(params["layers"], i), x)
+                x, _ = _ckpt(self._rwkv_layer, remat)(
+                    _layer(params["layers"], i), x)
         elif cfg.family == "hybrid":
             x = self._hybrid(
                 params, x,
@@ -434,17 +466,48 @@ class Model:
                                                 chunk=self._chunk(h))[0],
                 lambda gi, p, h: attn.full_attention(
                     p, h, cos, sin, cfg, causal=True,
-                    window=cfg.sliding_window, positions=pos_1d))
+                    window=cfg.sliding_window, positions=pos_1d),
+                remat=remat)
         else:
             for key, lcfg, n in self.segments():
                 for i in range(n):
-                    x, aux = _dense_layer_fwd(
+                    x, aux = _ckpt(_dense_layer_fwd, remat)(
                         lcfg, _layer(params[key], i), x, cos, sin,
                         positions=pos_1d, window=window, moe_cap=moe_cap)
                     if "lb_loss" in aux:
                         lbs.append(aux["lb_loss"])
         aux_acc = {"lb_loss": torch.stack(lbs).mean()} if lbs else {}
         return self._head(params, x), aux_acc
+
+    # -------------------------------------------------------------- loss --
+    def loss(self, params, batch, *, remat=True):
+        """(mean next-token NLL over ``loss_mask`` + the MoE router's
+        ``router_aux_loss_coef * lb_loss``, {"nll": that loss, scalar aux})
+        as the reference's ``Model.loss``: a vlm's logits are cut to the
+        text positions; the log-sum-exp runs in float32."""
+        cfg = self.cfg
+        logits, aux = self.forward(params, batch, remat=remat)
+        tokens = batch["tokens"]
+        labels = batch.get("labels", None)
+        if labels is None:
+            labels = torch.cat([tokens[:, 1:], torch.zeros_like(tokens[:, :1])],
+                               dim=1)
+        # VLM: logits cover [visual | text]; loss only on text positions
+        if logits.shape[1] != labels.shape[1]:
+            logits = logits[:, logits.shape[1] - labels.shape[1]:]
+        mask = batch.get("loss_mask", None)
+        if mask is None:
+            mask = torch.ones(labels.shape, dtype=torch.float32,
+                              device=logits.device)
+        logits = logits.float()
+        lse = torch.logsumexp(logits, dim=-1)
+        ll = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+        nll = (lse - ll) * mask
+        loss = nll.sum() / torch.clamp(mask.sum(), min=1.0)
+        if "lb_loss" in aux:
+            loss = loss + cfg.router_aux_loss_coef * aux["lb_loss"]
+        return loss, {"nll": loss, **{k: v for k, v in aux.items()
+                                      if v.ndim == 0}}
 
     # ----------------------------------------------------------- prefill --
     def prefill(self, params, batch, *, cache_len: Optional[int] = None,

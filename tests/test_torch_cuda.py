@@ -1296,3 +1296,80 @@ def test_family_smoke_on_card_matches_cpu(dev, arch):
         assert (dg.cpu() - dc).abs().max().item() <= 1e-3
     torch.cuda.synchronize()
     assert pa.paged_attention.launches == p0 + 2 * n_paged
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", [
+    dict(b=2, h=6, kvh=2, sq=130, sk=130, d=128),
+    dict(b=1, h=4, kvh=2, sq=200, sk=200, d=64, window=40),
+    dict(b=1, h=2, kvh=2, sq=70, sk=64, d=64, causal=False, kv_len=40),
+    dict(b=1, h=2, kvh=1, sq=90, sk=64, d=32, q_offset=-20),  # keyless rows
+    dict(b=1, h=4, kvh=4, sq=96, sk=96, d=192, scale=0.07),
+    dict(b=1, h=48, kvh=1, sq=100, sk=100, d=128),
+])
+def test_flash_gradients_flow_through_the_backward_kernel(dev, dtype, case):
+    """q, k and v get gradients on the card (the wrapper's autograd route),
+    equal to the plain backward's within TOL of the largest gradient."""
+    rng = np.random.default_rng(1)
+    c = dict(case)
+    b, h, kvh, sq, sk, d = (c.pop(x) for x in ("b", "h", "kvh", "sq", "sk",
+                                                "d"))
+    q = _randn(rng, (b, sq, h, d), dtype, dev).transpose(1, 2)
+    k = _randn(rng, (b, sk, kvh, d), dtype, dev).transpose(1, 2)
+    v = _randn(rng, (b, sk, kvh, d), dtype, dev).transpose(1, 2)
+    do = _randn(rng, (b, h, sq, d), dtype, dev)
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    n_fwd, n_bwd = fa.flash_attention.launches, fa.flash_attention_bwd.launches
+    out = fa.flash_attention(*leaves, **c)
+    assert type(out.grad_fn).__name__ == "FlashAttentionFnBackward"
+    out.backward(do)
+    torch.cuda.synchronize()
+    assert all(t.grad is not None for t in leaves)
+    assert fa.flash_attention.launches == n_fwd + 1
+    assert fa.flash_attention_bwd.launches == n_bwd + 1
+    o = fa.flash_attention_plain(q, k, v, **c)
+    lse = fa.flash_attention_lse_plain(q, k, **c)
+    want = fa.flash_attention_bwd_plain(q, k, v, o, lse, do, **c)
+    for t, w in zip(leaves, want):
+        scale = float(w.float().abs().max())
+        assert float((t.grad.float() - w.float()).abs().max()) \
+            <= TOL[dtype] * max(scale, 1.0)
+
+
+def test_decode_kernels_refuse_gradients_on_the_card(dev):
+    q = torch.zeros((2, 4, 64), device=dev, requires_grad=True)
+    pages = torch.zeros((4, 16, 2, 64), device=dev)
+    table = torch.zeros((2, 2), dtype=torch.int32, device=dev)
+    seqs = torch.ones((2,), dtype=torch.int32, device=dev)
+    with pytest.raises(NotImplementedError, match="no backward"):
+        pa.paged_attention(q, pages, pages, table, seqs)
+
+
+def test_phi4_smoke_trains_on_card_as_on_cpu(dev, tmp_path):
+    """Three float32 steps of the phi4-mini smoke model through
+    ``train_loop`` on the card and on the CPU, both resuming from one
+    checkpoint of the CPU init at step 0 (the two devices' generators
+    draw different weights): losses within 1e-4 relative; the flash
+    kernel's forward and backward launched (remat: two forwards a
+    layer)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build
+    from repro_torch.training import (OptimizerConfig, SyntheticDataConfig,
+                                      adamw_init, save_checkpoint,
+                                      train_loop)
+    model = build(get_config("phi4-mini-3.8b", smoke=True).with_(
+        vocab_size=128))
+    params = model.init(0, "cpu")
+    save_checkpoint(str(tmp_path), {"params": params,
+                                    "opt_state": adamw_init(params)}, 0)
+    kw = dict(oc=OptimizerConfig(lr=1e-3, warmup_steps=1, total_steps=3),
+              dc=SyntheticDataConfig(batch=2, seq_len=16), num_steps=3,
+              log_every=0, ckpt_dir=str(tmp_path), resume=True)
+    n_fwd, n_bwd = fa.flash_attention.launches, fa.flash_attention_bwd.launches
+    card = train_loop(model, device=dev, **kw)
+    layers = model.cfg.num_layers
+    assert fa.flash_attention.launches - n_fwd == 3 * 2 * layers
+    assert fa.flash_attention_bwd.launches - n_bwd == 3 * layers
+    cpu = train_loop(model, device="cpu", **kw)
+    np.testing.assert_allclose(card["loss_curve"], cpu["loss_curve"],
+                               rtol=1e-4)

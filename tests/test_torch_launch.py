@@ -7,15 +7,21 @@ report lives on the virtual clock and, at temperature 0 with no eos,
 does not depend on the weights, so the two reports are equal -- for a
 plain run, a prefix-affinity fleet with a shared prefix, a
 prefill/decode fleet (with its Prometheus text), an adaptive-control
-run, and runs of the rwkv6-3b and zamba2-1.2b smoke models.
+run, and runs of the rwkv6-3b and zamba2-1.2b smoke models. The
+training CLI (``python -m repro_torch.launch.train``) prints the
+reference's ``done:`` line, and refuses ``--dry-run`` (no mesh yet).
 """
 import json
+import re
 import sys
 
 import pytest
+import torch
 
 import repro.launch.serve as jserve
+import repro.launch.train as jtrain
 import repro_torch.launch.serve as tserve
+import repro_torch.launch.train as ttrain
 
 COMMON = ["--requests", "4", "--new-tokens", "4"]
 CASES = {
@@ -70,3 +76,38 @@ def test_cli_refuses_dry_run_and_needs_a_device(capsys, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         tserve.main(COMMON)
+
+
+TRAIN_ARGS = ["--arch", "phi4-mini-3.8b", "--smoke", "--steps", "3",
+              "--vocab", "128", "--batch", "2", "--seq", "16"]
+DONE = re.compile(r"^done: loss (\d+\.\d{4}) -> (\d+\.\d{4}) in 3 steps "
+                  r"\(\d+\.\ds\)$", re.M)
+
+
+def test_train_cli_prints_the_reference_done_line(monkeypatch, capsys):
+    # one intra-op thread: many small ops, and test workers share the cores
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        _train_cli_run(monkeypatch, capsys)
+    finally:
+        torch.set_num_threads(n)
+
+
+def _train_cli_run(monkeypatch, capsys):
+    monkeypatch.setattr(sys, "argv", ["train"] + TRAIN_ARGS)
+    assert jtrain.main() == 0
+    ref = DONE.search(capsys.readouterr().out)
+    assert ttrain.main(TRAIN_ARGS + ["--device", "cpu"]) == 0
+    out = capsys.readouterr().out
+    port = DONE.search(out)
+    assert ref and port, out
+    assert out.splitlines()[0].startswith("step     0  loss ")
+    assert float(port.group(2)) < float(port.group(1))
+
+
+def test_train_cli_refuses_dry_run(capsys):
+    with pytest.raises(SystemExit) as exc:
+        ttrain.main(["--dry-run", "--device", "cpu"])
+    assert exc.value.code == 2
+    assert "production mesh" in capsys.readouterr().err

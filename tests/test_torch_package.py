@@ -224,3 +224,29 @@ def test_mla_kernel_module_imports_without_jax():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "((32, 16), (512, 64))"
+
+
+@pytest.mark.parametrize("path", [
+    "training/__init__.py", "training/optimizer.py", "training/data.py",
+    "training/checkpoint.py", "training/loop.py", "launch/train.py",
+    "roofline/analytic.py", "roofline/hw.py"])
+def test_training_modules_are_ported(path):
+    """Each module of the training slice has its reference, and imports
+    neither JAX nor the JAX package, not even the JAX-free
+    ``repro.training.data`` or ``repro.roofline.analytic`` (the probe
+    above imports it with JAX blocked)."""
+    _assert_ported(path)
+
+
+def test_train_cli_runs_without_jax():
+    """``python -m repro_torch.launch.train`` parses its flags with JAX
+    blocked (``--help`` lists the port's ``--device``)."""
+    probe = ("import sys, runpy; sys.modules['jax'] = None; "
+             "sys.argv = ['train', '--help']; "
+             "runpy.run_module('repro_torch.launch.train', "
+             "run_name='__main__')")
+    out = subprocess.run([sys.executable, "-c", probe],
+                         env=dict(os.environ, PYTHONPATH=str(ROOT / "src")),
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert "--device" in out.stdout and "--ckpt-every" in out.stdout
