@@ -38,8 +38,10 @@ and non-causal modes, the paged kernel's masked mode at head dim 64 and
 over whisper's cross cache), compare rwkv6, zamba2, the perceiver vlm
 and whisper smoke card against CPU, and serve the four at full published
 width (depth uncut, but rwkv6's, cut to 8 of 32 layers). The training
-phases hold the flash backward kernel against its plain version and time
-it beside the backward of ``scaled_dot_product_attention``, train every
+phases hold the flash backward kernel against its plain version on both
+of its routes (bf16 at head dim 32 / 64 / 128 on the tensor cores, the
+rest on FMAs), check that two launches give the same bits, and time it
+beside the backward of ``scaled_dot_product_attention``, train every
 smoke config 3 steps card against CPU, and train qwen2-vl-2b at full
 width and depth (bf16, remat, batch 4 of 1024 visual + 64 text tokens)
 10 steps through ``train_loop`` with a checkpoint at step 5 and a resume
@@ -310,7 +312,9 @@ def phase_build() -> dict:
                       for d in dims}
     hgmma = _hgmma_count("flash_attention")
     routes = _mla_routes(res["mla_attention"]["log"])
+    bwd_routes = _bwd_routes(res["flash_attention_bwd"]["log"])
     emit("build", seconds=seconds, flash_sass_hgmma=hgmma,
+         flash_bwd_routes=bwd_routes,
          kernels={k: {"seconds": v["seconds"], "cached": v["cached"],
                       "dynamic_smem_bytes": smem[k],
                       "ptxas": _ptxas_report(v["log"]),
@@ -324,21 +328,17 @@ def phase_build() -> dict:
           and all(r["route"] == "fma" for k, r in routes.items()
                   if k != "bfloat16/R512"),
           f"latent kernel routes: {routes}")
+    check(all((r["route"] == "wgmma") == (r["hgmma"] > 0)
+              for r in bwd_routes.values()),
+          f"flash backward routes: {bwd_routes}")
     return res
 
 
 def _hgmma_count(name: str, function: str = "") -> int:
-    """HGMMA (wgmma) instructions in kernel ``name``'s library SASS, from
-    the first function whose name holds ``function`` on."""
-    from repro_torch.kernels import build
-    sass = subprocess.run([os.path.join(os.path.dirname(build.nvcc_path()),
-                                        "cuobjdump"), "-sass",
-                           str(build.library_path(name))],
-                          capture_output=True, text=True, check=True,
-                          timeout=120).stdout
-    at = sass.find(function)
-    return 0 if at < 0 else sum("HGMMA" in ln
-                                for ln in sass[at:].splitlines())
+    """HGMMA (wgmma) instructions in kernel ``name``'s library SASS, in
+    the functions whose name holds ``function``."""
+    return sum(n for f, n in _hgmma_by_function(name).items()
+               if function in f)
 
 
 def _mla_routes(log: str) -> dict:
@@ -368,6 +368,68 @@ def _mla_routes(log: str) -> dict:
                     lib.mla_attention_smem_bytes(code, r),
                 "ptxas": ptx[0] if ptx else None,
                 "hgmma": tc_hgmma if route == "wgmma" else 0}
+    return out
+
+
+def _bwd_routes(log: str) -> dict:
+    """Per (dtype, head dim) of the flash backward: the route the library
+    takes (``flash_attention_bwd_route``, which the wrapper's
+    ``bwd_route`` must repeat), its dynamic shared memory, ptxas's
+    registers and spills of each of its kernels, and the HGMMA count of
+    their SASS (wgmma route: the dK/dV kernel with one bf16 operand and
+    with hi + lo, and the dQ kernel)."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels import flash_attention as fa
+    lib = build.load("flash_attention_bwd")
+    entries = _ptxas_report(log)
+    hgmma = _hgmma_by_function("flash_attention_bwd")
+    out = {}
+    for dtype, code, mangled in ((torch.float32, 0, "If"),
+                                 (torch.bfloat16, 1, "I13__nv_bfloat16")):
+        for d in fa.HEAD_DIMS:
+            route = {1: "wgmma", 0: "fma"}[lib.flash_attention_bwd_route(
+                code, d)]
+            check(route == fa.bwd_route(dtype, d),
+                  f"flash bwd route of {dtype} D {d}: library {route}, "
+                  f"wrapper {fa.bwd_route(dtype, d)}")
+            inner = 32 if d == 192 else 64
+            names = {
+                "dkdv": f"flash_bwd_dkdv_tc_kernelILi{d}ELb0E",
+                "dkdv_hilo": f"flash_bwd_dkdv_tc_kernelILi{d}ELb1E",
+                "dq": f"flash_bwd_dq_tc_kernelILi{d}E",
+                "prep": f"flash_bwd_prep_kernelILi{d}E"} \
+                if route == "wgmma" else {
+                "dkdv": f"flash_bwd_dkdv_kernel{mangled}Li{d}ELi{inner}E",
+                "dq": f"flash_bwd_dq_kernel{mangled}Li{d}ELi{inner}E"}
+            out[f"{str(dtype)[6:]}/d{d}"] = {
+                "route": route,
+                "dynamic_smem_bytes": lib.flash_attention_bwd_smem_bytes(
+                    code, d),
+                "hgmma": sum(n for f, n in hgmma.items()
+                             if any(x in f for x in names.values())),
+                "ptxas": {k: next(({x: e.get(x) for x in ("used", "spills")}
+                                   for e in entries if n in e["entry"]),
+                                  None)
+                          for k, n in names.items()}}
+    return out
+
+
+def _hgmma_by_function(name: str) -> dict:
+    """HGMMA (wgmma) instructions of each function in kernel ``name``'s
+    library SASS."""
+    from repro_torch.kernels import build
+    sass = subprocess.run([os.path.join(os.path.dirname(build.nvcc_path()),
+                                        "cuobjdump"), "-sass",
+                           str(build.library_path(name))],
+                          capture_output=True, text=True, check=True,
+                          timeout=120).stdout
+    out, cur = {}, None
+    for ln in sass.splitlines():
+        if "Function :" in ln:
+            cur = ln.split("Function :", 1)[1].strip()
+            out[cur] = 0
+        elif cur is not None and "HGMMA" in ln:
+            out[cur] += 1
     return out
 
 
@@ -5110,10 +5172,17 @@ def phase_kernels_flash_bwd(flush, ptxas) -> dict:
     peak, or its bytes (q, k, v, o, dO and lse read, dq, dk, dv written
     once) at the HBM rate -- the plain version and the backward alone of
     ``scaled_dot_product_attention(..., enable_gqa=True)`` (a boolean mask
-    for the window; its forward + backward less its forward). Prints ptxas's registers and spills of the backward's
-    instantiations. Returns the kernels-line row."""
+    for the window; its forward + backward less its forward). Each case
+    names its route (``bwd_route``: bf16 at D 32 / 64 / 128 on ``wgmma``,
+    the rest on FMAs) and, on ``wgmma``, its dK/dV head groups and whether
+    it takes hi + lo operands; two launches on the same inputs must give
+    the same bits, at every case in both dtypes, and the bf16 training
+    call's device ms by kernel (torch.profiler) is printed. Prints
+    ptxas's registers and spills of the backward's instantiations.
+    Returns the kernels-line row."""
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import sm_count
     rng = np.random.default_rng(22)
     errs, rows = {}, {}
     for dtype in (torch.float32, torch.bfloat16):
@@ -5132,7 +5201,19 @@ def phase_kernels_flash_bwd(flush, ptxas) -> dict:
             got = fa.flash_attention_bwd(q, k, v, o, lse, do, **kw)
             torch.cuda.synchronize()
             want = fa.flash_attention_bwd_plain(q, k, v, o, lse, do, **kw)
-            e = {"lse_rel": lse_err}
+            e = {"lse_rel": lse_err, "route": fa.bwd_route(dtype, c["d"])}
+            if e["route"] == "wgmma":
+                g = c["h"] // c["kvh"]
+                e["splits"] = fa.bwd_splits(c["b"], c["kvh"], g, c["sk"],
+                                            sm_count(q.device))
+                e["hilo"] = g > fa.BWD_HILO_G
+            # a second launch gives the same bits
+            again = fa.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+            e["deterministic"] = all(torch.equal(x, y)
+                                     for x, y in zip(got, again))
+            check(e["deterministic"],
+                  f"flash bwd {name} {dtype}: two launches differ")
+            del again
             for g, w, what in zip(got, want, ("dq", "dk", "dv")):
                 scale = float(w.float().abs().max())
                 diff = (g.float() - w.float()).abs()
@@ -5176,7 +5257,12 @@ def phase_kernels_flash_bwd(flush, ptxas) -> dict:
                 max(e[x] for x in ("dq", "dk", "dv")))
             row["library_fwd_ms"] = time_ms(sdpa, flush)
             row["library_ms"] -= row["library_fwd_ms"]
-            rows[name] = dict(shape=c, **kw, **row, pairs=pairs)
+            if name == "train":   # where the backward's time goes
+                row["kernels_ms"] = _profile_calls({"bwd": (
+                    lambda: fa.flash_attention_bwd(q, k, v, o, lse, do, **kw),
+                    5)}, cpu=False)["bwd"]["by_kernel"]
+            rows[name] = dict(shape=c, **kw, **row, pairs=pairs,
+                              route=e["route"])
             del leaves
     bits = flash_bits()
     same = {k_: v_ == FLASH_BITS_SHA.get(k_) for k_, v_ in bits.items()}
@@ -5196,9 +5282,9 @@ def phase_kernels_flash_bwd(flush, ptxas) -> dict:
             **{k_: main[k_] for k_ in ("max_abs_err", "ms", "plain_ms",
                                        "bound_ms", "bound_by",
                                        "library_ms")},
-            "shapes": {n: {k_: r[k_] for k_ in ("ms", "plain_ms", "bound_ms",
-                                                "bound_by", "library_ms",
-                                                "max_abs_err")}
+            "shapes": {n: {k_: r[k_] for k_ in ("route", "ms", "plain_ms",
+                                                "bound_ms", "bound_by",
+                                                "library_ms", "max_abs_err")}
                        for n, r in rows.items()}}
 
 
@@ -5302,6 +5388,7 @@ def phase_train_full() -> dict:
                                       train_loop)
     from repro_torch.training.data import make_batch
     from repro_torch.training.loop import _batch_to
+    from repro_torch.kernels import flash_attention as fa
     cfg = get_config("qwen2-vl-2b")
     model = build(cfg)
     dc = SyntheticDataConfig(batch=4, seq_len=64)
@@ -5383,7 +5470,11 @@ def phase_train_full() -> dict:
                resume_rel_err=resume_err, step_wall_ms=steps_ms,
                step_ms=step_ms, tokens_per_s=tokens / step_ms * 1e3,
                profiled_step=prof, flash_fwd_ms_per_step=fwd_ms,
-               flash_bwd_ms_per_step=bwd_ms, peak_gib=peak,
+               flash_bwd_ms_per_step=bwd_ms,
+               flash_bwd_share_of_busy=bwd_ms / prof[
+                   "device_busy_ms_per_call"],
+               flash_bwd_route=fa.bwd_route(torch.bfloat16, cfg.head_dim),
+               peak_gib=peak,
                analytic_flops=flops,
                mfu=flops / (step_ms / 1e3 * H100_SXM.peak_flops_bf16),
                ckpt_save_s=b_s, resume_run_s=c_s, launches=launches,

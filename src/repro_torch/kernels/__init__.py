@@ -16,3 +16,15 @@ import torch
 def needs_grad(*tensors) -> bool:
     """Would autograd record a call on these tensors?"""
     return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
+_SMS = {}
+
+
+def sm_count(device) -> int:
+    """Streaming multiprocessors of a CUDA device (cached): the kernels
+    that size their grids to the card read it."""
+    if device not in _SMS:
+        _SMS[device] = torch.cuda.get_device_properties(
+            device).multi_processor_count
+    return _SMS[device]

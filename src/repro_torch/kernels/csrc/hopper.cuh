@@ -1,7 +1,8 @@
 // Hopper (sm_90a) building blocks shared by the port's tensor-core
-// kernels (flash_attention.cu, mla_attention.cu): mbarriers, TMA loads,
-// wgmma shared-memory descriptors and the wgmma shapes the kernels issue,
-// and the run-time lookup of cuTensorMapEncodeTiled (no -lcuda).
+// kernels (flash_attention.cu, flash_attention_bwd.cu, mla_attention.cu):
+// mbarriers, TMA and bulk loads, wgmma shared-memory descriptors and the
+// wgmma shapes the kernels issue, and the run-time lookup of
+// cuTensorMapEncodeTiled (no -lcuda).
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and its enums (header only)
@@ -78,6 +79,17 @@ __device__ __forceinline__ void tma_load_3d(uint32_t dst,
       "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
       "r"(c2)
+      : "memory");
+}
+
+// Bulk copy (no tensor map) of `bytes` contiguous bytes into shared memory,
+// completing on `bar`; src, dst and bytes multiples of 16.
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
+                                          uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(bar)
       : "memory");
 }
 

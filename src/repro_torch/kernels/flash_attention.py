@@ -18,7 +18,10 @@ runs ``FlashAttentionFn``, whose forward also keeps each row's
 log-sum-exp and whose backward is a second kernel,
 ``csrc/flash_attention_bwd.cu`` (``flash_attention_bwd``; on a CPU tensor
 ``flash_attention_bwd_plain``). Without grad it is the single forward
-launch it always was, with the same bits.
+launch it always was, with the same bits. The backward takes one of two
+routes by (dtype, head dim), ``bwd_route``: bfloat16 at D 32, 64 and 128
+runs its products on the tensor cores (``wgmma`` fed by TMA), float32 and
+bfloat16 at D 192 on float32 FMAs.
 """
 from __future__ import annotations
 
@@ -27,13 +30,23 @@ from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.kernels import build, needs_grad
+from repro_torch.kernels import build, needs_grad, sm_count
 from repro_torch.kernels.ref import (flash_attention_bwd_ref,
                                      flash_attention_lse_ref,
                                      flash_attention_ref)
 
 HEAD_DIMS = (32, 64, 128, 192)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+#: head dims whose bfloat16 backward runs on the tensor cores (at 192 a
+#: 64-key tile's float32 dK and dV do not fit one warpgroup's registers)
+BWD_WGMMA_DIMS = (32, 64, 128)
+#: keys (and q rows) of the backward's tiles
+BWD_TILE = 64
+#: above this many q heads a kv head, the wgmma route's dV and dK products
+#: take P^T and dS^T as bf16 hi + lo parts: one bf16 rounding of each,
+#: summed over G x Sq terms, misses the bf16 bars at G 48
+#: (tests/test_torch_flash_bwd_tiles.py)
+BWD_HILO_G = 8
 
 
 def resolve_offsets(sq: int, sk: int, causal: bool,
@@ -86,6 +99,41 @@ def flash_attention_bwd_plain(q, k, v, o, lse, do, *, causal: bool = True,
                                    q_offset=q_offset, scale=scale)
 
 
+def bwd_route(dtype, d: int) -> str:
+    """``"wgmma"`` for bfloat16 at a head dim in ``BWD_WGMMA_DIMS``, else
+    ``"fma"`` (the source's ``flash_attention_bwd_route``)."""
+    return "wgmma" if dtype == torch.bfloat16 and d in BWD_WGMMA_DIMS \
+        else "fma"
+
+
+def bwd_splits(b: int, kvh: int, g: int, sk: int, sms: int) -> int:
+    """Groups the G q heads of a kv head are cut into for the wgmma
+    route's dK / dV kernel (one CTA per batch, kv head, group and 64-key
+    tile): the fewest, a divisor of G, that give three CTAs an SM (a wave
+    and a half at two an SM, so the heavy causal key tiles that start
+    first leave the light ones to fill in behind), else G. Each group
+    beyond one adds a float32 share of dK and dV that a reduce sums in
+    group order."""
+    tiles = b * kvh * -(-sk // BWD_TILE)
+    return next((s for s in range(1, g + 1)
+                 if g % s == 0 and tiles * s >= 3 * sms), g)
+
+
+def bwd_scratch_floats(route: str, b: int, h: int, kvh: int, sq: int,
+                       sk: int, d: int, splits: int) -> int:
+    """Float32 scratch the backward kernel needs (laid out as the source's
+    ``flash_attention_bwd`` describes): fma route delta [B,H,Sq]
+    (padded to 64 values) and the q heads' dK / dV shares 2 x [B,H,Sk,D];
+    wgmma route lse and delta padded to whole q tiles, 2 x [B,H,Sq_pad],
+    and with more than one group the groups' shares 2 x
+    [B,KVH,splits,Sk,D]."""
+    if route == "fma":
+        return -(-b * h * sq // 64) * 64 + 2 * b * h * sk * d
+    pad = -(-sq // BWD_TILE) * BWD_TILE
+    return 2 * b * h * pad + (2 * b * kvh * splits * sk * d
+                              if splits > 1 else 0)
+
+
 def _lib():
     fn = build.load("flash_attention").flash_attention_fwd
     if fn.argtypes is None:
@@ -99,9 +147,10 @@ def _lib():
 def _bwd_lib():
     fn = build.load("flash_attention_bwd").flash_attention_bwd
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 10 \
+        fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 10 \
             + [ctypes.c_float, ctypes.c_int,
-               ctypes.POINTER(ctypes.c_longlong), ctypes.c_void_p]
+               ctypes.POINTER(ctypes.c_longlong), ctypes.c_int,
+               ctypes.c_int, ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -236,9 +285,10 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
     ``o``, the forward's log-sum-exp ``lse`` [B,H,Sq] float32 and the
     output's gradient ``do`` [B,H,Sq,D]. A CPU tensor takes
     ``flash_attention_bwd_plain``; a CUDA tensor takes the backward kernel
-    (what the forward takes; ``do`` is copied when its strides do not
-    fit) or raises. dq has q's strides, dk and dv k's and v's where those
-    are dense."""
+    on its ``bwd_route`` (what the forward takes; ``do`` is copied when
+    its strides do not fit) or raises. dq has q's strides, dk and dv k's
+    and v's where those are dense. The result does not depend on the
+    launch: two calls on the same inputs give the same bits."""
     kw = dict(causal=causal, window=window, kv_len=kv_len, q_offset=q_offset,
               scale=scale)
     if q.device.type == "cpu":
@@ -259,9 +309,12 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
     except ValueError:
         do = do.contiguous()
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    delta = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
-    part = torch.empty((2, b, h, sk, d), dtype=torch.float32,
-                       device=q.device)
+    route = bwd_route(q.dtype, d)
+    splits = bwd_splits(b, kvh, h // kvh, sk, sm_count(q.device)) \
+        if route == "wgmma" else 1
+    scratch = torch.empty(bwd_scratch_floats(route, b, h, kvh, sq, sk, d,
+                                             splits),
+                          dtype=torch.float32, device=q.device)
     strides = [x for name, t in (("q", q), ("k", k), ("v", v), ("o", o),
                                  ("do", do), ("dq", dq), ("dk", dk),
                                  ("dv", dv))
@@ -269,11 +322,11 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
     kv_len, q_offset = resolve_offsets(sq, sk, causal, kv_len, q_offset)
     err = _bwd_lib()(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                      lse.data_ptr(), do.data_ptr(), dq.data_ptr(),
-                     dk.data_ptr(), dv.data_ptr(), delta.data_ptr(),
-                     part[0].data_ptr(), part[1].data_ptr(),
+                     dk.data_ptr(), dv.data_ptr(), scratch.data_ptr(),
                      b, h, kvh, sq, sk, d, kv_len, q_offset, int(causal),
                      int(window), 0.0 if scale is None else float(scale),
                      _DTYPES[q.dtype], (ctypes.c_longlong * 24)(*strides),
+                     splits, int(h // kvh > BWD_HILO_G),
                      torch.cuda.current_stream(q.device).cuda_stream)
     if err:
         raise RuntimeError(f"flash_attention_bwd kernel launch failed: CUDA "

@@ -30,7 +30,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import build, needs_grad
+from repro_torch.kernels import build, needs_grad, sm_count
 from repro_torch.kernels.ref import mla_attention_ref
 
 #: (kv_lora_rank, qk_rope_head_dim) pairs the kernel is instantiated for:
@@ -63,16 +63,6 @@ def tc_split(b: int, sq: int, h: int, length: int, sms: int) -> int:
     key_tiles = -(-length // TC_KEYS)
     n = min(key_tiles, max(1, sms // tiles))
     return TC_KEYS * -(-key_tiles // n)
-
-
-_SMS = {}
-
-
-def _sm_count(device) -> int:
-    if device not in _SMS:
-        _SMS[device] = torch.cuda.get_device_properties(
-            device).multi_processor_count
-    return _SMS[device]
 
 
 def _lib():
@@ -144,7 +134,7 @@ def mla_attention(q_lat, q_rope, ckv, k_rope, q_pos, *, k_pos=None,
                for t in tensors):
         raise ValueError("mla_attention kernel needs contiguous, 16-byte "
                          "aligned inputs")
-    split = tc_split(b, sq, h, length, _sm_count(q_lat.device)) \
+    split = tc_split(b, sq, h, length, sm_count(q_lat.device)) \
         if route(ckv.dtype, r) == "wgmma" else SPLIT
     out = _launch(q_lat, q_rope, ckv, k_rope, q_pos, k_pos, window, scale,
                   split)

@@ -1306,10 +1306,16 @@ def test_family_smoke_on_card_matches_cpu(dev, arch):
     dict(b=1, h=2, kvh=1, sq=90, sk=64, d=32, q_offset=-20),  # keyless rows
     dict(b=1, h=4, kvh=4, sq=96, sk=96, d=192, scale=0.07),
     dict(b=1, h=48, kvh=1, sq=100, sk=100, d=128),
+    # bf16 takes the wgmma route at D 32 / 64 / 128: ragged tiles
+    dict(b=1, h=4, kvh=2, sq=77, sk=77, d=32),
+    dict(b=1, h=6, kvh=1, sq=150, sk=150, d=64),
+    dict(b=1, h=12, kvh=2, sq=100, sk=170, d=128, kv_len=150),
 ])
 def test_flash_gradients_flow_through_the_backward_kernel(dev, dtype, case):
     """q, k and v get gradients on the card (the wrapper's autograd route),
-    equal to the plain backward's within TOL of the largest gradient."""
+    equal to the plain backward's within TOL of the largest gradient; a
+    second and third launch of the backward on the same inputs give the
+    same bits (no atomics: a resumed run replays its gradients)."""
     rng = np.random.default_rng(1)
     c = dict(case)
     b, h, kvh, sq, sk, d = (c.pop(x) for x in ("b", "h", "kvh", "sq", "sk",
@@ -1334,6 +1340,11 @@ def test_flash_gradients_flow_through_the_backward_kernel(dev, dtype, case):
         scale = float(w.float().abs().max())
         assert float((t.grad.float() - w.float()).abs().max()) \
             <= TOL[dtype] * max(scale, 1.0)
+    o, lse = fa.flash_attention_fwd(q, k, v, **c)
+    once = fa.flash_attention_bwd(q, k, v, o, lse, do, **c)
+    again = fa.flash_attention_bwd(q, k, v, o, lse, do, **c)
+    assert all(torch.equal(x, y) for x, y in zip(once, again))
+    assert all(torch.equal(x, t.grad) for x, t in zip(once, leaves))
 
 
 def test_decode_kernels_refuse_gradients_on_the_card(dev):
