@@ -43,9 +43,15 @@ of its routes (bf16 at head dim 32 / 64 / 128 on the tensor cores, the
 rest on FMAs), check that two launches give the same bits, and time it
 beside the backward of ``scaled_dot_product_attention``, train every
 smoke config 3 steps card against CPU, and train qwen2-vl-2b at full
-width and depth (bf16, remat, batch 4 of 1024 visual + 64 text tokens)
-10 steps through ``train_loop`` with a checkpoint at step 5 and a resume
-from it, then run the training CLI. Each phase prints one JSON line; the
+width, 14 of its 28 layers (bf16, remat, batch 4 of 1024 visual + 64
+text tokens) 10 steps through ``train_loop`` with a checkpoint at step 5
+and a resume from it, then run the training CLI. The sharding phases run
+``launch.steps``' train, prefill and serve steps of qwen2-vl-2b at full
+width on a 1x1 DTensor mesh over the card (every kernel under
+``local_map``), each against the same step without a mesh, with its wall,
+busy, roofline share and MFU, and join the dry run of qwen2-vl-2b on the
+two production meshes (a subprocess on the host's CPU, started before
+the training phases). Each phase prints one JSON line; the
 last two lines are the kernel summary and ``{"ok": true, "device":
 {...}}``. Any failure raises and exits non-zero before that line.
 Needs one CUDA device of compute capability 9.0.
@@ -61,8 +67,10 @@ import functools
 import gc
 import json
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -5121,6 +5129,10 @@ TRAIN_SMOKE_TOL = 1e-4
 #: reference's resume bar)
 TRAIN_RESUME_TOL = 1e-3
 TRAIN_FULL_STEPS, TRAIN_CKPT_AT = 10, 5
+#: train_full's depth: 14 of qwen2-vl-2b's 28 layers since the sharding
+#: phases joined the script (its 15 GB checkpoint's save and load took 60 s
+#: of the script's 600 s at full depth)
+TRAIN_FULL_LAYERS = 14
 
 
 def _train_counts() -> dict:
@@ -5364,12 +5376,13 @@ def _train_cli() -> dict:
 
 
 def phase_train_full() -> dict:
-    """qwen2-vl-2b at full published width and depth, uncut (28 layers, d
-    1536, vocab 151936): bf16 params, float32 moments, remat on, batch 4
+    """qwen2-vl-2b at full published width (d 1536, vocab 151936), cut to
+    TRAIN_FULL_LAYERS of its 28 layers: bf16 params, float32 moments,
+    remat on, batch 4
     of 1024 visual + 64 text tokens (``SyntheticDataConfig(batch=4,
     seq_len=64)``), through ``train_loop``: (A) TRAIN_FULL_STEPS steps
     uninterrupted, (B) TRAIN_CKPT_AT steps, then ``save_checkpoint`` of
-    its params and moments (one 15 GB write; the loop's own cadence would
+    its params and moments (one write; the loop's own cadence would
     write it twice), (C) a resume from it to TRAIN_FULL_STEPS. Every loss finite (the loop
     raises otherwise), the last below the first, C within
     TRAIN_RESUME_TOL of A's; 2 forward and 1 backward flash launch a
@@ -5389,7 +5402,7 @@ def phase_train_full() -> dict:
     from repro_torch.training.data import make_batch
     from repro_torch.training.loop import _batch_to
     from repro_torch.kernels import flash_attention as fa
-    cfg = get_config("qwen2-vl-2b")
+    cfg = get_config("qwen2-vl-2b").with_(num_layers=TRAIN_FULL_LAYERS)
     model = build(cfg)
     dc = SyntheticDataConfig(batch=4, seq_len=64)
     oc = OptimizerConfig(lr=1e-3, warmup_steps=1,
@@ -5486,6 +5499,155 @@ def phase_train_full() -> dict:
     return launches
 
 
+#: sharded_steps: qwen2-vl-2b's four step kinds at their sequence lengths,
+#: the global batch cut to what one card holds
+SHARDED_ARCH = "qwen2-vl-2b"
+SHARDED_CUTS = {"train_4k": dict(global_batch=2),
+                "prefill_32k": dict(global_batch=1),
+                "decode_32k": dict(global_batch=16),
+                "long_500k": {}}
+#: the reference's sharded bar (tests/test_sharded_exec.py): the mesh run
+#: within 1e-3 of the single-device run's logit (loss) scale
+SHARDED_TOL = 1e-3
+
+
+def _tree(t, fn):
+    if isinstance(t, dict):
+        return {k: _tree(v, fn) for k, v in t.items()}
+    if isinstance(t, tuple):
+        return tuple(_tree(v, fn) for v in t)
+    return fn(t)
+
+
+def _step_out(spec, out):
+    """A step's logits (prefill, decode) or loss (train), as a plain
+    tensor."""
+    t = out[2] if spec.name.endswith("/train") else out[0]
+    return t.full_tensor() if hasattr(t, "full_tensor") else t
+
+
+def phase_sharded_steps() -> dict:
+    """``launch.steps``' train / prefill / serve steps of qwen2-vl-2b at full
+    published width and depth (28 layers, d 1536, 12 / 2 heads of 128,
+    vocab 151936), bf16, inputs from seed 0 (``steps.materialize``), built
+    by ``build_step`` on the 1x1 ("data", "model") mesh over this card
+    (``make_host_mesh``: nccl): params, batch and cache DTensors, every
+    kernel call under ``local_map``. Shapes at their sequence lengths, the
+    batch cut (SHARDED_CUTS). Each step's logits (loss) against the same
+    step on plain tensors without a mesh within SHARDED_TOL of their
+    scale, and whether the bits are equal. Flash forward, flash backward
+    and paged must launch (counts reset just before each mesh run). Per
+    step: wall ms, device-busy ms and idle share (profiler), the port's
+    three-term roofline of the executed shape (``step_cost.step_flops``
+    on meta, the inputs' bytes or the analytic traffic, collectives 0 on
+    one device), its dominant term, ``roofline_frac`` (roofline ms / busy
+    ms) and ``mfu`` (model FLOPs / (wall s x 989e12))."""
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.steps import (build_step, distribute_args,
+                                          materialize, run_step)
+    from repro_torch.roofline.analysis import (model_flops_estimate,
+                                               roofline_from_costs)
+    from repro_torch.roofline.analytic import bytes_estimate
+    from repro_torch.roofline.step_cost import step_flops, step_memory
+    mesh = make_host_mesh("cuda")
+    total = dict.fromkeys(_train_counts(), 0)
+    rows = {}
+    for shape, cut in SHARDED_CUTS.items():
+        gc.collect()
+        torch.cuda.empty_cache()
+        spec = build_step(SHARDED_ARCH, shape, mesh, **cut)
+        args = materialize(spec, 0, "cuda")
+        want = _step_out(spec, spec.step(*_tree(args, torch.clone))
+                         ).float().cpu()
+        dargs = distribute_args(spec, args)
+        del args
+        _reset_counts()
+        got = _step_out(spec, run_step(spec, dargs)).float().cpu()
+        torch.cuda.synchronize()
+        counts = _train_counts()
+        for k in total:
+            total[k] += counts[k]
+        scale = max(1.0, float(want.abs().max()))
+        err = float((got - want).abs().max()) / scale
+        check(err <= SHARDED_TOL, f"sharded_steps {shape}: {err} of scale")
+        prof = _profile_calls({shape: (lambda: _step_out(
+            spec, run_step(spec, dargs)).float().sum().item(), 1)})[shape]
+        prof.pop("by_kernel")
+        mem = step_memory(spec)
+        costs = {"flops": step_flops(spec),
+                 "bytes_accessed": float(mem["argument_bytes"]),
+                 "collective_bytes": 0.0}
+        mf = model_flops_estimate(spec.model_cfg, spec.shape_cfg)
+        rep = roofline_from_costs(
+            spec.name, costs, chips=1, model_flops=mf,
+            analytic_bytes=bytes_estimate(spec.model_cfg, spec.shape_cfg))
+        roof_ms = max(rep.compute_s, rep.memory_s, rep.collective_s) * 1e3
+        busy = prof["device_busy_ms_per_call"]
+        wall = prof["wall_ms_per_call"]
+        sc = spec.shape_cfg
+        rows[shape] = dict(
+            step=spec.name.split("/")[-1], batch=sc.global_batch,
+            seq_len=sc.seq_len, launches=counts, err_of_scale=err,
+            bits_equal=bool(torch.equal(got, want)), wall_ms=wall,
+            busy_ms=busy, idle_share=prof["idle_share"],
+            flops=rep.flops, bytes=rep.bytes_accessed,
+            compute_ms=rep.compute_s * 1e3, memory_ms=rep.memory_s * 1e3,
+            collective_ms=rep.collective_s * 1e3, dominant=rep.dominant,
+            roofline_ms=roof_ms, roofline_frac=roof_ms / busy,
+            model_flops=mf, mfu=mf / (wall / 1e3 * H100_SXM.peak_flops_bf16),
+            top_kernels=prof["top_kernels"][:4])
+        del dargs, spec
+    emit("sharded_steps", arch=SHARDED_ARCH, mesh="1x1 (data, model), nccl",
+         steps=rows, launches=total)
+    for k in ("flash_attention", "flash_attention_bwd", "paged_attention"):
+        check(total[k] > 0, f"sharded_steps: {k} was not launched")
+    return total
+
+
+def start_dryrun(tmp: str):
+    """``python -m repro_torch.launch.dryrun --arch qwen2-vl-2b
+    --both-meshes --out <tmp>/dryrun.json`` in a subprocess (the host's
+    CPU only: the production meshes hold meta stand-ins), started before
+    the training and sharding phases so it runs beside them, on one
+    thread; ``phase_dryrun_main`` joins it."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(HERE, "src"),
+               OMP_NUM_THREADS="1")
+    return subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+         SHARDED_ARCH, "--both-meshes", "--out",
+         os.path.join(tmp, "dryrun.json")], env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True)
+
+
+def phase_dryrun_main(proc, tmp: str) -> None:
+    """The dry run of qwen2-vl-2b on the (16, 16) and (2, 16, 16)
+    production meshes: the subprocess must exit 0 with all 8 pairs ``ok``.
+    Per pair: the per-device bytes of the step's inputs (params, moments,
+    cache, batch), whether they fit the card's 80 GB, the three roofline
+    terms on the H100 and the dominant one."""
+    out, _ = proc.communicate(timeout=900)
+    check(proc.returncode == 0,
+          f"dryrun_main exited {proc.returncode}: {out[-3000:]}")
+    pairs = {}
+    for tag in ("singlepod", "multipod"):
+        with open(os.path.join(tmp, f"dryrun_{tag}.json")) as f:
+            res = json.load(f)
+        for key, r in res.items():
+            check(r["status"] == "ok", f"dryrun_main {tag} {key}: {r}")
+            rf = r["roofline"]
+            arg = r["memory"]["argument_bytes"]
+            pairs[f"{tag}|{key}"] = dict(
+                argument_bytes=arg, fits_80gb=arg <= H100_SXM.hbm_bytes,
+                compute_ms=rf["compute_s"] * 1e3,
+                memory_ms=rf["memory_s"] * 1e3,
+                collective_ms=rf["collective_s"] * 1e3,
+                dominant=rf["dominant"],
+                collective_counts=rf["collective_counts"])
+    check(len(pairs) == 8, f"dryrun_main: {len(pairs)} pairs, not 8")
+    emit("dryrun_main", arch=SHARDED_ARCH, pairs=pairs,
+         log_tail=out.strip().splitlines()[-2:])
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this check runs on the GPU",
@@ -5537,7 +5699,12 @@ def main() -> int:
     fam_smoke_launches = phase_families_smoke()
     fam_full_launches = phase_families_full()
     train_smoke_launches = phase_train_smoke()
+    dry_tmp = tempfile.mkdtemp()
+    dry = start_dryrun(dry_tmp)
     train_full_launches = phase_train_full()
+    sharded_launches = phase_sharded_steps()
+    phase_dryrun_main(dry, dry_tmp)
+    shutil.rmtree(dry_tmp, ignore_errors=True)
     launches = {k: launches[k] + comp_launches[k] + kv_launches[k]
                 + prefix_launches[k] + spec_launches[k] + ee_launches[k]
                 + phi4_launches[k] + async_launches[k]
@@ -5546,11 +5713,13 @@ def main() -> int:
                 + mla_smoke_launches[k] + mla_full_launches[k]
                 + fam_smoke_launches[k] + fam_full_launches[k]
                 + train_smoke_launches[k] + train_full_launches[k]
+                + sharded_launches[k]
                 for k in launches}
     # the flash backward runs on the training path only
     launches["flash_attention_bwd"] = \
         train_smoke_launches["flash_attention_bwd"] \
-        + train_full_launches["flash_attention_bwd"]
+        + train_full_launches["flash_attention_bwd"] \
+        + sharded_launches["flash_attention_bwd"]
     # the latent kernel runs on the MLA path only
     launches["mla_attention"] = mla_smoke_launches["mla_attention"] \
         + mla_full_launches["mla_attention"]

@@ -4,13 +4,22 @@ Each kernel module (``flash_attention``, ``paged_attention``,
 ``mla_attention``) holds the wrapper, whose ``launches`` attribute counts
 its kernel launches, the plain version the wrapper runs on CPU tensors,
 and a note naming what of the reference it replaces (a Pallas TPU kernel,
-or for ``mla_attention`` the jnp einsums of the absorbed MLA decode). ``ops`` adds the reference's shape checks;
+or for ``mla_attention`` the jnp einsums of the absorbed MLA decode). A
+``meta`` tensor (the dry run's shape-only stand-ins) takes the plain
+version too, which then only carries shapes. ``ops`` adds the reference's
+shape checks;
 ``build.build_all()`` compiles every kernel from ``csrc/`` with nvcc.
 ``flash_attention`` also holds the flash backward (``flash_attention_bwd``,
 ``csrc/flash_attention_bwd.cu``), the gradient training runs through; the
 decode kernels have none and raise when asked for one.
 """
 import torch
+
+
+def plain_device(t) -> bool:
+    """Does a wrapper run its plain version on ``t``? On the CPU and on
+    ``meta`` (shapes only); a CUDA tensor launches the kernel or raises."""
+    return t.device.type in ("cpu", "meta")
 
 
 def needs_grad(*tensors) -> bool:

@@ -30,7 +30,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.kernels import build, needs_grad, sm_count
+from repro_torch.kernels import build, needs_grad, plain_device, sm_count
 from repro_torch.kernels.ref import (flash_attention_bwd_ref,
                                      flash_attention_lse_ref,
                                      flash_attention_ref)
@@ -252,7 +252,7 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     if needs_grad(q, k, v):
         return FlashAttentionFn.apply(q, k, v, causal, window, kv_len,
                                       q_offset, scale)
-    if q.device.type == "cpu":
+    if plain_device(q):
         return flash_attention_plain(q, k, v, **kw)
     _check_kernel_inputs(q, k, v, scale)
     return _forward(q, k, v, with_lse=False, **kw)[0]
@@ -271,7 +271,7 @@ def flash_attention_fwd(q, k, v, *, causal: bool = True, window: int = 0,
     Not differentiable itself: ``flash_attention`` is."""
     kw = dict(causal=causal, window=window, kv_len=kv_len, q_offset=q_offset,
               scale=scale)
-    if q.device.type == "cpu":
+    if plain_device(q):
         return (flash_attention_plain(q, k, v, **kw),
                 flash_attention_lse_plain(q, k, **kw))
     _check_kernel_inputs(q, k, v, scale)
@@ -291,7 +291,7 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
     launch: two calls on the same inputs give the same bits."""
     kw = dict(causal=causal, window=window, kv_len=kv_len, q_offset=q_offset,
               scale=scale)
-    if q.device.type == "cpu":
+    if plain_device(q):
         return flash_attention_bwd_plain(q, k, v, o, lse, do, **kw)
     _check_kernel_inputs(q, k, v, scale)
     b, h, sq, d = q.shape

@@ -30,7 +30,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import build, needs_grad, sm_count
+from repro_torch.kernels import build, needs_grad, plain_device, sm_count
 from repro_torch.kernels.ref import mla_attention_ref
 
 #: (kv_lora_rank, qk_rope_head_dim) pairs the kernel is instantiated for:
@@ -91,7 +91,7 @@ def mla_attention(q_lat, q_rope, ckv, k_rope, q_pos, *, k_pos=None,
     ((R, Rr) in ``SHAPES``, contiguous, 16-byte aligned) or raises, as it
     does when autograd would record the call (the kernel has no backward).
     """
-    if q_lat.device.type == "cpu":
+    if plain_device(q_lat):
         return mla_attention_plain(q_lat, q_rope, ckv, k_rope, q_pos,
                                    k_pos=k_pos, window=window, scale=scale)
     if needs_grad(q_lat, q_rope, ckv, k_rope):

@@ -23,7 +23,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import build, needs_grad
+from repro_torch.kernels import build, needs_grad, plain_device
 from repro_torch.kernels.ref import (NEG_INF, multi_query_rows,
                                      paged_attention_ref, paged_key_mask)
 
@@ -140,7 +140,7 @@ def paged_attention(q, k_pages, v_pages, block_table, seq_lens, *,
         raise ValueError(f"paged_attention: multi-query q_pos must be "
                          f"{list(q.shape[:2])}, got "
                          f"{None if q_pos is None else list(q_pos.shape)}")
-    if q.device.type == "cpu":
+    if plain_device(q):
         return paged_attention_plain(q, k_pages, v_pages, block_table,
                                      seq_lens, k_pos=k_pos, q_pos=q_pos,
                                      window=window)

@@ -4,9 +4,10 @@ through the unified ``repro_torch.api`` facade.
 Port of ``repro.launch.serve``: the same flags and the same JSON report,
 plus ``--device`` (the CUDA device unless told otherwise). ``--arch``
 offers the configs the port has. ``--smoke`` is always on, as in the
-reference (``store_true`` with ``default=True``). ``--dry-run`` lowers
-the production mesh, which the port does not have yet (training and
-sharding), so it is refused.
+reference (``store_true`` with ``default=True``). ``--dry-run`` traces
+decode_32k under the production mesh: it runs ``python -m
+repro_torch.launch.dryrun --arch A --shape decode_32k`` in a subprocess
+and returns its exit code.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-vl-2b \
         --requests 16 --scheduler chunked --compression divprune-0.5
@@ -52,6 +53,7 @@ from repro_torch.api import (AdmissionConfig, EngineConfig, GenerationConfig,
                              LVLM, Request, ROUTING_POLICIES,
                              resolve_compression)
 from repro_torch.configs import ARCHS
+from repro_torch.launch.dryrun import delegate as dry_run
 
 
 def synth_requests(cfg, n, *, seed=0, prompt_lo=16, prompt_hi=48,
@@ -160,15 +162,14 @@ def main(argv=None) -> int:
                          "deferred requests to aggressive compression "
                          "presets instead of queueing them")
     ap.add_argument("--dry-run", action="store_true",
-                    help="lower/compile decode_32k under the production "
-                         "mesh (not in the port yet: refused)")
+                    help="trace decode_32k under the production mesh "
+                         "(python -m repro_torch.launch.dryrun)")
     ap.add_argument("--device", default=None,
                     help="torch device to serve on (default: cuda)")
     args = ap.parse_args(argv)
 
     if args.dry_run:
-        ap.error("--dry-run needs the production mesh, which repro_torch "
-                 "does not have yet (training and sharding)")
+        return dry_run(args.arch, "decode_32k")
 
     lvlm = LVLM.from_pretrained(args.arch, smoke=True, device=args.device)
     # comma list = per-request mixing: the FIRST preset is the engine

@@ -9,14 +9,16 @@ CUDA device unless told otherwise), and ``main`` takes ``argv``.
 ``--smoke`` runs the reduced config; without it the full config trains
 on the device (one card holds qwen2-vl-2b's 1.5 B params with float32
 moments; the big configs need the sharding the port does not have yet).
-``--dry-run`` lowers train_4k under the production mesh, which the port
-does not have (ROADMAP item 21), so it is refused.
+``--dry-run`` traces train_4k under the production mesh: it runs
+``python -m repro_torch.launch.dryrun --arch A --shape train_4k`` in a
+subprocess and returns its exit code.
 """
 from __future__ import annotations
 
 import argparse
 
 from repro_torch.configs import ARCHS, get_config
+from repro_torch.launch.dryrun import delegate as dry_run
 from repro_torch.models.registry import build
 from repro_torch.training import (OptimizerConfig, SyntheticDataConfig,
                                   train_loop)
@@ -37,15 +39,15 @@ def main(argv=None) -> int:
     ap.add_argument("--ckpt-every", type=int, default=0)
     ap.add_argument("--resume", action="store_true")
     ap.add_argument("--dry-run", action="store_true",
-                    help="lower/compile train_4k under the production mesh "
-                         "(not in the port yet: refused)")
+                    help="trace train_4k under the production mesh "
+                         "(python -m repro_torch.launch.dryrun)")
     ap.add_argument("--device", default=None,
                     help="torch device to train on (default: cuda)")
     args = ap.parse_args(argv)
 
     if args.dry_run:
-        ap.error("--dry-run needs the production mesh, which repro_torch "
-                 "does not have yet (sharding, ROADMAP item 21)")
+        # delegated: the dry run owns its process (its process group)
+        return dry_run(args.arch, "train_4k")
 
     cfg = get_config(args.arch, smoke=args.smoke)
     if args.vocab:

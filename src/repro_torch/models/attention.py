@@ -48,6 +48,14 @@ pages, every row read.
 
 Caches are updated in place (the reference returns updated copies); every
 function still returns the cache it was given, as the reference does.
+
+Under a mesh (``sharding.use_mesh``) activations, params and caches are
+DTensors. A kernel call and the cache writes around it then run on each
+rank's local shards (``_region``, ``sharding.context.local``): sharded on
+the batch and heads dims only, so a cache whose ``cache_seq`` is sharded
+over "model" is gathered first (its rows written back afterwards), where
+the reference's partitioner attends with a partial softmax and an
+all-reduce instead (ROADMAP C3).
 """
 from __future__ import annotations
 
@@ -56,10 +64,11 @@ from typing import Dict
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels import ops
+from repro_torch.kernels import ops, plain_device
 from repro_torch.kernels.flash_attention import HEAD_DIMS as _FLASH_HEAD_DIMS
 from repro_torch.models.layers import DTYPES, ParamSpec, apply_rope, spec, \
     tree_map_specs
+from repro_torch.sharding.context import Arg, einsum, local, matmul
 
 NEG_INF = -1e30
 
@@ -176,11 +185,34 @@ def simple_sdpa(q, k, v, *, q_pos, k_pos, causal: bool, window: int = 0):
 def _off_kernel(x, what: str):
     """CPU tensors take the plain path; on the card, a path the kernels do
     not cover is not served by this slice."""
-    if x.device.type != "cpu":
+    if not plain_device(x):
         raise NotImplementedError(
             f"{what} is not on the port's CUDA kernels yet (ROADMAP queue "
             "A: custom positions, wrapped ring extends, and [B] starts on "
             "a windowed cache)")
+
+
+#: the heads dim of a layer's cache leaves ([B,L,K,D] K and V; MLA's latent
+#: rows and ``slot_pos`` have none)
+_CACHE_HEADS = {"k": 2, "v": 2}
+
+
+def _region(fn, cache, tensors, outs=((0, 2),)):
+    """``fn(c, t)`` on each rank's local shards (``sharding.context.local``):
+    ``c`` the cache leaves (batch dim 0, K/V heads dim 2, written in
+    place), ``t`` the named ``tensors`` given as (tensor, batch dim, heads
+    dim) triples. ``outs`` are fn's outputs' (batch
+    dim, heads dim). Without a DTensor this is ``fn(cache, tensors)``."""
+    ckeys = list(cache or {})
+    tkeys = list(tensors)
+    args = [Arg(cache[k], 0, _CACHE_HEADS.get(k), inplace=True)
+            for k in ckeys]
+    args += [Arg(*tensors[k]) for k in tkeys]
+
+    def core(*ts):
+        return fn(dict(zip(ckeys, ts[:len(ckeys)])),
+                  dict(zip(tkeys, ts[len(ckeys):])))
+    return local(core, args, outs)
 
 
 # --------------------------------------------------------------------------
@@ -190,7 +222,7 @@ def _off_kernel(x, what: str):
 def _heads(x, w):
     """x [B,S,d] through w [d,N,D] -> [B,S,N,D]."""
     b, s, d = x.shape
-    return torch.matmul(x, w.reshape(d, -1)).reshape(b, s, -1, w.shape[-1])
+    return matmul(x, w.reshape(d, -1)).reshape(b, s, -1, w.shape[-1])
 
 
 def qkv_proj(p, x):
@@ -199,8 +231,8 @@ def qkv_proj(p, x):
 
 def out_proj(p, o):
     b, s = o.shape[:2]
-    return torch.matmul(o.reshape(b, s, -1),
-                        p["wo"].reshape(-1, p["wo"].shape[-1])).to(o.dtype)
+    return matmul(o.reshape(b, s, -1),
+                  p["wo"].reshape(-1, p["wo"].shape[-1])).to(o.dtype)
 
 
 def _prompt_attention(q, k, v, cfg, *, causal, window, positions):
@@ -208,10 +240,14 @@ def _prompt_attention(q, k, v, cfg, *, causal, window, positions):
     default positions, the plain blockwise path otherwise (CPU only). The
     kernel takes the [B,N,S,D] views of q, k, v as they are (no copy)."""
     if positions is None:
-        o = ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
-                                v.transpose(1, 2), causal=causal,
-                                window=window)
-        return o.transpose(1, 2)
+        def flash(_, t):
+            o = ops.flash_attention(t["q"].transpose(1, 2),
+                                    t["k"].transpose(1, 2),
+                                    t["v"].transpose(1, 2), causal=causal,
+                                    window=window)
+            return o.transpose(1, 2)
+        return _region(flash, None, {"q": (q, 0, 2), "k": (k, 0, 2),
+                                     "v": (v, 0, 2)})
     _off_kernel(q, "attention at caller-supplied positions")
     return blockwise_sdpa(_grouped(q, cfg.num_kv_heads), k, v, q_pos=positions,
                           k_pos=positions, causal=causal, window=window)
@@ -275,10 +311,24 @@ def init_kv_cache(cfg, batch, cache_len, windowed, dtype, device):
                             dtype, device)
 
 
+def _new_args(new):
+    return {"new/" + k: (v, 0, _CACHE_HEADS.get(k)) for k, v in new.items()}
+
+
+def _news(t):
+    return {k[4:]: v for k, v in t.items() if k.startswith("new/")}
+
+
 def _cache_write_prefill(cache, new, windowed):
     """Write the whole prompt starting at position 0. ``new`` maps cache
     keys (``k`` and ``v``, or MLA's ``ckv`` and ``k_rope``) to their
     [B,S_new,...] entries."""
+    _region(lambda c, t: _write_prefill(c, _news(t), windowed), cache,
+            _new_args(new), ())
+    return cache
+
+
+def _write_prefill(cache, new, windowed):
     first = next(iter(new.values()))
     length = cache[next(iter(new))].shape[1]
     s_new = first.shape[1]
@@ -296,7 +346,7 @@ def _cache_write_prefill(cache, new, windowed):
     return cache
 
 
-def _cache_write_decode(cache, new, pos, windowed):
+def _write_decode(cache, new, pos, windowed):
     """Write ONE token per request at per-request position ``pos [B]``
     (``new`` as ``_cache_write_prefill``)."""
     first = next(iter(new.values()))
@@ -334,6 +384,22 @@ def _extend_positions(start, s_new: int, device=None):
 
 
 def _cache_write_extend(cache, new, start, windowed):
+    """``_write_extend`` on each rank's local shards."""
+    _region(lambda c, t: _write_extend(c, _news(t), t.get("start", start),
+                                       windowed),
+            cache, {**_new_args(new), **_start_arg(start)}, ())
+    return cache
+
+
+def _start_arg(start):
+    """A [B] tensor of starts as a region argument (batch dim 0); a scalar
+    start stays with the caller."""
+    if torch.is_tensor(start) and start.ndim:
+        return {"start": (start, 0, None)}
+    return {}
+
+
+def _write_extend(cache, new, start, windowed):
     """Write S_new entries at offset ``start``: a scalar (chunked prefill)
     or [B] per-request starts (``new`` as ``_cache_write_prefill``).
     Per-request rows routed past the end are clipped onto the last
@@ -392,32 +458,38 @@ def append_attention(p, x, cos, sin, cfg, cache, start, *, window=0):
         k = apply_rope(k, cos, sin)
     windowed = "slot_pos" in cache
     per_row = torch.as_tensor(start).ndim > 0
-    cache = _cache_write_extend(cache, {"k": k, "v": v}, start, windowed)
-    wrapped = windowed and not per_row \
-        and int(start) + s_new > cache["k"].shape[1]
-    if not per_row and not wrapped:
-        start = int(start)
-        kv_len = start + s_new
-        o = ops.flash_attention(   # views of q and of the cache prefix
-            q.transpose(1, 2), cache["k"][:, :kv_len].transpose(1, 2),
-            cache["v"][:, :kv_len].transpose(1, 2), causal=True,
-            window=window, kv_len=kv_len, q_offset=start)
-        return out_proj(p, o.transpose(1, 2)), cache
-    if per_row and not windowed and not window:
-        q_pos = _extend_positions(start, s_new, x.device)     # [B, S_new]
-        k_pages, v_pages, table = _paged_view(cache, x.shape[0])
-        o = ops.paged_attention(
-            q.contiguous(), k_pages, v_pages, table,
-            torch.clamp(q_pos[:, -1] + 1, max=cache["k"].shape[1]
-                        ).to(torch.int32), q_pos=q_pos.to(torch.int32))
-        return out_proj(p, o), cache
-    _off_kernel(x, "per-row [B] starts on a windowed cache" if per_row
-                else "an extend into a wrapped ring cache")
-    k_pos = (cache["slot_pos"] if windowed
-             else torch.arange(cache["k"].shape[1], device=x.device))
-    q_pos = _extend_positions(start, s_new, x.device)
-    o = simple_sdpa(_grouped(q, cfg.num_kv_heads), cache["k"], cache["v"],
-                    q_pos=q_pos, k_pos=k_pos, causal=True, window=window)
+
+    def attend(cache, t):
+        q, start = t["q"], t.get("start", start0)
+        _write_extend(cache, {"k": t["k"], "v": t["v"]}, start, windowed)
+        wrapped = windowed and not per_row \
+            and int(start) + s_new > cache["k"].shape[1]
+        if not per_row and not wrapped:
+            start = int(start)
+            kv_len = start + s_new
+            o = ops.flash_attention(   # views of q and of the cache prefix
+                q.transpose(1, 2), cache["k"][:, :kv_len].transpose(1, 2),
+                cache["v"][:, :kv_len].transpose(1, 2), causal=True,
+                window=window, kv_len=kv_len, q_offset=start)
+            return o.transpose(1, 2)
+        if per_row and not windowed and not window:
+            q_pos = _extend_positions(start, s_new, q.device)  # [B, S_new]
+            k_pages, v_pages, table = _paged_view(cache, q.shape[0])
+            return ops.paged_attention(
+                q.contiguous(), k_pages, v_pages, table,
+                torch.clamp(q_pos[:, -1] + 1, max=cache["k"].shape[1]
+                            ).to(torch.int32), q_pos=q_pos.to(torch.int32))
+        _off_kernel(q, "per-row [B] starts on a windowed cache" if per_row
+                    else "an extend into a wrapped ring cache")
+        k_pos = (cache["slot_pos"] if windowed
+                 else torch.arange(cache["k"].shape[1], device=q.device))
+        q_pos = _extend_positions(start, s_new, q.device)
+        return simple_sdpa(_grouped(q, cfg.num_kv_heads), cache["k"],
+                           cache["v"], q_pos=q_pos, k_pos=k_pos, causal=True,
+                           window=window)
+    start0 = start
+    o = _region(attend, cache, {"q": (q, 0, 2), "k": (k, 0, 2),
+                                "v": (v, 0, 2), **_start_arg(start)})
     return out_proj(p, o), cache
 
 
@@ -457,18 +529,24 @@ def decode_attention(p, x, cos, sin, cfg, cache, pos, *, window=0):
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
     windowed = "slot_pos" in cache
-    cache = _cache_write_decode(cache, {"k": k, "v": v}, pos, windowed)
-    length = cache["k"].shape[1]
-    k_pages, v_pages, table = _paged_view(cache, b)
-    masked = {}
-    if windowed or window:
-        masked = dict(q_pos=pos.to(torch.int32), window=window,
-                      k_pos=(cache["slot_pos"].reshape(k_pages.shape[:2])
-                             if windowed else None))
-    # a ring that has wrapped reads all its rows
-    seq_lens = torch.clamp(pos + 1, max=length) if windowed else pos + 1
-    o = ops.paged_attention(q[:, 0], k_pages, v_pages, table,
-                            seq_lens.to(torch.int32), **masked)
+
+    def attend(cache, t):
+        pos = t["pos"]
+        _write_decode(cache, {"k": t["k"], "v": t["v"]}, pos, windowed)
+        length = cache["k"].shape[1]
+        k_pages, v_pages, table = _paged_view(cache, pos.shape[0])
+        masked = {}
+        if windowed or window:
+            masked = dict(q_pos=pos.to(torch.int32), window=window,
+                          k_pos=(cache["slot_pos"].reshape(k_pages.shape[:2])
+                                 if windowed else None))
+        # a ring that has wrapped reads all its rows
+        seq_lens = torch.clamp(pos + 1, max=length) if windowed else pos + 1
+        return ops.paged_attention(t["q"][:, 0], k_pages, v_pages, table,
+                                   seq_lens.to(torch.int32), **masked)
+    o = _region(attend, cache, {"q": (q, 0, 2), "k": (k, 0, 2),
+                                "v": (v, 0, 2), "pos": (pos, 0, None)},
+                outs=((0, 1),))
     return out_proj(p, o[:, None]), cache
 
 
@@ -486,9 +564,15 @@ def cross_attention(p, x, k, v):
     causal=False)``): the flash kernel's non-causal mode on the [B,N,S,D]
     views, Sq = S beside Sk = Se."""
     q = _heads(x, p["wq"])
-    o = ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
-                            v.transpose(1, 2), causal=False)
-    return out_proj(p, o.transpose(1, 2))
+
+    def flash(_, t):
+        return ops.flash_attention(t["q"].transpose(1, 2),
+                                   t["k"].transpose(1, 2),
+                                   t["v"].transpose(1, 2),
+                                   causal=False).transpose(1, 2)
+    o = _region(flash, None, {"q": (q, 0, 2), "k": (k, 0, 2),
+                              "v": (v, 0, 2)})
+    return out_proj(p, o)
 
 
 def cross_decode_attention(p, x, cross):
@@ -502,13 +586,17 @@ def cross_decode_attention(p, x, cross):
     kernel takes the page size as a run-time argument (its chunks gather
     tokens through the table one by one), so page 4 needs no instantiation
     of its own, and the card check holds it there."""
-    b = x.shape[0]
     q = _heads(x, p["wq"])
-    k_pages, v_pages, table = _paged_view(cross, b)
-    seq_lens = torch.full((b,), cross["k"].shape[1], dtype=torch.int32,
-                          device=x.device)
-    o = ops.paged_attention(q[:, 0].contiguous(), k_pages, v_pages, table,
-                            seq_lens)
+
+    def attend(cross, t):
+        q = t["q"]
+        b = q.shape[0]
+        k_pages, v_pages, table = _paged_view(cross, b)
+        seq_lens = torch.full((b,), cross["k"].shape[1], dtype=torch.int32,
+                              device=q.device)
+        return ops.paged_attention(q[:, 0].contiguous(), k_pages, v_pages,
+                                   table, seq_lens)
+    o = _region(attend, cross, {"q": (q, 0, 2)}, outs=((0, 1),))
     return out_proj(p, o[:, None])
 
 
@@ -527,10 +615,10 @@ def _mla_q(p, x, cfg, cos, sin):
     """(q_nope [B,S,H,nope], q_rope [B,S,H,rope]) in x's dtype."""
     b, s, d = x.shape
     if cfg.q_lora_rank:
-        ql = _rms(torch.matmul(x, p["wq_a"]), p["q_norm"]).to(x.dtype)
-        q = torch.matmul(ql, p["wq_b"].reshape(cfg.q_lora_rank, -1))
+        ql = _rms(matmul(x, p["wq_a"]), p["q_norm"]).to(x.dtype)
+        q = matmul(ql, p["wq_b"].reshape(cfg.q_lora_rank, -1))
     else:
-        q = torch.matmul(x, p["wq"].reshape(d, -1))
+        q = matmul(x, p["wq"].reshape(d, -1))
     q = q.reshape(b, s, cfg.num_heads, -1)
     q_nope = q[..., :cfg.qk_nope_head_dim]
     q_rope = apply_rope(q[..., cfg.qk_nope_head_dim:], cos, sin)
@@ -539,7 +627,7 @@ def _mla_q(p, x, cfg, cos, sin):
 
 def _mla_latent(p, x, cfg, cos, sin):
     """The cache entries of x: (ckv [B,S,R], k_rope [B,S,rope])."""
-    kv = torch.matmul(x, p["wkv_a"])
+    kv = matmul(x, p["wkv_a"])
     ckv = _rms(kv[..., :cfg.kv_lora_rank], p["kv_norm"]).to(x.dtype)
     k_rope = kv[..., cfg.kv_lora_rank:].to(x.dtype)
     # rope applied to the shared (MQA-style) rope key
@@ -554,8 +642,8 @@ def _mla_scale(cfg) -> float:
 def _mla_naive_kv(p, cfg, ckv, k_rope, dtype):
     """The naive form's per-head keys and values over latent rows:
     k = [ckv wk_b | k_rope] [B,S,H,nope+rope], v = ckv wv_b [B,S,H,v]."""
-    k_nope = torch.einsum("bsr,rhe->bshe", ckv, p["wk_b"]).to(dtype)
-    v = torch.einsum("bsr,rhe->bshe", ckv, p["wv_b"]).to(dtype)
+    k_nope = einsum("bsr,rhe->bshe", ckv, p["wk_b"]).to(dtype)
+    v = einsum("bsr,rhe->bshe", ckv, p["wv_b"]).to(dtype)
     kr = k_rope[:, :, None, :].expand(k_rope.shape[:2] + (cfg.num_heads,
                                                           k_rope.shape[-1]))
     return torch.cat([k_nope, kr], -1), v
@@ -571,27 +659,41 @@ def _mla_flash(cfg, q, k, v, *, window, kv_len=None, q_offset=0):
     and the padded v columns are sliced off the output."""
     dqk, dv = q.shape[-1], v.shape[-1]
     pad = next(d for d in _FLASH_HEAD_DIMS if d >= max(dqk, dv))
-    q, k, v = (F.pad(t, (0, pad - t.shape[-1])) if t.shape[-1] < pad else t
-               for t in (q, k, v))
-    o = ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
-                            v.transpose(1, 2), causal=True, window=window,
-                            kv_len=kv_len, q_offset=q_offset,
-                            scale=_mla_scale(cfg))
-    return o.transpose(1, 2)[..., :dv]
+
+    def flash(_, t):
+        q, k, v = (F.pad(x, (0, pad - x.shape[-1])) if x.shape[-1] < pad
+                   else x for x in (t["q"], t["k"], t["v"]))
+        return ops.flash_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            causal=True, window=window, kv_len=kv_len, q_offset=q_offset,
+            scale=_mla_scale(cfg)).transpose(1, 2)[..., :dv]
+    return _region(flash, None, {"q": (q, 0, 2), "k": (k, 0, 2),
+                                 "v": (v, 0, 2)})
 
 
-def _mla_absorbed(p, cfg, q_nope, q_rope, cache, q_pos, *, window, dtype):
+def _mla_absorbed(p, cfg, q_nope, q_rope, cache, q_pos, *, window, dtype,
+                  write=None, new=None):
     """Attention in the latent space, the reference's absorbed decode:
     q_lat = q_nope wk_b in float32, the latent kernel over the cache
     (``slot_pos`` as its key positions on a windowed cache), then
-    o_lat wv_b in float32 and wo. ``q_pos`` [B,Sq]."""
-    q_lat = torch.einsum("bshe,rhe->bshr", q_nope.float(),
-                         p["wk_b"].float()).contiguous()
-    o_lat = ops.mla_attention(
-        q_lat, q_rope.float().contiguous(), cache["ckv"], cache["k_rope"],
-        q_pos.to(torch.int32).contiguous(), k_pos=cache.get("slot_pos"),
-        window=window, scale=_mla_scale(cfg))
-    o = torch.einsum("bshr,rhe->bshe", o_lat, p["wv_b"].float())
+    o_lat wv_b in float32 and wo. ``q_pos`` [B,Sq]. ``write(cache, new)``,
+    where given, first writes the entries ``new`` into the cache (in the
+    same local region as the kernel)."""
+    q_lat = einsum("bshe,rhe->bshr", q_nope.float(), p["wk_b"].float())
+
+    def attend(cache, t):
+        if write is not None:
+            write(cache, _news(t), t["q_pos"])
+        return ops.mla_attention(
+            t["q_lat"].contiguous(), t["q_rope"].float().contiguous(),
+            cache["ckv"], cache["k_rope"],
+            t["q_pos"].to(torch.int32).contiguous(),
+            k_pos=cache.get("slot_pos"), window=window,
+            scale=_mla_scale(cfg))
+    o_lat = _region(attend, cache,
+                    {"q_lat": (q_lat, 0, 2), "q_rope": (q_rope, 0, 2),
+                     "q_pos": (q_pos, 0, None), **_new_args(new or {})})
+    o = einsum("bshr,rhe->bshe", o_lat, p["wv_b"].float())
     return out_proj(p, o.to(dtype))
 
 
@@ -665,7 +767,9 @@ def mla_decode_attention(p, x, cos, sin, cfg, cache, pos, *, window=0):
     pos = torch.as_tensor(pos, device=x.device).long().reshape(-1).expand(b)
     q_nope, q_rope = _mla_q(p, x, cfg, cos, sin)         # [B,1,H,*]
     ckv_t, k_rope_t = _mla_latent(p, x, cfg, cos, sin)    # [B,1,R], [B,1,rope]
-    cache = _cache_write_decode(cache, {"ckv": ckv_t, "k_rope": k_rope_t},
-                                pos, "slot_pos" in cache)
-    return _mla_absorbed(p, cfg, q_nope, q_rope, cache, pos[:, None],
-                         window=window, dtype=x.dtype), cache
+    windowed = "slot_pos" in cache
+    return _mla_absorbed(
+        p, cfg, q_nope, q_rope, cache, pos[:, None], window=window,
+        dtype=x.dtype, new={"ckv": ckv_t, "k_rope": k_rope_t},
+        write=lambda c, new, q_pos: _write_decode(c, new, q_pos[:, 0],
+                                                  windowed)), cache

@@ -20,6 +20,10 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+# the reference's ``layers.constrain_replicated`` (weight-stationary decode)
+from repro_torch.sharding.context import constrain_replicated  # noqa: F401
+from repro_torch.sharding.context import lookup, matmul
+
 # --------------------------------------------------------------------------
 # param specs
 # --------------------------------------------------------------------------
@@ -152,12 +156,13 @@ def embed_specs(cfg) -> Dict[str, ParamSpec]:
 
 
 def embed_tokens(p, tokens):
-    return p["tok"][tokens]
+    """The rows of ``tokens`` (under a mesh, ``sharding.context.lookup``)."""
+    return lookup(p["tok"], tokens)
 
 
 def unembed(p, x, softcap: float = 0.0):
     w = p["unembed"] if "unembed" in p else p["tok"].t()
-    logits = torch.matmul(x, w).float()
+    logits = matmul(x, w).float()
     if softcap:
         logits = torch.tanh(logits / softcap) * softcap
     return logits
@@ -233,14 +238,14 @@ def mlp_specs(cfg, d_ff: Optional[int] = None) -> Dict[str, ParamSpec]:
 def _qmm(x, w, scale):
     """x @ int8 w with the per-output-channel scale applied after the
     product (float32), as the reference's ``_qmm``."""
-    return torch.matmul(x, w.to(x.dtype)).float() * scale.float()
+    return matmul(x, w.to(x.dtype)).float() * scale.float()
 
 
 def _mm(p, x, name: str):
     """x @ p[name] in float32 (dequantized when p holds ``<name>_s``)."""
     if name + "_s" in p:
         return _qmm(x, p[name], p[name + "_s"])
-    return torch.matmul(x, p[name]).float()
+    return matmul(x, p[name]).float()
 
 
 def apply_mlp(p, x, activation: str):
@@ -258,4 +263,4 @@ def apply_mlp(p, x, activation: str):
     h = h.to(x.dtype)
     if "wo_s" in p:
         return _qmm(h, p["wo"], p["wo_s"]).to(x.dtype)
-    return torch.matmul(h, p["wo"]).to(x.dtype)
+    return matmul(h, p["wo"]).to(x.dtype)

@@ -20,6 +20,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.layers import ParamSpec, spec
+from repro_torch.sharding.context import Arg, local, matmul
 
 
 def _dims(cfg):
@@ -93,15 +94,47 @@ def _chunk_scan(h, s_chunk, chunk_decay):
     return torch.stack(h_prevs, 1), h
 
 
+#: the small per-channel / per-head params the SSD core reads
+_CORE = ("conv_w", "conv_b", "dt_bias", "a_log", "d_skip", "norm_scale")
+
+
+def _core(fn, proj, states, p):
+    """``fn(proj, *states, params)`` on each rank's local rows under a mesh
+    (``sharding.context.local``: batch-sharded, the small params
+    replicated); outputs [B, ...] (y and the new states)."""
+    names = [k for k in _CORE if k in p]
+
+    def run(proj, *rest):
+        return fn(proj, *rest[:len(states)],
+                  dict(zip(names, rest[len(states):])))
+    return local(run, [Arg(proj, 0)] + [Arg(st, 0) for st in states]
+                 + [Arg(p[k]) for k in names], [(0, None)] * 3)
+
+
 def mamba_forward(p, x, cfg, *, chunk: int = 128,
                   cache=None) -> Tuple[torch.Tensor, Dict]:
     """Full-sequence SSD. x [B,T,d] -> y [B,T,d], and with ``cache`` (its
-    ``ssd`` the initial state) the final state {"conv", "ssd"}."""
-    b, t, d = x.shape
+    ``ssd`` the initial state) the final state {"conv", "ssd"}. Between
+    the two projections the SSD runs per row (``_core``)."""
+    proj = matmul(x, p["in_proj"])
+    y, h, conv_state = _core(
+        lambda proj, h0, conv0, q: _ssd(q, cfg, proj, chunk, h0, conv0),
+        proj, [None if cache is None else cache[k] for k in ("ssd", "conv")],
+        p)
+    out = matmul(y.to(x.dtype), p["out_proj"])
+    if cache is None:
+        return out, {}
+    return out, dict(cache, conv=conv_state, ssd=h)
+
+
+def _ssd(p, cfg, proj, chunk, h0, conv0):
+    """The SSD between the projections: proj [B,T,*] -> (y [B,T,d_inner]
+    float32, the final state, the conv state)."""
+    b, t = proj.shape[:2]
     d_inner, nheads, n = _dims(cfg)
     hd = cfg.ssm_head_dim
 
-    z, xbc, dt = _split_proj(cfg, torch.matmul(x, p["in_proj"]))
+    z, xbc, dt = _split_proj(cfg, proj)
 
     # depthwise causal conv over xBC (kernel ssm_conv_dim)
     kw = cfg.ssm_conv_dim
@@ -133,7 +166,8 @@ def mamba_forward(p, x, cfg, *, chunk: int = 128,
     l = torch.exp(_segsum(da_c.movedim(-1, -2)))             # [B,nc,H,c,c]
     scores = torch.einsum("bzin,bzjn->bzij", cm_c, bm_c)     # [B,nc,c,c]
     dtx = xs_c * dt_c[..., None]                             # [B,nc,c,H,P]
-    y_intra = torch.einsum("bzhij,bzjhp->bzihp", scores[:, :, None] * l, dtx)
+    y_intra = torch.einsum("bzhij,bzjhp->bzihp", scores[:, :, None] * l,
+                           dtx)
 
     # chunk final states: S_z = sum_j exp(da_cs[-1] - da_cs[j]) B_j x_j^T
     decay_states = torch.exp(da_cs[:, :, -1:, :] - da_cs)    # [B,nc,c,H]
@@ -142,8 +176,8 @@ def mamba_forward(p, x, cfg, *, chunk: int = 128,
 
     # inter-chunk recurrence over the nc chunks
     chunk_decay = torch.exp(da_cs[:, :, -1, :])              # [B,nc,H]
-    h = (cache["ssd"].float() if cache is not None
-         else torch.zeros((b, nheads, hd, n), device=x.device))
+    h = (h0.float() if h0 is not None
+         else torch.zeros((b, nheads, hd, n), device=proj.device))
     h_prevs, h = _chunk_scan(h, s_chunk, chunk_decay)       # [B,nc,H,P,N]
 
     # inter-chunk contribution: C_i . (decay_in * h_prev)
@@ -154,25 +188,32 @@ def mamba_forward(p, x, cfg, *, chunk: int = 128,
     y = (y_intra + y_inter).reshape(b, t, nheads, hd)
     y = y + xs.float() * p["d_skip"].float()[None, None, :, None]
     y = _gated_rmsnorm(y.reshape(b, t, d_inner), z, p["norm_scale"])
-    out = torch.matmul(y.to(x.dtype), p["out_proj"])
-    if cache is None:
-        return out, {}
-    if t >= kw - 1:
-        conv_state = xbc[:, t - (kw - 1):, :]
+    if t >= kw - 1 or conv0 is None:
+        conv_state = xbc[:, max(t - (kw - 1), 0):, :]
     else:
-        conv_state = torch.cat([cache["conv"], xbc], 1)[:, -(kw - 1):]
-    return out, dict(cache, conv=conv_state, ssd=h)
+        conv_state = torch.cat([conv0, xbc], 1)[:, -(kw - 1):]
+    return y, h, conv_state
 
 
 def mamba_decode_step(p, x, cfg, cache) -> Tuple[torch.Tensor, Dict]:
     """x [B,1,d]: the O(1) recurrent update. Returns (y [B,1,d], the new
     {"conv", "ssd"})."""
-    b = x.shape[0]
+    y, window, h = _core(
+        lambda proj, conv, ssd, q: _ssd_step(q, cfg, proj, conv, ssd),
+        matmul(x, p["in_proj"]), [cache["conv"], cache["ssd"]], p)
+    return (matmul(y.to(x.dtype), p["out_proj"]),
+            dict(cache, conv=window, ssd=h))
+
+
+def _ssd_step(p, cfg, proj, conv_state, ssd):
+    """One token of the recurrence between the projections: proj [B,1,*]
+    -> (y [B,1,d_inner], the new conv window, the new state)."""
+    b = proj.shape[0]
     d_inner, nheads, n = _dims(cfg)
     hd = cfg.ssm_head_dim
 
-    z, xbc, dt = _split_proj(cfg, torch.matmul(x, p["in_proj"]))  # [B,1,*]
-    window = torch.cat([cache["conv"], xbc], 1)             # [B,kw,ch]
+    z, xbc, dt = _split_proj(cfg, proj)                        # [B,1,*]
+    window = torch.cat([conv_state, xbc], 1)                # [B,kw,ch]
     conv = F.silu(torch.einsum("bkc,kc->bc", window, p["conv_w"])
                   + p["conv_b"])
     xs = conv[:, :d_inner].reshape(b, nheads, hd).float()
@@ -182,10 +223,9 @@ def mamba_decode_step(p, x, cfg, cache) -> Tuple[torch.Tensor, Dict]:
     dtv = F.softplus(dt[:, 0].float() + p["dt_bias"].float())   # [B,H]
     a = -torch.exp(p["a_log"].float())
     dec = torch.exp(dtv * a)                                # [B,H]
-    h = cache["ssd"].float() * dec[..., None, None] + torch.einsum(
+    h = ssd.float() * dec[..., None, None] + torch.einsum(
         "bhp,bn->bhpn", dtv[..., None] * xs, bm)
     y = torch.einsum("bn,bhpn->bhp", cm, h)
     y = y + xs * p["d_skip"].float()[None, :, None]
-    y = _gated_rmsnorm(y.reshape(b, 1, d_inner), z, p["norm_scale"])
-    return (torch.matmul(y.to(x.dtype), p["out_proj"]),
-            dict(cache, conv=window[:, 1:], ssd=h))
+    return (_gated_rmsnorm(y.reshape(b, 1, d_inner), z, p["norm_scale"]),
+            window[:, 1:], h)

@@ -18,6 +18,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.layers import ParamSpec, spec
+from repro_torch.sharding.context import einsum, matmul
 
 
 def resampler_specs(cfg, num_latents: int = 64,
@@ -45,8 +46,8 @@ def _rms(x, scale, eps=1e-6):
 
 def _f32_mm(x, w):
     """x @ w in float32 (w's leading dim contracted, the rest kept)."""
-    return torch.matmul(x.float(), w.float().reshape(w.shape[0], -1)
-                        ).reshape(x.shape[:-1] + w.shape[1:])
+    return matmul(x.float(), w.float().reshape(w.shape[0], -1)
+                  ).reshape(x.shape[:-1] + w.shape[1:])
 
 
 def apply_resampler(p, patches) -> torch.Tensor:
@@ -64,12 +65,12 @@ def apply_resampler(p, patches) -> torch.Tensor:
     q = _f32_mm(q_in, p["wq"])                       # [B,L,H,hd]
     k = _f32_mm(kv_in, p["wk"])                      # [B,N,H,hd]
     v = _f32_mm(kv_in, p["wv"])
-    s = torch.einsum("blhe,bnhe->bhln", q, k) / (hd ** 0.5)
+    s = einsum("blhe,bnhe->bhln", q, k) / (hd ** 0.5)
     a = torch.softmax(s, -1)
-    o = torch.einsum("bhln,bnhe->blhe", a, v)
-    lat = lat + torch.matmul(o.reshape(o.shape[0], o.shape[1], -1),
-                             p["wo"].float().reshape(-1, p["wo"].shape[-1])
-                             ).to(patches.dtype)
+    o = einsum("bhln,bnhe->blhe", a, v)
+    lat = lat + matmul(o.reshape(o.shape[0], o.shape[1], -1),
+                       p["wo"].float().reshape(-1, p["wo"].shape[-1])
+                       ).to(patches.dtype)
     h = _f32_mm(_rms(lat, p["ln_q"]), p["mlp_wi"])
     # jax.nn.gelu defaults to the tanh approximation
     h = F.gelu(h, approximate="tanh").to(patches.dtype)

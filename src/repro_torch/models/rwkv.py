@@ -18,6 +18,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.layers import ParamSpec, spec
+from repro_torch.sharding.context import Arg, keep_sharded, local, matmul
 
 _LORA_R = 32   # decay-LoRA rank (the reference's scaled-down default)
 
@@ -80,16 +81,17 @@ def _time_mix_streams(p, x, x_prev, cfg):
     """The five streams: r, k, v, g [..., H, hd] in x's dtype and the
     decay w [..., H, hd] in float32."""
     nheads, hd = _dims(cfg)
-    r = torch.matmul(_lerp(x, x_prev, p["mu_r"]), p["w_r"])
-    k = torch.matmul(_lerp(x, x_prev, p["mu_k"]), p["w_k"])
-    v = torch.matmul(_lerp(x, x_prev, p["mu_v"]), p["w_v"])
-    g = torch.matmul(_lerp(x, x_prev, p["mu_g"]), p["w_g"])
+    r = matmul(_lerp(x, x_prev, p["mu_r"]), p["w_r"])
+    k = matmul(_lerp(x, x_prev, p["mu_k"]), p["w_k"])
+    v = matmul(_lerp(x, x_prev, p["mu_v"]), p["w_v"])
+    g = matmul(_lerp(x, x_prev, p["mu_g"]), p["w_g"])
     xw = _lerp(x, x_prev, p["mu_w"])
-    w_dyn = torch.matmul(torch.matmul(xw, p["w_lora_a"]), p["w_lora_b"])
+    w_dyn = matmul(matmul(xw, p["w_lora_a"]), p["w_lora_b"])
     w = torch.exp(-torch.exp((p["w0"] + w_dyn).float()))     # (0, 1)
     shp = x.shape[:-1] + (nheads, hd)
-    return (r.reshape(shp), k.reshape(shp), v.reshape(shp),
-            g.reshape(shp), w.reshape(shp))
+    # under a mesh: rwkv6-3b's 40 heads do not split over a 16-wide
+    # "model" axis, so the streams keep only their batch sharding
+    return tuple(keep_sharded(t, (0,)).reshape(shp) for t in (r, k, v, g, w))
 
 
 def _wkv_step(state, r, k, v, w, u):
@@ -109,6 +111,14 @@ def _wkv_scan(state, r, k, v, w, u):
     ``_wkv_step`` each (the reference's ``lax.scan``), r, k and v cast to
     float32 once. Returns (ys [B,T,H,hd] float32, the final state)."""
     r, k, v = r.float(), k.float(), v.float()
+    if r.device.type == "meta":
+        # shape-only stand-ins (the dry run): the loop's products in one
+        # batched matmul, the same matmul FLOPs forward and backward, with
+        # no per-token dispatch
+        kv = k[..., :, None] * v[..., None, :]               # [B,T,H,hd,hd]
+        ys = torch.matmul(r[..., None, :], torch.addcmul(
+            state[:, None], u[..., None], kv))[..., 0, :]
+        return ys, torch.addcmul(kv[:, -1], w[:, -1, ..., None], state)
     ys = []
     for i in range(r.shape[1]):
         y, state = _wkv_step(state, r[:, i], k[:, i], v[:, i], w[:, i], u)
@@ -134,26 +144,40 @@ def _shifted(x, shift: Optional[torch.Tensor]):
 def time_mix_forward(p, x, cfg, state=None) -> Tuple[torch.Tensor, Dict]:
     """x [B,T,d]: the recurrence over T. ``state``: {"tm_shift", "wkv"}
     or None. Returns (out [B,T,d], {"tm_shift", "wkv"})."""
-    b, t, d = x.shape
+    b = x.shape[0]
     nheads, hd = _dims(cfg)
     r, k, v, g, w = _time_mix_streams(
         p, x, _shifted(x, None if state is None else state["tm_shift"]), cfg)
     s = (state["wkv"].float() if state is not None
          else torch.zeros((b, nheads, hd, hd), device=x.device))
-    ys, s = _wkv_scan(s, r, k, v, w, p["u"].float())
-    ys = _group_norm(ys, p["ln_scale"].reshape(nheads, hd),
-                     p["ln_bias"].reshape(nheads, hd))
-    ys = ys.reshape(b, t, d) * F.silu(g.reshape(b, t, d).float())
-    out = torch.matmul(ys.to(x.dtype), p["w_o"])
+    # the recurrence, its group norm and the gate are per (row, head):
+    # under a mesh they run on each rank's local rows and heads
+    ys, s = local(_wkv_out, [Arg(s, 0, 1), Arg(r, 0, 2), Arg(k, 0, 2),
+                             Arg(v, 0, 2), Arg(w, 0, 2), Arg(g, 0, 2),
+                             Arg(p["u"].float(), None, 0),
+                             Arg(p["ln_scale"], None, 0),
+                             Arg(p["ln_bias"], None, 0)],
+                  [(0, 2), (0, 1)])
+    out = matmul(ys.to(x.dtype), p["w_o"])
     return out, {"tm_shift": x[:, -1], "wkv": s}
+
+
+def _wkv_out(s, r, k, v, w, g, u, ln_scale, ln_bias):
+    """The scan over r, k, v, w [B,T,H,hd] from state s, each head's group
+    norm, and the gate g: (ys [B,T,H*hd] float32, the final state)."""
+    ys, s = _wkv_scan(s, r, k, v, w, u)
+    heads = r.shape[-2:]
+    ys = _group_norm(ys, ln_scale.reshape(heads), ln_bias.reshape(heads))
+    b, t = r.shape[:2]
+    return ys.reshape(b, t, -1) * F.silu(g.reshape(b, t, -1).float()), s
 
 
 def channel_mix_forward(p, x, cfg, state=None) -> Tuple[torch.Tensor, Dict]:
     x_prev = _shifted(x, None if state is None else state["cm_shift"])
-    k = torch.matmul(_lerp(x, x_prev, p["mu_k"]), p["w_k"])
+    k = matmul(_lerp(x, x_prev, p["mu_k"]), p["w_k"])
     k = torch.relu(k).square()
-    r = torch.sigmoid(torch.matmul(_lerp(x, x_prev, p["mu_r"]), p["w_r"]))
-    return r * torch.matmul(k, p["w_v"]), {"cm_shift": x[:, -1]}
+    r = torch.sigmoid(matmul(_lerp(x, x_prev, p["mu_r"]), p["w_r"]))
+    return r * matmul(k, p["w_v"]), {"cm_shift": x[:, -1]}
 
 
 # Layer assembly (pre-norms and residuals) lives in models/transformer.py,

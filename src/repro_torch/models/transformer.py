@@ -58,6 +58,8 @@ from repro_torch.models import moe as MOE
 from repro_torch.models import rwkv as R
 from repro_torch.models.resampler import apply_resampler, resampler_specs
 from repro_torch.models.layers import ParamSpec, spec
+from repro_torch.sharding.context import (distribute_cache, is_dtensor,
+                                          matmul)
 
 
 def stack_specs(tree, n: int, axis_name: Optional[str] = "layers"):
@@ -160,7 +162,9 @@ def _dense_layer_extend(cfg, p, x, cos, sin, cache, start, *, window,
 
 
 def _dense_layer_decode(cfg, p, x, cos, sin, cache, pos, *, window,
-                        moe_cap=None):
+                        moe_cap=None, weight_stationary=False):
+    if weight_stationary:
+        x = L.constrain_replicated(x)
     h = L.apply_norm(p["ln1"], x, cfg.norm)
     decode = attn.mla_decode_attention if cfg.use_mla \
         else attn.decode_attention
@@ -284,9 +288,11 @@ class Model:
         }
 
     def init_cache(self, batch, cache_len, windowed=False, device="cpu"):
-        return attn.zeros_from_specs(
-            self.cache_specs(batch, cache_len, windowed), self.cfg.dtype,
-            device)
+        """Zeros (``slot_pos`` -1); under a mesh, DTensors laid out by the
+        rules' cache shardings (``sharding.context.distribute_cache``)."""
+        specs = self.cache_specs(batch, cache_len, windowed)
+        return distribute_cache(
+            attn.zeros_from_specs(specs, self.cfg.dtype, device), specs)
 
     # ------------------------------------------------------- rope helpers --
     def _cos_sin(self, positions):
@@ -316,9 +322,9 @@ class Model:
             else:
                 w1, w2 = params["projector"]["w1"], params["projector"]["w2"]
                 # jax.nn.gelu defaults to the tanh approximation
-                ve = F.gelu(torch.matmul(ve, w1).float(),
+                ve = F.gelu(matmul(ve, w1).float(),
                             approximate="tanh").to(x.dtype)
-                ve = torch.matmul(ve, w2).to(x.dtype)
+                ve = matmul(ve, w2).to(x.dtype)
             x = torch.cat([ve, x], dim=1)
         b, s = x.shape[0], x.shape[1]
         if "positions" in batch:
@@ -501,7 +507,15 @@ class Model:
                               device=logits.device)
         logits = logits.float()
         lse = torch.logsumexp(logits, dim=-1)
-        ll = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+        if is_dtensor(logits):
+            # DTensor's rule for a gather on vocab-sharded logits fails
+            # (its masked partial cannot follow the [..., 0]): the label's
+            # logit as a masked sum instead, the same number
+            hit = labels.long()[..., None] == torch.arange(
+                logits.shape[-1], device=logits.device)
+            ll = torch.where(hit, logits, 0.0).sum(-1)
+        else:
+            ll = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
         nll = (lse - ll) * mask
         loss = nll.sum() / torch.clamp(mask.sum(), min=1.0)
         if "lb_loss" in aux:
@@ -613,11 +627,14 @@ class Model:
     # ------------------------------------------------------------ decode --
     def decode_step(self, params, cache, tokens, pos, *,
                     windowed: bool = False, window: Optional[int] = None,
-                    moe_cap: Optional[float] = None):
+                    moe_cap: Optional[float] = None,
+                    weight_stationary: bool = False):
         """tokens [B,1] -> (logits [B,V], cache).
 
         pos: scalar (all requests at one position) or [B] per-request
-        positions (continuous batching).
+        positions (continuous batching). ``weight_stationary`` replicates
+        each dense / vlm / moe layer's input under a mesh (the reference's
+        ``constrain_replicated``); without one it changes nothing.
         """
         cfg = self.cfg
         window = (cfg.sliding_window if windowed else 0) if window is None \
@@ -643,7 +660,7 @@ class Model:
                     x, _ = _dense_layer_decode(
                         lcfg, _layer(params[key], i), x, cos, sin,
                         _layer(cache[key], i), pos, window=window,
-                        moe_cap=moe_cap)
+                        moe_cap=moe_cap, weight_stationary=weight_stationary)
         return self._head(params, x)[:, 0], cache
 
     def _hybrid_decode(self, params, x, cache, cos, sin, pos):

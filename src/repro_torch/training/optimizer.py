@@ -71,15 +71,16 @@ def global_norm(tree) -> torch.Tensor:
 
 
 def adamw_init(params) -> Dict[str, Any]:
-    """Zero float32 moments shaped as the params, and step 0 (int32)."""
+    """Zero float32 moments shaped (and, for DTensor params, laid out) as
+    the params, and step 0 (int32)."""
     leaves = tree_leaves(params)
     dev = leaves[0].device if leaves else "cpu"
 
     def zeros():
-        return tree_unflatten(params, [torch.zeros(p.shape,
-                                                    dtype=torch.float32,
-                                                    device=p.device)
-                                        for p in leaves])
+        return tree_unflatten(params, [
+            torch.zeros_like(p, dtype=torch.float32,
+                             memory_format=torch.contiguous_format)
+            for p in leaves])
     return {"mu": zeros(), "nu": zeros(),
             "step": torch.zeros((), dtype=torch.int32, device=dev)}
 

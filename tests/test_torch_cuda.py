@@ -1384,3 +1384,39 @@ def test_phi4_smoke_trains_on_card_as_on_cpu(dev, tmp_path):
     cpu = train_loop(model, device="cpu", **kw)
     np.testing.assert_allclose(card["loss_curve"], cpu["loss_curve"],
                                rtol=1e-4)
+
+
+def _tree(t, fn):
+    if isinstance(t, dict):
+        return {k: _tree(v, fn) for k, v in t.items()}
+    if isinstance(t, tuple):
+        return tuple(_tree(v, fn) for v in t)
+    return fn(t)
+
+
+@pytest.mark.parametrize("shape", ["train_4k", "prefill_32k", "decode_32k",
+                                   "long_500k"])
+def test_host_mesh_step_on_card_matches_cpu(dev, shape):
+    """``launch.steps``' step of qwen2-vl smoke (float32) on the 1x1 CUDA
+    mesh, DTensor params / batch / cache and the kernels under
+    ``local_map``, against the same step on the CPU's plain tensors:
+    logits (or the loss) within 1e-3 of their scale."""
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.steps import (build_step, distribute_args,
+                                          materialize, run_step)
+    cut = {"train_4k": dict(global_batch=2, seq_len=64),
+           "prefill_32k": dict(global_batch=1, seq_len=96),
+           "decode_32k": dict(global_batch=4, seq_len=80),
+           "long_500k": dict(global_batch=1, seq_len=300)}[shape]
+    spec = build_step("qwen2-vl-2b", shape, make_host_mesh(dev), smoke=True,
+                      **cut)
+    args = materialize(spec, 0, "cpu")
+    want = spec.step(*_tree(args, torch.clone))
+    n0 = fa.flash_attention.launches + pa.paged_attention.launches
+    got = run_step(spec, distribute_args(spec, _tree(args,
+                                                     lambda t: t.to(dev))))
+    assert fa.flash_attention.launches + pa.paged_attention.launches > n0
+    i = 2 if shape == "train_4k" else 0
+    g = got[i].full_tensor().cpu()
+    scale = max(1.0, float(want[i].abs().max()))
+    assert float((g - want[i]).abs().max()) <= 1e-3 * scale

@@ -128,8 +128,10 @@ def test_cpu_wrapper_takes_the_autograd_route():
 def fake_card(monkeypatch):
     """The wrappers' device-tensor route on ``meta`` tensors: the device
     check passes, the kernels' C entries record their arguments instead of
-    launching, and the stream is 0."""
+    launching, and the stream is 0 (``meta`` otherwise takes the plain
+    version, as the dry run's shape-only stand-ins do)."""
     calls = {"fwd": [], "bwd": []}
+    monkeypatch.setattr(fa, "plain_device", _cpu_only)
     monkeypatch.setattr(fa, "_check_kernel_inputs", lambda *a: None)
     monkeypatch.setattr(fa, "_lib", lambda: (
         lambda *a: calls["fwd"].append(a) or 0))
@@ -138,6 +140,10 @@ def fake_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "current_stream",
                         lambda dev=None: types.SimpleNamespace(cuda_stream=0))
     return calls
+
+
+def _cpu_only(t):
+    return t.device.type == "cpu"
 
 
 def _meta(shape, grad):
@@ -163,7 +169,10 @@ def test_device_wrapper_runs_autograd_function(fake_card):
     assert len(fake_card["bwd"]) == 1
 
 
-def test_decode_kernels_refuse_a_gradient_off_the_cpu():
+def test_decode_kernels_refuse_a_gradient_off_the_cpu(monkeypatch):
+    # ``meta`` stands in for a card tensor here
+    monkeypatch.setattr(pa, "plain_device", _cpu_only)
+    monkeypatch.setattr(ma, "plain_device", _cpu_only)
     q = _meta((2, 4, 32), True)
     pages = _meta((4, 16, 2, 32), False)
     table = torch.zeros((2, 2), dtype=torch.int32, device="meta")

@@ -9,7 +9,10 @@ plain run, a prefix-affinity fleet with a shared prefix, a
 prefill/decode fleet (with its Prometheus text), an adaptive-control
 run, and runs of the rwkv6-3b and zamba2-1.2b smoke models. The
 training CLI (``python -m repro_torch.launch.train``) prints the
-reference's ``done:`` line, and refuses ``--dry-run`` (no mesh yet).
+reference's ``done:`` line. ``--dry-run`` of either CLI runs the port's
+dry run in a subprocess with the reference's arguments
+(``repro_torch.launch.dryrun`` for ``repro.launch.dryrun``) and returns
+its exit code.
 """
 import json
 import re
@@ -68,10 +71,40 @@ def test_cli_report_equals_reference(case, monkeypatch, capsys):
     assert port == ref
 
 
+def _delegated(monkeypatch, run, argv):
+    """The command ``run()`` hands to ``subprocess.call`` (recorded, not
+    run; it exits 7) and ``run``'s return value."""
+    import subprocess
+    calls = []
+
+    def call(cmd, **kw):
+        calls.append(list(cmd))
+        return 7
+    monkeypatch.setattr(subprocess, "call", call)
+    monkeypatch.setattr(sys, "argv", argv)
+    rc = run()
+    assert len(calls) == 1
+    return calls[0], rc
+
+
+def _dry_run_delegates(monkeypatch, jmain, tmain, arch, extra=()):
+    args = ["--dry-run"] + (["--arch", arch] if arch else [])
+    ref, ref_rc = _delegated(monkeypatch, jmain, ["x"] + args)
+    port, port_rc = _delegated(
+        monkeypatch, lambda: tmain(args + list(extra)), ["x"])
+    assert ref[1:3] == ["-m", "repro.launch.dryrun"]
+    assert port[1:3] == ["-m", "repro_torch.launch.dryrun"]
+    assert port[0] == ref[0] and port[3:] == ref[3:]
+    assert port_rc == ref_rc == 7
+
+
 def test_cli_refuses_dry_run_and_needs_a_device(capsys, monkeypatch):
-    with pytest.raises(SystemExit):
-        tserve.main(["--dry-run", "--device", "cpu"])
-    assert "production mesh" in capsys.readouterr().err
+    """(The dry run is no longer refused.) ``--dry-run`` delegates to the
+    port's dry run with the reference's arguments and returns its exit
+    code; without ``--device`` and without a card the serve CLI raises."""
+    for arch in (None, "phi4-mini-3.8b"):
+        _dry_run_delegates(monkeypatch, jserve.main, tserve.main, arch,
+                           extra=("--device", "cpu"))
     import torch
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
@@ -106,8 +139,10 @@ def _train_cli_run(monkeypatch, capsys):
     assert float(port.group(2)) < float(port.group(1))
 
 
-def test_train_cli_refuses_dry_run(capsys):
-    with pytest.raises(SystemExit) as exc:
-        ttrain.main(["--dry-run", "--device", "cpu"])
-    assert exc.value.code == 2
-    assert "production mesh" in capsys.readouterr().err
+def test_train_cli_refuses_dry_run(capsys, monkeypatch):
+    """(The dry run is no longer refused.) ``launch.train --dry-run``
+    delegates to the port's dry run of train_4k with the reference's
+    arguments and returns its exit code."""
+    for arch in (None, "qwen2-vl-2b"):
+        _dry_run_delegates(monkeypatch, jtrain.main, ttrain.main, arch,
+                           extra=("--device", "cpu"))

@@ -110,7 +110,7 @@ def test_mla_attention_ref_matches_reference_einsums(case):
     assert ma.mla_attention.launches == 0       # CPU: the plain version
 
 
-def test_mla_attention_shape_checks():
+def test_mla_attention_shape_checks(monkeypatch):
     z = torch.zeros
     with pytest.raises(ValueError, match="latent widths"):
         ops.mla_attention(z(1, 1, 4, 32), z(1, 1, 4, 16), z(1, 8, 64),
@@ -118,6 +118,14 @@ def test_mla_attention_shape_checks():
     with pytest.raises(ValueError, match="q_pos"):
         ops.mla_attention(z(1, 2, 4, 32), z(1, 2, 4, 16), z(1, 8, 32),
                           z(1, 8, 16), z(1, 1, dtype=torch.int32), scale=1.0)
+    # ``meta`` (the dry run's stand-ins) takes the plain version, shapes only
+    m = {"device": "meta"}
+    out = ma.mla_attention(z(1, 1, 4, 32, **m), z(1, 1, 4, 16, **m),
+                           z(1, 8, 32, **m), z(1, 8, 16, **m),
+                           z(1, 1, dtype=torch.int32, **m), scale=1.0)
+    assert out.device.type == "meta" and tuple(out.shape) == (1, 1, 4, 32)
+    # as a stand-in for another device, it is refused
+    monkeypatch.setattr(ma, "plain_device", lambda t: t.device.type == "cpu")
     with pytest.raises(ValueError, match="unsupported device"):
         ma.mla_attention(z(1, 1, 4, 32, device="meta"), z(1, 1, 4, 16),
                          z(1, 8, 32), z(1, 8, 16), z(1, 1), scale=1.0)

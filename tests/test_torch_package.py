@@ -250,3 +250,45 @@ def test_train_cli_runs_without_jax():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert "--device" in out.stdout and "--ckpt-every" in out.stdout
+
+
+@pytest.mark.parametrize("path", [
+    "sharding/__init__.py", "sharding/compat.py", "sharding/specs.py",
+    "launch/mesh.py", "launch/steps.py", "launch/dryrun.py",
+    "launch/train.py", "roofline/__init__.py", "roofline/analysis.py",
+    "obs/regress.py"])
+def test_sharding_and_roofline_modules_are_ported(path):
+    """Each module of the sharding, dry-run and roofline slice has its
+    reference, and imports neither JAX nor the JAX package (the probe
+    above imports it with JAX blocked)."""
+    _assert_ported(path)
+
+
+def test_only_the_analyzer_and_hlo_walk_are_left():
+    """A file-by-file comparison of the two trees leaves the static
+    analyzer (``analysis/*`` but its sanitizer) and ``roofline/hlo_cost``,
+    whose place ``roofline/step_cost`` takes."""
+    ref = {p.relative_to(ROOT / "src" / "repro").as_posix()
+           for p in (ROOT / "src" / "repro").rglob("*.py")}
+    port = {p.relative_to(ROOT / "src" / "repro_torch").as_posix()
+            for p in (ROOT / "src" / "repro_torch").rglob("*.py")}
+    left = ref - port
+    assert "roofline/hlo_cost.py" in left and "roofline/step_cost.py" in port
+    assert left - {"roofline/hlo_cost.py"} == {
+        p for p in ref if p.startswith("analysis/")} - {
+        "analysis/__init__.py", "analysis/sanitizer.py"}
+
+
+def test_importing_the_port_opens_no_process_group():
+    probe = ("import importlib, pkgutil, sys; sys.modules['jax'] = None\n"
+             "import torch.distributed as dist, repro_torch\n"
+             "for m in pkgutil.walk_packages(repro_torch.__path__, "
+             "'repro_torch.'):\n"
+             "    importlib.import_module(m.name)\n"
+             "assert not dist.is_initialized()\n"
+             "from repro_torch.sharding.context import current\n"
+             "assert current() is None\n")
+    out = subprocess.run([sys.executable, "-c", probe],
+                         env=dict(os.environ, PYTHONPATH=str(ROOT / "src")),
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
