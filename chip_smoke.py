@@ -51,7 +51,10 @@ width on a 1x1 DTensor mesh over the card (every kernel under
 ``local_map``), each against the same step without a mesh, with its wall,
 busy, roofline share and MFU, and join the dry run of qwen2-vl-2b on the
 two production meshes (a subprocess on the host's CPU, started before
-the training phases). Each phase prints one JSON line; the
+the training phases). Right after the build, the ``analysis`` phase
+runs the port's static analyzer (``repro_torch.analysis``) over the
+checkout and holds its kernel-binding tables (admitted shapes, argtypes
+lengths) to the libraries just built. Each phase prints one JSON line; the
 last two lines are the kernel summary and ``{"ok": true, "device":
 {...}}``. Any failure raises and exits non-zero before that line.
 Needs one CUDA device of compute capability 9.0.
@@ -340,6 +343,60 @@ def phase_build() -> dict:
               for r in bwd_routes.values()),
           f"flash backward routes: {bwd_routes}")
     return res
+
+
+#: a head dim / latent rank that no wrapper admits and no library
+#: instantiates: every ``<lib>_smem_bytes`` must answer -1 for it
+ANALYSIS_OUTSIDE = 96
+
+
+def phase_analysis() -> None:
+    """The port's static analyzer (``repro_torch.analysis``) over the
+    checkout on the card's host: 0 findings. Then the K-rules' static
+    reading against the libraries ``build`` just compiled: for every
+    (dtype, head dim or latent rank) a wrapper admits, the loaded
+    library's ``<lib>_smem_bytes`` is positive; for ``ANALYSIS_OUTSIDE``
+    it is -1; and each wrapper's bound ``argtypes`` has the length that
+    K001 folded from its source, which is the C definition's parameter
+    count. Mirrors how the sanitizer confirms the R-rules at run time."""
+    import ctypes
+    import importlib
+    from repro_torch.analysis import RULE_FAMILIES, run_analysis
+    from repro_torch.analysis.rules_kernels import binding_table
+    from repro_torch.kernels import build
+    t0 = time.perf_counter()
+    root = os.path.dirname(os.path.abspath(__file__))
+    report = run_analysis(root=root)
+    lint_s = time.perf_counter() - t0
+    by_family = {fam: sum(f.rule.startswith(fam) for f in report.findings)
+                 for fam in RULE_FAMILIES}
+    check(report.ok, "repro_torch.analysis findings:\n" + report.render())
+    rows = binding_table(root)
+    check(sorted(r["lib"] for r in rows) == sorted(build.KERNELS),
+          f"bindings {[r['lib'] for r in rows]} != {build.KERNELS}")
+    bindings = {}
+    for r in rows:
+        smem = getattr(build.load(r["lib"]), r["lib"] + "_smem_bytes")
+        smem.argtypes = [ctypes.c_int, ctypes.c_int]
+        smem.restype = ctypes.c_int
+        got = {f"{dt}/{x}": smem(code, x)
+               for dt, code in (("float32", 0), ("bfloat16", 1))
+               for x in r["admitted"] + [ANALYSIS_OUTSIDE]}
+        bad = {k: v for k, v in got.items()
+               if (v != -1 if k.endswith(f"/{ANALYSIS_OUTSIDE}") else v <= 0)}
+        check(not bad, f"{r['lib']}_smem_bytes disagrees with the admitted "
+                       f"shapes {r['admitted']}: {bad}")
+        fn = getattr(importlib.import_module(r["module"]), r["function"])()
+        check(len(fn.argtypes) == r["argtypes"] == r["c_params"],
+              f"{r['symbol']}: bound argtypes {len(fn.argtypes)}, folded "
+              f"{r['argtypes']}, C parameters {r['c_params']}")
+        bindings[r["symbol"]] = {
+            "binding": f"{r['module']}.{r['function']}",
+            "argtypes": len(fn.argtypes), "c_params": r["c_params"],
+            "instantiated": r["instantiated"], "smem_bytes": got}
+    emit("analysis", seconds=time.perf_counter() - t0, lint_seconds=lint_s,
+         files_checked=report.files_checked, findings=len(report.findings),
+         findings_by_family=by_family, bindings=bindings)
 
 
 def _hgmma_count(name: str, function: str = "") -> int:
@@ -5661,6 +5718,7 @@ def main() -> int:
     t_start = time.perf_counter()
     env = phase_env()
     built = phase_build()
+    phase_analysis()
     flush = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device="cuda")
     kernels = phase_kernels(flush)
     kernels["flash_attention_bwd"] = phase_kernels_flash_bwd(

@@ -253,6 +253,19 @@ def test_train_cli_runs_without_jax():
 
 
 @pytest.mark.parametrize("path", [
+    "analysis/__init__.py", "analysis/__main__.py", "analysis/cfg.py",
+    "analysis/findings.py", "analysis/registry.py", "analysis/runner.py",
+    "analysis/tables.py", "analysis/rules_layering.py",
+    "analysis/rules_resource.py", "analysis/rules_async.py",
+    "analysis/rules_kernels.py", "analysis/rules_obs.py"])
+def test_analyzer_modules_are_ported(path):
+    """Each module of the static analyzer has its reference, and imports
+    neither JAX nor the JAX package, not even ``repro.analysis`` (the
+    probe above imports it with JAX blocked)."""
+    _assert_ported(path)
+
+
+@pytest.mark.parametrize("path", [
     "sharding/__init__.py", "sharding/compat.py", "sharding/specs.py",
     "launch/mesh.py", "launch/steps.py", "launch/dryrun.py",
     "launch/train.py", "roofline/__init__.py", "roofline/analysis.py",
@@ -265,18 +278,16 @@ def test_sharding_and_roofline_modules_are_ported(path):
 
 
 def test_only_the_analyzer_and_hlo_walk_are_left():
-    """A file-by-file comparison of the two trees leaves the static
-    analyzer (``analysis/*`` but its sanitizer) and ``roofline/hlo_cost``,
-    whose place ``roofline/step_cost`` takes."""
+    """A file-by-file comparison of the two trees leaves only
+    ``roofline/hlo_cost``, whose place ``roofline/step_cost`` takes: the
+    static analyzer (``analysis/*``) is ported beside its sanitizer."""
     ref = {p.relative_to(ROOT / "src" / "repro").as_posix()
            for p in (ROOT / "src" / "repro").rglob("*.py")}
     port = {p.relative_to(ROOT / "src" / "repro_torch").as_posix()
             for p in (ROOT / "src" / "repro_torch").rglob("*.py")}
-    left = ref - port
-    assert "roofline/hlo_cost.py" in left and "roofline/step_cost.py" in port
-    assert left - {"roofline/hlo_cost.py"} == {
-        p for p in ref if p.startswith("analysis/")} - {
-        "analysis/__init__.py", "analysis/sanitizer.py"}
+    assert ref - port == {"roofline/hlo_cost.py"}
+    assert "roofline/step_cost.py" in port
+    assert {p for p in ref if p.startswith("analysis/")} <= port
 
 
 def test_importing_the_port_opens_no_process_group():
