@@ -39,10 +39,13 @@ over whisper's cross cache), compare rwkv6, zamba2, the perceiver vlm
 and whisper smoke card against CPU, and serve the four at full published
 width (depth uncut, but rwkv6's, cut to 8 of 32 layers). The training
 phases hold the flash backward kernel against its plain version on both
-of its routes (bf16 at head dim 32 / 64 / 128 on the tensor cores, the
-rest on FMAs), check that two launches give the same bits, and time it
-beside the backward of ``scaled_dot_product_attention``, train every
-smoke config 3 steps card against CPU, and train qwen2-vl-2b at full
+of its routes (bf16 on the tensor cores -- at head dim 192, MLA's and
+nemotron's, over two consumer warpgroups -- float32 on FMAs), check that
+two launches give the same bits, and time it beside the backward of
+``scaled_dot_product_attention``, train every smoke config 3 steps card
+against CPU, train deepseek-v3-671b at full width cut to its 3 dense
+layers (3 steps of 2 x 1024 tokens: MLA's flash backward at head dim
+192 on the card's main training path), and train qwen2-vl-2b at full
 width, 14 of its 28 layers (bf16, remat, batch 4 of 1024 visual + 64
 text tokens) 10 steps through ``train_loop`` with a checkpoint at step 5
 and a resume from it, then run the training CLI. The sharding phases run
@@ -60,9 +63,11 @@ last two lines are the kernel summary and ``{"ok": true, "device":
 Needs one CUDA device of compute capability 9.0.
 
     python3 chip_smoke.py --mla-split-sweep
+    python3 chip_smoke.py --bwd-split-sweep
 
-times the latent kernel's tensor-core route at split counts around the
-wrapper's choice instead (``mla_split_sweep``).
+time the latent kernel's tensor-core route at split counts around the
+wrapper's choice (``mla_split_sweep``), or the flash backward's head-dim-192
+cases at every count of q-head groups (``bwd_split_sweep``), instead.
 """
 from __future__ import annotations
 
@@ -305,11 +310,12 @@ def _ptxas_report(log: str) -> list:
 
 
 def phase_build() -> dict:
-    """Build the three kernels from the checkout's sources (one nvcc each,
+    """Build the four kernels from the checkout's sources (one nvcc each,
     in parallel); print ptxas's registers and spills, each kernel's
     dynamic shared memory (per head dim; the latent kernel's per latent
     rank) and the count of HGMMA (wgmma) instructions in the flash
-    library's SASS, which must not be 0."""
+    library's SASS, which must not be 0; the flash backward's wgmma route
+    has HGMMA at every bf16 head dim, and its D 192 kernels no spills."""
     from repro_torch.kernels import build
     t0 = time.perf_counter()
     res = build.build_all()
@@ -342,6 +348,10 @@ def phase_build() -> dict:
     check(all((r["route"] == "wgmma") == (r["hgmma"] > 0)
               for r in bwd_routes.values()),
           f"flash backward routes: {bwd_routes}")
+    d192 = bwd_routes["bfloat16/d192"]["ptxas"]
+    check(all(e is not None and " 0 bytes spill stores" in e["spills"]
+              for e in d192.values()),
+          f"flash backward D 192 wgmma kernels spill or are missing: {d192}")
     return res
 
 
@@ -442,7 +452,8 @@ def _bwd_routes(log: str) -> dict:
     ``bwd_route`` must repeat), its dynamic shared memory, ptxas's
     registers and spills of each of its kernels, and the HGMMA count of
     their SASS (wgmma route: the dK/dV kernel with one bf16 operand and
-    with hi + lo, and the dQ kernel)."""
+    with hi + lo -- at D 192 the one with two consumer warpgroups -- the
+    dQ kernel and the prep kernel)."""
     from repro_torch.kernels import build
     from repro_torch.kernels import flash_attention as fa
     lib = build.load("flash_attention_bwd")
@@ -458,10 +469,11 @@ def _bwd_routes(log: str) -> dict:
                   f"flash bwd route of {dtype} D {d}: library {route}, "
                   f"wrapper {fa.bwd_route(dtype, d)}")
             inner = 32 if d == 192 else 64
+            kv = "wide" if d == 192 else "tc"   # two consumer warpgroups
             names = {
-                "dkdv": f"flash_bwd_dkdv_tc_kernelILi{d}ELb0E",
-                "dkdv_hilo": f"flash_bwd_dkdv_tc_kernelILi{d}ELb1E",
-                "dq": f"flash_bwd_dq_tc_kernelILi{d}E",
+                "dkdv": f"flash_bwd_dkdv_{kv}_kernelILi{d}ELb0E",
+                "dkdv_hilo": f"flash_bwd_dkdv_{kv}_kernelILi{d}ELb1E",
+                "dq": f"flash_bwd_dq_{kv}_kernelILi{d}E",
                 "prep": f"flash_bwd_prep_kernelILi{d}E"} \
                 if route == "wgmma" else {
                 "dkdv": f"flash_bwd_dkdv_kernel{mangled}Li{d}ELi{inner}E",
@@ -5155,7 +5167,8 @@ def phase_profile(lvlm, prompts, ves) -> None:
 #: of 1024 visual + 64 text tokens), a window that masks (zamba2's heads),
 #: whisper's cross attention (16 decoder tokens over 1500 frames), MLA's
 #: prefill at head dim 192 with ``scale=`` and v zero-padded from 128,
-#: head dim 32, and 48 q heads per kv head.
+#: nemotron-4-340b's 96 q heads over 8 kv heads at head dim 192 (G 12:
+#: hi + lo operands), head dim 32, and 48 q heads per kv head.
 FLASH_BWD_CASES = (
     ("train", dict(b=4, h=12, kvh=2, sq=1088, sk=1088, d=128), {}),
     ("window", dict(b=1, h=32, kvh=32, sq=1024, sk=1024, d=64),
@@ -5164,6 +5177,7 @@ FLASH_BWD_CASES = (
      dict(causal=False)),
     ("mla", dict(b=1, h=128, kvh=128, sq=1024, sk=1024, d=192, v_width=128),
      dict(scale=192 ** -0.5)),
+    ("nemotron", dict(b=1, h=96, kvh=8, sq=1056, sk=1056, d=192), {}),
     ("d32", dict(b=1, h=8, kvh=2, sq=1056, sk=1056, d=32), {}),
     ("g48", dict(b=1, h=48, kvh=1, sq=1056, sk=1056, d=128), {}),
 )
@@ -5200,14 +5214,17 @@ def _train_counts() -> dict:
 
 def _bwd_inputs(rng, c, dtype):
     """q, k, v as the model gives them ([B,S,N,D] tensors seen as
-    [B,N,S,D]) and a dense dO; MLA's v has zero columns past its width."""
+    [B,N,S,D]) and a dense dO; MLA's v and dO have zero columns past v's
+    width (the model slices those columns off the output)."""
     b, h, kvh, sq, sk, d = (c[x] for x in ("b", "h", "kvh", "sq", "sk", "d"))
     q = randn(rng, (b, sq, h, d), dtype).transpose(1, 2)
     k = randn(rng, (b, sk, kvh, d), dtype).transpose(1, 2)
     v = randn(rng, (b, sk, kvh, d), dtype).transpose(1, 2)
+    do = randn(rng, (b, h, sq, d), dtype)
     if c.get("v_width"):
         v[..., c["v_width"]:] = 0
-    return q, k, v, randn(rng, (b, h, sq, d), dtype)
+        do[..., c["v_width"]:] = 0
+    return q, k, v, do
 
 
 def _bwd_visible(c, kw) -> torch.Tensor:
@@ -5242,11 +5259,13 @@ def phase_kernels_flash_bwd(flush, ptxas) -> dict:
     once) at the HBM rate -- the plain version and the backward alone of
     ``scaled_dot_product_attention(..., enable_gqa=True)`` (a boolean mask
     for the window; its forward + backward less its forward). Each case
-    names its route (``bwd_route``: bf16 at D 32 / 64 / 128 on ``wgmma``,
-    the rest on FMAs) and, on ``wgmma``, its dK/dV head groups and whether
-    it takes hi + lo operands; two launches on the same inputs must give
-    the same bits, at every case in both dtypes, and the bf16 training
-    call's device ms by kernel (torch.profiler) is printed. Prints
+    names its route (``bwd_route``: bf16 on ``wgmma`` -- at D 192, MLA's
+    and nemotron's cases, the kernels with two consumer warpgroups --
+    float32 on FMAs) and, on ``wgmma``, its dK/dV head groups and whether
+    it takes hi + lo operands; MLA's dv is exactly 0 in v's padded
+    columns; two launches on the same inputs must give the same bits, at
+    every case in both dtypes, and the bf16 training and MLA calls'
+    device ms by kernel (torch.profiler) are printed. Prints
     ptxas's registers and spills of the backward's instantiations.
     Returns the kernels-line row."""
     import torch.nn.functional as F
@@ -5274,7 +5293,7 @@ def phase_kernels_flash_bwd(flush, ptxas) -> dict:
             if e["route"] == "wgmma":
                 g = c["h"] // c["kvh"]
                 e["splits"] = fa.bwd_splits(c["b"], c["kvh"], g, c["sk"],
-                                            sm_count(q.device))
+                                            sm_count(q.device), c["d"])
                 e["hilo"] = g > fa.BWD_HILO_G
             # a second launch gives the same bits
             again = fa.flash_attention_bwd(q, k, v, o, lse, do, **kw)
@@ -5295,6 +5314,9 @@ def phase_kernels_flash_bwd(flush, ptxas) -> dict:
                       and e[what + "_rel"] <= BWD_REL_TOL[dtype],
                       f"flash bwd {name} {dtype} {what}: {e}, largest "
                       f"{scale}")
+            if c.get("v_width"):   # v's zero columns get exactly 0
+                check(not got[2][..., c["v_width"]:].any(),
+                      f"flash bwd {name} {dtype}: dv's padded columns")
             errs[f"{name}/{str(dtype)[6:]}"] = e
             if dtype != torch.bfloat16:
                 continue
@@ -5326,7 +5348,7 @@ def phase_kernels_flash_bwd(flush, ptxas) -> dict:
                 max(e[x] for x in ("dq", "dk", "dv")))
             row["library_fwd_ms"] = time_ms(sdpa, flush)
             row["library_ms"] -= row["library_fwd_ms"]
-            if name == "train":   # where the backward's time goes
+            if name in ("train", "mla"):   # where the backward's time goes
                 row["kernels_ms"] = _profile_calls({"bwd": (
                     lambda: fa.flash_attention_bwd(q, k, v, o, lse, do, **kw),
                     5)}, cpu=False)["bwd"]["by_kernel"]
@@ -5355,6 +5377,46 @@ def phase_kernels_flash_bwd(flush, ptxas) -> dict:
                                                 "bound_ms", "bound_by",
                                                 "library_ms", "max_abs_err")}
                        for n, r in rows.items()}}
+
+
+def bwd_split_sweep() -> None:
+    """``python3 chip_smoke.py --bwd-split-sweep``, a measurement outside
+    the standing check: the flash backward's head-dim-192 cases of
+    FLASH_BWD_CASES (bf16: MLA's and nemotron's) at every count of q-head
+    groups a kv head (the divisors of G) beside the wrapper's choice
+    (``bwd_splits``), each held to the bf16 bar of 1e-2 of the largest
+    gradient before it is timed. Prints the env line and one JSON line
+    a case."""
+    from repro_torch.kernels import build, sm_count
+    from repro_torch.kernels import flash_attention as fa
+    phase_env()
+    build.build_all(["flash_attention", "flash_attention_bwd"])
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device="cuda")
+    rng = np.random.default_rng(22)
+    choose = fa.bwd_splits
+    for name, c, kw in FLASH_BWD_CASES:
+        if c["d"] != 192:
+            continue
+        q, k, v, do = _bwd_inputs(rng, c, torch.bfloat16)
+        o, lse = fa.flash_attention_fwd(q, k, v, **kw)
+        want = fa.flash_attention_bwd_plain(q, k, v, o, lse, do, **kw)
+        g = c["h"] // c["kvh"]
+        ms = {}
+        try:
+            for n in (n for n in range(1, g + 1) if g % n == 0):
+                fa.bwd_splits = lambda *_, n=n: n
+                got = fa.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+                for x, w in zip(got, want):
+                    rel = max_err(x, w) / float(w.float().abs().max())
+                    check(rel <= BWD_REL_TOL[torch.bfloat16],
+                          f"bwd sweep {name} splits {n}: {rel}")
+                ms[n] = time_ms(lambda: fa.flash_attention_bwd(
+                    q, k, v, o, lse, do, **kw), flush)
+        finally:
+            fa.bwd_splits = choose
+        emit("bwd_split_sweep", case=name, shape=c, ms_by_splits=ms,
+             chosen=choose(c["b"], c["kvh"], g, c["sk"], sm_count(q.device),
+                           c["d"]))
 
 
 def _smoke_train(model, ckpt, device, num_steps=3):
@@ -5413,6 +5475,115 @@ def phase_train_smoke() -> dict:
     return total
 
 
+def _profiled_train_step(model, oc, cfg, dc, step, state) -> tuple:
+    """One train step from ``state`` ([params, opt_state]) on step
+    ``step``'s batch under torch.profiler (after a warm-up step):
+    (the profile row, flash forward ms, flash backward ms a step)."""
+    from repro_torch.training import make_train_step
+    from repro_torch.training.data import make_batch
+    from repro_torch.training.loop import _batch_to
+    step_fn = make_train_step(model, oc)
+    batch = _batch_to(make_batch(cfg, dc, step), "cuda")
+
+    def one():
+        state[0], state[1], m = step_fn(state[0], state[1], batch)
+        float(m["loss"])
+    prof = _profile_calls({"train_step": (one, 1)})["train_step"]
+    by = prof.pop("by_kernel")
+    fwd_ms = sum(v for k, v in by.items() if "flash_fwd_kernel" in k)
+    bwd_ms = sum(v for k, v in by.items() if "flash_bwd_" in k)
+    return prof, fwd_ms, bwd_ms
+
+
+#: train_mla_full: deepseek-v3-671b at its published width cut to its
+#: ``first_k_dense_layers`` (3 dense layers, no MoE layer), 3 steps of
+#: 2 x 1024 text tokens; its peak must stay below this many GiB. Its
+#: learning rate is a tenth of train_full's: step 0 warms up at lr 0, so
+#: the last loss follows one AdamW step, which moves every weight by about
+#: lr, and at d_model 7168 lr 1e-3 overshot (losses 12.51, 10.87, 22.11
+#: on the H100)
+TRAIN_MLA_STEPS, TRAIN_MLA_PEAK_GIB, TRAIN_MLA_LR = 3, 75.0, 1e-4
+
+
+def phase_train_mla_full() -> dict:
+    """deepseek-v3-671b at full published width (d 7168, 128 heads, MLA
+    with q/k 192 and v 128 wide, vocab 129280), cut to its 3 dense layers
+    (3.604 B params): bf16 params, float32 moments, remat on, batch 2 x
+    1024 text tokens, seed 0, lr TRAIN_MLA_LR, TRAIN_MLA_STEPS steps
+    through ``train_loop`` and one profiled step. MLA's naive form runs
+    flash at head dim 192 with ``scale=`` and v zero-padded from 128, so
+    every layer's gradient takes the flash backward at D 192. Every loss
+    finite (the loop raises otherwise), the last below the first; 2
+    forward and 1 backward flash launch a layer a step, no paged or
+    latent launch; peak below TRAIN_MLA_PEAK_GIB. Reports wall ms a
+    step, device-busy
+    ms, idle share, the flash backward's ms a step, its share of busy
+    time and its route, tokens/s, peak GiB and the analytic MFU. Returns
+    the launches."""
+    from repro_torch.configs import ShapeConfig, get_config
+    from repro_torch.models import build
+    from repro_torch.roofline.analytic import flops_estimate
+    from repro_torch.training import (OptimizerConfig, SyntheticDataConfig,
+                                      train_loop)
+    from repro_torch.kernels import flash_attention as fa
+    cfg = get_config("deepseek-v3-671b")
+    cfg = cfg.with_(num_layers=cfg.first_k_dense_layers)
+    model = build(cfg)
+    dc = SyntheticDataConfig(batch=2, seq_len=1024)
+    oc = OptimizerConfig(lr=TRAIN_MLA_LR, warmup_steps=1,
+                         total_steps=TRAIN_MLA_STEPS)
+    tokens = dc.batch * dc.seq_len
+    stamps = []
+
+    def log(line):
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    t0 = time.perf_counter()
+    a = train_loop(model, oc=oc, dc=dc, num_steps=TRAIN_MLA_STEPS,
+                   log_every=1, log_fn=log, device="cuda")
+    torch.cuda.synchronize()
+    launches = _train_counts()
+    steps_ms = [(b - a_) * 1e3 for a_, b in zip([t0] + stamps, stamps)]
+    step_ms = (stamps[-1] - stamps[0]) * 1e3 / (len(stamps) - 1)
+    layers = cfg.num_layers
+    curve = a["loss_curve"]
+    prof, fwd_ms, bwd_ms = _profiled_train_step(
+        model, oc, cfg, dc, TRAIN_MLA_STEPS, [a["params"], a["opt_state"]])
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    del a
+    gc.collect()
+    torch.cuda.empty_cache()
+    flops = flops_estimate(cfg, ShapeConfig("train_mla_full", dc.seq_len,
+                                            dc.batch, "train"))
+    head_dim = cfg.qk_nope_head_dim + cfg.qk_rope_head_dim
+    row = dict(config="deepseek-v3-671b", dtype="bfloat16", remat=True,
+               params=cfg.param_count(), layers=layers,
+               batch=f"{dc.batch} x {dc.seq_len} text", losses=curve,
+               step_wall_ms=steps_ms, step_ms=step_ms,
+               tokens_per_s=tokens / step_ms * 1e3, profiled_step=prof,
+               flash_fwd_ms_per_step=fwd_ms, flash_bwd_ms_per_step=bwd_ms,
+               flash_bwd_share_of_busy=bwd_ms / prof[
+                   "device_busy_ms_per_call"],
+               flash_head_dim=head_dim,
+               flash_bwd_route=fa.bwd_route(torch.bfloat16, head_dim),
+               peak_gib=peak, analytic_flops=flops,
+               mfu=flops / (step_ms / 1e3 * H100_SXM.peak_flops_bf16),
+               seconds=time.perf_counter() - t0, launches=launches)
+    emit("train_mla_full", **row)
+    check(launches == {"flash_attention": 2 * layers * TRAIN_MLA_STEPS,
+                       "flash_attention_bwd": layers * TRAIN_MLA_STEPS,
+                       "paged_attention": 0, "mla_attention": 0},
+          f"train_mla_full launches {launches}")
+    check(curve[-1] < curve[0], f"train_mla_full loss did not fall: {curve}")
+    check(peak < TRAIN_MLA_PEAK_GIB, f"train_mla_full peak {peak} GiB")
+    return launches
+
+
 def _train_cli() -> dict:
     """``python -m repro_torch.launch.train --arch phi4-mini-3.8b --smoke
     --steps 14 --vocab 128`` on the card (no ``--device``), in a
@@ -5454,10 +5625,7 @@ def phase_train_full() -> dict:
     from repro_torch.models import build
     from repro_torch.roofline.analytic import flops_estimate
     from repro_torch.training import (OptimizerConfig, SyntheticDataConfig,
-                                      make_train_step, save_checkpoint,
-                                      train_loop)
-    from repro_torch.training.data import make_batch
-    from repro_torch.training.loop import _batch_to
+                                      save_checkpoint, train_loop)
     from repro_torch.kernels import flash_attention as fa
     cfg = get_config("qwen2-vl-2b").with_(num_layers=TRAIN_FULL_LAYERS)
     model = build(cfg)
@@ -5494,19 +5662,11 @@ def phase_train_full() -> dict:
     check(a_curve[-1] < a_curve[0], f"train_full loss did not fall: {a_curve}")
 
     # one profiled step (after a warm-up step) from run A's state
-    step_fn = make_train_step(model, oc)
-    batch = _batch_to(make_batch(cfg, dc, TRAIN_FULL_STEPS), "cuda")
     state = [a["params"], a["opt_state"]]
     del a
-
-    def one():
-        state[0], state[1], m = step_fn(state[0], state[1], batch)
-        float(m["loss"])
-    prof = _profile_calls({"train_step": (one, 1)})["train_step"]
-    by = prof.pop("by_kernel")
-    fwd_ms = sum(v for k, v in by.items() if "flash_fwd_kernel" in k)
-    bwd_ms = sum(v for k, v in by.items() if "flash_bwd_" in k)
-    del state, step_fn, batch
+    prof, fwd_ms, bwd_ms = _profiled_train_step(model, oc, cfg, dc,
+                                                TRAIN_FULL_STEPS, state)
+    del state
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -5714,6 +5874,9 @@ def main() -> int:
     if sys.argv[1:] == ["--mla-split-sweep"]:
         mla_split_sweep()
         return 0
+    if sys.argv[1:] == ["--bwd-split-sweep"]:
+        bwd_split_sweep()
+        return 0
     check(not sys.argv[1:], f"unknown arguments {sys.argv[1:]}")
     t_start = time.perf_counter()
     env = phase_env()
@@ -5757,6 +5920,7 @@ def main() -> int:
     fam_smoke_launches = phase_families_smoke()
     fam_full_launches = phase_families_full()
     train_smoke_launches = phase_train_smoke()
+    train_mla_launches = phase_train_mla_full()
     dry_tmp = tempfile.mkdtemp()
     dry = start_dryrun(dry_tmp)
     train_full_launches = phase_train_full()
@@ -5770,12 +5934,13 @@ def main() -> int:
                 + arch_smoke_launches[k] + arch_full_launches[k]
                 + mla_smoke_launches[k] + mla_full_launches[k]
                 + fam_smoke_launches[k] + fam_full_launches[k]
-                + train_smoke_launches[k] + train_full_launches[k]
-                + sharded_launches[k]
+                + train_smoke_launches[k] + train_mla_launches[k]
+                + train_full_launches[k] + sharded_launches[k]
                 for k in launches}
     # the flash backward runs on the training path only
     launches["flash_attention_bwd"] = \
         train_smoke_launches["flash_attention_bwd"] \
+        + train_mla_launches["flash_attention_bwd"] \
         + train_full_launches["flash_attention_bwd"] \
         + sharded_launches["flash_attention_bwd"]
     # the latent kernel runs on the MLA path only

@@ -27,9 +27,9 @@
 //
 // Routes, chosen by (dtype, D) alone (`flash_attention_bwd_route`):
 //   bfloat16, D 32 / 64 / 128   wgmma: TMA-fed tensor-core kernels
-//   bfloat16, D 192             fma: dK and dV of a 64-key tile are 192
-//                               float32 registers a thread in one
-//                               warpgroup, beside S and dP: no room
+//   bfloat16, D 192             wgmma: the same, with the dK / dV and dQ
+//                               kernels spread over two consumer
+//                               warpgroups (below: "D 192")
 //   float32, every D            fma: float32 FMAs, so the float32 result
 //                               keeps its tight check against the plain
 //                               version (as the forward's float32 path)
@@ -101,8 +101,47 @@
 // with its neighbours through L2, the recomputed S and dP of the dQ
 // kernel, and the prep and reduce passes over HBM.
 //
-// fma route (float32, and bf16 at D 192). Float FMAs on tiles staged in
-// shared memory as float (bf16 inputs widened on load), four launches:
+// D 192 (deepseek-v3's MLA pads q / k / v to 192; nemotron-4-340b's heads
+// are 192 wide). One warpgroup cannot hold a 64-key tile's dK and dV:
+// 96 + 96 float32 registers a thread, with S^T and dP^T 256. So the dK /
+// dV CTA (launch 2, 384 threads) has two consumer warpgroups and a
+// producer warpgroup (setmaxnreg 240 / 240 / 24: 64,512 of the SM's
+// 65,536 registers), and splits the pair's products between them without
+// adding one:
+//   warpgroup V   S^T = K Q^T (m64n64, 12 k-steps over three 64-column
+//                 boxes), P^T on its accumulators, dV += P^T dO
+//                 (m64n192k16, dO MN-major across the boxes: stride BYTES
+//                 from box to box, as the forward's P V at D 192)
+//   warpgroup K   dP^T = V dO^T, dS^T = P^T (dP^T - delta), dK += dS^T Q
+// 96 + 32 registers of accumulators each. P^T crosses in float32 through
+// shared memory, so dS^T rounds as at D 128 and the tile model holds:
+// thread t of either warpgroup holds the same m64n64 fragment, so thread
+// t of V writes its 32 floats (8 float4, [8][128] so a warp's stores are
+// contiguous) and thread t of K reads them, through two 16 KB buffers
+// under full / empty mbarriers. Each warpgroup issues the next pair's
+// S^T (dP^T) ahead of this pair's dV (dK) product, so its exp2 (dS)
+// runs while the tensor cores work; a stage of the ring is then held
+// over two pairs, and the ring has three stages: K and V 48 KB, 3 x (Q
+// 24 + dO 24 + 0.5) KB, the exchange 32 KB: 232,024 bytes, one CTA an
+// SM. dQ (launch 4) takes two q tiles a CTA, one a consumer
+// warpgroup, sharing each K / V load (192 KB: one CTA an SM; at D 128 two
+// one-tile CTAs an SM were faster, at D 192 one-tile CTAs would run alone
+// on their SMs). Both grids are one-dimensional and ordered in chunks
+// (`TcProblem::kv_chunk`, `q_chunk`) so that the CTAs running together
+// share their streamed tiles in L2 while the heaviest start first, and
+// the wrapper's `bwd_splits` aims at a wave and a half at one CTA an SM.
+// The arithmetic of every element is the D 128 route's, in the same
+// order: the bits do not depend on the split over warpgroups.
+// What bounds it and holds it back: the bound is by operations (five
+// products, 1.29e11 operations at MLA's B 1 x 128 heads x 1024 tokens,
+// 0.13 ms); the kernels run seven, each dK / dV CTA streams 48 KB of Q
+// and dO per pair for 6.3 MFLOP of products (128 operations a byte, from
+// L2), one CTA an SM leaves no other CTA to hide a CTA's prologue or the
+// pair's exp2 behind, and the dQ kernel's consumers do not overlap their
+// own products with their exp2 (PERF.md).
+//
+// fma route (float32). Float FMAs on tiles staged in shared memory, four
+// launches:
 //  1. delta: one warp per query row, rowsum(dO * O) in float32.
 //  2. dK / dV: one CTA per (batch, q head, 64-key tile), looping over the
 //     q tiles that can see its keys; thread (tx, ty) of 256 owns key rows
@@ -240,7 +279,7 @@ cudaError_t launch_reduce(const float* dk_part, const float* dv_part, T* dk,
 }
 
 // ---------------------------------------------------------------------------
-// fma route: float32, and bf16 at D = 192
+// fma route: float32
 // ---------------------------------------------------------------------------
 
 namespace fma_route {
@@ -258,20 +297,6 @@ template <> struct Vec<float> {
     x[1] = v.y;
     x[2] = v.z;
     x[3] = v.w;
-  }
-};
-template <> struct Vec<__nv_bfloat16> {
-  static constexpr int N = 8;
-  __device__ __forceinline__ static void load(const __nv_bfloat16* src,
-                                              float* x) {
-    const uint4 v = *reinterpret_cast<const uint4*>(src);
-    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float2 f = __bfloat1622float2(h[i]);
-      x[2 * i] = f.x;
-      x[2 * i + 1] = f.y;
-    }
   }
 };
 
@@ -671,7 +696,7 @@ size_t smem_bytes() {
 }  // namespace fma_route
 
 // ---------------------------------------------------------------------------
-// wgmma route: bf16 at D = 32, 64, 128
+// wgmma route: bf16 at D = 32, 64, 128 and 192
 // ---------------------------------------------------------------------------
 
 namespace wgmma_route {
@@ -680,14 +705,16 @@ using namespace repro::sm90;
 
 constexpr int TILE = 64;    // keys of a dK/dV CTA, q rows of a dQ CTA, and
                             // the rows of each streamed tile
-// ring depth: 2 at D = 128 (two CTAs an SM), 4 below, where a tile's
+// ring depth: 2 at D = 128 (two CTAs an SM) and in D = 192's dQ CTA (one
+// an SM; its dK / dV ring has 3, WideKVSmem), 4 below, where a tile's
 // products are short beside a TMA load's latency
-template <int D> constexpr int stages() { return D == 128 ? 2 : 4; }
+template <int D> constexpr int stages() { return D >= 128 ? 2 : 4; }
 constexpr int WG = 128;     // threads of a warpgroup
 constexpr float kLog2e = 1.4426950408889634f;
 
 // The swizzled TMA box of a head dim, as the forward's. D >= 64: boxes of
-// 64 columns (128-byte rows) with the 128-byte swizzle, D / 64 a tile row;
+// 64 columns (128-byte rows) with the 128-byte swizzle, D / 64 a tile row
+// (three at D = 192: an MN-major operand steps BYTES from box to box);
 // D = 32: one box of 32 columns (64-byte rows), 64-byte swizzle. A box
 // holds 64 rows, its 8-row groups are ROWB * 8 bytes apart, and a 16-element
 // k-step is 32 bytes along a row, ROWB / 32 k-steps per box.
@@ -700,7 +727,8 @@ struct Box {
   static constexpr int KPB = ROWB / 32;
   static constexpr uint64_t LAYOUT = D >= 64 ? kSwizzle128B : kSwizzle64B;
   static constexpr uint32_t TILE_BYTES = NC * BYTES;  // [64 rows][D] bf16
-  static_assert(D == 32 || D == 64 || D == 128, "wgmma route head dims");
+  static_assert(D == 32 || D == 64 || D == 128 || D == 192,
+                "wgmma route head dims");
 };
 
 template <int D>
@@ -744,6 +772,12 @@ __device__ __forceinline__ void wgmma_rs<128>(float (&acc)[64],
                                               const uint32_t (&a)[4],
                                               uint64_t b) {
   wgmma_rs_m64n128k16_tb(acc, a, b);
+}
+template <>
+__device__ __forceinline__ void wgmma_rs<192>(float (&acc)[96],
+                                              const uint32_t (&a)[4],
+                                              uint64_t b) {
+  wgmma_rs_m64n192k16_tb(acc, a, b);
 }
 
 // acc[64 x D] += A B: A [64 x 64] as bf16 fragments in registers, B a
@@ -802,12 +836,20 @@ struct TcProblem {
   int sq_pad;      // rows of the lse / delta arrays a (batch, q head)
   int splits;      // q-head groups a kv head (dK / dV CTAs)
   float scale_log2;
+  // D = 192: the dK / dV grid's chunk of (kv head, group) units and the
+  // dQ grid's chunk of q heads (wgmma_route::launch)
+  int kv_chunk, q_chunk;
 };
+
+// K and V bytes that the dQ CTAs running together at D = 192 may share in
+// L2 (a third of the H100's 50 MB)
+constexpr long long DQ_L2_BYTES = 16ll << 20;
 
 // ------------------------------------------------------------------ 1 ---
 // stats[0][row] = lse * log2(e), stats[1][row] = rowsum(dO * O), rows
-// (b, h, i < sq_pad); pad rows lse +inf, delta 0. L = D / 8 lanes a row,
-// one 16-byte load of O and of dO each.
+// (b, h, i < sq_pad); pad rows lse +inf, delta 0. L = D / 8 lanes a row
+// (D = 192: a warp a row, 24 of its lanes loading), one 16-byte load of O
+// and of dO each.
 template <int D>
 __global__ void __launch_bounds__(256)
     flash_bwd_prep_kernel(const __nv_bfloat16* __restrict__ o,
@@ -815,7 +857,7 @@ __global__ void __launch_bounds__(256)
                           const float* __restrict__ lse,
                           float* __restrict__ stats, TcProblem q2, Strides os,
                           Strides dos) {
-  constexpr int L = D / 8, RPW = 32 / L;
+  constexpr int L = D == 192 ? 32 : D / 8, RPW = 32 / L;
   const Problem& p = q2.p;
   const int lane = threadIdx.x % 32;
   const long long rows = (long long)p.B * p.H * q2.sq_pad;
@@ -825,7 +867,7 @@ __global__ void __launch_bounds__(256)
   const long long bh = row / q2.sq_pad;
   const bool real = row < rows && i < p.Sq;
   float acc = 0.0f;
-  if (real) {
+  if (real && (D != 192 || lane % L < D / 8)) {
     const int h = (int)(bh % p.H), b = (int)(bh / p.H), c = (lane % L) * 8;
     const uint4 ov = *reinterpret_cast<const uint4*>(o + b * os.b + h * os.n +
                                                      i * os.s + c);
@@ -1126,6 +1168,381 @@ __global__ void __launch_bounds__(KV_THREADS, 2)
   }
 }
 
+// ------------------------------------------------------------- 2, D 192 ---
+// dK / dV at D = 192: the CTA of the kernel above, with its products
+// split over two consumer warpgroups so that each holds one 96-register
+// accumulator. Warpgroup 0 ("V") computes S^T = K Q^T, P^T, and dV +=
+// P^T dO; warpgroup 1 ("K") computes dP^T = V dO^T, dS^T = P^T (dP^T -
+// delta) with warpgroup 0's P^T, and dK += dS^T Q. P^T crosses in float32
+// through shared memory: thread t of each warpgroup holds the same
+// fragment of an m64n64 accumulator, so thread t of warpgroup 0 writes its
+// 32 floats and thread t of warpgroup 1 reads them (two buffers, each
+// under a full and an empty mbarrier). Warpgroup 2 loads, as warpgroup 1
+// does above.
+template <int D>
+struct WideKVSmem {
+  // three stages: a stage is held from S^T / dP^T of its pair until dV /
+  // dK of that pair completes, which is after the next pair's S^T / dP^T
+  static constexpr int STAGES = 3;
+  static constexpr uint32_t tile = Box<D>::TILE_BYTES;
+  static constexpr uint32_t k_off = 0;
+  static constexpr uint32_t v_off = tile;
+  static constexpr uint32_t q_off = 2 * tile;                 // + s * tile
+  static constexpr uint32_t do_off = q_off + STAGES * tile;   // + s * tile
+  static constexpr uint32_t st_off = do_off + STAGES * tile;  // + s * 512
+  // the P^T exchange: 2 buffers of [8][128 threads] float4
+  static constexpr uint32_t XBYTES = 32 * WG * 4;
+  static constexpr uint32_t x_off = st_off + STAGES * 512;    // + x * XBYTES
+  static constexpr uint32_t bar_off = x_off + 2 * XBYTES;
+  // kv_full, full[STAGES], empty[STAGES], x_full[2], x_empty[2]
+  static constexpr uint32_t n_bars = 1 + 2 * STAGES + 4;
+  static constexpr size_t bytes = bar_off + 8 * n_bars + 1024;
+  static_assert(bytes <= 227 * 1024, "over the 227 KB opt-in");
+};
+
+constexpr int WIDE_THREADS = 3 * WG;  // warpgroups 0, 1 compute, 2 loads
+// registers a thread after setmaxnreg, one CTA an SM:
+// 128 x 24 + 256 x 240 = 64,512 of 65,536
+constexpr int WIDE_PRODUCER_REGS = 24, WIDE_CONSUMER_REGS = 240;
+
+// One-dimensional grid over (b, (kv head, group) unit, key tile), in chunks
+// of kv_chunk units: within a chunk the heaviest key tile of every unit
+// first, units fastest. A grid of up to four waves (one CTA an SM) is one
+// chunk: over a few waves the tail decides the time, and heaviest first
+// over the whole grid keeps it short (nemotron: 24 units x 17 tiles). A
+// larger grid takes chunks of as many units as fill a wave with all their
+// key tiles, so that all of a unit's key tiles read its Q and dO tiles at
+// about the same time, from L2 (MLA: 128 units x 16 tiles, chunks of 8;
+// its Q and dO, 100 MB at 1024 tokens, do not fit L2, and with every
+// unit's tile 0 first each tile came from HBM once per key tile).
+template <int D, bool HILO>
+__global__ void __launch_bounds__(WIDE_THREADS, 1)
+    flash_bwd_dkdv_wide_kernel(const __grid_constant__ CUtensorMap tm_q,
+                               const __grid_constant__ CUtensorMap tm_k,
+                               const __grid_constant__ CUtensorMap tm_v,
+                               const __grid_constant__ CUtensorMap tm_do,
+                               const float* __restrict__ stats,
+                               const __nv_bfloat16* __restrict__ dout,
+                               __nv_bfloat16* __restrict__ dk,
+                               __nv_bfloat16* __restrict__ dv,
+                               float* __restrict__ part, Strides dos,
+                               Strides dks, Strides dvs, TcProblem q2) {
+  using L = WideKVSmem<D>;
+  using X = Box<D>;
+  constexpr int STAGES = L::STAGES;
+  const Problem& p = q2.p;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  unsigned char* gbase = smem_raw + (base - raw);
+  const uint32_t bars = base + L::bar_off;
+  const uint32_t kv_full = bars;
+  auto full = [&](int s) { return bars + 8u * (1 + s); };
+  auto empty = [&](int s) { return bars + 8u * (1 + STAGES + s); };
+  auto x_full = [&](int x) { return bars + 8u * (1 + 2 * STAGES + x); };
+  auto x_empty = [&](int x) { return bars + 8u * (3 + 2 * STAGES + x); };
+  auto q_tile = [&](int s) { return base + L::q_off + s * L::tile; };
+  auto do_tile = [&](int s) { return base + L::do_off + s * L::tile; };
+
+  const int G = p.H / p.KVH, gs = G / q2.splits;
+  const int units = p.KVH * q2.splits, n_kt = (p.Sk + TILE - 1) / TILE;
+  const int b = blockIdx.x / (units * n_kt), r = blockIdx.x % (units * n_kt);
+  const int u_lo = r / (q2.kv_chunk * n_kt) * q2.kv_chunk;
+  const int nu = min(q2.kv_chunk, units - u_lo), r2 = r - u_lo * n_kt;
+  const int unit = u_lo + r2 % nu;   // its share: b * units + unit
+  const int grp = unit % q2.splits, kvh = unit / q2.splits;
+  const int h0 = kvh * G + grp * gs;
+  const int k0 = r2 / nu * TILE;
+  const int nk = min(TILE, p.Sk - k0);
+  const int2 rows = seeing_rows(p, k0, nk);
+  const int t_lo = rows.x / TILE;
+  const int nt = rows.y > rows.x ? (rows.y + TILE - 1) / TILE - t_lo : 0;
+  const int n = nt > 0 ? nt * gs : 0;
+  const int wg = threadIdx.x / WG;
+  const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+  const int t = threadIdx.x % WG;
+
+  if (threadIdx.x == 0) {
+    mbar_init(kv_full, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(empty(s), 2 * WG);
+    }
+    for (int x = 0; x < 2; ++x) {
+      mbar_init(x_full(x), WG);
+      mbar_init(x_empty(x), WG);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == 2) {
+    // ------------------------------------------- producer warpgroup ----
+    setmaxnreg_dec<WIDE_PRODUCER_REGS>();
+    if (t == 0 && n > 0) {
+      const long long rows_all = (long long)p.B * p.H * q2.sq_pad;
+      mbar_expect_tx(kv_full, 2 * L::tile);
+      for (int c = 0; c < X::NC; ++c) {
+        tma_load(base + L::k_off + c * X::BYTES, &tm_k, kv_full, c * X::COLS,
+                 k0, kvh, b);
+        tma_load(base + L::v_off + c * X::BYTES, &tm_v, kv_full, c * X::COLS,
+                 k0, kvh, b);
+      }
+      for (int i = 0; i < n; ++i) {
+        const int s = i % STAGES, h = h0 + i / nt;
+        const int q0 = (t_lo + i % nt) * TILE;
+        mbar_wait(empty(s), ((i / STAGES) & 1) ^ 1);
+        mbar_expect_tx(full(s), 2 * L::tile + 512);
+        for (int c = 0; c < X::NC; ++c) {
+          tma_load(q_tile(s) + c * X::BYTES, &tm_q, full(s), c * X::COLS, q0,
+                   h, b);
+          tma_load(do_tile(s) + c * X::BYTES, &tm_do, full(s), c * X::COLS,
+                   q0, h, b);
+        }
+        const float* src = stats + ((long long)b * p.H + h) * q2.sq_pad + q0;
+        const uint32_t dst = base + L::st_off + s * 512;
+        bulk_load(dst, src, 256, full(s));
+        bulk_load(dst + 256, src + rows_all, 256, full(s));
+      }
+    }
+    return;
+  }
+
+  // ----------------------------------------------- consumer warpgroups ----
+  setmaxnreg_inc<WIDE_CONSUMER_REGS>();
+  const int row0 = warp * 16 + lane / 4, col0 = 2 * (lane % 4);
+  const int key0 = k0 + row0, key1 = key0 + 8;
+  const int kmax = kmax_of(p);
+  const float scale = p.scale;
+  float acc[D / 2];  // warpgroup 0: dV; warpgroup 1: dK (unscaled)
+  zero(acc);
+
+  if (wg == 0) {
+    // -------------------------------------- warpgroup V: P^T and dV ----
+    // S^T of pair i is issued ahead of dV += P^T dO of pair i - 1, so the
+    // exp2 of pair i runs while the tensor cores work on that dV (the
+    // loop is peeled so that no wgmma sits on a divergent path)
+    if (n > 0) {
+      const uint32_t k_s = base + L::k_off;
+      float st[32];  // S^T, then P^T
+      uint32_t pa[4][4], pl[HILO ? 4 : 1][4];
+      // S^T of pair i (completed) -> P^T, handed to warpgroup K, packed
+      auto probs = [&](int i) {
+        const int s = i % STAGES, x = i & 1;
+        const int q0 = (t_lo + i % nt) * TILE;
+        const float* lse2 =
+            reinterpret_cast<const float*>(gbase + L::st_off + s * 512);
+        const bool edge =
+            k0 + TILE > kmax ||
+            (p.causal && (k0 + TILE - 1 > q0 + p.q_offset ||
+                          (p.window > 0 &&
+                           k0 <= q0 + TILE - 1 + p.q_offset - p.window)));
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const float2 l2 =
+              *reinterpret_cast<const float2*>(lse2 + 8 * j + col0);
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const float l = e ? l2.y : l2.x;
+            float p0 = fast_exp2(st[4 * j + e] * q2.scale_log2 - l);
+            float p1 = fast_exp2(st[4 * j + 2 + e] * q2.scale_log2 - l);
+            if (edge) {
+              const int qpos = q0 + 8 * j + col0 + e + p.q_offset;
+              if (!visible(p, qpos, key0)) p0 = 0.0f;
+              if (!visible(p, qpos, key1)) p1 = 0.0f;
+            }
+            st[4 * j + e] = p0;
+            st[4 * j + 2 + e] = p1;
+          }
+        }
+        // its exchange buffer is free once warpgroup K read pair i - 2
+        mbar_wait(x_empty(x), ((i >> 1) & 1) ^ 1);
+        float4* xp =
+            reinterpret_cast<float4*>(gbase + L::x_off + x * L::XBYTES);
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          xp[j * WG + t] =
+              make_float4(st[4 * j], st[4 * j + 1], st[4 * j + 2],
+                          st[4 * j + 3]);
+        mbar_arrive(x_full(x));
+      };
+      auto pack_p = [&]() {
+        if constexpr (HILO)
+          pack_hilo(st, pa, pl);
+        else
+          pack(st, pa);
+      };
+      // dV += P^T dO of the pair in stage s
+      auto issue_dv = [&](int s) {
+        if constexpr (HILO) {
+          issue_rs<D>(acc, pa, do_tile(s), false);
+          issue_rs<D>(acc, pl, do_tile(s));
+        } else {
+          issue_rs<D>(acc, pa, do_tile(s));
+        }
+      };
+      mbar_wait(kv_full, 0);
+      mbar_wait(full(0), 0);
+      zero(st);
+      wgmma_fence();
+      issue_ss<D>(st, k_s, q_tile(0));
+      wgmma_wait<0>();
+      fence_regs(st);
+      probs(0);
+      pack_p();
+      for (int i = 1; i < n; ++i) {
+        mbar_wait(full(i % STAGES), (i / STAGES) & 1);
+        zero(st);
+        wgmma_fence();
+        issue_ss<D>(st, k_s, q_tile(i % STAGES));
+        issue_dv((i - 1) % STAGES);
+        wgmma_wait<1>();  // S^T of pair i; dV of pair i - 1 runs on
+        fence_regs(st);
+        probs(i);
+        wgmma_wait<0>();  // dV of pair i - 1: its A fragments are free
+        fence_regs(acc);
+        mbar_arrive(empty((i - 1) % STAGES));  // done with its Q and dO
+        pack_p();
+      }
+      wgmma_fence();
+      issue_dv((n - 1) % STAGES);
+      wgmma_wait<0>();
+      fence_regs(acc);
+      mbar_arrive(empty((n - 1) % STAGES));
+    }
+    // keyless rows: each of the group's heads adds dO / Sk to every key's dV
+    const Keyless kl = keyless_rows(p);
+    if (kl.a > 0 || kl.c < p.Sq) {
+      const float inv = 1.0f / (float)p.Sk;
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) {
+        float s0 = 0.0f, s1 = 0.0f;
+        for (int g = 0; g < gs; ++g) {
+          const __nv_bfloat16* src =
+              dout + b * dos.b + (h0 + g) * dos.n + 8 * j + col0;
+          for (int r = 0; r < p.Sq; ++r) {
+            if (r == kl.a) r = kl.c;
+            if (r >= p.Sq) break;
+            const float2 f = __bfloat1622float2(
+                *reinterpret_cast<const __nv_bfloat162*>(src + r * dos.s));
+            s0 += f.x;
+            s1 += f.y;
+          }
+        }
+        acc[4 * j] += s0 * inv;
+        acc[4 * j + 1] += s1 * inv;
+        acc[4 * j + 2] += s0 * inv;
+        acc[4 * j + 3] += s1 * inv;
+      }
+    }
+  } else {
+    // -------------------------------------- warpgroup K: dS^T and dK ----
+    // dP^T of pair i is issued ahead of dK += dS^T Q of pair i - 1
+    if (n > 0) {
+      const uint32_t v_s = base + L::v_off;
+      float dp[32];  // dP^T, then dS^T
+      uint32_t da[4][4], dl[HILO ? 4 : 1][4];
+      // dP^T of pair i (completed) and warpgroup V's P^T -> dS^T, packed
+      auto grads = [&](int i) {
+        const int s = i % STAGES, x = i & 1;
+        const float* delta =
+            reinterpret_cast<const float*>(gbase + L::st_off + s * 512) +
+            TILE;
+        mbar_wait(x_full(x), (i >> 1) & 1);
+        const float4* xp = reinterpret_cast<const float4*>(
+            gbase + L::x_off + x * L::XBYTES);
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const float4 pt = xp[j * WG + t];
+          const float2 d2 =
+              *reinterpret_cast<const float2*>(delta + 8 * j + col0);
+          dp[4 * j] = pt.x * (dp[4 * j] - d2.x);
+          dp[4 * j + 1] = pt.y * (dp[4 * j + 1] - d2.y);
+          dp[4 * j + 2] = pt.z * (dp[4 * j + 2] - d2.x);
+          dp[4 * j + 3] = pt.w * (dp[4 * j + 3] - d2.y);
+        }
+        mbar_arrive(x_empty(x));
+      };
+      auto pack_ds = [&]() {
+        if constexpr (HILO)
+          pack_hilo(dp, da, dl);
+        else
+          pack(dp, da);
+      };
+      // dK += dS^T Q of the pair in stage s
+      auto issue_dk = [&](int s) {
+        if constexpr (HILO) {
+          issue_rs<D>(acc, da, q_tile(s), false);
+          issue_rs<D>(acc, dl, q_tile(s));
+        } else {
+          issue_rs<D>(acc, da, q_tile(s));
+        }
+      };
+      mbar_wait(kv_full, 0);
+      mbar_wait(full(0), 0);
+      zero(dp);
+      wgmma_fence();
+      issue_ss<D>(dp, v_s, do_tile(0));
+      wgmma_wait<0>();
+      fence_regs(dp);
+      grads(0);
+      pack_ds();
+      for (int i = 1; i < n; ++i) {
+        mbar_wait(full(i % STAGES), (i / STAGES) & 1);
+        zero(dp);
+        wgmma_fence();
+        issue_ss<D>(dp, v_s, do_tile(i % STAGES));
+        issue_dk((i - 1) % STAGES);
+        wgmma_wait<1>();  // dP^T of pair i; dK of pair i - 1 runs on
+        fence_regs(dp);
+        grads(i);
+        wgmma_wait<0>();  // dK of pair i - 1: its A fragments are free
+        fence_regs(acc);
+        mbar_arrive(empty((i - 1) % STAGES));
+        pack_ds();
+      }
+      wgmma_fence();
+      issue_dk((n - 1) % STAGES);
+      wgmma_wait<0>();
+      fence_regs(acc);
+      mbar_arrive(empty((n - 1) % STAGES));
+    }
+  }
+
+  // warpgroup 0 writes dV, warpgroup 1 dK (scaled)
+  const float mul = wg == 0 ? 1.0f : scale;
+  if (q2.splits == 1) {  // the whole kv head: bf16
+    __nv_bfloat16* op = wg == 0 ? dv + b * dvs.b + kvh * dvs.n
+                                : dk + b * dks.b + kvh * dks.n;
+    const long long os = wg == 0 ? dvs.s : dks.s;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      const int c = 8 * j + col0;
+      if (key0 < p.Sk)
+        *reinterpret_cast<__nv_bfloat162*>(op + key0 * os + c) =
+            __floats2bfloat162_rn(acc[4 * j] * mul, acc[4 * j + 1] * mul);
+      if (key1 < p.Sk)
+        *reinterpret_cast<__nv_bfloat162*>(op + key1 * os + c) =
+            __floats2bfloat162_rn(acc[4 * j + 2] * mul,
+                                  acc[4 * j + 3] * mul);
+    }
+  } else {  // the group's float32 share [B, KVH, splits, Sk, D]
+    const long long shares = (long long)p.B * p.KVH * q2.splits * p.Sk * D;
+    float* op = part + ((long long)b * units + unit) * p.Sk * D +
+                (wg == 0 ? shares : 0);
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      const int c = 8 * j + col0;
+      if (key0 < p.Sk)
+        *reinterpret_cast<float2*>(op + key0 * D + c) =
+            make_float2(acc[4 * j] * mul, acc[4 * j + 1] * mul);
+      if (key1 < p.Sk)
+        *reinterpret_cast<float2*>(op + key1 * D + c) =
+            make_float2(acc[4 * j + 2] * mul, acc[4 * j + 3] * mul);
+    }
+  }
+}
+
 // ------------------------------------------------------------------ 4 ---
 template <int D>
 struct QSmem {
@@ -1302,6 +1719,212 @@ __global__ void __launch_bounds__(Q_THREADS, 2)
   }
 }
 
+// dQ at D = 192: two q tiles a CTA, one a consumer warpgroup, sharing each
+// K / V load (one CTA an SM: 192 KB of tiles). A warpgroup's key tiles
+// are those of the pair's union that its own rows can see, in order, so
+// its arithmetic is that of the kernel above.
+template <int D>
+struct WideQSmem {
+  static constexpr int STAGES = stages<D>();
+  static constexpr uint32_t tile = Box<D>::TILE_BYTES;
+  static constexpr uint32_t q_off = 0;                       // + w * tile
+  static constexpr uint32_t do_off = 2 * tile;               // + w * tile
+  static constexpr uint32_t k_off = 4 * tile;                // + s * tile
+  static constexpr uint32_t v_off = k_off + STAGES * tile;   // + s * tile
+  static constexpr uint32_t bar_off = v_off + STAGES * tile;
+  // q_full, k_full[STAGES], v_full[STAGES], k_empty[STAGES], v_empty[STAGES]
+  static constexpr uint32_t n_bars = 1 + 4 * STAGES;
+  static constexpr size_t bytes = bar_off + 8 * n_bars + 1024;
+};
+
+// One-dimensional grid over (b, q head, pair of q tiles), in chunks of
+// q_chunk heads (the q heads of the kv heads whose K and V fit
+// DQ_L2_BYTES): within a chunk the heaviest pair of every head first,
+// heads fastest, so the CTAs that run together share their K / V tiles in
+// L2 and the light pairs fill in behind. (All of nemotron's 8 kv heads
+// make one chunk; MLA's 128 heads, 100 MB of K and V at 1024 tokens, make
+// chunks of 20.)
+template <int D>
+__global__ void __launch_bounds__(WIDE_THREADS, 1)
+    flash_bwd_dq_wide_kernel(const __grid_constant__ CUtensorMap tm_q,
+                             const __grid_constant__ CUtensorMap tm_k,
+                             const __grid_constant__ CUtensorMap tm_v,
+                             const __grid_constant__ CUtensorMap tm_do,
+                             const float* __restrict__ stats,
+                             __nv_bfloat16* __restrict__ dq, Strides dqs,
+                             TcProblem q2) {
+  using L = WideQSmem<D>;
+  using X = Box<D>;
+  constexpr int STAGES = L::STAGES;
+  const Problem& p = q2.p;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t bars = base + L::bar_off;
+  auto k_tile = [&](int s) { return base + L::k_off + s * L::tile; };
+  auto v_tile = [&](int s) { return base + L::v_off + s * L::tile; };
+  const uint32_t q_full = bars;
+  auto k_full = [&](int s) { return bars + 8u * (1 + s); };
+  auto v_full = [&](int s) { return bars + 8u * (1 + STAGES + s); };
+  auto k_empty = [&](int s) { return bars + 8u * (1 + 2 * STAGES + s); };
+  auto v_empty = [&](int s) { return bars + 8u * (1 + 3 * STAGES + s); };
+
+  const int n_qp = (p.Sq + 2 * TILE - 1) / (2 * TILE);
+  const int b = blockIdx.x / (p.H * n_qp), r = blockIdx.x % (p.H * n_qp);
+  const int h_lo = r / (q2.q_chunk * n_qp) * q2.q_chunk;
+  const int nh = min(q2.q_chunk, p.H - h_lo), r2 = r - h_lo * n_qp;
+  const int h = h_lo + r2 % nh;
+  const int q0 = (n_qp - 1 - r2 / nh) * 2 * TILE;
+  const int kvh = h / (p.H / p.KVH);
+  const int2 keys = seen_keys(p, q0, min(2 * TILE, p.Sq - q0));
+  const int t_lo = keys.x / TILE;
+  const int n = keys.y > keys.x ? (keys.y + TILE - 1) / TILE - t_lo : 0;
+  const int wg = threadIdx.x / WG;
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(k_full(s), 1);
+      mbar_init(v_full(s), 1);
+      mbar_init(k_empty(s), 2 * WG);
+      mbar_init(v_empty(s), 2 * WG);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == 2) {
+    // ------------------------------------------- producer warpgroup ----
+    setmaxnreg_dec<WIDE_PRODUCER_REGS>();
+    if (threadIdx.x % WG == 0 && n > 0) {
+      mbar_expect_tx(q_full, 4 * L::tile);
+      for (int w = 0; w < 2; ++w)
+        for (int c = 0; c < X::NC; ++c) {
+          tma_load(base + L::q_off + w * L::tile + c * X::BYTES, &tm_q,
+                   q_full, c * X::COLS, q0 + w * TILE, h, b);
+          tma_load(base + L::do_off + w * L::tile + c * X::BYTES, &tm_do,
+                   q_full, c * X::COLS, q0 + w * TILE, h, b);
+        }
+      for (int i = 0; i < n; ++i) {
+        const int s = i % STAGES, k0 = (t_lo + i) * TILE;
+        const uint32_t free_ph = ((i / STAGES) & 1) ^ 1;
+        mbar_wait(k_empty(s), free_ph);
+        mbar_expect_tx(k_full(s), L::tile);
+        for (int c = 0; c < X::NC; ++c)
+          tma_load(k_tile(s) + c * X::BYTES, &tm_k, k_full(s), c * X::COLS,
+                   k0, kvh, b);
+        mbar_wait(v_empty(s), free_ph);
+        mbar_expect_tx(v_full(s), L::tile);
+        for (int c = 0; c < X::NC; ++c)
+          tma_load(v_tile(s) + c * X::BYTES, &tm_v, v_full(s), c * X::COLS,
+                   k0, kvh, b);
+      }
+    }
+    return;
+  }
+
+  // ----------------------------------------------- consumer warpgroups ----
+  setmaxnreg_inc<WIDE_CONSUMER_REGS>();
+  const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+  const int qw = q0 + wg * TILE;          // this warpgroup's q tile
+  const int nq = min(TILE, p.Sq - qw);    // <= 0: the pair's second tile
+  const uint32_t q_s = base + L::q_off + wg * L::tile;
+  const uint32_t do_s = base + L::do_off + wg * L::tile;
+  const int row0 = warp * 16 + lane / 4, col0 = 2 * (lane % 4);
+  const long long rows_all = (long long)p.B * p.H * q2.sq_pad;
+  float l0 = INFINITY, l1 = INFINITY, d0 = 0.0f, d1 = 0.0f;
+  int2 mine = make_int2(0, 0);            // the keys its rows can see
+  if (nq > 0) {
+    const float* lse2 = stats + ((long long)b * p.H + h) * q2.sq_pad + qw;
+    l0 = lse2[row0];
+    l1 = lse2[row0 + 8];
+    d0 = lse2[rows_all + row0];
+    d1 = lse2[rows_all + row0 + 8];
+    mine = seen_keys(p, qw, nq);
+  }
+  const int qpos0 = qw + row0 + p.q_offset, qpos1 = qpos0 + 8;
+  const int kmax = kmax_of(p);
+  const int q_first = qw + p.q_offset, q_last = qw + nq - 1 + p.q_offset;
+  float dqa[D / 2];
+  zero(dqa);
+
+  if (n > 0) {
+    float sc[32], dp[32];   // S then P; dP then dS
+    uint32_t da[4][4];
+    mbar_wait(q_full, 0);
+    for (int i = 0; i < n; ++i) {
+      const int s = i % STAGES, k0 = (t_lo + i) * TILE;
+      const uint32_t ph = (i / STAGES) & 1;
+      mbar_wait(k_full(s), ph);
+      mbar_wait(v_full(s), ph);
+      if (k0 >= mine.y || k0 + TILE <= mine.x) {  // none of it visible
+        mbar_arrive(v_empty(s));
+        mbar_arrive(k_empty(s));
+        continue;
+      }
+      zero(sc);
+      zero(dp);
+      wgmma_fence();
+      issue_ss<D>(sc, q_s, k_tile(s));
+      issue_ss<D>(dp, do_s, v_tile(s));
+      wgmma_wait<1>();  // S; dP may run on
+      fence_regs(sc);
+      const bool edge =
+          k0 + TILE > kmax ||
+          (p.causal && (k0 + TILE - 1 > q_first ||
+                        (p.window > 0 && k0 <= q_last - p.window)));
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float p0 = fast_exp2(sc[4 * j + e] * q2.scale_log2 - l0);
+          float p1 = fast_exp2(sc[4 * j + 2 + e] * q2.scale_log2 - l1);
+          if (edge) {
+            const int kpos = k0 + 8 * j + col0 + e;
+            if (!visible(p, qpos0, kpos)) p0 = 0.0f;
+            if (!visible(p, qpos1, kpos)) p1 = 0.0f;
+          }
+          sc[4 * j + e] = p0;
+          sc[4 * j + 2 + e] = p1;
+        }
+      }
+      wgmma_wait<0>();  // dP
+      fence_regs(dp);
+      mbar_arrive(v_empty(s));
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          dp[4 * j + e] = sc[4 * j + e] * (dp[4 * j + e] - d0);
+          dp[4 * j + 2 + e] = sc[4 * j + 2 + e] * (dp[4 * j + 2 + e] - d1);
+        }
+      }
+      pack(dp, da);
+      fence_regs(dqa);
+      wgmma_fence();
+      issue_rs<D>(dqa, da, k_tile(s));
+      wgmma_wait<0>();
+      fence_regs(dqa);
+      mbar_arrive(k_empty(s));
+    }
+  }
+
+  if (nq <= 0) return;
+  __nv_bfloat16* op = dq + b * dqs.b + h * dqs.n;
+  const int r0 = qw + row0, r1 = r0 + 8;
+  const float scale = p.scale;
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j) {
+    const int c = 8 * j + col0;
+    if (r0 < p.Sq)
+      *reinterpret_cast<__nv_bfloat162*>(op + r0 * dqs.s + c) =
+          __floats2bfloat162_rn(dqa[4 * j] * scale, dqa[4 * j + 1] * scale);
+    if (r1 < p.Sq)
+      *reinterpret_cast<__nv_bfloat162*>(op + r1 * dqs.s + c) =
+          __floats2bfloat162_rn(dqa[4 * j + 2] * scale,
+                                dqa[4 * j + 3] * scale);
+  }
+}
+
 // A 4-d map of a [B, N, S, D] bf16 view (the forward's): boxes of 64 rows
 // of one (b, n), 64 columns with the 128-byte swizzle (D = 32: 32 columns,
 // 64-byte swizzle), zero fill past the ends.
@@ -1337,13 +1960,29 @@ cudaError_t launch(const void* q, const void* k, const void* v,
       !make_map(&tm_do, dout, p.B, p.H, p.Sq, D, st[4]))
     return cudaErrorInvalidValue;
   const int n_qt = (p.Sq + TILE - 1) / TILE, n_kt = (p.Sk + TILE - 1) / TILE;
-  const TcProblem q2{p, n_qt * TILE, splits, p.scale * kLog2e};
+  int kv_chunk = 1, q_chunk = 1;
+  if constexpr (D == 192) {
+    int dev = 0, sms = 0;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e == cudaSuccess)
+      e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e != cudaSuccess) return e;
+    const int units = p.KVH * splits;
+    kv_chunk = units * n_kt <= 4 * sms ? units
+               : sms / n_kt > 1        ? sms / n_kt
+                                       : 1;
+    const long long kv_heads = DQ_L2_BYTES / ((long long)p.Sk * D * 4);
+    q_chunk = (p.H / p.KVH) *
+              (int)(kv_heads < 1 ? 1 : kv_heads > p.KVH ? p.KVH : kv_heads);
+  }
+  const TcProblem q2{p,        n_qt * TILE, splits, p.scale * kLog2e,
+                     kv_chunk, q_chunk};
   const long long rows = (long long)p.B * p.H * q2.sq_pad;
   float* stats = scratch;
   float* part = scratch + 2 * rows;
   const __nv_bfloat16* dot = static_cast<const __nv_bfloat16*>(dout);
   // st: q, k, v, o, dout, dq, dk, dv
-  constexpr int rows_per_block = 8 * (32 / (D / 8));
+  constexpr int rows_per_block = 8 * (D == 192 ? 1 : 32 / (D / 8));
   flash_bwd_prep_kernel<D>
       <<<(unsigned)((rows + rows_per_block - 1) / rows_per_block), 256, 0,
          stream>>>(static_cast<const __nv_bfloat16*>(o), dot, lse, stats, q2,
@@ -1351,17 +1990,29 @@ cudaError_t launch(const void* q, const void* k, const void* v,
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
 
-  auto kv_kernel = hilo ? flash_bwd_dkdv_tc_kernel<D, true>
-                        : flash_bwd_dkdv_tc_kernel<D, false>;
-  err = cudaFuncSetAttribute(kv_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)KVSmem<D>::bytes);
-  if (err != cudaSuccess) return err;
-  kv_kernel<<<dim3(p.B * p.KVH * splits, n_kt), KV_THREADS, KVSmem<D>::bytes,
-              stream>>>(tm_q, tm_k, tm_v, tm_do, stats, dot,
-                        static_cast<__nv_bfloat16*>(dk),
-                        static_cast<__nv_bfloat16*>(dv), part, st[4], st[6],
-                        st[7], q2);
+  if constexpr (D == 192) {
+    auto kv_kernel = hilo ? flash_bwd_dkdv_wide_kernel<D, true>
+                          : flash_bwd_dkdv_wide_kernel<D, false>;
+    err = cudaFuncSetAttribute(kv_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)WideKVSmem<D>::bytes);
+    if (err != cudaSuccess) return err;
+    kv_kernel<<<p.B * p.KVH * splits * n_kt, WIDE_THREADS,
+                WideKVSmem<D>::bytes, stream>>>(
+        tm_q, tm_k, tm_v, tm_do, stats, dot, static_cast<__nv_bfloat16*>(dk),
+        static_cast<__nv_bfloat16*>(dv), part, st[4], st[6], st[7], q2);
+  } else {
+    auto kv_kernel = hilo ? flash_bwd_dkdv_tc_kernel<D, true>
+                          : flash_bwd_dkdv_tc_kernel<D, false>;
+    err = cudaFuncSetAttribute(kv_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)KVSmem<D>::bytes);
+    if (err != cudaSuccess) return err;
+    kv_kernel<<<dim3(p.B * p.KVH * splits, n_kt), KV_THREADS,
+                KVSmem<D>::bytes, stream>>>(
+        tm_q, tm_k, tm_v, tm_do, stats, dot, static_cast<__nv_bfloat16*>(dk),
+        static_cast<__nv_bfloat16*>(dv), part, st[4], st[6], st[7], q2);
+  }
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
 
@@ -1374,27 +2025,47 @@ cudaError_t launch(const void* q, const void* k, const void* v,
     if (err != cudaSuccess) return err;
   }
 
-  err = cudaFuncSetAttribute(flash_bwd_dq_tc_kernel<D>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)QSmem<D>::bytes);
-  if (err != cudaSuccess) return err;
-  flash_bwd_dq_tc_kernel<D>
-      <<<dim3(p.H, n_qt, p.B), Q_THREADS, QSmem<D>::bytes, stream>>>(
-          tm_q, tm_k, tm_v, tm_do, stats, static_cast<__nv_bfloat16*>(dq),
-          st[5], q2);
+  if constexpr (D == 192) {
+    err = cudaFuncSetAttribute(flash_bwd_dq_wide_kernel<D>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)WideQSmem<D>::bytes);
+    if (err != cudaSuccess) return err;
+    flash_bwd_dq_wide_kernel<D><<<p.B * p.H * ((n_qt + 1) / 2),
+                                  WIDE_THREADS, WideQSmem<D>::bytes,
+                                  stream>>>(
+        tm_q, tm_k, tm_v, tm_do, stats, static_cast<__nv_bfloat16*>(dq),
+        st[5], q2);
+  } else {
+    err = cudaFuncSetAttribute(flash_bwd_dq_tc_kernel<D>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)QSmem<D>::bytes);
+    if (err != cudaSuccess) return err;
+    flash_bwd_dq_tc_kernel<D>
+        <<<dim3(p.H, n_qt, p.B), Q_THREADS, QSmem<D>::bytes, stream>>>(
+            tm_q, tm_k, tm_v, tm_do, stats, static_cast<__nv_bfloat16*>(dq),
+            st[5], q2);
+  }
   return cudaGetLastError();
 }
 
 template <int D>
 size_t smem_bytes() {
-  return KVSmem<D>::bytes > QSmem<D>::bytes ? KVSmem<D>::bytes
-                                            : QSmem<D>::bytes;
+  size_t kv, dq;
+  if constexpr (D == 192) {
+    kv = WideKVSmem<D>::bytes;
+    dq = WideQSmem<D>::bytes;
+  } else {
+    kv = KVSmem<D>::bytes;
+    dq = QSmem<D>::bytes;
+  }
+  return kv > dq ? kv : dq;
 }
 
 }  // namespace wgmma_route
 
 bool tc_route(int dtype, int D) {
-  return dtype == repro::kBFloat16 && (D == 32 || D == 64 || D == 128);
+  return dtype == repro::kBFloat16 &&
+         (D == 32 || D == 64 || D == 128 || D == 192);
 }
 
 }  // namespace
@@ -1438,6 +2109,7 @@ extern "C" int flash_attention_bwd(
     REPRO_TC(32)
     REPRO_TC(64)
     REPRO_TC(128)
+    REPRO_TC(192)
 #undef REPRO_TC
   }
 #define REPRO_BWD(TT, DD)                                                    \
@@ -1449,9 +2121,6 @@ extern "C" int flash_attention_bwd(
     REPRO_BWD(float, 64)
     REPRO_BWD(float, 128)
     REPRO_BWD(float, 192)
-  }
-  if (dtype == repro::kBFloat16) {
-    REPRO_BWD(__nv_bfloat16, 192)
   }
 #undef REPRO_BWD
   return (int)cudaErrorInvalidValue;
@@ -1466,9 +2135,10 @@ extern "C" int flash_attention_bwd_route(int dtype, int D) {
 // (dtype, D), or -1.
 extern "C" int flash_attention_bwd_smem_bytes(int dtype, int D) {
   if (tc_route(dtype, D))
-    return D == 32 ? (int)wgmma_route::smem_bytes<32>()
-           : D == 64 ? (int)wgmma_route::smem_bytes<64>()
-                     : (int)wgmma_route::smem_bytes<128>();
+    return D == 32    ? (int)wgmma_route::smem_bytes<32>()
+           : D == 64  ? (int)wgmma_route::smem_bytes<64>()
+           : D == 128 ? (int)wgmma_route::smem_bytes<128>()
+                      : (int)wgmma_route::smem_bytes<192>();
   return D == 32    ? (int)fma_route::smem_bytes<32>()
          : D == 64  ? (int)fma_route::smem_bytes<64>()
          : D == 128 ? (int)fma_route::smem_bytes<128>()

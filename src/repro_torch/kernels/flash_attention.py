@@ -19,9 +19,9 @@ log-sum-exp and whose backward is a second kernel,
 ``csrc/flash_attention_bwd.cu`` (``flash_attention_bwd``; on a CPU tensor
 ``flash_attention_bwd_plain``). Without grad it is the single forward
 launch it always was, with the same bits. The backward takes one of two
-routes by (dtype, head dim), ``bwd_route``: bfloat16 at D 32, 64 and 128
-runs its products on the tensor cores (``wgmma`` fed by TMA), float32 and
-bfloat16 at D 192 on float32 FMAs.
+routes by dtype, ``bwd_route``: bfloat16 runs its products on the tensor
+cores (``wgmma`` fed by TMA; at D 192 the dK / dV kernel splits them over
+two consumer warpgroups), float32 on float32 FMAs.
 """
 from __future__ import annotations
 
@@ -37,9 +37,10 @@ from repro_torch.kernels.ref import (flash_attention_bwd_ref,
 
 HEAD_DIMS = (32, 64, 128, 192)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-#: head dims whose bfloat16 backward runs on the tensor cores (at 192 a
-#: 64-key tile's float32 dK and dV do not fit one warpgroup's registers)
-BWD_WGMMA_DIMS = (32, 64, 128)
+#: head dims whose bfloat16 backward runs on the tensor cores: all of them
+#: (at 192 a 64-key tile's float32 dK and dV do not fit one warpgroup's
+#: registers, so two consumer warpgroups hold one each)
+BWD_WGMMA_DIMS = (32, 64, 128, 192)
 #: keys (and q rows) of the backward's tiles
 BWD_TILE = 64
 #: above this many q heads a kv head, the wgmma route's dV and dK products
@@ -106,17 +107,19 @@ def bwd_route(dtype, d: int) -> str:
         else "fma"
 
 
-def bwd_splits(b: int, kvh: int, g: int, sk: int, sms: int) -> int:
+def bwd_splits(b: int, kvh: int, g: int, sk: int, sms: int, d: int) -> int:
     """Groups the G q heads of a kv head are cut into for the wgmma
-    route's dK / dV kernel (one CTA per batch, kv head, group and 64-key
-    tile): the fewest, a divisor of G, that give three CTAs an SM (a wave
-    and a half at two an SM, so the heavy causal key tiles that start
-    first leave the light ones to fill in behind), else G. Each group
+    route's dK / dV kernel at head dim ``d`` (one CTA per batch, kv head,
+    group and 64-key tile): the fewest, a divisor of G, that give a wave
+    and a half of CTAs (three an SM at two an SM; at D 192, whose CTA
+    fills an SM, one and a half), so the heavy causal key tiles that start
+    first leave the light ones to fill in behind, else G. Each group
     beyond one adds a float32 share of dK and dV that a reduce sums in
     group order."""
     tiles = b * kvh * -(-sk // BWD_TILE)
+    per_sm = 1 if d == 192 else 2
     return next((s for s in range(1, g + 1)
-                 if g % s == 0 and tiles * s >= 3 * sms), g)
+                 if g % s == 0 and 2 * tiles * s >= 3 * per_sm * sms), g)
 
 
 def bwd_scratch_floats(route: str, b: int, h: int, kvh: int, sq: int,
@@ -310,7 +313,7 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
         do = do.contiguous()
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     route = bwd_route(q.dtype, d)
-    splits = bwd_splits(b, kvh, h // kvh, sk, sm_count(q.device)) \
+    splits = bwd_splits(b, kvh, h // kvh, sk, sm_count(q.device), d) \
         if route == "wgmma" else 1
     scratch = torch.empty(bwd_scratch_floats(route, b, h, kvh, sq, sk, d,
                                              splits),

@@ -1306,10 +1306,14 @@ def test_family_smoke_on_card_matches_cpu(dev, arch):
     dict(b=1, h=2, kvh=1, sq=90, sk=64, d=32, q_offset=-20),  # keyless rows
     dict(b=1, h=4, kvh=4, sq=96, sk=96, d=192, scale=0.07),
     dict(b=1, h=48, kvh=1, sq=100, sk=100, d=128),
-    # bf16 takes the wgmma route at D 32 / 64 / 128: ragged tiles
+    # bf16 takes the wgmma route at every D: ragged tiles
     dict(b=1, h=4, kvh=2, sq=77, sk=77, d=32),
     dict(b=1, h=6, kvh=1, sq=150, sk=150, d=64),
     dict(b=1, h=12, kvh=2, sq=100, sk=170, d=128, kv_len=150),
+    # D 192: two consumer warpgroups; an odd count of q tiles (the dQ
+    # CTA's second tile is empty), a window, G 12 with hi + lo
+    dict(b=1, h=2, kvh=2, sq=130, sk=150, d=192, kv_len=140, window=50),
+    dict(b=1, h=12, kvh=1, sq=190, sk=190, d=192),
 ])
 def test_flash_gradients_flow_through_the_backward_kernel(dev, dtype, case):
     """q, k and v get gradients on the card (the wrapper's autograd route),

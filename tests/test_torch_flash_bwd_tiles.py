@@ -14,9 +14,11 @@ of the reference's ``blockwise_sdpa`` on the same numpy inputs, within
 within max(3e-2, 2^-7 |x|)): the design's rounding meets the card's bars
 before the card runs it. Above ``BWD_HILO_G`` q heads a kv head the
 kernel splits P^T and dS^T into bf16 hi + lo parts: the model shows that
-one rounding misses the bars at G 48 and the split meets them. The
-wrapper's route, group and scratch choices are checked at the shapes the
-card runs.
+one rounding misses the bars at G 48 and the split meets them. At head
+dim 192 the card spreads a tile's products over two warpgroups, P^T
+passing between them in float32, so the same model holds there (MLA's
+padded form and nemotron's G 12 are cases). The wrapper's route, group
+and scratch choices are checked at the shapes the card runs.
 """
 import jax
 import jax.numpy as jnp
@@ -126,6 +128,12 @@ CASES = [
     ("group_6_two_groups", (2, 12, 2, 72, 72, 32), {}, 2),
     ("group_8_four_groups_window", (1, 8, 1, 66, 66, 64), dict(window=30),
      4),
+    # head dim 192 (two consumer warpgroups at the card): MLA's form, G 1
+    # with ``scale=`` and v (and so dO) zero past 128 columns ...
+    ("mla_d192_scale_v_padded", (1, 2, 2, 150, 150, 192),
+     dict(scale=192 ** -0.5, v_width=128), 1),
+    # ... and nemotron-4-340b's G 12 (hi + lo at the card), two groups
+    ("group_12_d192_two_groups", (1, 12, 1, 130, 130, 192), {}, 2),
 ]
 
 
@@ -171,6 +179,11 @@ def _jax_grads(q, k, v, do, kw):
                          ids=[c[0] for c in CASES])
 def test_tile_model_meets_the_bf16_bars(name, shape, kw, splits):
     q, k, v, do = _inputs(shape, 3)
+    kw = dict(kw)
+    v_width = kw.pop("v_width", None)
+    if v_width:    # MLA: the model slices v's zero columns off the output
+        v[..., v_width:] = 0
+        do[..., v_width:] = 0
     want = _jax_grads(q, k, v, do, kw)
     qt, kt, vt, dot = (torch.from_numpy(x) for x in (q, k, v, do))
     causal = kw.get("causal", True)
@@ -187,6 +200,8 @@ def test_tile_model_meets_the_bf16_bars(name, shape, kw, splits):
                           splits=splits, hilo=hilo)
         for g, w, what in zip(got, want, ("dq", "dk", "dv")):
             assert _over_bars(g.numpy(), w) == (0, False), (name, hilo, what)
+        if v_width:    # v's zero columns get exactly 0
+            assert not got[2][..., v_width:].any(), (name, hilo)
 
 
 def _over_bars(got, want):
@@ -221,16 +236,26 @@ def test_group_48_needs_the_hi_lo_operands():
 
 
 def test_route_groups_and_scratch_at_the_card_shapes():
-    """bf16 at D 32 / 64 / 128 takes wgmma, float32 and D 192 fma; the
-    dK / dV groups at FLASH_BWD_CASES' shapes on 132 SMs; the scratch the
-    wrapper allocates for each route."""
+    """bf16 takes wgmma at every head dim, float32 fma; the dK / dV groups
+    at FLASH_BWD_CASES' shapes and train_mla_full's on 132 SMs (a wave and
+    a half of CTAs: three an SM below D 192, one and a half at D 192,
+    whose CTA fills an SM); the scratch the wrapper allocates for each
+    route."""
     assert [fa.bwd_route(torch.bfloat16, d) for d in fa.HEAD_DIMS] == \
-        ["wgmma", "wgmma", "wgmma", "fma"]
+        ["wgmma"] * 4
     assert {fa.bwd_route(torch.float32, d) for d in fa.HEAD_DIMS} == {"fma"}
-    assert fa.bwd_splits(4, 2, 6, 1088, 132) == 3      # training shape
-    assert fa.bwd_splits(1, 1, 48, 1056, 132) == 24    # G 48
-    assert fa.bwd_splits(1, 2, 4, 1056, 132) == 4      # D 32, G 4
-    assert fa.bwd_splits(1, 32, 1, 1024, 132) == 1     # window, G 1
+    assert fa.bwd_splits(4, 2, 6, 1088, 132, 128) == 3    # training shape
+    assert fa.bwd_splits(1, 1, 48, 1056, 132, 128) == 24  # G 48
+    assert fa.bwd_splits(1, 2, 4, 1056, 132, 32) == 4     # D 32, G 4
+    assert fa.bwd_splits(1, 32, 1, 1024, 132, 64) == 1    # window, G 1
+    assert fa.bwd_splits(1, 128, 1, 1024, 132, 192) == 1  # MLA, G 1
+    assert fa.bwd_splits(2, 128, 1, 1024, 132, 192) == 1  # train_mla_full
+    assert fa.bwd_splits(1, 8, 12, 1056, 132, 192) == 2   # nemotron, G 12
+    assert fa.bwd_splits(1, 8, 12, 1056, 132, 128) == 3   # as if D 128
+    assert fa.bwd_scratch_floats("wgmma", 1, 128, 128, 1024, 1024, 192,
+                                 1) == 2 * 128 * 1024
+    assert fa.bwd_scratch_floats("wgmma", 1, 96, 8, 1056, 1056, 192, 2) == \
+        2 * 96 * 1088 + 2 * 8 * 2 * 1056 * 192
     b, h, kvh, sq, sk, d = 4, 12, 2, 1088, 1088, 128
     assert fa.bwd_scratch_floats("wgmma", b, h, kvh, sq, sk, d, 2) == \
         2 * b * h * 1088 + 2 * b * kvh * 2 * sk * d
