@@ -22,14 +22,17 @@ cluster phases serve ``LVLM.serve_cluster`` (prefill / decode roles
 with KV migrated between replicas on the card, drain, the shared prefix
 tier) and the SLO-adaptive controller, card against CPU on the smoke
 config and at full width, and run the ``repro_torch.launch.serve`` CLI.
-The architecture phases hold both kernels at head dim 192 and at 48 q
-heads per kv head, compare granite, mistral, nemotron and arctic smoke
+The architecture phases hold both kernels at head dim 192 (flash's
+two-warpgroup kernel also on the edges of its 128-row items, v 192 and
+128 wide) and at 48 q heads per kv head, compare granite, mistral,
+nemotron and arctic smoke
 card against CPU, and serve each of the four at full published width
 (cut in depth to fit the card). The MLA phases hold the latent kernel
 (deepseek-v3's absorbed decode; the bf16 full-width instantiation on
 the tensor cores) against its plain version at both of its
-instantiations, flash at MLA's prefill shapes with an explicit scale and
-every earlier flash shape's output bits, compare deepseek-v3 smoke card
+instantiations, flash at MLA's prefill shapes with an explicit scale (v
+at its own 128 as the prefill passes it, and padded to 192) and every
+earlier flash shape's output bits, compare deepseek-v3 smoke card
 against CPU through every serving path (a latent-cache migration
 included), and serve deepseek-v3-671b at full width, cut to 4 of its 61
 layers. The family phases hold both kernels at the shapes and modes
@@ -64,10 +67,14 @@ Needs one CUDA device of compute capability 9.0.
 
     python3 chip_smoke.py --mla-split-sweep
     python3 chip_smoke.py --bwd-split-sweep
+    python3 chip_smoke.py --flash-fwd-compare
 
 time the latent kernel's tensor-core route at split counts around the
-wrapper's choice (``mla_split_sweep``), or the flash backward's head-dim-192
-cases at every count of q-head groups (``bwd_split_sweep``), instead.
+wrapper's choice (``mla_split_sweep``), the flash backward's head-dim-192
+cases at every count of q-head groups (``bwd_split_sweep``), or the flash
+forward at the kernel table's bf16 shapes in whatever checkout the script
+sits in (``flash_fwd_compare``: copied into an older checkout, it times
+that one's kernel), instead.
 """
 from __future__ import annotations
 
@@ -312,26 +319,35 @@ def _ptxas_report(log: str) -> list:
 def phase_build() -> dict:
     """Build the four kernels from the checkout's sources (one nvcc each,
     in parallel); print ptxas's registers and spills, each kernel's
-    dynamic shared memory (per head dim; the latent kernel's per latent
-    rank) and the count of HGMMA (wgmma) instructions in the flash
-    library's SASS, which must not be 0; the flash backward's wgmma route
-    has HGMMA at every bf16 head dim, and its D 192 kernels no spills."""
+    dynamic shared memory (per head dim -- the flash forward's per (q/k,
+    v) head dims; the latent kernel's per latent rank) and the count of
+    HGMMA (wgmma) instructions in the flash library's SASS, which must not
+    be 0; the flash forward's two-warpgroup kernels at D 192 (v 192 and
+    128) and the flash backward's D 192 kernels have HGMMA and no spills,
+    and the backward's wgmma route has HGMMA at every bf16 head dim."""
     from repro_torch.kernels import build
+    from repro_torch.kernels import flash_attention as fa
     t0 = time.perf_counter()
     res = build.build_all()
     seconds = time.perf_counter() - t0
     smem = {}
     for name in build.KERNELS:
         fn = getattr(build.load(name), f"{name}_smem_bytes")
+        if name == "flash_attention":
+            smem[name] = {f"{dt}/d{d}_v{dv}": fn(code, d, dv)
+                          for dt, code in (("float32", 0), ("bfloat16", 1))
+                          for d, dv in fa.HEAD_DIM_PAIRS}
+            continue
         dims = (32, 512) if name == "mla_attention" else (32, 64, 128, 192)
         smem[name] = {f"{dt}/d{d}": fn(code, d)
                       for dt, code in (("float32", 0), ("bfloat16", 1))
                       for d in dims}
     hgmma = _hgmma_count("flash_attention")
+    wide = _flash_wide(res["flash_attention"]["log"])
     routes = _mla_routes(res["mla_attention"]["log"])
     bwd_routes = _bwd_routes(res["flash_attention_bwd"]["log"])
     emit("build", seconds=seconds, flash_sass_hgmma=hgmma,
-         flash_bwd_routes=bwd_routes,
+         flash_wide=wide, flash_bwd_routes=bwd_routes,
          kernels={k: {"seconds": v["seconds"], "cached": v["cached"],
                       "dynamic_smem_bytes": smem[k],
                       "ptxas": _ptxas_report(v["log"]),
@@ -340,6 +356,11 @@ def phase_build() -> dict:
                                    or "Performance Loss" in ln]}
                   for k, v in res.items()}, mla_routes=routes)
     check(hgmma > 0, "the flash library's SASS has no HGMMA instruction")
+    check(all(r["ptxas"] is not None and r["hgmma"] > 0
+              and " 0 bytes spill stores" in r["ptxas"]["spills"]
+              for r in wide.values()),
+          f"flash forward D 192 kernels spill, lack HGMMA or are missing: "
+          f"{wide}")
     check(routes["bfloat16/R512"]["route"] == "wgmma"
           and routes["bfloat16/R512"]["hgmma"] > 0
           and all(r["route"] == "fma" for k, r in routes.items()
@@ -368,7 +389,10 @@ def phase_analysis() -> None:
     library's ``<lib>_smem_bytes`` is positive; for ``ANALYSIS_OUTSIDE``
     it is -1; and each wrapper's bound ``argtypes`` has the length that
     K001 folded from its source, which is the C definition's parameter
-    count. Mirrors how the sanitizer confirms the R-rules at run time."""
+    count. A library whose ``<lib>_smem_bytes`` takes two shape values
+    (the flash forward's (q/k, v) head dims) is read at admitted pairs and
+    at (ANALYSIS_OUTSIDE, ANALYSIS_OUTSIDE). Mirrors how the sanitizer
+    confirms the R-rules at run time."""
     import ctypes
     import importlib
     from repro_torch.analysis import RULE_FAMILIES, run_analysis
@@ -387,13 +411,18 @@ def phase_analysis() -> None:
     bindings = {}
     for r in rows:
         smem = getattr(build.load(r["lib"]), r["lib"] + "_smem_bytes")
-        smem.argtypes = [ctypes.c_int, ctypes.c_int]
+        # one value a shape, or a (q/k, v) pair of head dims
+        pairs = isinstance(r["admitted"][0], tuple)
+        smem.argtypes = [ctypes.c_int] * (3 if pairs else 2)
         smem.restype = ctypes.c_int
-        got = {f"{dt}/{x}": smem(code, x)
+        outside = (ANALYSIS_OUTSIDE,) * 2 if pairs else ANALYSIS_OUTSIDE
+        got = {f"{dt}/{x}".replace(" ", ""):
+               smem(code, *(x if pairs else (x,)))
                for dt, code in (("float32", 0), ("bfloat16", 1))
-               for x in r["admitted"] + [ANALYSIS_OUTSIDE]}
+               for x in r["admitted"] + [outside]}
         bad = {k: v for k, v in got.items()
-               if (v != -1 if k.endswith(f"/{ANALYSIS_OUTSIDE}") else v <= 0)}
+               if (v != -1 if k.endswith(f"/{outside}".replace(" ", ""))
+                   else v <= 0)}
         check(not bad, f"{r['lib']}_smem_bytes disagrees with the admitted "
                        f"shapes {r['admitted']}: {bad}")
         fn = getattr(importlib.import_module(r["module"]), r["function"])()
@@ -414,6 +443,25 @@ def _hgmma_count(name: str, function: str = "") -> int:
     the functions whose name holds ``function``."""
     return sum(n for f, n in _hgmma_by_function(name).items()
                if function in f)
+
+
+def _flash_wide(log: str) -> dict:
+    """The flash forward's two-consumer-warpgroup instantiations (bf16 at
+    D 192, v 192 and 128): ptxas's registers and spills of each, its
+    dynamic shared memory and the HGMMA count of its SASS."""
+    from repro_torch.kernels import build
+    lib = build.load("flash_attention")
+    entries = _ptxas_report(log)
+    hgmma = _hgmma_by_function("flash_attention")
+    out = {}
+    for d, dv in ((192, 192), (192, 128)):
+        name = f"flash_fwd_wide_kernelILi{d}ELi{dv}EE"
+        out[f"bfloat16/d{d}_v{dv}"] = {
+            "dynamic_smem_bytes": lib.flash_attention_smem_bytes(1, d, dv),
+            "ptxas": next(({x: e.get(x) for x in ("used", "spills")}
+                           for e in entries if name in e["entry"]), None),
+            "hgmma": sum(n for f, n in hgmma.items() if name in f)}
+    return out
 
 
 def _mla_routes(log: str) -> dict:
@@ -1635,7 +1683,8 @@ def _profile_calls(runs: dict, cpu: bool = True) -> dict:
                                      for e in top],
                      "port_kernels_ms_per_launch": {
                          k: _device_ms(e) / e.count for e in evts
-                         for k in ("flash_fwd_kernel", "paged_split_kernel",
+                         for k in ("flash_fwd_kernel", "flash_fwd_wide_kernel",
+                                   "paged_split_kernel",
                                    "paged_mma_kernel", "paged_combine_kernel",
                                    "mla_split_kernel", "mla_tc_kernel",
                                    "mla_merge_kernel")
@@ -3525,6 +3574,29 @@ def _paged_onequery_case(rng, dtype, b, h, kvh, d, length=SERVE_CACHE_LEN,
             ident, seqs), (k, v)
 
 
+def _flash_wide_cases():
+    """Head dim 192 on the flash forward's two-warpgroup kernel, whose CTA
+    holds a pair of 64-row q tiles: the edges of that pair. (name, case,
+    kwargs)."""
+    c = dict(b=1, h=8, kvh=2, d=192)
+    return [
+        ("window", dict(c, sq=600, sk=600), dict(window=100)),
+        ("kv_len_lt_sk", dict(c, sq=200, sk=1104), dict(kv_len=1072)),
+        ("q_offset", dict(c, sq=16, sk=1104), dict(kv_len=1056,
+                                                   q_offset=1000)),
+        ("keyless_rows", dict(c, sq=200, sk=200), dict(q_offset=-30)),
+        # rows 100-127 see no key: the pair's second tile visits all keys,
+        # its first only its own
+        ("keyless_second_tile", dict(c, sq=200, sk=200),
+         dict(kv_len=61, window=40)),
+        ("sq_1000", dict(c, sq=1000, sk=1000), {}),
+        ("sq_70", dict(c, h=4, kvh=1, sq=70, sk=70), {}),
+        ("sq_64", dict(c, h=4, kvh=1, sq=64, sk=300), {}),
+        ("non_causal", dict(c, h=4, kvh=4, sq=70, sk=1500),
+         dict(causal=False)),
+    ]
+
+
 def phase_kernels_new_shapes(flush) -> dict:
     """The kernels at the shapes the dense-family and MoE configs add, in
     float32 and bf16 against their plain versions (TOL; the multi-query
@@ -3535,7 +3607,9 @@ def phase_kernels_new_shapes(flush) -> dict:
     48 / 1, D 128) -- flash over 1056 tokens, paged one-query, masked,
     multi-query S = 5 and 9 (240 and 432 rows a kv head: 4 and 7 row
     tiles). Each bf16 case is timed beside its bound, its plain version
-    and SDPA; float32 flash at D = 192 too."""
+    and SDPA; float32 flash at D = 192 too. Then flash at D = 192 on the
+    edges of its 128-row CTA (``_flash_wide_cases``), v 192 and 128 wide,
+    in both dtypes."""
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import paged_attention as pa
@@ -3657,6 +3731,29 @@ def phase_kernels_new_shapes(flush) -> dict:
                     4 * h * d * n_keys, dtype, e,
                     rows_per_kv_head=s * h // kvh,
                     row_tiles=-(-s * h // kvh // 64))
+    # flash at D 192 (the two-warpgroup kernel, 128 q rows a CTA) on the
+    # edges of its pair of q tiles, v 192 wide and MLA's 128 (a strided
+    # view of the same v), the 128-wide output also against the padded
+    # call's first 128 columns
+    for name, c, kw in _flash_wide_cases():
+        for dtype in (torch.float32, torch.bfloat16):
+            dt = str(dtype)[6:]
+            q, k, v = _flash_inputs(rng, c, dtype)
+            for dv in (192, 128):
+                got = fa.flash_attention(q, k, v[..., :dv], **kw)
+                torch.cuda.synchronize()
+                e = errs[f"head_dim_192/flash_edges/{name}/v{dv}/{dt}"] = \
+                    max_err(got, fa.flash_attention_plain(q, k, v[..., :dv],
+                                                          **kw))
+                check(bool(torch.isfinite(got).all()) and e <= TOL[dtype],
+                      f"flash D 192 {name} v {dv} {dtype}: err {e}")
+                if dv == 128:
+                    pad = fa.flash_attention(
+                        q, k, F.pad(v[..., :dv], (0, 64)), **kw)[..., :dv]
+                    e = errs[f"head_dim_192/flash_edges/{name}/v128_vs_"
+                             f"padded/{dt}"] = max_err(got, pad)
+                    check(e <= TOL[dtype], f"flash D 192 {name} v 128 "
+                          f"{dtype} against the padded call: err {e}")
     emit("kernels_new_shapes", errors=errs, rel_errors=rel,
          tolerance={"float32": TOL[torch.float32],
                     "bfloat16": TOL[torch.bfloat16]},
@@ -4127,9 +4224,11 @@ def phase_mla_kernels(flush) -> dict:
     FMA route's times (MLA_FMA_MS); the verify must beat the plain
     einsums. Flash with an explicit
     ``scale=`` at MLA's prefill shapes (B = 1, H = KVH = 128, D = 192 over
-    1024 tokens with v zero-padded from 128, timed; the smoke's 48-wide
-    q/k and 32-wide v zero-padded to 64, scale 1/sqrt(48)) within TOL,
-    and every earlier flash shape's bits at the default scale
+    1024 tokens, v 128 wide as the prefill passes it -- timed, within TOL
+    of the plain version and of the call with v zero-padded to 192, whose
+    time stands beside it -- and the padded call itself; the smoke's
+    48-wide q/k and 32-wide v zero-padded to 64, scale 1/sqrt(48)) within
+    TOL, and every earlier flash shape's bits at the default scale
     (FLASH_BITS_SHA). Returns the kernels-line rows."""
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
@@ -4176,18 +4275,35 @@ def phase_mla_kernels(flush) -> dict:
             check(e <= TOL[dtype] and max_err(got[..., dv:], 0 * got[
                 ..., dv:]) == 0.0, f"flash mla {key} {dt}: err {e}")
             errs[f"flash_{key}/{dt}"] = e
-            if key == "full" and dtype == torch.bfloat16:
+            if key != "full":       # (64, 32) has no kernel: v stays padded
+                continue
+            # v at its own width, as the prefill passes it (no autograd)
+            nargs = args[:2] + (v.transpose(1, 2),)
+            got_n = fa.flash_attention(*nargs, scale=scale)
+            torch.cuda.synchronize()
+            e_n = errs[f"flash_{key}_v{dv}/{dt}"] = max_err(
+                got_n, fa.flash_attention_plain(*nargs, scale=scale))
+            e_p = errs[f"flash_{key}_v{dv}_vs_padded/{dt}"] = max_err(
+                got_n, got[..., :dv])
+            check(got_n.shape[-1] == dv and e_n <= TOL[dtype]
+                  and e_p <= TOL[dtype], f"flash mla {key} v {dv} {dt}: "
+                  f"err {e_n}, against the padded call {e_p}")
+            if dtype == torch.bfloat16:
                 qs, ks = args[0][..., :dqk], args[1][..., :dqk]
                 vs = v.transpose(1, 2)
                 n = s * (s + 1) / 2
                 flash["mla_prefill"] = _timed_row(
-                    lambda: fa.flash_attention(*args, scale=scale),
-                    lambda: fa.flash_attention_plain(*args, scale=scale),
+                    lambda: fa.flash_attention(*nargs, scale=scale),
+                    lambda: fa.flash_attention_plain(*nargs, scale=scale),
                     lambda: F.scaled_dot_product_attention(
                         qs, ks, vs, is_causal=True, scale=scale),
                     flush, q.element_size() * (2 * h * s * dqk
                                                + 2 * h * s * dv),
-                    2 * h * n * (dqk + dv), dtype, e,
+                    2 * h * n * (dqk + dv), dtype, e_n,
+                    padded_v_ms=time_ms(
+                        lambda: fa.flash_attention(*args, scale=scale),
+                        flush),
+                    padded_v_max_abs_err=e,
                     shape=dict(b=1, h=h, kvh=h, sq=s, sk=s, d=d, d_qk=dqk,
                                d_v=dv))
     bits = flash_bits()
@@ -5419,6 +5535,80 @@ def bwd_split_sweep() -> None:
                            c["d"]))
 
 
+def flash_fwd_compare() -> None:
+    """``python3 chip_smoke.py --flash-fwd-compare``, a measurement outside
+    the standing check that times whatever tree it sits in (copied into
+    an older checkout, it times that checkout's kernel, so two versions
+    can be compared on one host): the bf16 flash forward at the shapes
+    the kernel table keeps -- qwen2-vl's 1056-token prefill (D 128), head
+    dim 32, 48 q heads a kv head, nemotron's head dim 192 (96 / 8 heads)
+    and MLA's prefill (128 heads, 1024 tokens, scale 1/sqrt(192)) with v
+    zero-padded to 192 and, where the wrapper takes it
+    (``HEAD_DIM_PAIRS``), at its own 128 -- each within TOL of the plain
+    version, timed beside its bound, the plain version and SDPA; then
+    whether every FLASH_BITS_SHA case keeps its bits. Prints the env line
+    and one JSON line a case."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import build
+    from repro_torch.kernels import flash_attention as fa
+    phase_env()
+    t0 = time.perf_counter()
+    log = build.build_all(["flash_attention"])["flash_attention"]["log"]
+    emit("flash_fwd_compare_build", seconds=time.perf_counter() - t0,
+         warnings=[ln.strip() for ln in log.splitlines()
+                   if "warning" in ln.lower()],
+         flash_wide=_flash_wide(log) if hasattr(fa, "HEAD_DIM_PAIRS")
+         else None)
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device="cuda")
+    rng = np.random.default_rng(27)
+    dtype = torch.bfloat16
+    gqa = {"main_d128": dict(h=12, kvh=2, d=128),
+           "d32": dict(h=8, kvh=2, d=32),
+           "g48": dict(h=48, kvh=1, d=128),
+           "nemotron_d192": dict(h=96, kvh=8, d=192)}
+    for name, c in gqa.items():
+        c = dict(b=1, sq=1056, sk=1056, **c)
+        q, k, v = _flash_inputs(rng, c, dtype)
+        e = max_err(fa.flash_attention(q, k, v),
+                    fa.flash_attention_plain(q, k, v))
+        check(e <= TOL[dtype], f"flash {name}: err {e}")
+        emit("flash_fwd_compare", case=name, shape=c, **_kernel_row(
+            lambda: fa.flash_attention(q, k, v),
+            lambda: fa.flash_attention_plain(q, k, v),
+            lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                                   enable_gqa=True),
+            flush, q.element_size() * (2 * q.numel() + k.numel()
+                                       + v.numel()),
+            4 * c["d"] * c["h"] * 1056 * 1057 / 2, dtype, e))
+    h, s, dqk, dv = 128, 1024, 192, 128
+    scale = 1.0 / dqk ** 0.5
+    q, k = (randn(rng, (1, s, h, dqk), dtype).transpose(1, 2)
+            for _ in range(2))
+    v = randn(rng, (1, s, h, dv), dtype).transpose(1, 2)
+    variants = {"mla_prefill_padded_v": F.pad(v, (0, dqk - dv))}
+    if hasattr(fa, "HEAD_DIM_PAIRS"):
+        variants["mla_prefill"] = v
+    want = fa.flash_attention_plain(q, k, variants["mla_prefill_padded_v"],
+                                    scale=scale)[..., :dv]
+    for name, vx in variants.items():
+        got = fa.flash_attention(q, k, vx, scale=scale)[..., :dv]
+        e = max_err(got, want)
+        check(e <= TOL[dtype], f"flash {name}: err {e}")
+        emit("flash_fwd_compare", case=name,
+             shape=dict(b=1, h=h, kvh=h, sq=s, sk=s, d_qk=dqk,
+                        d_v=vx.shape[-1]), **_kernel_row(
+                 lambda vx=vx: fa.flash_attention(q, k, vx, scale=scale),
+                 lambda vx=vx: fa.flash_attention_plain(q, k, vx,
+                                                        scale=scale),
+                 lambda: F.scaled_dot_product_attention(
+                     q, k, v, is_causal=True, scale=scale),
+                 flush, q.element_size() * (2 * h * s * dqk + 2 * h * s * dv),
+                 2 * h * s * (s + 1) / 2 * (dqk + dv), dtype, e))
+    bits = flash_bits()
+    emit("flash_fwd_compare_bits", cases=len(bits),
+         changed=[k for k, x in bits.items() if x != FLASH_BITS_SHA.get(k)])
+
+
 def _smoke_train(model, ckpt, device, num_steps=3):
     from repro_torch.training import (OptimizerConfig, SyntheticDataConfig,
                                       train_loop)
@@ -5490,7 +5680,7 @@ def _profiled_train_step(model, oc, cfg, dc, step, state) -> tuple:
         float(m["loss"])
     prof = _profile_calls({"train_step": (one, 1)})["train_step"]
     by = prof.pop("by_kernel")
-    fwd_ms = sum(v for k, v in by.items() if "flash_fwd_kernel" in k)
+    fwd_ms = sum(v for k, v in by.items() if "flash_fwd_" in k)
     bwd_ms = sum(v for k, v in by.items() if "flash_bwd_" in k)
     return prof, fwd_ms, bwd_ms
 
@@ -5876,6 +6066,9 @@ def main() -> int:
         return 0
     if sys.argv[1:] == ["--bwd-split-sweep"]:
         bwd_split_sweep()
+        return 0
+    if sys.argv[1:] == ["--flash-fwd-compare"]:
+        flash_fwd_compare()
         return 0
     check(not sys.argv[1:], f"unknown arguments {sys.argv[1:]}")
     t_start = time.perf_counter()

@@ -24,10 +24,14 @@ K002  call arity: every call of a binding (``_lib()(...)``) passes as
       holds ``argtypes`` to. ctypes passes extra arguments to a cdecl
       function without a word.
 K003  admitted vs instantiated shapes: the values of a wrapper's literal
-      shape table (``HEAD_DIMS``; the latent ranks of ``SHAPES``) must be
-      ``X == <literal>`` cases of its library's ``<lib>_smem_bytes(int
-      dtype, int X)``, all of whose branches are read. A shape admitted
-      but not instantiated fails only at launch, with
+      shape table (``HEAD_DIMS``; the latent ranks of ``SHAPES``; the
+      (D, Dv) pairs of ``HEAD_DIM_PAIRS``) must be cases of its library's
+      ``<lib>_smem_bytes(int dtype, int X)`` (``X == <literal>``) or
+      ``<lib>_smem_bytes(int dtype, int X, int Y)`` (``X == <literal> &&
+      Y == <literal>``), all of whose branches are read; a table of
+      single values is held to the cases' X values, a table of pairs
+      to a one-value function by its rows' first entries. A shape
+      admitted but not instantiated fails only at launch, with
       ``cudaErrorInvalidValue`` (error); one instantiated but admitted by
       no wrapper is dead code (warning).
 K004  unchecked launch and fallback: a binding call's return code is
@@ -120,18 +124,36 @@ def parse_extern_c(text: str) -> Dict[str, CFunction]:
     return out
 
 
-def smem_cases(fn: CFunction) -> List[int]:
-    """The ``X == <literal>`` cases of ``<lib>_smem_bytes(int dtype, int
-    X)``, over every branch of its body."""
-    if len(fn.params) != 2 or fn.params[1][1] is None:
-        raise CSourceError(f"`{fn.name}` is not (int dtype, int X)")
-    x = re.escape(fn.params[1][1])
-    cases = sorted({int(v) for v in
-                    re.findall(rf"\b{x}\s*==\s*(\d+)\b", fn.body)})
+def smem_cases(fn: CFunction) -> list:
+    """The cases of ``<lib>_smem_bytes``, over every branch of its body:
+    the ``X == <literal>`` values of ``(int dtype, int X)``, or the
+    ``(x, y)`` pairs of ``X == <literal> && Y == <literal>`` of ``(int
+    dtype, int X, int Y)``."""
+    names = [p[1] for p in fn.params[1:]]
+    if len(fn.params) not in (2, 3) or None in names:
+        raise CSourceError(f"`{fn.name}` is not (int dtype, int X) or "
+                           "(int dtype, int X, int Y)")
+    pattern = r"\s*&&\s*".join(rf"\b{re.escape(n)}\s*==\s*(\d+)\b"
+                                 for n in names)
+    found = re.findall(pattern, fn.body)
+    cases = sorted({int(v) if len(names) == 1 else tuple(map(int, v))
+                    for v in found})
     if not cases:
-        raise CSourceError(f"`{fn.name}` has no `{fn.params[1][1]} == N` "
-                           "case")
+        raise CSourceError(f"`{fn.name}` has no `"
+                           + " && ".join(f"{n} == N" for n in names)
+                           + "` case")
     return cases
+
+
+def _arity(vals: list) -> int:
+    return len(vals[0]) if vals and isinstance(vals[0], tuple) else 1
+
+
+def _leading(vals: list, n: int) -> list:
+    """``vals`` (ints or tuples) cut to their first ``n`` entries."""
+    if _arity(vals) <= n:
+        return sorted(set(vals))
+    return sorted({v[0] if n == 1 else v[:n] for v in vals})
 
 
 def _accepts(c: CType, ct: str) -> bool:
@@ -339,8 +361,10 @@ class Wrapper:
             try:
                 rows = ast.literal_eval(stmt.value)
                 col = ADMITTED_SHAPE_TABLES[name]
-                vals = sorted({int(r if col is None else r[col])
-                               for r in rows})
+                vals = sorted({
+                    int(r) if col is None else
+                    tuple(int(r[c]) for c in col) if isinstance(col, tuple)
+                    else int(r[col]) for r in rows})
             except (ValueError, TypeError, IndexError, SyntaxError):
                 vals = None
             out.append((name, stmt.lineno, vals))
@@ -496,14 +520,16 @@ class AdmittedShapeRule(_KernelRule):
                         w.path, line, f"cannot read the shapes {lib} "
                         f"instantiates: {exc}"))
                     continue
-                missing = sorted(set(vals) - set(cases))
+                n = min(_arity(vals), _arity(cases))
+                have, cases = _leading(vals, n), _leading(cases, n)
+                missing = sorted(set(have) - set(cases))
                 if missing:
                     out.append(self.finding(
                         w.path, line,
                         f"`{name}` admits {missing}, which {lib}.cu does "
                         f"not instantiate ({smem} cases {cases}): the "
                         "launch fails with cudaErrorInvalidValue"))
-                unused = sorted(set(cases) - set(vals))
+                unused = sorted(set(cases) - set(have))
                 if unused:
                     out.append(self.finding(
                         w.path, line,
@@ -580,10 +606,15 @@ def binding_table(root: str) -> List[Dict]:
         path = KERNEL_WRAPPER_PREFIX + fn
         with open(os.path.join(kdir, fn), encoding="utf-8") as f:
             w = Wrapper(ast.parse(f.read()), path, root)
-        admitted = sorted({v for _, _, vals in w.tables() for v in vals or ()})
+        tables = [vals for _, _, vals in w.tables() if vals]
         for b in w.bindings:
             cf = w.c_function(b.lib, b.symbol)
             smem = w.c_function(b.lib, b.lib + SMEM_FUNCTION_SUFFIX)
+            n = 1 if isinstance(smem, str) else len(smem.params) - 1
+            # the shapes admitted in the function's arity (a table of
+            # fewer values a row gives none)
+            admitted = sorted({v for vals in tables if _arity(vals) >= n
+                               for v in _leading(vals, n)})
             rows.append({
                 "module": path[len("src/"):-len(".py")].replace("/", "."),
                 "function": b.fn.name, "lib": b.lib, "symbol": b.symbol,

@@ -441,12 +441,14 @@ CTYPES_OF_C = {
     "void": "None",          # a return type only
 }
 
-# Module-level tables of the shapes a wrapper admits, and which entry of
-# each row is the value its library's ``<lib>_smem_bytes(int dtype,
-# int X)`` dispatches on (None: the row is that value).
+# Module-level tables of the shapes a wrapper admits, and which entries of
+# each row are the values its library's ``<lib>_smem_bytes(int dtype,
+# int X[, int Y])`` dispatches on (None: the row is that value; an int:
+# that entry; a tuple: those entries, in the function's order).
 ADMITTED_SHAPE_TABLES = {
-    "HEAD_DIMS": None,       # flash, paged: head dim D
-    "SHAPES": 0,             # latent: (R, Rr) pairs, dispatched on R
+    "HEAD_DIMS": None,         # flash, paged: head dim D
+    "SHAPES": 0,               # latent: (R, Rr) pairs, dispatched on R
+    "HEAD_DIM_PAIRS": (0, 1),  # flash forward: (D, Dv) pairs
 }
 
 # The ``extern "C"`` function of every library that answers, for one

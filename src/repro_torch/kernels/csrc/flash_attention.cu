@@ -4,9 +4,11 @@
 // src/repro/kernels/flash_attention.py. Same function: online softmax
 // (running max m, sum l and output accumulator in float32), scale 1/sqrt(D)
 // unless the caller gives one (MLA's prefill pads q/k with zero columns and
-// keeps the scale of the unpadded width), masks k < kv_len, causal k <= q + q_offset, window k > q + q_offset - window.
-// q, k, v and o are [B, N, S, D] views whose last dimension is contiguous;
-// the other strides are arguments (multiples of 16 bytes).
+// keeps the scale of the unpadded width), masks k < kv_len, causal k <= q +
+// q_offset, window k > q + q_offset - window. q and k are [B, N, S, D], v
+// and o [B, N, S, DV] views whose last dimension is contiguous (DV = D, or
+// MLA's v 128 wide beside its 192-wide q and k); the other strides are
+// arguments (multiples of 16 bytes).
 //
 // What bounds it. Causal prefill does 4 * Sq * Sk * D / 2 operations per
 // head on Sq * D + 2 * Sk * D elements: at the main shape (Sq = Sk = 1056,
@@ -25,11 +27,7 @@
 //    zero-fills rows past the end of the view. At D = 32 a row is 64 bytes:
 //    one 32-column box with the 64-byte swizzle (the wgmma descriptors take
 //    its layout type and 512-byte row groups), S = Q K^T takes two k-steps
-//    and P V is an m64n32k16. At D = 192 (nemotron-4-340b) a row is three
-//    128-byte boxes, S = Q K^T takes 12 k-steps and P V is an m64n192k16
-//    whose O accumulator is 96 registers a thread; the Q tile and the two
-//    K/V stages take 121 KB, so one CTA fits an SM and its launch bound
-//    gives it up to 255 registers;
+//    and P V is an m64n32k16;
 //  - one consumer warpgroup (warps 0-3) owns the 64 q rows, 16 per warp.
 //    S = Q K^T is a `wgmma` with both operands in shared memory (K-major).
 //    The online softmax runs on the accumulator registers: each thread
@@ -54,9 +52,48 @@
 // tiles spread unevenly over the SMs (204 tiles of 1 to 17 key tiles on
 // 132 SMs at the main shape).
 //
+// Design at D = 192 (bfloat16; nemotron-4-340b's heads, deepseek-v3's MLA
+// prefill with DV 192 or 128), `flash_fwd_wide_kernel`. A row is three
+// 128-byte boxes, S = Q K^T takes 12 k-steps and P V is an m64n192k16
+// (m64n128k16 at DV 128) whose O accumulator is 96 (64) registers a
+// thread. A Q tile and a K/V stage take 72 KB, so no second CTA fits an SM
+// and the one-warpgroup design above left the tensor cores idle through
+// every softmax and O rescale. So a persistent CTA an SM, 384 threads,
+// walks work items of 128 q rows of one (batch, q head):
+//  - consumer warpgroups 0 and 1 each own one 64-row tile of the item and
+//    run the software pipeline above on it, with its arithmetic, visiting
+//    exactly the key tiles that tile would visit on its own (so the bits
+//    are those of a 64-row CTA); both read every K/V tile of the ring,
+//    which halves the ring's loads per q row. Q's A fragments are loaded
+//    into registers once an item (48 a thread), so S reads only K from
+//    shared memory. The softmax applies its masks in one branch ahead of
+//    the max (online_softmax_hoisted: the same values);
+//  - they issue their products in ping-pong, a turn each on named barriers
+//    (bar.sync on its own, bar.arrive on the other's right after the
+//    issue): one warpgroup's softmax, rescale and P pack run while the
+//    tensor cores work through the other's products. Both take a turn per
+//    tile of an item's union (plus one), with nothing to issue on a tile
+//    outside their own range (the diagonal's extra tile), so the barriers
+//    stay matched;
+//  - warpgroup 2 gives its registers away (setmaxnreg 24; the consumers
+//    take 240) and one of its threads issues TMA loads: an item's two Q
+//    tiles (as soon as the consumers hold the last ones in registers), then
+//    the union's K and V tiles into a 3-stage ring that runs on across
+//    items, K one tile ahead of V (Q 48 KB + 3 x 48 KB = 197,744 bytes at
+//    DV 192, 173,168 at DV 128). The next item's loads overlap this one's
+//    last products and epilogue.
+// The items are ordered on the host from the shape: all heads in one
+// chunk, heaviest pair of every head first, where all K and V fit 16 MB of
+// L2 (nemotron's 8 kv heads); else one kv head's q heads at a time (MLA's
+// 128 heads of K and V, 84 MB at DV 128: a head's pairs run side by side
+// and read its K and V from HBM once). CTA c takes items c, 2G - 1 - c,
+// 2G + c, ... of the order (G CTAs: a snake), so heavy and light items
+// spread evenly.
+//
 // float32 inputs take a plain FMA path (synchronous tile loads into
 // shared memory), kept so that the float32 result can be checked tightly
-// (211 KB of shared memory at D = 192, inside the 227 KB opt-in).
+// (211 KB of shared memory at D = 192, inside the 227 KB opt-in; DV may
+// be 128 there too).
 //
 // Rows with no valid key: the reference kernels visit every key and return
 // the mean of V for such a row. When a q tile holds such a row this kernel
@@ -119,14 +156,14 @@ constexpr int BK = 64;        // keys per tile
 constexpr int THREADS = 128;  // threads 2r, 2r+1 own q row r in the softmax
 constexpr int LDS = BK + 4;   // score row stride
 
-template <int D>
+template <int D, int DV>
 struct Layout {
   static constexpr int LDK = D + 1;  // +1: conflict-free score reads
-  static constexpr int LDO = D + 4;
+  static constexpr int LDO = DV + 4;
   static constexpr size_t q_off = 0;
   static constexpr size_t k_off = repro::align128(q_off + 4 * BQ * D);
   static constexpr size_t v_off = repro::align128(k_off + 4 * BK * LDK);
-  static constexpr size_t s_off = repro::align128(v_off + 4 * BK * D);
+  static constexpr size_t s_off = repro::align128(v_off + 4 * BK * DV);
   static constexpr size_t o_off = repro::align128(s_off + 4 * BQ * LDS);
   static constexpr size_t c_off = repro::align128(o_off + 4 * BQ * LDO);
   static constexpr size_t l_off = c_off + 4 * BQ;
@@ -152,14 +189,15 @@ __device__ __forceinline__ void load_tile(float* dst, const float* src,
   }
 }
 
-template <int D>
+// D: q and k's head dim; DV: v and o's
+template <int D, int DV>
 __global__ void __launch_bounds__(THREADS)
     flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v, float* __restrict__ o,
                      float* __restrict__ lse, int H, int KVH, int Sq, int Sk, int kv_len, int q_offset,
                      int causal, int window, float scale, Strides qs,
                      Strides ks, Strides vs, Strides os) {
-  using L = Layout<D>;
+  using L = Layout<D, DV>;
   extern __shared__ __align__(128) unsigned char smem[];
   float* Qs = reinterpret_cast<float*>(smem + L::q_off);
   float* Ks = reinterpret_cast<float*>(smem + L::k_off);
@@ -189,7 +227,7 @@ __global__ void __launch_bounds__(THREADS)
     const int nk = min(BK, Sk - k0);
     __syncthreads();  // previous tile fully consumed
     load_tile<D, L::LDK>(Ks, kp + k0 * ks.s, nk, ks.s);
-    load_tile<D, D>(Vs, vp + k0 * vs.s, nk, vs.s);
+    load_tile<DV, DV>(Vs, vp + k0 * vs.s, nk, vs.s);
     __syncthreads();
     for (int i = threadIdx.x; i < BQ * BK; i += THREADS) {  // S = Q K^T
       const int rr = i / BK, c = i % BK;
@@ -234,12 +272,12 @@ __global__ void __launch_bounds__(THREADS)
     m = m_new;
     if (half == 0) corr_s[r] = corr;
     __syncthreads();
-    for (int i = threadIdx.x; i < BQ * D; i += THREADS) {  // O = O*corr + P V
-      const int rr = i / D, d = i % D;
+    for (int i = threadIdx.x; i < BQ * DV; i += THREADS) {  // O = O*corr + P V
+      const int rr = i / DV, d = i % DV;
       const float* pr = S + rr * LDS;
       float acc = O[rr * L::LDO + d] * corr_s[rr];
 #pragma unroll 16
-      for (int c = 0; c < BK; ++c) acc = fmaf(pr[c], Vs[c * D + d], acc);
+      for (int c = 0; c < BK; ++c) acc = fmaf(pr[c], Vs[c * DV + d], acc);
       O[rr * L::LDO + d] = acc;
     }
   }
@@ -248,24 +286,24 @@ __global__ void __launch_bounds__(THREADS)
     lse[((long long)b * H + h) * Sq + q0 + r] = m + logf(l);
   __syncthreads();
   float* op = o + b * os.b + h * os.n + q0 * os.s;
-  for (int i = threadIdx.x; i < nq * D; i += THREADS) {
-    const int rr = i / D, d = i % D;
+  for (int i = threadIdx.x; i < nq * DV; i += THREADS) {
+    const int rr = i / DV, d = i % DV;
     op[rr * os.s + d] = O[rr * L::LDO + d] / fmaxf(l_s[rr], 1e-30f);
   }
 }
 
-template <int D>
+template <int D, int DV>
 cudaError_t launch(const float* q, const float* k, const float* v, float* o,
                    float* lse, int B, int H, int KVH, int Sq, int Sk, int kv_len,
                    int q_offset, int causal, int window, float scale,
                    const Strides* st, cudaStream_t stream) {
-  const size_t smem = Layout<D>::bytes;
+  const size_t smem = Layout<D, DV>::bytes;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_fwd_kernel<D, DV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((Sq + BQ - 1) / BQ, H, B);
-  flash_fwd_kernel<D><<<grid, THREADS, smem, stream>>>(
+  flash_fwd_kernel<D, DV><<<grid, THREADS, smem, stream>>>(
       q, k, v, o, lse, H, KVH, Sq, Sk, kv_len, q_offset, causal, window,
       scale > 0.0f ? scale : 1.0f / sqrtf((float)D), st[0], st[1], st[2],
       st[3]);
@@ -446,6 +484,74 @@ __device__ __forceinline__ float2 online_softmax(float (&sc)[BN / 2],
   return corr;
 }
 
+// online_softmax's function with the mask applied in one branch ahead of
+// the max: the same scaled and masked scores, max, exponents and sums in
+// the same order, so the same bits. (ptxas compiles online_softmax's test
+// of `edge` inside the unrolled loop into a branch and a convergence
+// barrier per element pair, taken on every tile, masked or not. The
+// kernels at D <= 128 keep online_softmax as it was.)
+__device__ __forceinline__ float2 online_softmax_hoisted(float (&sc)[BN / 2],
+                                                         RowState& st,
+                                                         const Problem& p,
+                                                         int k0, bool edge,
+                                                         int qpos0,
+                                                         int col0) {
+#pragma unroll
+  for (int i = 0; i < BN / 2; ++i) sc[i] *= p.scale_log2;
+  if (edge) {
+    const int qpos1 = qpos0 + 8;
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int kpos = k0 + 8 * j + col0 + e;
+        bool ok0 = kpos < p.kv_len, ok1 = ok0;
+        if (p.causal) {
+          ok0 = ok0 && kpos <= qpos0;
+          ok1 = ok1 && kpos <= qpos1;
+          if (p.window > 0) {
+            ok0 = ok0 && kpos > qpos0 - p.window;
+            ok1 = ok1 && kpos > qpos1 - p.window;
+          }
+        }
+        const bool key = kpos < p.Sk;  // past Sk: not a key at all
+        sc[4 * j + e] = !key ? -INFINITY : ok0 ? sc[4 * j + e]
+                                                : repro::kNegBig;
+        sc[4 * j + 2 + e] = !key ? -INFINITY : ok1 ? sc[4 * j + 2 + e]
+                                                    : repro::kNegBig;
+      }
+    }
+  }
+  float mx0 = -INFINITY, mx1 = -INFINITY;
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j) {
+    mx0 = fmaxf(mx0, fmaxf(sc[4 * j], sc[4 * j + 1]));
+    mx1 = fmaxf(mx1, fmaxf(sc[4 * j + 2], sc[4 * j + 3]));
+  }
+  mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
+  mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
+  mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
+  mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
+  const float mn0 = fmaxf(st.m0, mx0), mn1 = fmaxf(st.m1, mx1);
+  const float2 corr =
+      make_float2(fast_exp2(st.m0 - mn0), fast_exp2(st.m1 - mn1));
+  st.m0 = mn0;
+  st.m1 = mn1;
+  float sum0 = 0.0f, sum1 = 0.0f;
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j) {
+    sc[4 * j] = fast_exp2(sc[4 * j] - mn0);
+    sc[4 * j + 1] = fast_exp2(sc[4 * j + 1] - mn0);
+    sc[4 * j + 2] = fast_exp2(sc[4 * j + 2] - mn1);
+    sc[4 * j + 3] = fast_exp2(sc[4 * j + 3] - mn1);
+    sum0 += sc[4 * j] + sc[4 * j + 1];
+    sum1 += sc[4 * j + 2] + sc[4 * j + 3];
+  }
+  st.l0 = st.l0 * corr.x + sum0;
+  st.l1 = st.l1 * corr.y + sum1;
+  return corr;
+}
+
 // P (float, accumulator layout) -> bf16 A fragments of the P V product.
 // k-step kk's registers are {r0, k lo}, {r1, k lo}, {r0, k hi}, {r1, k hi}:
 // exactly the accumulator's n8 blocks 2kk and 2kk+1.
@@ -472,6 +578,45 @@ __device__ __forceinline__ void issue_qk(float (&sc)[BN / 2], uint32_t q_s,
   wgmma_commit();
 }
 
+// The m64k16 A fragments of a 64-row bf16 tile that TMA wrote in
+// 128-byte-swizzled 64-column boxes (16-byte chunk j of row r at chunk
+// j ^ (r % 8)), for every k-step of D: registers kk are {r0, k lo},
+// {r1, k lo}, {r0, k hi}, {r1, k hi} of k-step kk.
+template <int D>
+__device__ __forceinline__ void load_a_frags(uint32_t (&a)[D / 16][4],
+                                             uint32_t tile, int warp,
+                                             int lane) {
+  using X = Box<D>;
+  static_assert(X::COLS == 64, "128-byte swizzled boxes");
+  const int r0 = warp * 16 + lane / 4;
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = r0 + (i & 1) * 8;
+      const int c = kk * 16 + (i >> 1) * 8 + 2 * (lane % 4);
+      a[kk][i] = ld_shared_u32(
+          tile + (c / 64) * X::BYTES + r * 128 +
+          ((((c % 64) / 8) ^ (r % 8)) * 16) + (c % 8) * 2);
+    }
+}
+
+// S = Q K^T over D with Q's A fragments in registers (K K-major in shared
+// memory): only K is read from shared memory.
+template <int D>
+__device__ __forceinline__ void issue_qk_rs(float (&sc)[BN / 2],
+                                            const uint32_t (&qa)[D / 16][4],
+                                            uint32_t k_s) {
+  using X = Box<D>;
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const uint32_t off = (kk / X::KPB) * X::BYTES + (kk % X::KPB) * 32;
+    wgmma_rs_m64n64k16(sc, qa[kk], smem_desc<D>(k_s + off, 16, 8 * X::ROWB),
+                       kk > 0);
+  }
+  wgmma_commit();
+}
+
 // O += P V over the tile's keys (V MN-major in shared memory).
 template <int D>
 __device__ __forceinline__ void issue_pv(float (&o)[D / 2],
@@ -485,11 +630,9 @@ __device__ __forceinline__ void issue_pv(float (&o)[D / 2],
   wgmma_commit();
 }
 
-// Two CTAs a SM up to D = 128; at D = 192 one CTA's 121 KB of shared
-// memory leaves no room for a second, so its threads may take up to 255
-// registers (the 96-register O accumulator).
+// Two CTAs a SM (D = 32, 64, 128; D = 192 takes flash_fwd_wide_kernel).
 template <int D>
-__global__ void __launch_bounds__(THREADS, D == 192 ? 1 : 2)
+__global__ void __launch_bounds__(THREADS, 2)
     flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
                      const __grid_constant__ CUtensorMap tm_k,
                      const __grid_constant__ CUtensorMap tm_v,
@@ -647,6 +790,338 @@ __global__ void __launch_bounds__(THREADS, D == 192 ? 1 : 2)
   }
 }
 
+// ---------------------------------------------------------------------------
+// bfloat16 at D = 192: two consumer warpgroups in ping-pong
+// ---------------------------------------------------------------------------
+
+constexpr int WG = 128;                // threads of a warpgroup
+constexpr int WIDE_THREADS = 3 * WG;   // warpgroups 0, 1 compute, 2 loads
+constexpr int WIDE_STAGES = 3;         // K/V ring depth
+// registers a thread after setmaxnreg, one CTA an SM:
+// 128 x 24 + 256 x 240 = 64,512 of 65,536
+constexpr int WIDE_PRODUCER_REGS = 24, WIDE_CONSUMER_REGS = 240;
+// named barrier TURN_BAR + w: consumer warpgroup w's turn to issue its
+// products (0 is __syncthreads)
+constexpr int TURN_BAR = 1;
+// the K and V of all heads that one chunk of the item order may hold in L2
+// (a third of the H100's 50 MB, as the backward's dQ grid)
+constexpr long long WIDE_L2_BYTES = 16ll << 20;
+
+// Q's two 64-row tiles (one a consumer warpgroup), then the K and V ring.
+// DQK: q and k's head dim; DV: v and o's.
+template <int DQK, int DV>
+struct WideSmem {
+  static constexpr uint32_t qk = Box<DQK>::NC * Box<DQK>::BYTES;  // Q or K
+  static constexpr uint32_t vt = Box<DV>::NC * Box<DV>::BYTES;    // V
+  static constexpr uint32_t q_off = 0;                         // + w * qk
+  static constexpr uint32_t k_off = 2 * qk;                    // + s * qk
+  static constexpr uint32_t v_off = k_off + WIDE_STAGES * qk;  // + s * vt
+  static constexpr uint32_t bar_off = v_off + WIDE_STAGES * vt;
+  // q_full, q_empty, k_full[STAGES], v_full[STAGES], k_empty[STAGES],
+  // v_empty[STAGES]
+  static constexpr uint32_t n_bars = 2 + 4 * WIDE_STAGES;
+  static constexpr size_t bytes = bar_off + 8 * n_bars + 1024;
+  static_assert(bytes <= 227 * 1024, "over the 227 KB opt-in");
+};
+
+struct WideProblem {
+  Problem p;
+  int B;
+  int q_chunk;  // heads a chunk of the item order (launch_wide)
+};
+
+// A work item: 128 q rows (two 64-row tiles) of one (batch, q head), the
+// key tiles each tile visits and their union.
+struct WideItem {
+  int b, h, kvh, q0, nq0, nq1, u_lo, u_hi;
+  KeyRange t0, t1;
+};
+
+// Item w of the order: (b, q head, pair of q tiles) in chunks of q_chunk
+// heads, within a chunk the heaviest pair of every head first, heads
+// fastest.
+__device__ __forceinline__ WideItem wide_item(const WideProblem& w2,
+                                              int n_qp, int w) {
+  const Problem& p = w2.p;
+  WideItem it;
+  it.b = w / (p.H * n_qp);
+  const int r = w % (p.H * n_qp);
+  const int h_lo = r / (w2.q_chunk * n_qp) * w2.q_chunk;
+  const int nh = min(w2.q_chunk, p.H - h_lo), r2 = r - h_lo * n_qp;
+  it.h = h_lo + r2 % nh;
+  it.q0 = (n_qp - 1 - r2 / nh) * 2 * BM;
+  it.kvh = it.h / (p.H / p.KVH);
+  it.nq0 = min(BM, p.Sq - it.q0);
+  it.nq1 = min(BM, p.Sq - it.q0 - BM);
+  it.t0 = tile_range(p, it.q0, it.nq0);
+  it.t1 = it.nq1 > 0 ? tile_range(p, it.q0 + BM, it.nq1) : it.t0;
+  it.u_lo = min(it.t0.lo, it.t1.lo);
+  it.u_hi = max(it.t0.hi, it.t1.hi);
+  return it;
+}
+
+// The item of round r of a persistent CTA: the rounds walk the order in
+// strides of the grid, every other round backwards (a snake), so each CTA
+// takes heavy and light items alike.
+__device__ __forceinline__ int wide_item_index(int r) {
+  const int g = (int)gridDim.x, c = (int)blockIdx.x;
+  return r * g + ((r & 1) ? g - 1 - c : c);
+}
+
+// Persistent: one CTA an SM walks items (wide_item_index) until the order
+// is done. Consumer warpgroup w owns q tile w of an item and visits exactly
+// the key tiles that the kernel above visits for that tile, with its
+// arithmetic, in the same order: the bits depend neither on the pairing nor
+// on the schedule. The producer loads each item's two Q tiles (once both
+// warpgroups have read the previous ones into registers: S takes Q as its
+// register operand) and the union of the two key ranges into the ring, whose
+// position runs on across items, so the next item's loads overlap this
+// one's last products and epilogue. A tile outside a warpgroup's own range
+// is released by it unread (after its load completed, so that an arrival
+// never counts toward an earlier phase of its stage).
+//
+// Ping-pong: the warpgroups take turns to issue their products, one turn
+// per tile of an item's union and one more (a warpgroup's turn t issues S
+// of its tile t and P V of tile t-1, or nothing outside its range); a turn
+// starts with bar.sync on its own named barrier and ends with bar.arrive on
+// the other's, right after the issue, so one warpgroup's softmax, O
+// rescale and P pack run while the tensor cores work through the other's
+// products. Both take as many turns an item, so the barriers stay matched
+// from the first item to the last.
+template <int DQK, int DV>
+__global__ void __launch_bounds__(WIDE_THREADS, 1)
+    flash_fwd_wide_kernel(const __grid_constant__ CUtensorMap tm_q,
+                          const __grid_constant__ CUtensorMap tm_k,
+                          const __grid_constant__ CUtensorMap tm_v,
+                          __nv_bfloat16* __restrict__ o,
+                          float* __restrict__ lse, Strides os,
+                          WideProblem w2) {
+  using L = WideSmem<DQK, DV>;
+  using X = Box<DQK>;
+  using XV = Box<DV>;
+  constexpr int STAGES = WIDE_STAGES;
+  const Problem& p = w2.p;
+  extern __shared__ unsigned char smem_raw[];
+  // 1024-byte aligned base (the 128-byte swizzle repeats every 8 rows)
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t bars = base + L::bar_off;
+  auto k_tile = [&](int s) { return base + L::k_off + s * L::qk; };
+  auto v_tile = [&](int s) { return base + L::v_off + s * L::vt; };
+  const uint32_t q_full = bars, q_empty = bars + 8u;
+  auto k_full = [&](int s) { return bars + 8u * (2 + s); };
+  auto v_full = [&](int s) { return bars + 8u * (2 + STAGES + s); };
+  auto k_empty = [&](int s) { return bars + 8u * (2 + 2 * STAGES + s); };
+  auto v_empty = [&](int s) { return bars + 8u * (2 + 3 * STAGES + s); };
+
+  const int n_qp = (p.Sq + 2 * BM - 1) / (2 * BM);
+  const int n_items = w2.B * p.H * n_qp;
+  const int wg = threadIdx.x / WG;
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    mbar_init(q_empty, 2 * WG);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(k_full(s), 1);
+      mbar_init(v_full(s), 1);
+      mbar_init(k_empty(s), 2 * WG);
+      mbar_init(v_empty(s), 2 * WG);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == 2) {
+    // ------------------------------------------- producer warpgroup ----
+    // Ring position g + i holds union tile i of the item; its K is free
+    // once both warpgroups computed S of it (or passed it), its V once both
+    // did P V. K of tile i goes ahead of V of tile i-1: a turn takes S of
+    // one tile and P V of the one before, and V frees a turn later than K.
+    setmaxnreg_dec<WIDE_PRODUCER_REGS>();
+    if (threadIdx.x % WG == 0) {
+      int g = 0;
+      for (int r = 0;; ++r) {
+        const int w = wide_item_index(r);
+        if (w >= n_items) break;
+        const WideItem it = wide_item(w2, n_qp, w);
+        mbar_wait(q_empty, (r & 1) ^ 1);
+        mbar_expect_tx(q_full, 2 * L::qk);
+        for (int t = 0; t < 2; ++t)
+          for (int c = 0; c < X::NC; ++c)
+            tma_load(base + L::q_off + t * L::qk + c * X::BYTES, &tm_q,
+                     q_full, c * X::COLS, it.q0 + t * BM, it.h, it.b);
+        const int n_u = it.u_hi - it.u_lo;
+        for (int i = 0; i <= n_u; ++i) {
+          if (i < n_u) {
+            const int s = (g + i) % STAGES;
+            mbar_wait(k_empty(s), (((g + i) / STAGES) & 1) ^ 1);
+            mbar_expect_tx(k_full(s), L::qk);
+            for (int c = 0; c < X::NC; ++c)
+              tma_load(k_tile(s) + c * X::BYTES, &tm_k, k_full(s),
+                       c * X::COLS, (it.u_lo + i) * BN, it.kvh, it.b);
+          }
+          if (i > 0) {
+            const int j = g + i - 1, s = j % STAGES;
+            mbar_wait(v_empty(s), ((j / STAGES) & 1) ^ 1);
+            mbar_expect_tx(v_full(s), L::vt);
+            for (int c = 0; c < XV::NC; ++c)
+              tma_load(v_tile(s) + c * XV::BYTES, &tm_v, v_full(s),
+                       c * XV::COLS, (it.u_lo + i - 1) * BN, it.kvh, it.b);
+          }
+        }
+        g += n_u;
+      }
+    }
+    return;
+  }
+
+  // ----------------------------------------------- consumer warpgroups ----
+  setmaxnreg_inc<WIDE_CONSUMER_REGS>();
+  const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+  const uint32_t q_s = base + L::q_off + wg * L::qk;
+  const int row0 = warp * 16 + lane / 4, col0 = 2 * (lane % 4);
+  const int kmax = min(p.kv_len, p.Sk);
+  auto turn_begin = [&] { named_sync(TURN_BAR + wg, 2 * WG); };
+  auto turn_end = [&] { named_arrive(TURN_BAR + 1 - wg, 2 * WG); };
+
+  if (wg == 1) turn_end();  // warpgroup 0 takes the first turn
+  int g = 0;  // ring position of the item's first union tile
+  for (int r = 0;; ++r) {
+    const int w = wide_item_index(r);
+    if (w >= n_items) break;
+    const WideItem it = wide_item(w2, n_qp, w);
+    const KeyRange t = wg == 0 ? it.t0 : it.t1;
+    const int qw = it.q0 + wg * BM, nq = wg == 0 ? it.nq0 : it.nq1;
+    const int u_lo = it.u_lo, u_hi = it.u_hi;
+    const int lo = nq > 0 ? t.lo : u_hi, n = nq > 0 ? t.hi - t.lo : 0;
+    const int qpos0 = qw + row0 + p.q_offset;
+    const int q_first = qw + p.q_offset, q_last = qw + nq - 1 + p.q_offset;
+    auto edge = [&](int k0) {
+      return t.all_masked || k0 + BN > kmax ||
+             (p.causal && (k0 + BN - 1 > q_first ||
+                           (p.window > 0 && k0 <= q_last - p.window)));
+    };
+    auto stage = [&](int u) { return (g + u - u_lo) % STAGES; };
+    auto phase = [&](int u) {
+      return (uint32_t)(((g + u - u_lo) / STAGES) & 1);
+    };
+    // union tile u, outside this warpgroup's range: released unread
+    auto pass = [&](int u) {
+      mbar_wait(k_full(stage(u)), phase(u));
+      mbar_arrive(k_empty(stage(u)));
+      mbar_wait(v_full(stage(u)), phase(u));
+      mbar_arrive(v_empty(stage(u)));
+    };
+
+    float o_acc[DV / 2];
+#pragma unroll
+    for (int i = 0; i < DV / 2; ++i) o_acc[i] = 0.0f;
+    RowState st{repro::kNegBig, repro::kNegBig, 0.0f, 0.0f};
+    float sc[BN / 2];
+    uint32_t pa[BN / 16][4], qa[DQK / 16][4];
+    mbar_wait(q_full, r & 1);
+    if (n > 0) load_a_frags<DQK>(qa, q_s, warp, lane);
+    mbar_arrive(q_empty);  // Q is in registers: the next item may load
+
+    int u = u_lo;
+    for (; u < lo; ++u) {
+      pass(u);
+      turn_begin();
+      turn_end();
+    }
+    if (n > 0) {
+      // the one-warpgroup kernel's software pipeline, a turn per issue
+      mbar_wait(k_full(stage(lo)), phase(lo));
+      turn_begin();
+      wgmma_fence();
+      issue_qk_rs<DQK>(sc, qa, k_tile(stage(lo)));
+      turn_end();
+      wgmma_wait<0>();
+      fence_regs(sc);
+      mbar_arrive(k_empty(stage(lo)));
+      online_softmax_hoisted(sc, st, p, lo * BN, edge(lo * BN), qpos0, col0);
+      pack_p(sc, pa);  // O is 0: no rescale
+
+      for (u = lo + 1; u < lo + n; ++u) {
+        const int s = stage(u), sp = stage(u - 1);
+        const int k0 = u * BN;
+        mbar_wait(k_full(s), phase(u));
+        mbar_wait(v_full(sp), phase(u - 1));
+        fence_regs(o_acc);
+        turn_begin();
+        wgmma_fence();
+        issue_qk_rs<DQK>(sc, qa, k_tile(s));
+        issue_pv<DV>(o_acc, pa, v_tile(sp));
+        turn_end();
+        wgmma_wait<1>();  // S of tile u is done; P V of tile u-1 may run on
+        fence_regs(sc);
+        mbar_arrive(k_empty(s));
+        const float2 corr = online_softmax_hoisted(sc, st, p, k0, edge(k0),
+                                                   qpos0, col0);
+        wgmma_wait<0>();
+        fence_regs(o_acc);
+        mbar_arrive(v_empty(sp));
+#pragma unroll
+        for (int j = 0; j < DV / 8; ++j) {
+          o_acc[4 * j] *= corr.x;
+          o_acc[4 * j + 1] *= corr.x;
+          o_acc[4 * j + 2] *= corr.y;
+          o_acc[4 * j + 3] *= corr.y;
+        }
+        pack_p(sc, pa);
+      }
+      const int sl = stage(u - 1);
+      mbar_wait(v_full(sl), phase(u - 1));
+      fence_regs(o_acc);
+      turn_begin();  // turn u = lo + n: the last P V
+      wgmma_fence();
+      issue_pv<DV>(o_acc, pa, v_tile(sl));
+      turn_end();
+      wgmma_wait<0>();
+      fence_regs(o_acc);
+      mbar_arrive(v_empty(sl));
+      if (u < u_hi) pass(u);
+      ++u;
+    }
+    for (; u <= u_hi; ++u) {
+      if (u < u_hi) pass(u);
+      turn_begin();
+      turn_end();
+    }
+
+    if (nq > 0) {
+      // epilogue: O / l, rows past Sq masked
+      float l0 = st.l0, l1 = st.l1;
+      l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
+      l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
+      l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
+      l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
+      const float inv0 = 1.0f / fmaxf(l0, 1e-30f),
+                  inv1 = 1.0f / fmaxf(l1, 1e-30f);
+      __nv_bfloat16* op = o + it.b * os.b + it.h * os.n;
+      const int r0 = qw + row0, r1 = r0 + 8;
+      if (lse != nullptr && (lane & 3) == 0) {  // m, l are in log2 units
+        float* lp = lse + ((long long)it.b * p.H + it.h) * p.Sq;
+        if (r0 < p.Sq) lp[r0] = (st.m0 + log2f(l0)) * 0.6931471805599453f;
+        if (r1 < p.Sq) lp[r1] = (st.m1 + log2f(l1)) * 0.6931471805599453f;
+      }
+#pragma unroll
+      for (int j = 0; j < DV / 8; ++j) {
+        const int c = 8 * j + col0;
+        if (r0 < p.Sq)
+          *reinterpret_cast<__nv_bfloat162*>(op + r0 * os.s + c) =
+              __floats2bfloat162_rn(o_acc[4 * j] * inv0,
+                                    o_acc[4 * j + 1] * inv0);
+        if (r1 < p.Sq)
+          *reinterpret_cast<__nv_bfloat162*>(op + r1 * os.s + c) =
+              __floats2bfloat162_rn(o_acc[4 * j + 2] * inv1,
+                                    o_acc[4 * j + 3] * inv1);
+      }
+    }
+    g += u_hi - u_lo;
+  }
+  if (wg == 0) turn_begin();  // warpgroup 1's last turn_end
+}
+
 // A 4-d map of a [B, N, S, D] bf16 view: boxes of 64 columns x 64 rows of
 // one (b, n) with the 128-byte swizzle (D = 32: 32 columns, 64-byte
 // swizzle), zero fill past the ends.
@@ -693,25 +1168,69 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
   return cudaGetLastError();
 }
 
+// D = 192: the two-warpgroup kernel, one persistent CTA an SM. Its item
+// order keeps K and V in L2: all heads in one chunk where every kv head's
+// K and V fit WIDE_L2_BYTES together (nemotron's 8 kv heads, 6.5 MB at
+// 1056 tokens: the heaviest pairs of all heads first), else one kv head's
+// q heads at a time (MLA's 128 heads, 84 MB at 1024 tokens with v 128
+// wide, twice L2: a head's pairs run side by side and read its K and V
+// from HBM once).
+template <int DQK, int DV>
+cudaError_t launch_wide(const void* q, const void* k, const void* v, void* o,
+                        float* lse, int B, int H, int KVH, int Sq, int Sk,
+                        int kv_len, int q_offset, int causal, int window,
+                        float scale, const Strides* st, cudaStream_t stream) {
+  CUtensorMap tm_q, tm_k, tm_v;
+  if (!make_map(&tm_q, q, B, H, Sq, DQK, st[0]) ||
+      !make_map(&tm_k, k, B, KVH, Sk, DQK, st[1]) ||
+      !make_map(&tm_v, v, B, KVH, Sk, DV, st[2]))
+    return cudaErrorInvalidValue;
+  const size_t smem = WideSmem<DQK, DV>::bytes;
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_fwd_wide_kernel<DQK, DV>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  int dev = 0, sms = 0;
+  err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  const int n_qt = (Sq + BM - 1) / BM, n_qp = (Sq + 2 * BM - 1) / (2 * BM);
+  const long long n_items = (long long)B * H * n_qp;
+  const bool fits = (long long)KVH * Sk * (DQK + DV) * 2 <= WIDE_L2_BYTES;
+  const WideProblem w2{
+      {H, KVH, Sq, Sk, kv_len, q_offset, causal, window, n_qt,
+       scale > 0.0f ? 1.4426950408889634f * scale
+                    : 1.4426950408889634f / sqrtf((float)DQK)},
+      B, fits ? H : H / KVH};
+  flash_fwd_wide_kernel<DQK, DV>
+      <<<(unsigned)(n_items < sms ? n_items : sms), WIDE_THREADS, smem,
+         stream>>>(tm_q, tm_k, tm_v, static_cast<__nv_bfloat16*>(o), lse,
+                   st[3], w2);
+  return cudaGetLastError();
+}
+
 }  // namespace bf16
 
 }  // namespace
 
-// q [B,H,Sq,D], k/v [B,KVH,Sk,D], o [B,H,Sq,D]: views of one dtype
-// (0 float32, 1 bfloat16), D in {32, 64, 128, 192}, last dimension
-// contiguous. `scale` > 0 is the softmax scale; 0 keeps 1/sqrt(D), computed
-// as before the argument existed, so those results keep their bits.
-// `strides` holds the element strides (b, head, seq) of q, k, v and o, in
-// that order (12 values), each a multiple of 16 bytes. kv_len and q_offset
-// are already resolved as the Pallas wrapper resolves them. `lse`, when not
-// null, receives each row's log-sum-exp [B,H,Sq] (float32, contiguous).
-// Returns the CUDA error of the launch (0 on success).
+// q [B,H,Sq,D], k [B,KVH,Sk,D], v [B,KVH,Sk,DV], o [B,H,Sq,DV]: views of
+// one dtype (0 float32, 1 bfloat16), (D, DV) one of (32, 32), (64, 64),
+// (128, 128), (192, 192) and (192, 128) (MLA's v, 128 wide beside its
+// 192-wide q and k), last dimension contiguous. `scale` > 0 is the softmax
+// scale; 0 keeps 1/sqrt(D), computed as before the argument existed, so
+// those results keep their bits. `strides` holds the element strides (b,
+// head, seq) of q, k, v and o, in that order (12 values), each a multiple
+// of 16 bytes. kv_len and q_offset are already resolved as the Pallas
+// wrapper resolves them. `lse`, when not null, receives each row's
+// log-sum-exp [B,H,Sq] (float32, contiguous). Returns the CUDA error of the
+// launch (0 on success).
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
                                    void* o, float* lse, int B, int H, int KVH, int Sq,
-                                   int Sk, int D, int kv_len, int q_offset,
-                                   int causal, int window, float scale,
-                                   int dtype, const long long* strides,
-                                   void* stream) {
+                                   int Sk, int D, int DV, int kv_len,
+                                   int q_offset, int causal, int window,
+                                   float scale, int dtype,
+                                   const long long* strides, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   Strides st[4];
   for (int i = 0; i < 4; ++i)
@@ -721,43 +1240,56 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
                 *kf = static_cast<const float*>(k),
                 *vf = static_cast<const float*>(v);
     float* of = static_cast<float*>(o);
-#define REPRO_F32(DD)                                                       \
-  if (D == DD)                                                              \
-    return f32::launch<DD>(qf, kf, vf, of, lse, B, H, KVH, Sq, Sk, kv_len,       \
-                           q_offset, causal, window, scale, st, s);
-    REPRO_F32(32)
-    REPRO_F32(64)
-    REPRO_F32(128)
-    REPRO_F32(192)
+#define REPRO_F32(DD, VV)                                                   \
+  if (D == DD && DV == VV)                                                  \
+    return f32::launch<DD, VV>(qf, kf, vf, of, lse, B, H, KVH, Sq, Sk,      \
+                               kv_len, q_offset, causal, window, scale, st, \
+                               s);
+    REPRO_F32(32, 32)
+    REPRO_F32(64, 64)
+    REPRO_F32(128, 128)
+    REPRO_F32(192, 192)
+    REPRO_F32(192, 128)
 #undef REPRO_F32
   }
   if (dtype == repro::kBFloat16) {
 #define REPRO_BF16(DD)                                                      \
-  if (D == DD)                                                              \
+  if (D == DD && DV == DD)                                                  \
     return bf16::launch<DD>(q, k, v, o, lse, B, H, KVH, Sq, Sk, kv_len, q_offset, \
                             causal, window, scale, st, s);
     REPRO_BF16(32)
     REPRO_BF16(64)
     REPRO_BF16(128)
-    REPRO_BF16(192)
 #undef REPRO_BF16
+#define REPRO_WIDE(DD, VV)                                                  \
+  if (D == DD && DV == VV)                                                  \
+    return bf16::launch_wide<DD, VV>(q, k, v, o, lse, B, H, KVH, Sq, Sk,    \
+                                     kv_len, q_offset, causal, window,      \
+                                     scale, st, s);
+    REPRO_WIDE(192, 192)
+    REPRO_WIDE(192, 128)
+#undef REPRO_WIDE
   }
   return (int)cudaErrorInvalidValue;
 }
 
-// Dynamic shared memory of one CTA of the kernel for (dtype, D), in bytes
-// (reported by chip_smoke.py's build phase; ptxas prints only static), or
-// -1 for a head dim the kernel does not take.
-extern "C" int flash_attention_smem_bytes(int dtype, int D) {
-  if (dtype == repro::kFloat32)
-    return D == 32    ? (int)f32::Layout<32>::bytes
-           : D == 64  ? (int)f32::Layout<64>::bytes
-           : D == 128 ? (int)f32::Layout<128>::bytes
-           : D == 192 ? (int)f32::Layout<192>::bytes
-                      : -1;
-  return D == 32    ? (int)bf16::Smem<32>::bytes
-         : D == 64  ? (int)bf16::Smem<64>::bytes
-         : D == 128 ? (int)bf16::Smem<128>::bytes
-         : D == 192 ? (int)bf16::Smem<192>::bytes
-                    : -1;
+// Dynamic shared memory of one CTA of the kernel for (dtype, D, DV), in
+// bytes (reported by chip_smoke.py's build phase; ptxas prints only
+// static), or -1 for head dims the kernel does not take.
+extern "C" int flash_attention_smem_bytes(int dtype, int D, int DV) {
+  const bool f = dtype == repro::kFloat32;
+  if (D == 32 && DV == 32)
+    return f ? (int)f32::Layout<32, 32>::bytes : (int)bf16::Smem<32>::bytes;
+  if (D == 64 && DV == 64)
+    return f ? (int)f32::Layout<64, 64>::bytes : (int)bf16::Smem<64>::bytes;
+  if (D == 128 && DV == 128)
+    return f ? (int)f32::Layout<128, 128>::bytes
+             : (int)bf16::Smem<128>::bytes;
+  if (D == 192 && DV == 192)
+    return f ? (int)f32::Layout<192, 192>::bytes
+             : (int)bf16::WideSmem<192, 192>::bytes;
+  if (D == 192 && DV == 128)
+    return f ? (int)f32::Layout<192, 128>::bytes
+             : (int)bf16::WideSmem<192, 128>::bytes;
+  return -1;
 }

@@ -11,7 +11,9 @@ tiles a q tile can see and runs its bfloat16 products on Hopper's tensor
 cores (``wgmma``), fed by TMA. q, k and v may be strided ``[B, N, S, D]``
 views (for example ``x.transpose(1, 2)`` of a ``[B, S, N, D]`` tensor): the
 last dimension must be contiguous and every other stride a multiple of 16
-bytes, which TMA requires.
+bytes, which TMA requires. v may be narrower than q and k where
+``HEAD_DIM_PAIRS`` says so (MLA's 128-wide v beside its 192-wide q and k);
+the output then has v's width.
 
 Gradients: with grad enabled and an input that requires it, the wrapper
 runs ``FlashAttentionFn``, whose forward also keeps each row's
@@ -36,6 +38,10 @@ from repro_torch.kernels.ref import (flash_attention_bwd_ref,
                                      flash_attention_ref)
 
 HEAD_DIMS = (32, 64, 128, 192)
+#: (q / k head dim, v head dim) pairs the forward kernel takes: equal
+#: widths, and MLA's v 128 wide beside q and k 192 wide (deepseek-v3's
+#: nope 128 + rope 64; the backward takes equal widths only)
+HEAD_DIM_PAIRS = ((32, 32), (64, 64), (128, 128), (192, 192), (192, 128))
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 #: head dims whose bfloat16 backward runs on the tensor cores: all of them
 #: (at 192 a 64-key tile's float32 dK and dV do not fit one warpgroup's
@@ -140,7 +146,7 @@ def bwd_scratch_floats(route: str, b: int, h: int, kvh: int, sq: int,
 def _lib():
     fn = build.load("flash_attention").flash_attention_fwd
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 10 \
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 11 \
             + [ctypes.c_float, ctypes.c_int,
                ctypes.POINTER(ctypes.c_longlong), ctypes.c_void_p]
         fn.restype = ctypes.c_int
@@ -180,13 +186,14 @@ def _strides(name: str, t) -> list:
 
 
 def _check_kernel_inputs(q, k, v, scale) -> None:
-    """What the kernels take, or raise (the forward's and the backward's
-    conditions are the same)."""
+    """What the kernels take, or raise (the forward's conditions; the
+    backward also needs v as wide as q and k)."""
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: unsupported device {q.device}")
     b, h, sq, d = q.shape
     kvh, sk = k.shape[1], k.shape[2]
-    if k.shape != v.shape or k.shape[0] != b or k.shape[3] != d or h % kvh:
+    if k.shape[:3] != v.shape[:3] or k.shape[0] != b or k.shape[3] != d \
+            or h % kvh:
         raise ValueError(f"flash_attention kernel: q {tuple(q.shape)}, k "
                          f"{tuple(k.shape)}, v {tuple(v.shape)} do not fit")
     for name, t in (("k", k), ("v", v)):
@@ -199,6 +206,9 @@ def _check_kernel_inputs(q, k, v, scale) -> None:
     if d not in HEAD_DIMS:
         raise ValueError(f"flash_attention kernel takes head dim "
                          f"{HEAD_DIMS}, not {d}")
+    if (d, v.shape[3]) not in HEAD_DIM_PAIRS:
+        raise ValueError(f"flash_attention kernel takes (q/k, v) head dims "
+                         f"{HEAD_DIM_PAIRS}, not ({d}, {v.shape[3]})")
     if sq == 0 or sk == 0:
         raise ValueError("flash_attention kernel needs Sq, Sk >= 1")
     if scale is not None and not scale > 0:
@@ -210,8 +220,8 @@ def _forward(q, k, v, *, causal, window, kv_len, q_offset, scale,
     """One launch of the forward kernel on checked inputs: (out, lse or
     None)."""
     b, h, sq, d = q.shape
-    kvh, sk = k.shape[1], k.shape[2]
-    out = torch.empty_like(q)          # q's strides when q is dense
+    kvh, sk, dv = k.shape[1], k.shape[2], v.shape[3]
+    out = _empty_out(q, dv)            # q's layout when q is dense
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device) \
         if with_lse else None
     strides = [x for name, t in (("q", q), ("k", k), ("v", v), ("out", out))
@@ -219,7 +229,7 @@ def _forward(q, k, v, *, causal, window, kv_len, q_offset, scale,
     kv_len, q_offset = resolve_offsets(sq, sk, causal, kv_len, q_offset)
     err = _lib()(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                  None if lse is None else lse.data_ptr(),
-                 b, h, kvh, sq, sk, d, kv_len, q_offset, int(causal),
+                 b, h, kvh, sq, sk, d, dv, kv_len, q_offset, int(causal),
                  int(window), 0.0 if scale is None else float(scale),
                  _DTYPES[q.dtype],
                  (ctypes.c_longlong * 12)(*strides),
@@ -231,10 +241,21 @@ def _forward(q, k, v, *, causal, window, kv_len, q_offset, scale,
     return out, lse
 
 
+def _empty_out(q, dv: int):
+    """The output [B,H,Sq,dv]: ``empty_like(q)`` at q's width (q's strides
+    when q is dense), else laid out in the order of q's strides."""
+    if dv == q.shape[3]:
+        return torch.empty_like(q)
+    order = sorted(range(3), key=lambda i: -q.stride(i))
+    out = q.new_empty([q.shape[i] for i in order] + [dv])
+    return out.permute(*[order.index(i) for i in range(3)], 3)
+
+
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
                     kv_len: Optional[int] = None, q_offset: int = 0,
                     scale: Optional[float] = None):
-    """q [B,H,Sq,D]; k, v [B,KVH,Sk,D] -> [B,H,Sq,D] in q's dtype.
+    """q [B,H,Sq,D]; k [B,KVH,Sk,D], v [B,KVH,Sk,Dv] -> [B,H,Sq,Dv] in
+    q's dtype.
 
     ``kv_len`` marks the valid keys (default Sk); ``q_offset`` is the
     absolute position of q[..., 0, :] for the causal and window masks,
@@ -242,13 +263,14 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     None keeps 1/sqrt(D), bit for bit as before the argument existed (MLA
     pads q and k with zero columns and passes the unpadded width's
     scale). A CPU tensor takes the plain
-    version; a CUDA tensor takes the kernel (float32 or bfloat16, D in
-    {32, 64, 128, 192}, views with a contiguous last dimension and other strides
-    that are multiples of 16 bytes) or raises. The result has q's strides
+    version (any Dv); a CUDA tensor takes the kernel (float32 or bfloat16,
+    (D, Dv) in ``HEAD_DIM_PAIRS``, views with a contiguous last dimension
+    and other strides that are multiples of 16 bytes) or raises. The result has q's strides
     when q is a dense view, so ``flash_attention(q.transpose(1, 2), ...)``
     transposes back to a contiguous tensor. With grad enabled and an input
     that requires grad, the call goes through ``FlashAttentionFn`` (on
-    either device), so q, k and v get their gradients.
+    either device), so q, k and v get their gradients; it takes Dv = D
+    only.
     """
     kw = dict(causal=causal, window=window, kv_len=kv_len, q_offset=q_offset,
               scale=scale)
@@ -299,6 +321,9 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
     _check_kernel_inputs(q, k, v, scale)
     b, h, sq, d = q.shape
     kvh, sk = k.shape[1], k.shape[2]
+    if v.shape[3] != d:
+        raise ValueError(f"flash_attention_bwd takes v as wide as q and k "
+                         f"({d}), not {v.shape[3]}")
     for name, t in (("o", o), ("do", do)):
         if t.shape != q.shape or t.dtype != q.dtype or t.device != q.device:
             raise ValueError(f"flash_attention_bwd: {name} must be "
@@ -345,10 +370,14 @@ class FlashAttentionFn(torch.autograd.Function):
     """``flash_attention`` with its gradient: the forward kernel also
     writes each row's log-sum-exp, and the backward runs the backward
     kernel (plain versions of both on CPU tensors). Gradients flow to q,
-    k and v only; the int and float arguments have none."""
+    k and v only; the int and float arguments have none. v must be as
+    wide as q and k (the backward kernel's one shape), or it raises."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window, kv_len, q_offset, scale):
+        if v.shape[-1] != q.shape[-1]:
+            raise ValueError(f"FlashAttentionFn takes v as wide as q and k "
+                             f"({q.shape[-1]}), not {v.shape[-1]}")
         kw = dict(causal=causal, window=window, kv_len=kv_len,
                   q_offset=q_offset, scale=scale)
         o, lse = flash_attention_fwd(q, k, v, **kw)

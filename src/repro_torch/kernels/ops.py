@@ -17,11 +17,12 @@ from repro_torch.kernels.paged_attention import paged_attention as _paged
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
                     kv_len: Optional[int] = None, q_offset: int = 0,
                     scale: Optional[float] = None):
-    """GQA flash attention. q [B,H,Sq,D]; k,v [B,KVH,Sk,D] -> [B,H,Sq,D].
-    ``scale`` None is 1/sqrt(D)."""
+    """GQA flash attention. q [B,H,Sq,D]; k [B,KVH,Sk,D], v [B,KVH,Sk,Dv]
+    -> [B,H,Sq,Dv]. ``scale`` None is 1/sqrt(D). Unlike the reference, v
+    may be narrower than k (MLA's prefill)."""
     if q.ndim != 4 or k.ndim != 4 or v.ndim != 4:
         raise ValueError("flash_attention expects rank-4 q/k/v")
-    if k.shape != v.shape:
+    if k.shape[:3] != v.shape[:3]:
         raise ValueError(f"k/v shape mismatch: {tuple(k.shape)} vs "
                          f"{tuple(v.shape)}")
     if q.shape[0] != k.shape[0] or q.shape[3] != k.shape[3]:

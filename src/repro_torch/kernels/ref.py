@@ -18,22 +18,23 @@ def flash_attention_ref(q, k, v, *, causal: bool = True,
                         scale: Optional[float] = None):
     """Grouped-query attention oracle.
 
-    q: [B, H, Sq, D];  k, v: [B, KVH, Sk, D];  H = KVH * G.
+    q: [B, H, Sq, D];  k: [B, KVH, Sk, D];  v: [B, KVH, Sk, Dv] (Dv may
+    differ from D: MLA's v is narrower than its q and k);  H = KVH * G.
     ``kv_len``: only the first kv_len keys are valid (padding mask).
     ``window`` > 0: sliding-window causal attention.
     ``q_offset``: absolute position of q[..., 0, :]; None is the
     reference oracle's convention, ``kv_len - Sq`` (the q block sits at
     the end of the kv sequence).
     ``scale``: the softmax scale, default 1/sqrt(D).
-    Returns [B, H, Sq, D] in q.dtype (accumulation in f32).
+    Returns [B, H, Sq, Dv] in q.dtype (accumulation in f32).
     """
-    b, h, sq, d = q.shape
+    b, h, sq, _ = q.shape
     s, valid = _flash_scores(q, k, causal=causal, kv_len=kv_len,
                              window=window, q_offset=q_offset, scale=scale)
     s = torch.where(valid, s, torch.full_like(s, NEG_INF))
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bkgqc,bkcd->bkgqd", p, v.float())
-    return o.reshape(b, h, sq, d).to(q.dtype)
+    return o.reshape(b, h, sq, v.shape[-1]).to(q.dtype)
 
 
 def _flash_scores(q, k, *, causal, kv_len, window, q_offset, scale):

@@ -28,9 +28,11 @@ tensors they raise ``NotImplementedError`` (ROADMAP).
 
 MLA runs the reference's two forms. Prefill, forward and a scalar-start
 extend take the naive form on the flash kernel (per-head k and v expanded
-from the latent by ``wk_b`` / ``wv_b``, heads ungrouped, q/k and v
-zero-padded to one of the kernel's head dims, the softmax scale of the
-unpadded width). Decode takes the absorbed form on the latent kernel
+from the latent by ``wk_b`` / ``wv_b``, heads ungrouped, q/k zero-padded
+to one of the kernel's head dims, the softmax scale of the unpadded
+width; v keeps its width where the kernel takes it and no gradient is
+recorded -- deepseek-v3's 128-wide v beside q/k 192 -- and is padded as
+q/k otherwise). Decode takes the absorbed form on the latent kernel
 (``kernels.mla_attention``: q_lat = q_nope wk_b, scores, softmax and
 o_lat in float32, then wv_b and wo), and so do [B]-start extends (the
 speculative verify) and an extend into a wrapped ring, where the
@@ -64,8 +66,9 @@ from typing import Dict
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels import ops, plain_device
-from repro_torch.kernels.flash_attention import HEAD_DIMS as _FLASH_HEAD_DIMS
+from repro_torch.kernels import needs_grad, ops, plain_device
+from repro_torch.kernels.flash_attention import \
+    HEAD_DIM_PAIRS as _FLASH_HEAD_DIM_PAIRS, HEAD_DIMS as _FLASH_HEAD_DIMS
 from repro_torch.models.layers import DTYPES, ParamSpec, apply_rope, spec, \
     tree_map_specs
 from repro_torch.sharding.context import Arg, einsum, local, matmul
@@ -652,17 +655,24 @@ def _mla_naive_kv(p, cfg, ckv, k_rope, dtype):
 def _mla_flash(cfg, q, k, v, *, window, kv_len=None, q_offset=0):
     """The naive form on the flash kernel, heads ungrouped (K = H, G = 1).
 
-    q, k [B,S,H,nope+rope] and v [B,S,H,v] are zero-padded to the kernel's
-    head dim ``pad`` (the least of its head dims that holds both widths:
-    192 at deepseek-v3's 192 / 128, 64 at the smoke config's 48 / 32). Zero
-    columns add exactly 0 to q . k; the scale stays the unpadded width's,
-    and the padded v columns are sliced off the output."""
+    q, k [B,S,H,nope+rope] are zero-padded to the kernel's head dim
+    ``pad`` (the least of its head dims that holds both widths: 192 at
+    deepseek-v3's 192 / 128, 64 at the smoke config's 48 / 32); zero
+    columns add exactly 0 to q . k, and the scale stays the unpadded
+    width's. v [B,S,H,v] keeps its width where the call takes it: with no
+    autograd recording, on the plain version (any width) or on the kernel
+    at (pad, v) in its ``HEAD_DIM_PAIRS`` (deepseek-v3's 192 / 128).
+    Otherwise (the backward takes equal widths only) v is zero-padded to
+    ``pad`` too and its padded columns are sliced off the output."""
     dqk, dv = q.shape[-1], v.shape[-1]
     pad = next(d for d in _FLASH_HEAD_DIMS if d >= max(dqk, dv))
 
     def flash(_, t):
-        q, k, v = (F.pad(x, (0, pad - x.shape[-1])) if x.shape[-1] < pad
-                   else x for x in (t["q"], t["k"], t["v"]))
+        narrow = not needs_grad(*t.values()) and (
+            plain_device(t["q"]) or (pad, dv) in _FLASH_HEAD_DIM_PAIRS)
+        widths = (pad, pad, dv if narrow else pad)
+        q, k, v = (F.pad(x, (0, w - x.shape[-1])) if x.shape[-1] < w else x
+                   for x, w in zip((t["q"], t["k"], t["v"]), widths))
         return ops.flash_attention(
             q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
             causal=True, window=window, kv_len=kv_len, q_offset=q_offset,

@@ -591,6 +591,13 @@ K_MUTANTS = [
      lambda s: s.replace("SHAPES = ((32, 16), (512, 64))",
                          "SHAPES = ((32, 16), (512, 64), (256, 32))"),
      "K003", "error", 1),
+    ("k003_head_dim_pair", "flash_attention",
+     lambda s: s.replace("(192, 192), (192, 128))",
+                         "(192, 192), (192, 128), (192, 64))"),
+     "K003", "error", 1),                  # the forward's pairs only
+    ("k003_pair_instantiated_not_admitted", "flash_attention",
+     lambda s: s.replace("(192, 192), (192, 128))", "(192, 192))"),
+     "K003", "warning", 1),
     ("k003_instantiated_not_admitted", "paged_attention",
      lambda s: s.replace("HEAD_DIMS = (32, 64, 128, 192)",
                          "HEAD_DIMS = (32, 64, 128)"), "K003", "warning", 1),

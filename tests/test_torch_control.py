@@ -185,7 +185,7 @@ def test_closed_loop_control_shapes_at_submit_as_reference(pair):
 # ----------------------------------------------- no-thrash (property) --
 
 
-@settings(max_examples=40)
+@settings(max_examples=40, deadline=None)
 @given(st.lists(st.floats(min_value=0.0, max_value=2.0),
                 min_size=2, max_size=60),
        st.floats(min_value=0.001, max_value=0.1))
@@ -267,7 +267,7 @@ class _FakeReq:
         self.compression, self.decoder = None, None
 
 
-@settings(max_examples=25)
+@settings(max_examples=25, deadline=None)
 @given(st.integers(min_value=64, max_value=256),
        st.lists(st.integers(min_value=8, max_value=200),
                 min_size=1, max_size=12),

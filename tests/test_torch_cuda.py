@@ -919,6 +919,61 @@ def test_flash_kernel_head_dim_192_takes_strided_views(dev, dtype):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dv", [192, 128])
+@pytest.mark.parametrize("case", [
+    dict(b=1, h=4, kvh=1, sq=64, sk=300),          # a pair's second tile empty
+    dict(b=1, h=4, kvh=1, sq=70, sk=70),           # ... holding 6 rows
+    dict(b=2, h=4, kvh=2, sq=1000, sk=1000),
+    dict(b=1, h=8, kvh=2, sq=200, sk=200, kv_len=61, window=40),
+    dict(b=1, h=2, kvh=2, sq=200, sk=200, q_offset=-30),  # keyless rows
+    dict(b=1, h=2, kvh=2, sq=16, sk=1104, kv_len=1056, q_offset=1000),
+    dict(b=1, h=4, kvh=4, sq=70, sk=300, causal=False),
+    dict(b=1, h=130, kvh=130, sq=256, sk=256),     # G = 1: two grid chunks
+])
+def test_flash_kernel_d192_pairs_of_q_tiles(dev, dtype, dv, case):
+    """Head dim 192 on the two-warpgroup kernel (a CTA holds two 64-row q
+    tiles) at the edges of a pair, with v 192 wide and MLA's 128: within
+    TOL of the plain version; at 128 also of the padded call's first 128
+    columns, with the same log-sum-exp bits (the scores' path is one)."""
+    import torch.nn.functional as F
+    rng = np.random.default_rng(62)
+    c = dict(case)
+    b, h, kvh, sq, sk = (c.pop(x) for x in ("b", "h", "kvh", "sq", "sk"))
+    q = _randn(rng, (b, h, sq, 192), dtype, dev)
+    k = _randn(rng, (b, kvh, sk, 192), dtype, dev)
+    v = _randn(rng, (b, kvh, sk, dv), dtype, dev)
+    n0 = fa.flash_attention.launches
+    out = fa.flash_attention(q, k, v, **c)
+    torch.cuda.synchronize()
+    assert fa.flash_attention.launches == n0 + 1 and out.shape[-1] == dv
+    ref = fa.flash_attention_plain(q, k, v, **c)
+    assert (out.float() - ref.float()).abs().max().item() <= TOL[dtype]
+    if dv == 128:
+        o, lse = fa.flash_attention_fwd(q, k, v, **c)
+        op, lsep = fa.flash_attention_fwd(q, k, F.pad(v, (0, 64)), **c)
+        assert torch.equal(o, out) and torch.equal(lse, lsep)
+        assert (o.float() - op[..., :dv].float()).abs().max().item() \
+            <= TOL[dtype]
+
+
+def test_flash_kernel_takes_only_its_v_widths(dev):
+    """v narrower than q and k only at (192, 128), and never under grad
+    (the backward takes equal widths)."""
+    q = torch.zeros(1, 2, 8, 192, device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError):        # (192, 64) has no kernel
+        fa.flash_attention(q, q, q[..., :64].contiguous())
+    with pytest.raises(ValueError):        # nor (64, 32)
+        fa.flash_attention(q[..., :64].contiguous(), q[..., :64].contiguous(),
+                           q[..., :32].contiguous())
+    with pytest.raises(ValueError):        # under grad
+        fa.flash_attention(q.clone().requires_grad_(), q,
+                           q[..., :128].contiguous())
+    with pytest.raises(ValueError):        # nor the backward itself
+        fa.flash_attention_bwd(q, q, q[..., :128].contiguous(), q,
+                               torch.zeros(1, 2, 8, device=dev), q)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("d,h,kvh", [(192, 24, 2), (192, 8, 8),
                                      (128, 48, 1), (192, 48, 1),
                                      (64, 64, 1), (32, 48, 1)])

@@ -169,6 +169,20 @@ def test_device_wrapper_runs_autograd_function(fake_card):
     assert len(fake_card["bwd"]) == 1
 
 
+def test_device_wrapper_passes_v_width(fake_card):
+    """A v narrower than q and k (MLA's prefill) reaches the C entry as its
+    own width, and the output has it; the autograd route refuses it."""
+    q = _meta((1, 4, 40, 192), False)
+    k, v = _meta((1, 4, 40, 192), False), _meta((1, 4, 40, 128), False)
+    out = fa.flash_attention(q.transpose(1, 2).contiguous().transpose(1, 2),
+                             k, v, scale=0.07)
+    a = fake_card["fwd"][-1]
+    assert a[5:12] == (1, 4, 4, 40, 40, 192, 128)   # B H KVH Sq Sk D Dv
+    assert out.shape == (1, 4, 40, 128) and out.transpose(1, 2).is_contiguous()
+    with pytest.raises(ValueError):
+        fa.flash_attention(q.requires_grad_(), k, v)
+
+
 def test_decode_kernels_refuse_a_gradient_off_the_cpu(monkeypatch):
     # ``meta`` stands in for a card tensor here
     monkeypatch.setattr(pa, "plain_device", _cpu_only)

@@ -180,3 +180,72 @@ def test_flash_kernel_strides(dtype):
     odd = torch.zeros(2, 4, 40, 66, dtype=dtype)[..., :64]
     with pytest.raises(ValueError):                 # 66-element rows
         fa._strides("k", odd)
+
+
+# ---- v narrower than q and k (MLA's 128-wide v beside its 192-wide q, k)
+
+NARROW_V_CASES = [
+    # (b, h, kvh, sq, sk, d, dv, kwargs)
+    (1, 2, 2, 70, 70, 64, 32, dict()),                      # causal
+    (1, 4, 2, 150, 150, 64, 32, dict(window=32)),
+    (1, 4, 2, 20, 150, 64, 32, dict(kv_len=130)),           # default offset
+    (1, 2, 2, 16, 150, 48, 32, dict(kv_len=140, q_offset=100)),
+    (1, 2, 1, 40, 32, 64, 16, dict(q_offset=-10)),          # keyless rows
+    (1, 2, 1, 30, 60, 64, 32, dict(causal=False, kv_len=45)),
+]
+
+
+@pytest.mark.parametrize("case", NARROW_V_CASES)
+def test_flash_plain_narrow_v_equals_padded_call(case):
+    """A v narrower than q/k gives the padded call's output, sliced: the
+    zero columns of a padded v add nothing to the first Dv columns."""
+    b, h, kvh, sq, sk, d, dv, kw = case
+    q, k, v = _qkv(7, b, h, kvh, sq, sk, d)
+    q, k, v = (torch.from_numpy(x) for x in (q, k, v[..., :dv]))
+    got = fa.flash_attention_plain(q, k, v, **kw)
+    want = fa.flash_attention_plain(
+        q, k, torch.nn.functional.pad(v, (0, d - dv)), **kw)
+    assert got.shape == (b, h, sq, dv)
+    assert (got - want[..., :dv]).abs().max().item() <= 1e-6
+    assert not want[..., dv:].any()
+
+
+@pytest.mark.parametrize("case", NARROW_V_CASES[:4])
+def test_flash_narrow_v_matches_pallas_kernel_padded(case):
+    """The same inputs through the Pallas kernel (interpret mode) with v
+    zero-padded to q's width, sliced, and through the port's wrapper with
+    v at its own width."""
+    b, h, kvh, sq, sk, d, dv, kw = case
+    q, k, v = _qkv(8, b, h, kvh, sq, sk, d)
+    v[..., dv:] = 0.0
+    want = jflash(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                  interpret=True, **kw)
+    got = ops.flash_attention(torch.from_numpy(q), torch.from_numpy(k),
+                              torch.from_numpy(v[..., :dv].copy()), **kw)
+    _close(np.asarray(want)[..., :dv], got)
+
+
+def test_flash_narrow_v_output_follows_q_layout():
+    """The wrapper's output at v's width keeps q's layout: a transposed
+    [B,S,H,D] q gives a transposed [B,S,H,Dv] output."""
+    q = torch.zeros(2, 40, 4, 192).transpose(1, 2)
+    out = fa._empty_out(q, 128)
+    assert out.shape == (2, 4, 40, 128)
+    assert out.transpose(1, 2).is_contiguous()
+    assert fa._empty_out(q, 192).stride() == q.stride()
+    dense = torch.zeros(2, 4, 40, 192)
+    assert fa._empty_out(dense, 128).is_contiguous()
+
+
+def test_flash_autograd_refuses_narrow_v():
+    """The backward kernel takes equal widths only, so the autograd route
+    refuses a narrower v (MLA pads v under grad)."""
+    q = torch.zeros(1, 2, 8, 64, requires_grad=True)
+    k = torch.zeros(1, 2, 8, 64)
+    with pytest.raises(ValueError):
+        fa.flash_attention(q, k, torch.zeros(1, 2, 8, 32))
+    with pytest.raises(ValueError):
+        fa.FlashAttentionFn.apply(q, k, torch.zeros(1, 2, 8, 32), True, 0,
+                                  None, 0, None)
+    assert fa.flash_attention(q, k, torch.zeros(1, 2, 8, 64)).shape == \
+        (1, 2, 8, 64)

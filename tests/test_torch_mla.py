@@ -437,3 +437,36 @@ def test_tensor_core_split_fills_the_sms(b, sq, h, length, keys):
     n = -(-length // split)
     assert split % ma.TC_KEYS == 0 and n >= 1
     assert tiles * n <= max(132, tiles)
+
+
+# ------------------------------------------- flash's v width in the prefill
+
+@pytest.mark.parametrize("card,grad,dqk,dv,width", [
+    (False, False, 48, 32, 32),     # the plain version takes any v width
+    (False, True, 48, 32, 64),      # under grad: padded (equal widths)
+    (True, False, 48, 32, 64),      # the kernel has no (64, 32)
+    (True, False, 192, 128, 128),   # deepseek-v3: (192, 128), unpadded
+    (True, True, 192, 128, 192),    # training: padded for the backward
+])
+def test_mla_flash_pads_v_only_where_the_call_needs_it(monkeypatch, card,
+                                                       grad, dqk, dv, width):
+    """``_mla_flash`` hands flash v at its own width unless autograd
+    records the call or the kernel has no instantiation for it; q and k
+    are padded to the kernel's head dim either way, and the output has
+    v's width."""
+    seen = []
+
+    def fake_flash(q, k, v, **kw):
+        seen.append((q.shape[-1], k.shape[-1], v.shape[-1]))
+        return torch.zeros(q.shape[:3] + (v.shape[-1],))
+    monkeypatch.setattr(tattn.ops, "flash_attention", fake_flash)
+    if card:
+        monkeypatch.setattr(tattn, "plain_device", lambda t: False)
+    cfg = type("Cfg", (), dict(qk_nope_head_dim=dqk - dqk // 3,
+                               qk_rope_head_dim=dqk // 3))()
+    q = torch.zeros(1, 5, 2, dqk, requires_grad=grad)
+    out = tattn._mla_flash(cfg, q, torch.zeros(1, 5, 2, dqk),
+                           torch.zeros(1, 5, 2, dv), window=0)
+    pad = 64 if dqk == 48 else 192
+    assert seen == [(pad, pad, width)]
+    assert out.shape == (1, 5, 2, dv)
