@@ -68,13 +68,18 @@ Needs one CUDA device of compute capability 9.0.
     python3 chip_smoke.py --mla-split-sweep
     python3 chip_smoke.py --bwd-split-sweep
     python3 chip_smoke.py --flash-fwd-compare
+    python3 chip_smoke.py --paged-split-sweep
+    python3 chip_smoke.py --paged-compare
 
 time the latent kernel's tensor-core route at split counts around the
 wrapper's choice (``mla_split_sweep``), the flash backward's head-dim-192
-cases at every count of q-head groups (``bwd_split_sweep``), or the flash
+cases at every count of q-head groups (``bwd_split_sweep``), the flash
 forward at the kernel table's bf16 shapes in whatever checkout the script
 sits in (``flash_fwd_compare``: copied into an older checkout, it times
-that one's kernel), instead.
+that one's kernel), the paged kernel's tensor-core one-query route at
+every split from 32 to 256 tokens (``paged_split_sweep``), or the paged
+kernel at the rows that route took over and the main decode shape in
+whatever checkout the script sits in (``paged_compare``), instead.
 """
 from __future__ import annotations
 
@@ -324,12 +329,21 @@ def phase_build() -> dict:
     HGMMA (wgmma) instructions in the flash library's SASS, which must not
     be 0; the flash forward's two-warpgroup kernels at D 192 (v 192 and
     128) and the flash backward's D 192 kernels have HGMMA and no spills,
-    and the backward's wgmma route has HGMMA at every bf16 head dim."""
+    and the backward's wgmma route has HGMMA at every bf16 head dim; the
+    paged kernel's tensor-core instantiations that take one query a
+    request have HMMA and no spills."""
+    from concurrent.futures import ThreadPoolExecutor
     from repro_torch.kernels import build
     from repro_torch.kernels import flash_attention as fa
     t0 = time.perf_counter()
     res = build.build_all()
     seconds = time.perf_counter() - t0
+    # every SASS dump the checks below read, side by side (each is cached)
+    with ThreadPoolExecutor(4) as pool:
+        for args in (("flash_attention",), ("flash_attention_bwd",),
+                     ("mla_attention",),
+                     _paged_mma_sass(res["paged_attention"]["log"])):
+            pool.submit(_hgmma_by_function, *args)
     smem = {}
     for name in build.KERNELS:
         fn = getattr(build.load(name), f"{name}_smem_bytes")
@@ -346,8 +360,9 @@ def phase_build() -> dict:
     wide = _flash_wide(res["flash_attention"]["log"])
     routes = _mla_routes(res["mla_attention"]["log"])
     bwd_routes = _bwd_routes(res["flash_attention_bwd"]["log"])
+    paged = _paged_mma(res["paged_attention"]["log"])
     emit("build", seconds=seconds, flash_sass_hgmma=hgmma,
-         flash_wide=wide, flash_bwd_routes=bwd_routes,
+         flash_wide=wide, flash_bwd_routes=bwd_routes, paged_mma=paged,
          kernels={k: {"seconds": v["seconds"], "cached": v["cached"],
                       "dynamic_smem_bytes": smem[k],
                       "ptxas": _ptxas_report(v["log"]),
@@ -356,6 +371,11 @@ def phase_build() -> dict:
                                    or "Performance Loss" in ln]}
                   for k, v in res.items()}, mla_routes=routes)
     check(hgmma > 0, "the flash library's SASS has no HGMMA instruction")
+    check(all(r["ptxas"] is not None and r["hmma"] > 0
+              and " 0 bytes spill stores" in r["ptxas"]["spills"]
+              for r in paged.values()),
+          f"paged tensor-core one-query kernels spill, lack HMMA or are "
+          f"missing: {paged}")
     check(all(r["ptxas"] is not None and r["hgmma"] > 0
               and " 0 bytes spill stores" in r["ptxas"]["spills"]
               for r in wide.values()),
@@ -494,6 +514,49 @@ def _mla_routes(log: str) -> dict:
     return out
 
 
+#: The paged kernel's tensor-core instantiations that take one query a
+#: request, (D, warps a row tile, mode: 0 one-query, 1 masked, 2
+#: multi-query at S = 1): two warps a tile at G > 16, four at D 192 and
+#: G <= 16.
+PAGED_MMA_ONE_QUERY = [(d, w, m) for d in (32, 64, 128, 192)
+                       for w in ((2, 4) if d == 192 else (2,))
+                       for m in (0, 1, 2)]
+
+
+_PAGED_MMA_NAMES = {(d, w, m): f"paged_mma_kernelILi{d}ELi{w}ELi{m}EE"
+                    for d, w, m in PAGED_MMA_ONE_QUERY}
+
+
+def _paged_mma_sass(log: str) -> tuple:
+    """``_hgmma_by_function``'s arguments for the HMMA count of the
+    ``PAGED_MMA_ONE_QUERY`` kernels: their mangled names as ptxas printed
+    them in ``log``."""
+    return ("paged_attention", "HMMA", tuple(
+        e["entry"] for e in _ptxas_report(log)
+        if any(n in e["entry"] for n in _PAGED_MMA_NAMES.values())))
+
+
+def _paged_mma(log: str) -> dict:
+    """Each ``PAGED_MMA_ONE_QUERY`` instantiation's ptxas registers and
+    spills, its dynamic shared memory at the wrapper's split over pages of
+    16 (``launch_mma``'s sum: two stages of K and V, their k_pos, the
+    split's table entries) and the HMMA (mma.sync) count of its SASS (the
+    dump restricted to these functions, by the mangled names ptxas printed
+    in ``log``)."""
+    from repro_torch.kernels import paged_attention as pa
+    entries = _ptxas_report(log)
+    hmma = _hgmma_by_function(*_paged_mma_sass(log))
+    out = {}
+    for (d, w, m), name in _PAGED_MMA_NAMES.items():
+        out[f"d{d}_w{w}_{('one_query', 'masked', 'multi')[m]}"] = {
+            "dynamic_smem_bytes": 8 * pa.CHUNK * d + 8 * pa.CHUNK
+            + 4 * (pa.TC_SPLIT[d] // 16 + 2),
+            "ptxas": next(({x: e.get(x) for x in ("used", "spills")}
+                           for e in entries if name in e["entry"]), None),
+            "hmma": sum(n for f, n in hmma.items() if name in f)}
+    return out
+
+
 def _bwd_routes(log: str) -> dict:
     """Per (dtype, head dim) of the flash backward: the route the library
     takes (``flash_attention_bwd_route``, which the wrapper's
@@ -539,12 +602,18 @@ def _bwd_routes(log: str) -> dict:
     return out
 
 
-def _hgmma_by_function(name: str) -> dict:
-    """HGMMA (wgmma) instructions of each function in kernel ``name``'s
-    library SASS."""
+@functools.lru_cache(maxsize=None)
+def _hgmma_by_function(name: str, op: str = "HGMMA",
+                       functions: tuple = ()) -> dict:
+    """HGMMA (wgmma) instructions -- or those of opcode ``op``, such as
+    HMMA (mma.sync) -- of each function in kernel ``name``'s library
+    SASS, or of the named (mangled) ``functions`` alone (disassembling a
+    library of many instantiations whole takes seconds). Each library is
+    dumped once a process."""
     from repro_torch.kernels import build
+    only = ["-fun", ",".join(functions)] if functions else []
     sass = subprocess.run([os.path.join(os.path.dirname(build.nvcc_path()),
-                                        "cuobjdump"), "-sass",
+                                        "cuobjdump"), "-sass", *only,
                            str(build.library_path(name))],
                           capture_output=True, text=True, check=True,
                           timeout=120).stdout
@@ -553,7 +622,7 @@ def _hgmma_by_function(name: str) -> dict:
         if "Function :" in ln:
             cur = ln.split("Function :", 1)[1].strip()
             out[cur] = 0
-        elif cur is not None and "HGMMA" in ln:
+        elif cur is not None and op in ln:
             out[cur] += 1
     return out
 
@@ -1299,25 +1368,29 @@ def phase_compression_smoke() -> None:
 
 # ------------------------------------------------------------- kv cache --
 
-def _masked_cases(rng, dtype, h, kvh, d, page):
-    """The masked paged kernel's inputs at batch 8 over a KV_CACHE_LEN-row
-    slot cache: (name, args, masking kwargs, key rows per request). The
-    ``compacted`` slot_pos comes from a real streaming (slots 0-3) and a
-    real l2 (4-7) compaction to KV_BUDGET of 1056 tokens, then a random
+def _masked_cases(rng, dtype, h, kvh, d, page, b=8):
+    """The masked paged kernel's inputs at batch ``b`` over a
+    KV_CACHE_LEN-row slot cache: (name, args, masking kwargs, key rows per
+    request). The ``compacted`` slot_pos comes from a real streaming (the
+    first half of the slots) and a real l2 (the rest) compaction to
+    KV_BUDGET of 1056 tokens (the rows past it zeroed), then a random
     count of decoded rows; ``ring`` holds positions past the cache;
     ``window_256`` is a plain cache with no k_pos; ``ahead`` reads every
-    row, those past the query's position masked. Each is given with the
-    identity table and a permuted one (physical page table[j] holds
-    logical page j)."""
+    row, those past the query's position masked. The last three read K
+    and V as drawn, so that every key row they hold is random. Each is
+    given with the identity table and a permuted one (physical page
+    table[j] holds logical page j)."""
     from repro_torch.core.kv_cache.selection import SELECTORS
-    b, length, prompt = 8, KV_CACHE_LEN, 1056
+    length, prompt = KV_CACHE_LEN, 1056
+    half = b // 2
     pps = length // page
     q = randn(rng, (b, h, d), dtype)
-    k = randn(rng, (b, length, kvh, d), dtype)
-    v = randn(rng, (b, length, kvh, d), dtype)
+    drawn = (randn(rng, (b, length, kvh, d), dtype),
+             randn(rng, (b, length, kvh, d), dtype))
+    k, v = (x.clone() for x in drawn)          # compacted below
     sp = torch.full((b, length), -1, dtype=torch.int32, device="cuda")
     pos0 = torch.arange(prompt, dtype=torch.int32, device="cuda")
-    for sel, rows in (("streaming", slice(0, 4)), ("l2", slice(4, 8))):
+    for sel, rows in (("streaming", slice(0, half)), ("l2", slice(half, b))):
         nk, nv, kept = SELECTORS[sel](k[rows, :prompt], v[rows, :prompt],
                                       budget=KV_BUDGET, pos=pos0)
         k[rows, :KV_BUDGET], v[rows, :KV_BUDGET] = nk, nv
@@ -1340,23 +1413,24 @@ def _masked_cases(rng, dtype, h, kvh, d, page):
         np.int32)).cuda()
     full = torch.full((b,), length, dtype=torch.int32, device="cuda")
     rows = torch.arange(length, dtype=torch.int32, device="cuda")
-    cases = {                         # slot_pos, q_pos, window, seq_lens
-        "compacted": (sp, q_comp, 0, None),
+    cases = {                   # slot_pos, q_pos, window, seq_lens, k / v
+        "compacted": (sp, q_comp, 0, None, (k, v)),
         "ring": (ring.cuda(), torch.from_numpy(ring_q.astype(np.int32)
-                                               ).cuda(), length, None),
-        "window_256": (None, win_q, 256, None),
-        "ahead": (rows.expand(b, length).contiguous(), ahead_q, 0, full),
+                                               ).cuda(), length, None, drawn),
+        "window_256": (None, win_q, 256, None, drawn),
+        "ahead": (rows.expand(b, length).contiguous(), ahead_q, 0, full,
+                  drawn),
     }
     ident = torch.arange(b * pps, dtype=torch.int32, device="cuda")
     perm = torch.from_numpy(rng.permutation(b * pps).astype(np.int32)
                             ).cuda()
     out = []
-    for name, (slot_pos, q_pos, window, seq) in cases.items():
+    for name, (slot_pos, q_pos, window, seq, kv) in cases.items():
         if seq is None:
             seq = torch.clamp(q_pos + 1, max=length).to(torch.int32)
         for tname, table in (("identity", ident), ("permuted", perm)):
             pages = []
-            for x in (k, v) + (() if slot_pos is None else (slot_pos,)):
+            for x in kv + (() if slot_pos is None else (slot_pos,)):
                 y = torch.empty_like(x).view(b * pps, page, *x.shape[2:])
                 y[table.long()] = x.reshape(b * pps, page, *x.shape[2:])
                 pages.append(y)
@@ -3574,6 +3648,69 @@ def _paged_onequery_case(rng, dtype, b, h, kvh, d, length=SERVE_CACHE_LEN,
             ident, seqs), (k, v)
 
 
+def _onequery_parts(args, dense):
+    """A one-query decode row's yardsticks: (SDPA over the dense slot
+    cache masked to each request's seq_len, bytes moved, operations)."""
+    import torch.nn.functional as F
+    q, _, _, table, seqs = args
+    k, v = dense
+    kvh, d = k.shape[2:]
+    n_tok = int(seqs.sum())
+    mask = (torch.arange(k.shape[1], device="cuda")[None]
+            < seqs[:, None])[:, None, None, :]
+    return (lambda: F.scaled_dot_product_attention(
+                q[:, :, None], k.transpose(1, 2), v.transpose(1, 2),
+                attn_mask=mask, enable_gqa=True),
+            q.element_size() * (2 * q.numel() + 2 * n_tok * kvh * d)
+            + 4 * (table.numel() + len(seqs)), 4 * q.shape[1] * d * n_tok)
+
+
+def _masked_parts(args, kw, dense):
+    """A masked (compacted) decode row's yardsticks: SDPA over the dense
+    slot cache with the boolean mask built from slot_pos; the bytes of the
+    masked function (every read row's position, only the key rows' K and
+    V); its operations; and the read and key rows."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.ref import paged_key_mask
+    q, kp, _, table, seq = args
+    k, v, sp, q_pos = dense
+    kvh, d = k.shape[2:]
+    read, keys = paged_key_mask(seq, table, kp.shape[1], **kw)
+    n_read, n_key = int(read.sum()), int(keys.sum())
+    mask = ((sp >= 0) & (sp <= q_pos[:, None]))[:, None, None]
+    return (lambda: F.scaled_dot_product_attention(
+                q[:, :, None], k.transpose(1, 2), v.transpose(1, 2),
+                attn_mask=mask, enable_gqa=True),
+            q.element_size() * (2 * q.numel() + 2 * n_key * kvh * d)
+            + 4 * (table.numel() + 2 * len(seq) + n_read),
+            4 * q.shape[1] * d * n_key, n_read, n_key)
+
+
+def _paged_route(dtype, g, d, s=0) -> dict:
+    """The route and split the wrapper takes for a call."""
+    from repro_torch.kernels import paged_attention as pa
+    return {"route": pa.route(dtype, g, d, s),
+            "split": pa.split_tokens(dtype, g, d, s)}
+
+
+def _paged_close(errs, rel, sense, name, got, want, wrong, dtype) -> float:
+    """A paged row against its plain version: within TOL and within
+    REL_TOL of max|want|, recorded under ``name`` in ``errs`` and ``rel``;
+    and, unless ``wrong`` is None, ``wrong`` (the plain version one key
+    off) more than 4 REL_TOL from ``want`` (in ``sense``), so that the bar
+    would see such a fault. Returns the error."""
+    scale = float(want.float().abs().max())
+    e = errs[name] = max_err(got, want)
+    r = rel[name] = e / scale
+    check(e <= TOL[dtype] and r <= REL_TOL[dtype],
+          f"paged {name}: err {e}, {r} of max|ref|")
+    if wrong is not None:
+        off = sense[name] = max_err(wrong, want) / scale
+        check(off > 4 * REL_TOL[dtype], f"paged {name}: one key off moves "
+              f"it only {off} of max|ref|")
+    return e
+
+
 def _flash_wide_cases():
     """Head dim 192 on the flash forward's two-warpgroup kernel, whose CTA
     holds a pair of 64-row q tiles: the edges of that pair. (name, case,
@@ -3599,25 +3736,31 @@ def _flash_wide_cases():
 
 def phase_kernels_new_shapes(flush) -> dict:
     """The kernels at the shapes the dense-family and MoE configs add, in
-    float32 and bf16 against their plain versions (TOL; the multi-query
-    mode also REL_TOL): head dim 192 (nemotron-4-340b, 96 / 8 heads) --
+    float32 and bf16 against their plain versions (TOL; every paged row
+    also REL_TOL, and each one-query and masked row's plain version one
+    key off -- a token short, or q_pos one earlier -- must miss REL_TOL
+    by 4x): head dim 192 (nemotron-4-340b, 96 / 8 heads) --
     flash causal over 1056 tokens, paged one-query at batch 4 over 1104
     slots, masked (the compacted, ring, window and ahead cases at batch 8)
     and multi-query S = 5 -- and 48 q heads per kv head (granite-34b,
     48 / 1, D 128) -- flash over 1056 tokens, paged one-query, masked,
     multi-query S = 5 and 9 (240 and 432 rows a kv head: 4 and 7 row
-    tiles). Each bf16 case is timed beside its bound, its plain version
-    and SDPA; float32 flash at D = 192 too. Then flash at D = 192 on the
-    edges of its 128-row CTA (``_flash_wide_cases``), v 192 and 128 wide,
-    in both dtypes."""
+    tiles). At both shapes and in both dtypes S = 1 at q_pos = seq_len -
+    1 and the masked mode with every read token a key give the one-query
+    bits. Each bf16 case is timed beside its bound, its plain version and
+    SDPA, each paged row with its route and split and, where the route
+    changed (one query a request, now on tensor cores), the FMA
+    kernel at CHUNK (``parent_ms``: the route before); float32 flash at D =
+    192 too. Then flash at D = 192 on the edges of its 128-row CTA
+    (``_flash_wide_cases``), v 192 and 128 wide, in both dtypes."""
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import paged_attention as pa
-    from repro_torch.kernels.ref import paged_key_mask
     rng = np.random.default_rng(18)
     shapes = {"head_dim_192": dict(h=96, kvh=8, d=192),
               "group_48": dict(h=48, kvh=1, d=128)}
-    errs, rel, timed = {}, {}, {k: {} for k in shapes}
+    errs, rel, sense, bits = {}, {}, {}, {}
+    timed = {k: {} for k in shapes}
     for key, hk in shapes.items():
         h, kvh, d = hk["h"], hk["kvh"], hk["d"]
         for dtype in (torch.float32, torch.bfloat16):
@@ -3638,64 +3781,67 @@ def phase_kernels_new_shapes(flush) -> dict:
                     flush, q.element_size() * (2 * q.numel() + k.numel()
                                                + v.numel()),
                     4 * d * h * 1056 * 1057 / 2, dtype, e, shape=c)
-            # one-query decode, batch 4 over 1104 slots
+            # one-query decode, batch 4 over 1104 slots; the sense check:
+            # each request one token short
             args, (kd, vd) = _paged_onequery_case(rng, dtype, 4, h, kvh, d)
             got = pa.paged_attention(*args)
             torch.cuda.synchronize()
-            e = errs[f"{key}/paged/{dt}"] = max_err(
-                got, pa.paged_attention_plain(*args))
-            check(e <= TOL[dtype], f"paged {key} {dtype}: err {e}")
+            e = _paged_close(
+                errs, rel, sense, f"{key}/paged/{dt}", got,
+                pa.paged_attention_plain(*args),
+                pa.paged_attention_plain(*args[:4], args[4] - 1), dtype)
+            # the same bits from S = 1 at q_pos = seq_len - 1, and from
+            # the masked mode with every read token a key
+            q, kp, vp, table, seqs = args
+            pos = torch.arange(kp.shape[0] * kp.shape[1], dtype=torch.int32,
+                               device="cuda").view(kp.shape[:2]) \
+                % (table.shape[1] * kp.shape[1])
+            bits[f"{key}/{dt}"] = {
+                "s1_equals_one_query": torch.equal(pa.paged_attention(
+                    q[:, None].contiguous(), kp, vp, table, seqs,
+                    q_pos=(seqs - 1)[:, None].contiguous())[:, 0], got),
+                "every_key_equals_unmasked": torch.equal(pa.paged_attention(
+                    *args, k_pos=pos, q_pos=seqs - 1), got)}
+            check(all(bits[f"{key}/{dt}"].values()),
+                  f"paged {key} {dtype}: {bits[f'{key}/{dt}']}")
             if dtype == torch.bfloat16:
-                qd, seqs = args[0], args[4]
-                n_tok = int(seqs.sum())
-                mask = (torch.arange(SERVE_CACHE_LEN, device="cuda")[None]
-                        < seqs[:, None])[:, None, None, :]
+                sdpa, nbytes, flops = _onequery_parts(args, (kd, vd))
                 timed[key]["paged_one_query"] = _timed_row(
                     lambda args=args: pa.paged_attention(*args),
                     lambda args=args: pa.paged_attention_plain(*args),
-                    lambda qd=qd, kd=kd, vd=vd, mask=mask:
-                        F.scaled_dot_product_attention(
-                            qd[:, :, None], kd.transpose(1, 2),
-                            vd.transpose(1, 2), attn_mask=mask,
-                            enable_gqa=True),
-                    flush, qd.element_size() * (2 * qd.numel()
-                                                + 2 * n_tok * kvh * d)
-                    + 4 * (args[3].numel() + 4), 4 * h * d * n_tok, dtype,
-                    e, shape=dict(b=4, cache_len=SERVE_CACHE_LEN, page=16,
-                                  seq_lens=seqs.tolist(), **hk))
+                    sdpa, flush, nbytes, flops, dtype, e,
+                    shape=dict(b=4, cache_len=SERVE_CACHE_LEN, page=16,
+                               seq_lens=args[4].tolist(), **hk),
+                    **_paged_route(dtype, h // kvh, d),
+                    parent_ms=time_ms(lambda args=args: pa._launch(
+                        *args, pa.CHUNK, kernel="fma"), flush))
             # masked mode, batch 8 over KV_CACHE_LEN slots
             cases, (kc, vc, sp, q_comp) = _masked_cases(rng, dtype, h, kvh,
                                                        d, 16)
-            for name, margs, kw in cases:
+            for name, margs, kw in cases:     # sense: q_pos one earlier
                 got = pa.paged_attention(*margs, **kw)
                 torch.cuda.synchronize()
-                e = errs[f"{key}/paged_masked/{name}/{dt}"] = max_err(
-                    got, pa.paged_attention_plain(*margs, **kw))
-                check(e <= TOL[dtype], f"paged masked {key} {name} {dtype}:"
-                      f" err {e}")
+                _paged_close(errs, rel, sense,
+                             f"{key}/paged_masked/{name}/{dt}", got,
+                             pa.paged_attention_plain(*margs, **kw),
+                             pa.paged_attention_plain(
+                                 *margs, **{**kw, "q_pos": kw["q_pos"] - 1}),
+                             dtype)
             if dtype == torch.bfloat16:
                 _, margs, kw = cases[0]          # compacted, identity table
-                qm, _, _, table, seq = margs
-                read, keys = paged_key_mask(seq, table, 16, **kw)
-                n_read, n_key = int(read.sum()), int(keys.sum())
-                mask = ((sp >= 0) & (sp <= q_comp[:, None]))[:, None, None]
+                sdpa, nbytes, flops, _, _ = _masked_parts(
+                    margs, kw, (kc, vc, sp, q_comp))
                 timed[key]["paged_masked_compacted"] = _timed_row(
                     lambda margs=margs, kw=kw: pa.paged_attention(*margs,
                                                                   **kw),
                     lambda margs=margs, kw=kw: pa.paged_attention_plain(
-                        *margs, **kw),
-                    lambda qm=qm, kc=kc, vc=vc, mask=mask:
-                        F.scaled_dot_product_attention(
-                            qm[:, :, None], kc.transpose(1, 2),
-                            vc.transpose(1, 2), attn_mask=mask,
-                            enable_gqa=True),
-                    flush, qm.element_size() * (2 * qm.numel()
-                                                + 2 * n_key * kvh * d)
-                    + 4 * (table.numel() + 2 * len(seq) + n_read),
-                    4 * h * d * n_key, dtype,
+                        *margs, **kw), sdpa, flush, nbytes, flops, dtype,
                     errs[f"{key}/paged_masked/compacted_identity/{dt}"],
                     shape=dict(b=8, cache_len=KV_CACHE_LEN, page=16,
-                               budget=KV_BUDGET, **hk))
+                               budget=KV_BUDGET, **hk),
+                    **_paged_route(dtype, h // kvh, d),
+                    parent_ms=time_ms(lambda margs=margs, kw=kw: pa._launch(
+                        *margs, pa.CHUNK, kernel="fma", **kw), flush))
             # multi-query: the verify of gamma 4 (and 8 at G = 48)
             for s in ((VERIFY_S, 9) if key == "group_48" else (VERIFY_S,)):
                 serve = 1056 + rng.integers(0, SERVE_NEW - s, 8)
@@ -3730,7 +3876,8 @@ def phase_kernels_new_shapes(flush) -> dict:
                     + 4 * (table.numel() + 8 + qp.numel()),
                     4 * h * d * n_keys, dtype, e,
                     rows_per_kv_head=s * h // kvh,
-                    row_tiles=-(-s * h // kvh // 64))
+                    row_tiles=-(-s * h // kvh // 64),
+                    **_paged_route(dtype, h // kvh, d, s))
     # flash at D 192 (the two-warpgroup kernel, 128 q rows a CTA) on the
     # edges of its pair of q tiles, v 192 wide and MLA's 128 (a strided
     # view of the same v), the 128-wide output also against the padded
@@ -3754,7 +3901,8 @@ def phase_kernels_new_shapes(flush) -> dict:
                              f"padded/{dt}"] = max_err(got, pad)
                     check(e <= TOL[dtype], f"flash D 192 {name} v 128 "
                           f"{dtype} against the padded call: err {e}")
-    emit("kernels_new_shapes", errors=errs, rel_errors=rel,
+    emit("kernels_new_shapes", errors=errs, rel_errors=rel, bits=bits,
+         sense=sense,
          tolerance={"float32": TOL[torch.float32],
                     "bfloat16": TOL[torch.bfloat16]},
          rel_tolerance={"float32": REL_TOL[torch.float32],
@@ -3907,8 +4055,7 @@ def _arch_full_one(arch, layers) -> dict:
     check(lvlm.device.type == "cuda", f"{arch}: not on cuda")
     n_params = sum(v.numel() for v in _leaves(params))
     rng = np.random.default_rng(20)
-    prompts = [rng.integers(0, cfg.vocab_size, n).tolist()
-               for n in ARCH_PROMPTS]
+    prompts = _arch_prompts(rng, cfg.vocab_size)
     cls = type(model)
 
     # decode after an S-1 prefill against forward at S-1 (dropless MoE on
@@ -4014,9 +4161,27 @@ def _arch_full_one(arch, layers) -> dict:
                 [a == b for r in srep.requests
                  for a, b in zip(r.generated, served[r.rid])]))}
         counts = {k: counts[k] + spec_counts[k] for k in counts}
-    # wall and device busy per prefill (the 1024-token prompt) and per
-    # decode step of a 4-slot pool at the prompts' lengths
-    cache_len = ec.cache_len
+    row["profile"] = _arch_profile(lvlm, prompts)
+    row["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    row["launches"] = counts
+    return row
+
+
+def _arch_prompts(rng, vocab_size) -> list:
+    """``arch_full``'s 4 text prompts of ARCH_PROMPTS tokens."""
+    return [rng.integers(0, vocab_size, n).tolist() for n in ARCH_PROMPTS]
+
+
+def _arch_profile(lvlm, prompts) -> dict:
+    """Wall and device busy per prefill (the 1024-token prompt) and per
+    decode step of a 4-slot pool at the prompts' lengths, in the cache of
+    their serve (``arch_full``'s profile)."""
+    from repro_torch.api import GenerationConfig, LVLM, Request
+    model, params = lvlm.model, lvlm.params
+    cls = type(model)
+    gen = GenerationConfig(max_new_tokens=ARCH_NEW, decoder="greedy")
+    cache_len = LVLM._cache_len(
+        _requests(Request, prompts, [None] * 4, ARCH_NEW), gen)
     pool = model.init_cache(4, cache_len, device="cuda")
     dtoks = torch.zeros((4, 1), dtype=torch.long, device="cuda")
     dpos = torch.tensor(list(ARCH_PROMPTS), device="cuda")
@@ -4029,10 +4194,7 @@ def _arch_full_one(arch, layers) -> dict:
                                                    dtoks, dpos), 5)})
     for p in prof.values():
         p.pop("by_kernel")
-    row["profile"] = prof
-    row["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
-    row["launches"] = counts
-    return row
+    return prof
 
 
 def _leaves(tree):
@@ -5609,6 +5771,181 @@ def flash_fwd_compare() -> None:
          changed=[k for k, x in bits.items() if x != FLASH_BITS_SHA.get(k)])
 
 
+#: The paged rows the tensor-core one-query route took over (granite-34b's
+#: G 48 and nemotron-4-340b's D 192), and the main decode shape
+#: (qwen2-vl-2b's 12 / 2 heads of 128).
+PAGED_SHAPES = {"group_48": dict(h=48, kvh=1, d=128),
+                "head_dim_192": dict(h=96, kvh=8, d=192),
+                "main": dict(h=12, kvh=2, d=128)}
+
+
+def _paged_timed_cases(rng, key, b, kinds=("one_query", "masked")):
+    """bf16 inputs of the paged rows at shape ``key`` of PAGED_SHAPES and
+    batch ``b``: one-query over SERVE_CACHE_LEN slots (seq_lens
+    1056-1103) and masked over KV_CACHE_LEN (compacted, identity table).
+    Yields (kind, args, kwargs, (sdpa, bytes, operations))."""
+    hk = PAGED_SHAPES[key]
+    dtype = torch.bfloat16
+    if "one_query" in kinds:
+        args, dense = _paged_onequery_case(rng, dtype, b, **hk)
+        yield "one_query", args, {}, _onequery_parts(args, dense)
+    if "masked" in kinds:
+        cases, dense = _masked_cases(rng, dtype, hk["h"], hk["kvh"], hk["d"],
+                                     16, b=b)
+        _, args, kw = cases[0]
+        yield "masked_compacted", args, kw, _masked_parts(args, kw,
+                                                           dense)[:3]
+
+
+def paged_split_sweep() -> None:
+    """``python3 chip_smoke.py --paged-split-sweep``, a measurement outside
+    the standing check: the paged kernel's tensor-core route with one query
+    a request at 32, 64, 128 and 256 tokens a CTA, at G 48 (48 / 1 heads,
+    D 128) and D 192 (96 / 8 heads), batches 4 and 8, one-query and
+    masked (compacted): each split within TOL of the plain version, timed
+    (bf16, L2 flushed, graph-replayed) beside the wrapper's own split, the
+    FMA kernel at CHUNK (the route before the tensor cores took these
+    shapes) and SDPA. Prints the env and build lines and one JSON line a
+    (shape, batch, mode)."""
+    from repro_torch.kernels import paged_attention as pa
+    env = phase_env()
+    t0 = time.perf_counter()
+    from repro_torch.kernels import build
+    log = build.build_all(["paged_attention"])["paged_attention"]["log"]
+    emit("paged_split_sweep_build", seconds=time.perf_counter() - t0,
+         paged_mma=_paged_mma(log))
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device="cuda")
+    rng = np.random.default_rng(28)
+    for key in ("group_48", "head_dim_192"):
+        hk = PAGED_SHAPES[key]
+        for b in (4, 8):
+            for kind, args, kw, (sdpa, nbytes, flops) in _paged_timed_cases(
+                    rng, key, b):
+                want = pa.paged_attention_plain(*args, **kw)
+                errs, rel, ms = {}, {}, {}
+                for st in (32, 64, 128, 256):
+                    _paged_close(errs, rel, None, f"{key}/b{b}/{kind}/{st}",
+                                 pa._launch(*args, st, **kw), want, None,
+                                 torch.bfloat16)
+                    ms[st] = time_ms(lambda st=st: pa._launch(
+                        *args, st, **kw), flush)
+                b_ms, b_by = bound(nbytes, flops, torch.bfloat16)
+                # device ms a call by kernel (the merge's, a programmatic
+                # dependent launch, includes its wait for the split kernel)
+                with torch.profiler.profile(activities=[
+                        torch.profiler.ProfilerActivity.CUDA]) as prof:
+                    for _ in range(20):
+                        flush.zero_()
+                        pa.paged_attention(*args, **kw)
+                    torch.cuda.synchronize()
+                by_kernel = {e.key[:60]: _device_ms(e) / 20
+                             for e in _kernel_events(prof)
+                             if "paged" in e.key}
+                emit("paged_split_sweep", shape=key, b=b, mode=kind,
+                     kernels_ms=by_kernel,
+                     nvidia_smi=env["smi"], errors=errs,
+                     rel_errors=rel, ms=ms,
+                     fastest=min(ms, key=ms.get),
+                     wrapper=_paged_route(torch.bfloat16,
+                                          hk["h"] // hk["kvh"], hk["d"]),
+                     wrapper_ms=time_ms(lambda: pa.paged_attention(
+                         *args, **kw), flush),
+                     fma_chunk_ms=time_ms(lambda: pa._launch(
+                         *args, pa.CHUNK, kernel="fma", **kw), flush),
+                     bound_ms=b_ms, bound_by=b_by,
+                     library_ms=time_ms(sdpa, flush))
+
+
+def paged_compare() -> None:
+    """``python3 chip_smoke.py --paged-compare``, a measurement outside the
+    standing check that times whatever tree it sits in (copied into an
+    older checkout, it times that one's kernel, so two versions can be
+    compared on one host): the paged wrapper in bf16 at the rows the
+    tensor-core one-query route took over -- G 48 one-query (batch 4 over
+    1104 slots) and masked (compacted, batch 8 over 1152), the same at D
+    192 -- and at the main decode shape (qwen2-vl-2b: one-query batch 4
+    at the ``kernels`` phase's seq_lens, masked compacted batch 8, the
+    batch-8 S = 5 verify), each within TOL and REL_TOL of the plain
+    version, timed (L2 flushed, graph-replayed) beside its bound and SDPA;
+    then ``arch_full``'s profile of each ARCH_FULL config (wall and device
+    busy per 1024-token prefill and per batch-4 decode step). Prints the
+    env line and one JSON line a row and a config."""
+    import torch.nn.functional as F
+    from repro_torch.api import LVLM
+    from repro_torch.kernels import build
+    from repro_torch.kernels import paged_attention as pa
+    phase_env()
+    t0 = time.perf_counter()
+    build.build_all(["paged_attention", "flash_attention"])
+    emit("paged_compare_build", seconds=time.perf_counter() - t0)
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device="cuda")
+    rng = np.random.default_rng(29)
+    dtype = torch.bfloat16
+
+    def routed(hk, s=0) -> dict:
+        # a checkout older than ``pa.route`` ran the FMA kernel at CHUNK
+        # for every call with one query a request
+        if hasattr(pa, "route"):
+            return _paged_route(dtype, hk["h"] // hk["kvh"], hk["d"], s)
+        return {"route": "mma" if s >= 2 else "fma",
+                "split": pa.MQ_SPLIT if s >= 2 else pa.CHUNK}
+
+    def close(name, got, want) -> float:
+        return _paged_close({}, {}, None, name, got, want, None, dtype)
+    rows = []
+    for key in ("group_48", "head_dim_192"):
+        rows += [(key, b, *c) for b in (4, 8) for c in _paged_timed_cases(
+            rng, key, b, ("one_query",) if b == 4 else ("masked",))]
+    # the main shape: the ``kernels`` phase's one-query batch
+    hk = PAGED_SHAPES["main"]
+    args, dense = _paged_onequery_case(rng, dtype, 4, **hk)
+    args = args[:4] + (torch.tensor([1060, 1100, 40, 1103],
+                                    dtype=torch.int32, device="cuda"),)
+    rows.append(("main", 4, "one_query", args, {},
+                 _onequery_parts(args, dense)))
+    rows += [("main", 8, *c) for c in _paged_timed_cases(
+        rng, "main", 8, ("masked",))]
+    for key, b, kind, args, kw, (sdpa, nbytes, flops) in rows:
+        e = close(f"{key}/{kind}", pa.paged_attention(*args, **kw),
+                  pa.paged_attention_plain(*args, **kw))
+        hk = PAGED_SHAPES[key]
+        emit("paged_compare", shape=key, b=b, mode=kind, **hk, **routed(hk),
+             **_kernel_row(lambda args=args, kw=kw: pa.paged_attention(
+                 *args, **kw), lambda args=args, kw=kw:
+                 pa.paged_attention_plain(*args, **kw), sdpa, flush, nbytes,
+                 flops, dtype, e))
+    # the batch-8 S = 5 verify at the serve's rows
+    serve = 1056 + rng.integers(0, SERVE_NEW - VERIFY_S, 8)
+    args, qp, (k, v) = _mq_case(rng, dtype, s=VERIFY_S, starts=serve)
+    q, kp, vp, table, seq = args
+    e = close("main/verify", pa.paged_attention(*args, q_pos=qp),
+              pa.paged_attention_plain(*args, q_pos=qp))
+    n_keys = int(torch.minimum(qp + 1, seq[:, None]).sum())
+    pos = torch.arange(SERVE_CACHE_LEN, device="cuda")
+    mask = ((pos[None, None] < seq[:, None, None])
+            & (pos[None, None] <= qp[:, :, None]))[:, None]
+    emit("paged_compare", shape="main", b=8, mode=f"multi_query_s{VERIFY_S}",
+         **hk, **routed(hk, VERIFY_S), **_kernel_row(
+             lambda: pa.paged_attention(*args, q_pos=qp),
+             lambda: pa.paged_attention_plain(*args, q_pos=qp),
+             lambda: F.scaled_dot_product_attention(
+                 q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                 attn_mask=mask, enable_gqa=True), flush,
+             q.element_size() * (2 * q.numel() + 2 * int(seq.sum()) * 2
+                                 * 128) + 4 * (table.numel() + 8
+                                               + qp.numel()),
+             4 * 12 * 128 * n_keys, dtype, e))
+    del flush
+    for arch, layers in ARCH_FULL:
+        gc.collect()
+        torch.cuda.empty_cache()
+        lvlm = LVLM.from_pretrained(arch, seed=0, num_layers=layers)
+        emit("paged_compare_arch", config=arch, layers=layers,
+             profile=_arch_profile(lvlm, _arch_prompts(
+                 np.random.default_rng(20), lvlm.cfg.vocab_size)))
+        del lvlm
+
+
 def _smoke_train(model, ckpt, device, num_steps=3):
     from repro_torch.training import (OptimizerConfig, SyntheticDataConfig,
                                       train_loop)
@@ -6069,6 +6406,12 @@ def main() -> int:
         return 0
     if sys.argv[1:] == ["--flash-fwd-compare"]:
         flash_fwd_compare()
+        return 0
+    if sys.argv[1:] == ["--paged-split-sweep"]:
+        paged_split_sweep()
+        return 0
+    if sys.argv[1:] == ["--paged-compare"]:
+        paged_compare()
         return 0
     check(not sys.argv[1:], f"unknown arguments {sys.argv[1:]}")
     t_start = time.perf_counter()

@@ -16,43 +16,76 @@
 // 8 CTAs on 132 SMs at batch 4. So the token axis is split.
 //
 // Design. Two kernels, launched back to back by the one C entry:
-//  1. Grid (splits, KVH, B). A CTA takes the `split` tokens
-//     [s * split, (s + 1) * split) of one (request, kv head). It reads its
-//     own block_table row and gathers those tokens' K and V rows with
-//     16-byte cp.async in chunks of 32 tokens, up to two in flight, into
-//     shared memory in the input dtype (bf16 stays bf16). seq_lens[b], the
-//     first chunk's table entries and q are requested together, so the CTA
-//     waits for one memory latency before its copies start, not three. The
-//     16-byte pieces of a row are XOR-swizzled by the token's low 3 bits so
-//     the score loop, one token per lane, reads without bank conflicts.
-//     Warp w scores query heads w, w + 4, ... (lane = token), keeps their
-//     running max and sum, and writes the probabilities; then each thread
-//     accumulates P V for a pair of columns over its heads. The kernel is
-//     instantiated for G <= 4, 8 and 16, so the per-head loops of G = 6 run
-//     8 predicated iterations, not 16. G up to 64 (granite-34b's MQA has
-//     48 query heads on its one kv head) takes a 64-row instantiation:
-//     the CTA still reads each K/V row once for all its heads. The CTA
-//     writes the partial (m, l, acc[G, D]) of its split to float32
-//     scratch. D = 192 (nemotron-4-340b) is 24 bf16 or 48 float32 pieces
-//     a row, the swizzle permuting each run of 8; its P V has 96 column
-//     pairs for 128 threads, so threads 96-127 sit that product out.
+//  1. A split kernel, grid (splits, KVH, B). A CTA takes the `split`
+//     tokens [s * split, (s + 1) * split) of one (request, kv head). It
+//     reads its own block_table row and gathers those tokens' K and V rows
+//     with 16-byte cp.async in chunks of 32 tokens, up to two in flight,
+//     into shared memory in the input dtype (bf16 stays bf16). seq_lens[b],
+//     the first chunk's table entries and q are requested together, so the
+//     CTA waits for one memory latency before its copies start, not three.
+//     The 16-byte pieces of a row are XOR-swizzled by the token's low 3
+//     bits so one token per lane (FMA kernel) and ldmatrix (tensor-core
+//     kernel) read without bank conflicts. The CTA writes the partial
+//     (m, l, acc[rows, D]) of its split to float32 scratch. Two kernels
+//     do this; the wrapper chooses which from the shape (`route` in
+//     kernels/paged_attention.py) and passes it to the C entry:
+//     - The FMA kernel, `paged_split_kernel`: float32 everywhere, and bf16
+//       with one query a request at G <= 16 and D <= 128 (the main path:
+//       qwen2-vl-2b's G 6). Warp w scores query heads w, w + 4, ...
+//       (lane = token), keeps their running max and sum, and writes the
+//       probabilities; then each thread accumulates P V for a pair of
+//       columns over its heads. Instantiated for G <= 4, 8, 16 and 64, so
+//       the per-head loops of G = 6 run 8 predicated iterations, not 16.
+//       At D = 192 its P V has 96 column pairs for 128 threads.
+//     - The tensor-core kernel, `paged_mma_kernel` (mma.sync m16n8k16,
+//       bf16): the multi-query mode with S >= 2, and one query a request
+//       at G > 16 (granite-34b's 48 q heads on one kv head) or D = 192
+//       (nemotron-4-340b). Each warp holds the A fragments of one 16-row
+//       tile of q (loaded once from device memory) and computes S = q K^T
+//       for the chunk's 32 tokens (K's B fragments by ldmatrix from the
+//       swizzled chunk), the online softmax on the accumulator fragments
+//       (a row lives in the 4 lanes of a quad), and P V with P re-packed
+//       to bf16 A fragments (P rounded to bf16, as the flash kernel does)
+//       and V's B fragments by ldmatrix.trans. The CTA's MT x WPM warps
+//       take MT row tiles, WPM warps a tile each owning D / WPM output
+//       columns (warps sharing a tile compute the same S). MT is a
+//       run-time count: the verify keeps 4 warps (1, 2 or 4 tiles); one
+//       query a request takes ceil(G / 16) tiles of 2 warps (G 48: three
+//       tiles, 192 threads, so no warp holds a tile of zero rows), or at
+//       D 192 and G <= 16 one tile of 4 warps. Chunk rows past the split's
+//       tokens are zero-filled by the cp.async gather so 0 * V stays
+//       finite; rows past R are zero q rows, never written. Scoring 48
+//       rows with FMAs (each lane 16 rows x 128 columns a chunk, each
+//       thread 32 rows x 32 tokens of P V) bound the FMA kernel by its
+//       instruction stream, 2.0-2.2x SDPA's time at those shapes (PERF.md).
 //  2. Grid (B * H), 4 * D threads. One CTA per output row merges the
 //     partials: out = sum_s e^(m_s - M) acc_s / sum_s e^(m_s - M) l_s,
 //     M = max_s m_s. The weights are computed once, in parallel; four
 //     thread groups each sum a quarter of the splits. It is launched as a
 //     programmatic dependent launch: it is scheduled while the split kernel
 //     runs and waits (griddepcontrol.wait) for its end, so its launch
-//     latency is hidden.
-// `split` is a host constant, never read from seq_lens on the host: 32
-// tokens (one chunk) at every batch. At the main shape (B = 4, KVH = 2,
-// 1104 cache slots) that is 35 splits per (request, kv head), 280 CTAs, of
-// which ~208 hold tokens: every SM gets work, and the partials (3 KB per
-// split) stay small beside the 16 KB of K/V a split reads. The kernel is
-// short and latency-bound, so more, smaller CTAs win: chip_smoke.py times
-// 32, 64 and 128 tokens per split at batches 4 to 32, and 32 is fastest
-// at 4 and 8 and within a few percent of 64 at 16 and 32 (PERF.md). A
+//     latency is hidden. Both split kernels share it.
+// `split` is a host constant chosen from the shape, never read from
+// seq_lens (kernels/paged_attention.py: split_tokens). The FMA kernel
+// takes 32 tokens (one chunk) at every batch: at the main shape (B = 4,
+// KVH = 2, 1104 cache slots) that is 35 splits per (request, kv head), 280
+// CTAs, of which ~208 hold tokens: every SM gets work, and the partials
+// (3 KB per split at G 6) stay small beside the 16 KB of K/V a split
+// reads; chip_smoke.py times 32, 64 and 128 tokens at batches 4 to 32,
+// and 32 is fastest at 4 and 8 and within a few percent of 64 at 16 and
+// 32 (PERF.md). The multi-query mode with S >= 2 takes 64. One query a
+// request on tensor cores takes TC_SPLIT by head dim, from chip_smoke.py's
+// --paged-split-sweep (32 to 256 tokens at G 48 and D 192, batches 4 and
+// 8, both modes; PERF.md): a split's partial is rows x D x 4 bytes (24 KB
+// at G 48, D 128; 9 KB at G 12, D 192), as large as the 16 or 24 KB of K
+// and V a chunk reads, and each CTA pays a fixed start (q, the table, the
+// first chunk's latency) before its chunks. At G 48 (one kv head) 64
+// tokens is fastest at batch 8 and within a few percent of 32 at batch 4;
+// at D 192 (8 kv heads) 128 tokens, two waves of CTAs at batch 8. A
 // longer split runs its chunks through two cp.async buffers, one chunk in
-// flight while the other is scored.
+// flight while the other is scored. The tensor-core CTA reads its
+// split's block-table entries into shared memory once, and its grid puts
+// the kv heads of a (request, split) side by side.
 //
 // Edges. A request with seq_len > 0 reads its first min(seq_len, table)
 // tokens; a split wholly past them writes m = -inf, l = 0 and no acc, and
@@ -68,13 +101,14 @@
 // t < seq_lens[b], and where k_pos is given 0 <= k_pos[t] <= q_pos[b], and
 // where window > 0 p_t > q_pos[b] - window, with p_t = k_pos[t] if given,
 // else t. A masked token inside seq_len scores the -1e30 sentinel (as
-// simple_sdpa), one past it stays -inf; a row with no key therefore gets
-// the mean of V over its first seq_len tokens. The k_pos entry of each
-// token rides the chunk's cp.async gather through the same block-table
-// entry, 4 bytes beside the 1 KB of bf16 K and V a token carries across
-// qwen2-vl-2b's two kv heads (2 x 2 x 128 x 2 bytes): under 1% more bytes
-// read. The masked kernel is its own instantiation (MASKED = true), so
-// the unmasked one compiles as before; the merge kernel is shared.
+// simple_sdpa), one past the split's tokens -inf; a row with no key
+// therefore gets the mean of V over its first seq_len tokens. The k_pos
+// entry of each token rides the chunk's cp.async gather through the same
+// block-table entry, 4 bytes beside the 1 KB of bf16 K and V a token
+// carries across qwen2-vl-2b's two kv heads (2 x 2 x 128 x 2 bytes): under
+// 1% more bytes read. Each kernel's masked mode is its own instantiation
+// (MODE = kMasked), so the unmasked one carries no mask code. With every
+// read token a key the masked mode gives the unmasked mode's bits.
 //
 // Multi-query mode (the per-row-start extend of the reference's
 // `append_attention`: the batched speculative verify and the draft's
@@ -88,39 +122,15 @@
 // them. Past 64 rows (a verify of gamma >= 10 at G = 6) the rows go to
 // row tiles of 64, a grid axis folded into y (row tile * KVH + kv head):
 // each row-tile CTA gathers its own chunk, and the merge still runs per
-// output row. With S * G <= 64 there is one row tile, and the kernels
-// compute what they did before it existed. In float32 (and
-// for S = 1) the FMA kernel takes them, its rows instantiated up to 32 and
-// 64 (ROWS = the GMAX template argument) beside 4, 8 and 16, with q, P and
-// the running max/sum sized by ROWS; bf16 with S >= 2 runs on tensor cores
-// (below). The causal test is per row (each query its own q_pos), so a
-// masked token scores the -1e30 sentinel, as in the masked mode. The
-// merge runs per output
-// row (b, i, h) of [B * S * H]. Rows past the cache (the engine's
+// output row of [B * S * H]. With S * G <= 64 there is one row tile. The
+// FMA kernel's multi-query rows are instantiated up to 32 and 64 (ROWS =
+// the GMAX template argument) beside 4, 8 and 16. The causal test is per
+// row (each query its own q_pos), so a masked token scores the -1e30
+// sentinel, as in the masked mode. Rows past the cache (the engine's
 // inactive slots, routed to start = L - 1 so q_pos >= L - 1) see every
-// read token. At S = 1 with q_pos = seq_len - 1 the rows, scores and
-// merge are the unmasked kernel's, bit for bit. The one-query
-// instantiations are untouched (MODE is a template argument).
-//
-// Tensor cores for the bf16 verify. Scoring 30 rows per CTA with FMAs
-// makes the split kernel issue- and latency-bound (each lane does 8 dot
-// products of 128 and 16 rows of P V per chunk). For bf16 and S >= 2 the
-// split kernel is `paged_mma_kernel` instead: each warp holds the A
-// fragments of one 16-row tile of q (loaded once from device memory) and
-// computes S = q K^T for the chunk's 32 tokens with mma.sync m16n8k16
-// (K's B fragments by ldmatrix from the same swizzled chunk), the online
-// softmax on the accumulator fragments (a row lives in the 4 lanes of a
-// quad), and P V with P re-packed to bf16 A fragments and V's B fragments
-// by ldmatrix.trans. The CTA's 4 warps split the 1, 2 or 4 row tiles
-// (MT) x the output columns; warps sharing a row tile compute the same S.
-// Rows past R are zero q rows, never written. Chunk rows past the split's
-// tokens are zero-filled by the cp.async gather so 0 * V stays finite.
-// P V rounds P to bf16, as the flash kernel does (within the bf16
-// tolerance of the plain version). S = 1 and float32 keep the FMA kernel.
-// With S >= 2 the wrapper gives each CTA 64 tokens (two chunks, the second
-// in flight while the first is scored): half the CTAs and partials of 32,
-// and faster at the verify's batch 8 (chip_smoke.py's paged_verify sweep;
-// PERF.md).
+// read token. S = 1 takes the one-query route and split of its shape, so
+// at q_pos = seq_len - 1 its rows, scores and merge are the one-query
+// mode's, bit for bit, on either kernel.
 
 #include <stdint.h>
 
@@ -135,6 +145,7 @@ constexpr int WARPS = THREADS / 32;
 constexpr int CHUNK = 32;     // tokens per cp.async stage (one per lane)
 constexpr int MAXG = 16;      // rows of the smallest shared-memory layout
 constexpr int MAXROWS = 64;   // query rows per CTA: G, or S * G a tile
+constexpr int MMA_MAX_THREADS = 256;  // the tensor-core kernel's largest CTA
 
 // Modes of the split kernel (a template argument: each its own code).
 enum Mode : int { kPlain = 0, kMasked = 1, kMulti = 2 };
@@ -495,41 +506,56 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
-// The multi-query split kernel on tensor cores (bf16, S >= 2; the header
-// says why). Grid and partials as paged_split_kernel's kMulti mode. MT:
-// 16-row tiles of q per CTA (1, 2 or 4); warp w takes tile w % MT and
-// the D * MT / 4 output columns of column group w / MT.
-template <int D, int MT>
-__global__ void __launch_bounds__(THREADS)
+// The split kernel on tensor cores (bf16; the header says which calls take
+// it). Partials as paged_split_kernel's; the grid is (row tile * KVH + kv
+// head, split, request), so the CTAs that read the same tokens for every
+// kv head run side by side. A row tile holds rows row0 .. row0 + R - 1 of
+// the kv head's S * G (S = 1 outside kMulti, so R = G and row0 = 0). The
+// split's block-table entries are read once into shared memory. The CTA has
+// MT * WPM warps, MT = blockDim.x / (32 * WPM) 16-row tiles of q (a run-time
+// count: MT = ceil(R / 16) in the one-query route, so no warp holds a tile
+// of zero rows); warp w takes tile w % MT and the D / WPM output columns of
+// column group w / MT. kMasked takes k_pos (may be null), q_pos [B] and
+// window; kMulti q_pos [B, S].
+template <int D, int WPM, int MODE>
+__global__ void __launch_bounds__(MMA_MAX_THREADS, 1)
     paged_mma_kernel(const __nv_bfloat16* __restrict__ q,
                      const __nv_bfloat16* __restrict__ kp,
                      const __nv_bfloat16* __restrict__ vp,
                      const int* __restrict__ block_table,
                      const int* __restrict__ seq_lens,
-                     const int* __restrict__ q_pos,
+                     const int* __restrict__ k_pos,
+                     const int* __restrict__ q_pos, int window,
                      float* __restrict__ part_acc,
                      float* __restrict__ part_ml, int S, int H, int KVH,
                      int page, int pps, int split, float scale) {
   using T = __nv_bfloat16;
   using L = Layout<T, D>;
+  constexpr bool MASKED = MODE == kMasked;
+  constexpr bool MULTI = MODE == kMulti;
   constexpr int KSTEPS = D / 16;          // k-steps of q K^T
-  constexpr int WPM = WARPS / MT;         // warps per row tile
   constexpr int NTO = D / WPM / 8;        // output n-tiles per warp
   static_assert(NTO % 2 == 0, "V fragments load two n-tiles at a time");
+  // 16-byte pieces of a chunk's K (or V), and a thread's share of them at
+  // the fewest threads (128; more threads leave the last ones idle)
+  constexpr int PIECES = CHUNK * L::PIECES;
+  constexpr int PER = (PIECES + THREADS - 1) / THREADS;
   extern __shared__ __align__(128) unsigned char smem[];
   T* Ks = reinterpret_cast<T*>(smem);
   T* Vs = Ks + 2 * CHUNK * D;
+  int* kpos_s = reinterpret_cast<int*>(Vs + 2 * CHUNK * D);  // [2][CHUNK]
+  int* tbl_s = kpos_s + 2 * CHUNK;  // the split's table entries
 
   asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
-  // blockIdx.y = row tile * KVH + kv head; the tile holds rows
-  // row0 .. row0 + R - 1 of the kv head's S * G
-  const int s = blockIdx.x, kvh = blockIdx.y % KVH, b = blockIdx.z;
-  const int n_splits = gridDim.x, G = H / KVH;
-  const int row0 = (int)(blockIdx.y / KVH) * MAXROWS;
+  const int nthreads = blockDim.x, MT = nthreads / (32 * WPM);
+  const int s = blockIdx.y, kvh = blockIdx.x % KVH, b = blockIdx.z;
+  const int n_splits = gridDim.y, G = H / KVH;
+  const int row0 = (int)(blockIdx.x / KVH) * MAXROWS;
   const int R = min(MAXROWS, S * G - row0);
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane / 4, t = lane % 4;   // mma fragment row / column pair
   const int mt = warp % MT, col0 = (warp / MT) * (D / WPM);
+  // output row of CTA row r: (b, i, h) of [B, S, H] ((b, h) at S = 1)
   auto out_row = [&](int r) -> size_t {
     return ((size_t)b * S + (row0 + r) / G) * H + (size_t)kvh * G +
            (row0 + r) % G;
@@ -538,22 +564,26 @@ __global__ void __launch_bounds__(THREADS)
   const int n_tok = pps * page;
   const int j_begin = s * split;
   const int* bt = block_table + (size_t)b * pps;
-  constexpr int PER = CHUNK * L::PIECES / THREADS;
+  const int p0 = j_begin / page;
+  // one past the split's last slot: tbl_s holds the entries before it
+  const int j_lim = min(j_begin + split, n_tok);
   auto table_entries = [&](int j0, int (&pg)[PER]) {
 #pragma unroll
     for (int r = 0; r < PER; ++r) {
-      const int j = j0 + (threadIdx.x + r * THREADS) / L::PIECES;
-      pg[r] = j < n_tok ? bt[j / page] : 0;
+      const int i = threadIdx.x + r * nthreads;
+      const int j = j0 + i / L::PIECES;
+      pg[r] = i < PIECES && j < j_lim ? tbl_s[j / page - p0] : 0;
     }
   };
   const int seq = seq_lens[b];
-  int pg[PER];
-  table_entries(j_begin, pg);
-  // this thread's two rows of its tile, their query positions and the A
-  // fragments of q (rows past R are zero)
+  [[maybe_unused]] const int qp = MASKED ? q_pos[b] : 0;
+  // this thread's two rows of its tile, their query positions (kMulti)
+  // and the A fragments of q (rows past R are zero)
   const int r0 = mt * 16 + g, r1 = r0 + 8;
-  const int qp0 = r0 < R ? q_pos[(size_t)b * S + (row0 + r0) / G] : 0;
-  const int qp1 = r1 < R ? q_pos[(size_t)b * S + (row0 + r1) / G] : 0;
+  const int qp0 =
+      MULTI && r0 < R ? q_pos[(size_t)b * S + (row0 + r0) / G] : 0;
+  const int qp1 =
+      MULTI && r1 < R ? q_pos[(size_t)b * S + (row0 + r1) / G] : 0;
   uint32_t qa[KSTEPS][4];
   {
     const uint32_t* q0 = reinterpret_cast<const uint32_t*>(q + out_row(r0) * D);
@@ -567,6 +597,13 @@ __global__ void __launch_bounds__(THREADS)
       qa[kk][3] = r1 < R ? q1[c + 4] : 0u;
     }
   }
+  {
+    const int np = j_begin < n_tok ? (j_lim - 1) / page - p0 + 1 : 0;
+    for (int i = threadIdx.x; i < np; i += nthreads) tbl_s[i] = bt[p0 + i];
+    __syncthreads();
+  }
+  int pg[PER];
+  table_entries(j_begin, pg);
 
   const int n_read = seq > 0 ? min(seq, n_tok) : n_tok;
   const int j_end = min(j_begin + split, n_read);
@@ -585,13 +622,18 @@ __global__ void __launch_bounds__(THREADS)
     T* vd = Vs + (c & 1) * CHUNK * D;
 #pragma unroll
     for (int r = 0; r < PER; ++r) {
-      const int i = threadIdx.x + r * THREADS;
+      const int i = threadIdx.x + r * nthreads;
+      if (i >= PIECES) continue;
       const int tk = i / L::PIECES, d = (i % L::PIECES) * L::VEC, j = j0 + tk;
       if (tk < nc) {
         const size_t src =
             (((size_t)pages[r] * page + j % page) * KVH + kvh) * D + d;
         cp_async16(kd + swz<T, D>(tk, d), kp + src);
         cp_async16(vd + swz<T, D>(tk, d), vp + src);
+        // the thread of a token's first piece also fetches its position
+        if (MASKED && k_pos != nullptr && d == 0)
+          cp_async4(kpos_s + (c & 1) * CHUNK + tk,
+                    k_pos + (size_t)pages[r] * page + j % page);
       } else {  // rows past the split: zeros, so P V stays finite
         cp_async16_zero(kd + swz<T, D>(tk, d), kp);
         cp_async16_zero(vd + swz<T, D>(tk, d), vp);
@@ -639,6 +681,21 @@ __global__ void __launch_bounds__(THREADS)
         mma_bf16(sc[2 * jp + 1], qa[kk], kb[2], kb[3]);
       }
     }
+    // kMasked: which of this thread's 8 tokens (8j + 2t + e) are keys
+    [[maybe_unused]] bool tok_key[4][2];
+    if constexpr (MASKED) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int tt = 8 * j + 2 * t + e;
+          const int p =
+              k_pos != nullptr ? kpos_s[(c & 1) * CHUNK + tt] : j0 + tt;
+          tok_key[j][e] = (k_pos == nullptr || (p >= 0 && p <= qp)) &&
+                          (window <= 0 || p > qp - window);
+        }
+      }
+    }
     // masks (past the split: -inf; not a key: the sentinel), row max
     float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
@@ -646,7 +703,9 @@ __global__ void __launch_bounds__(THREADS)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int tt = 8 * j + 2 * t + (e & 1), row = e / 2;
-        const bool key = seq > 0 && j0 + tt <= (row ? qp1 : qp0);
+        bool key = seq > 0;
+        if constexpr (MULTI) key = key && j0 + tt <= (row ? qp1 : qp0);
+        if constexpr (MASKED) key = key && tok_key[j][e & 1];
         const float v = tt >= nc ? -INFINITY
                         : key    ? sc[j][e] * scale
                                  : repro::kNegBig;
@@ -802,27 +861,35 @@ template <typename T, int D>
 cudaError_t launch_merge(float* part_acc, float* part_ml, void* o, int rows,
                          int n_splits, cudaStream_t stream);
 
-// The tensor-core multi-query split kernel with MT 16-row tiles, then the
-// merge.
-template <int D, int MT>
+// Dynamic shared memory of a tensor-core CTA but its table entries: K and
+// V, 2 stages each, and the stages' k_pos (read in the masked mode). The
+// split's table entries follow: 4 * (split / page + 2) bytes more.
+template <int D>
+constexpr size_t mma_smem() {
+  return 4 * sizeof(__nv_bfloat16) * CHUNK * D + 2 * CHUNK * sizeof(int);
+}
+
+// The tensor-core split kernel with MT 16-row tiles of WPM warps each,
+// then the merge.
+template <int D, int WPM, int MODE>
 cudaError_t launch_mma(const void* q, const void* kp, const void* vp,
-                       const int* bt, const int* sl, const int* q_pos,
-                       void* o, float* part_acc, float* part_ml, int B,
-                       int S, int H, int KVH, int page, int pps, int split,
+                       const int* bt, const int* sl, Mask mask, void* o,
+                       float* part_acc, float* part_ml, int B, int S, int H,
+                       int KVH, int page, int pps, int split, int MT,
                        cudaStream_t stream) {
   using T = __nv_bfloat16;
-  const size_t smem = 4 * sizeof(T) * CHUNK * D;  // K and V, 2 stages each
+  const size_t smem = mma_smem<D>() + 4 * (split / page + 2);
   cudaError_t err = cudaFuncSetAttribute(
-      paged_mma_kernel<D, MT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      paged_mma_kernel<D, WPM, MODE>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const int n_splits = (pps * page + split - 1) / split;
   const int n_rt = (S * (H / KVH) + MAXROWS - 1) / MAXROWS;  // row tiles
-  paged_mma_kernel<D, MT>
-      <<<dim3(n_splits, KVH * n_rt, B), THREADS, smem, stream>>>(
+  paged_mma_kernel<D, WPM, MODE>
+      <<<dim3(KVH * n_rt, n_splits, B), 32 * MT * WPM, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(kp),
-      static_cast<const T*>(vp), bt, sl, q_pos, part_acc, part_ml, S, H, KVH,
-      page, pps, split, 1.0f / sqrtf((float)D));
+      static_cast<const T*>(vp), bt, sl, mask.k_pos, mask.q_pos, mask.window,
+      part_acc, part_ml, S, H, KVH, page, pps, split, 1.0f / sqrtf((float)D));
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   return launch_merge<T, D>(part_acc, part_ml, o, B * S * H, n_splits,
@@ -885,30 +952,42 @@ cudaError_t launch_merge(float* part_acc, float* part_ml, void* o, int rows,
                             static_cast<T*>(o), n_splits);
 }
 
-// The instantiation whose GMAX bounds the CTA's rows R = S * H / KVH, at
-// most MAXROWS (more rows take more row-tile CTAs): 4, 8 and 16, then 64
-// (one-query G = 48 of granite-34b, and multi-query rows past 16; float32
-// multi-query also has 32); bf16 multi-query with S >= 2 takes the
-// tensor-core kernel.
+// The kernel of one launch: the tensor-core kernel where `tc` says so
+// (bf16 only), else the FMA kernel's instantiation whose GMAX bounds the
+// CTA's rows R = S * H / KVH, at most MAXROWS (more rows take more
+// row-tile CTAs): 4, 8 and 16, then 64 (and 32 in float32 multi-query
+// mode).
 template <typename T, int D, int MODE>
 cudaError_t launch_g(const void* q, const void* kp, const void* vp,
                      const int* bt, const int* sl, Mask mask, void* o,
                      float* part_acc, float* part_ml, int B, int S, int H,
-                     int KVH, int page, int pps, int split,
+                     int KVH, int page, int pps, int split, bool tc,
                      cudaStream_t stream) {
   const int R = min(S * (H / KVH), MAXROWS);
-  if constexpr (MODE == kMulti && std::is_same<T, __nv_bfloat16>::value) {
-    if (S >= 2) {  // tensor cores: 1, 2 or 4 row tiles of 16
-#define REPRO_MMA(MT)                                                       \
-  return launch_mma<D, MT>(q, kp, vp, bt, sl, mask.q_pos, o, part_acc,      \
-                           part_ml, B, S, H, KVH, page, pps, split, stream)
-      // at D = 32 one warp's share of the columns with a single row tile
-      // would be one n-tile; V's fragments load two, so take two row tiles
-      if constexpr (D >= 64) {
-        if (R <= 16) REPRO_MMA(1);
+  constexpr bool BF16 = std::is_same<T, __nv_bfloat16>::value;
+  if constexpr (BF16) {
+    if (tc) {
+#define REPRO_MMA(WPM, MT)                                                  \
+  return launch_mma<D, WPM, MODE>(q, kp, vp, bt, sl, mask, o, part_acc,     \
+                                  part_ml, B, S, H, KVH, page, pps, split,  \
+                                  MT, stream)
+      if constexpr (MODE == kMulti) {
+        if (S >= 2) {  // the verify: 1, 2 or 4 row tiles of 16 on 4 warps
+          // at D = 32 one warp's share of the columns with a single row
+          // tile would be one n-tile; V's fragments load two, so take two
+          if constexpr (D >= 64) {
+            if (R <= 16) REPRO_MMA(4, 1);
+          }
+          if (R <= 32) REPRO_MMA(2, 2);
+          REPRO_MMA(1, 4);
+        }
       }
-      if (R <= 32) REPRO_MMA(2);
-      REPRO_MMA(4);
+      // one query a request: G rows in ceil(G / 16) tiles of two warps
+      // each, or at D 192 and G <= 16 one tile of four warps
+      if constexpr (D == 192) {
+        if (R <= 16) REPRO_MMA(4, 1);
+      }
+      REPRO_MMA(2, (R + 15) / 16);
 #undef REPRO_MMA
     }
   }
@@ -930,18 +1009,18 @@ template <typename T, int D>
 cudaError_t launch_m(const void* q, const void* kp, const void* vp,
                      const int* bt, const int* sl, Mask mask, void* o,
                      float* part_acc, float* part_ml, int B, int S, int H,
-                     int KVH, int page, int pps, int split,
+                     int KVH, int page, int pps, int split, bool tc,
                      cudaStream_t stream) {
   if (S > 0)  // multi-query mode (q_pos [B, S])
     return launch_g<T, D, kMulti>(q, kp, vp, bt, sl, mask, o, part_acc,
                                   part_ml, B, S, H, KVH, page, pps, split,
-                                  stream);
+                                  tc, stream);
   if (mask.k_pos != nullptr || mask.window > 0)
     return launch_g<T, D, kMasked>(q, kp, vp, bt, sl, mask, o, part_acc,
                                    part_ml, B, 1, H, KVH, page, pps, split,
-                                   stream);
+                                   tc, stream);
   return launch_g<T, D, kPlain>(q, kp, vp, bt, sl, mask, o, part_acc,
-                                part_ml, B, 1, H, KVH, page, pps, split,
+                                part_ml, B, 1, H, KVH, page, pps, split, tc,
                                 stream);
 }
 
@@ -950,12 +1029,12 @@ cudaError_t launch_m(const void* q, const void* kp, const void* vp,
 cudaError_t dispatch(const void* q, const void* k_pages, const void* v_pages,
                      const int* bt, const int* sl, Mask mask, void* o,
                      float* pa, float* pm, int B, int S, int H, int KVH,
-                     int D, int page, int pps, int split, int dtype,
-                     cudaStream_t s) {
+                     int D, int page, int pps, int split, bool tc,
+                     int dtype, cudaStream_t s) {
 #define REPRO_D(T, DD)                                                      \
   if (D == DD)                                                              \
     return launch_m<T, DD>(q, k_pages, v_pages, bt, sl, mask, o, pa, pm, B, \
-                           S, H, KVH, page, pps, split, s);
+                           S, H, KVH, page, pps, split, tc, s);
   if (dtype == repro::kFloat32) {
     REPRO_D(float, 32)
     REPRO_D(float, 64)
@@ -986,15 +1065,16 @@ cudaError_t dispatch(const void* q, const void* k_pages, const void* v_pages,
 // query i iff t < seq_lens[b] and t <= q_pos[b, i]. `split` tokens per CTA
 // (>= 1); part_acc [rows, ceil(pps*page/split), D] and part_ml
 // [rows, ceil(pps*page/split), 2] are float32 scratch, rows = B*H (times S
-// in the multi-query mode). Returns the CUDA error of the launches (0 on
-// success).
+// in the multi-query mode). `route` is the split kernel the wrapper chose:
+// 0 the FMA kernel, 1 the tensor-core kernel (bfloat16 only). Returns the
+// CUDA error of the launches (0 on success).
 extern "C" int paged_attention_fwd(const void* q, const void* k_pages,
                                    const void* v_pages, const void* block_table,
                                    const void* seq_lens, const void* k_pos,
                                    const void* q_pos, int window, void* o,
                                    void* part_acc, void* part_ml, int B,
                                    int S, int H, int KVH, int D, int page,
-                                   int pps, int split, int dtype,
+                                   int pps, int split, int dtype, int route,
                                    void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* bt = static_cast<const int*>(block_table);
@@ -1007,17 +1087,19 @@ extern "C" int paged_attention_fwd(const void* q, const void* k_pages,
   // beside its ~2 KB of static arrays, inside a CTA's 227 KB
   if (H % KVH != 0 || H / KVH > MAXROWS || split < 1 ||
       (pps * page + split - 1) / split > 48 * 1024 || window < 0 ||
-      ((k_pos != nullptr || window > 0) && q_pos == nullptr))
+      ((k_pos != nullptr || window > 0) && q_pos == nullptr) ||
+      (route != 0 && route != 1) ||
+      (route == 1 && dtype != repro::kBFloat16))
     return (int)cudaErrorInvalidValue;
   if (S != 0 && (S < 1 || q_pos == nullptr || k_pos != nullptr || window > 0))
     return (int)cudaErrorInvalidValue;
   return (int)dispatch(q, k_pages, v_pages, bt, sl, mask, o, pa, pm, B, S, H,
-                       KVH, D, page, pps, split, dtype, s);
+                       KVH, D, page, pps, split, route == 1, dtype, s);
 }
 
-// Dynamic shared memory of one split-kernel CTA for (dtype, D) at up to
-// 16 rows, in bytes (reported by chip_smoke.py's build phase; ptxas prints
-// only static), or -1 for a head dim the kernel does not take.
+// Dynamic shared memory of one FMA split-kernel CTA for (dtype, D) at up
+// to 16 rows, in bytes (reported by chip_smoke.py's build phase; ptxas
+// prints only static), or -1 for a head dim the kernel does not take.
 extern "C" int paged_attention_smem_bytes(int dtype, int D) {
   if (dtype == repro::kFloat32)
     return D == 32    ? (int)Layout<float, 32>::bytes

@@ -31,14 +31,48 @@ HEAD_DIMS = (32, 64, 128, 192)
 #: query heads per kv head the kernel takes (granite-34b's MQA has 48)
 MAX_GROUP = 64
 #: Tokens the kernel stages per cp.async chunk, and the tokens of each CTA
-#: of its split kernel: one chunk at every batch (the source's header says
-#: why).
+#: of its FMA split kernel: one chunk at every batch (the source's header
+#: says why).
 CHUNK = 32
 #: Tokens of each CTA in the multi-query mode with S >= 2 (its tensor-core
-#: kernel): two chunks. S = 1 keeps CHUNK, so it gives the one-query
-#: kernel's bits.
+#: kernel): two chunks. S = 1 takes the one-query mode's split, so it
+#: gives the one-query kernel's bits.
 MQ_SPLIT = 2 * CHUNK
+#: Query heads per kv head up to which bf16 one-query calls at D <= 128
+#: keep the FMA kernel (the main path's G 6 among them).
+FMA_GROUP = 16
+#: Tokens of each CTA of the tensor-core kernel with one query a request
+#: (bf16 at G > FMA_GROUP or D 192), by head dim: swept at G 48 (D 128) and
+#: at D 192 (G 12), batches 4 and 8, one-query and masked
+#: (``chip_smoke.py --paged-split-sweep``; PERF.md); D 32 and 64 take D
+#: 128's.
+TC_SPLIT = {32: 64, 64: 64, 128: 64, 192: 128}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def route(dtype, g: int, d: int, s: int = 0) -> str:
+    """The kernel that takes a call of ``s`` query tokens a request (0:
+    the one-query and masked modes) at ``g`` query heads a kv head and head
+    dim ``d`` on the card: "mma" (the tensor-core kernel, ``mma.sync``) for
+    bf16 multi-query with S >= 2 and bf16 at G > FMA_GROUP or D 192 with
+    one query a request, else "fma" (the FMA kernel). The wrapper passes
+    it to the C entry."""
+    if dtype == torch.bfloat16 and (s >= 2 or g > FMA_GROUP or d == 192):
+        return "mma"
+    return "fma"
+
+
+def split_tokens(dtype, g: int, d: int, s: int = 0) -> int:
+    """Tokens of each CTA of the split kernel for a call of ``s`` query
+    tokens a request (0: the one-query and masked modes) at ``g`` query
+    heads a kv head and head dim ``d``: MQ_SPLIT with S >= 2, TC_SPLIT[d]
+    where one query a request takes the tensor-core kernel, else CHUNK. A
+    function of the shape alone, never of seq_lens, so the grid and the
+    bits of a call follow from its shape."""
+    if s >= 2:
+        return MQ_SPLIT
+    return TC_SPLIT[d] if route(dtype, g, d, s) == "mma" else CHUNK
+
 
 #: The kernel's function in plain PyTorch: it visits every page, so a
 #: request with seq_len 0 gets the mean of V over its table, as the kernel.
@@ -102,7 +136,7 @@ def _lib():
     fn = build.load("paged_attention").paged_attention_fwd
     if fn.argtypes is None:
         fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] \
-            + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+            + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -165,7 +199,9 @@ def paged_attention(q, k_pages, v_pages, block_table, seq_lens, *,
             raise ValueError("paged_attention: k_pos or window needs q_pos")
         ints.append(("q_pos", q_pos, (b,)))
     _check_kernel_inputs(q, k_pages, v_pages, ints)
-    out = _launch(q, k_pages, v_pages, block_table, seq_lens, CHUNK,
+    out = _launch(q, k_pages, v_pages, block_table, seq_lens,
+                  split_tokens(q.dtype, q.shape[1] // k_pages.shape[2],
+                               q.shape[2]),
                   k_pos=k_pos, q_pos=q_pos if (k_pos is not None or window)
                   else None, window=window)
     paged_attention.launches += 1     # the split and merge kernels: one call
@@ -222,7 +258,8 @@ def _multi_query(q, k_pages, v_pages, block_table, seq_lens, q_pos):
     if sq < 1:
         raise ValueError("paged_attention kernel needs S >= 1 query tokens")
     out = _launch(q, k_pages, v_pages, block_table, seq_lens,
-                  CHUNK if sq == 1 else MQ_SPLIT, q_pos=q_pos)
+                  split_tokens(q.dtype, h // k_pages.shape[2], q.shape[3],
+                               sq), q_pos=q_pos)
     paged_attention.launches += 1
     paged_attention.multi_query_launches += 1
     return out
@@ -234,15 +271,22 @@ paged_attention.multi_query_launches = 0
 
 
 def _launch(q, k_pages, v_pages, block_table, seq_lens, split: int, *,
-            k_pos=None, q_pos=None, window: int = 0):
+            k_pos=None, q_pos=None, window: int = 0,
+            kernel: str | None = None):
     """The C entry on inputs ``paged_attention`` has checked, with
     ``split`` tokens per CTA of the split kernel (any value >= 1; more
     than ``CHUNK`` runs several chunks per CTA, which the card tests
     check). A q of [B,S,H,D] takes the multi-query mode (``q_pos``
-    [B,S]), one of [B,H,D] the one-query kernel."""
+    [B,S]), one of [B,H,D] the one-query kernel. ``kernel`` ("fma" or
+    "mma", bf16 only) is the split kernel, by default ``route``'s choice;
+    chip_smoke.py times the FMA kernel at shapes routed to tensor
+    cores."""
     b, h, d = q.shape[0], q.shape[-2], q.shape[-1]
     sq = q.shape[1] if q.ndim == 4 else 0
     _, page, kvh, _ = k_pages.shape
+    kernel = kernel or route(q.dtype, h // kvh, d, sq)
+    if kernel not in ("fma", "mma"):
+        raise ValueError(f"paged_attention: no split kernel {kernel!r}")
     pps = block_table.shape[1]
     n_split = -(-pps * page // split)
     rows = b * max(sq, 1) * h
@@ -256,7 +300,7 @@ def _launch(q, k_pages, v_pages, block_table, seq_lens, split: int, *,
                  None if q_pos is None else q_pos.data_ptr(), window,
                  out.data_ptr(), part.data_ptr(),
                  part[rows * n_split * d:].data_ptr(), b, sq, h, kvh, d, page,
-                 pps, split, _DTYPES[q.dtype],
+                 pps, split, _DTYPES[q.dtype], int(kernel == "mma"),
                  torch.cuda.current_stream(q.device).cuda_stream)
     if err:
         raise RuntimeError(f"paged_attention kernel launch failed: CUDA "

@@ -1051,6 +1051,131 @@ def test_kernels_refuse_shapes_past_the_new_ones(dev):
                            table, seq)
 
 
+# ------------------------------- tensor cores with one query a request --
+
+#: bf16 one-query shapes on the tensor-core route: granite-34b's G 48 (48 /
+#: 1 heads of 128) and nemotron-4-340b's D 192 (G 12, here 24 / 2 heads)
+TC_SHAPES = {"g48": dict(h=48, kvh=1, d=128), "d192": dict(h=24, kvh=2,
+                                                           d=192)}
+
+
+def _tc_table(rng, b, seqs, dev, h, kvh, d, length=1104, permute=True,
+              page=16):
+    """One-query decode inputs at (h, kvh, d) over ``length`` slots in
+    pages of ``page``, identity or permuted table."""
+    pps = length // page
+    q = _randn(rng, (b, h, d), torch.bfloat16, dev)
+    kp = _randn(rng, (b * pps, page, kvh, d), torch.bfloat16, dev)
+    vp = _randn(rng, (b * pps, page, kvh, d), torch.bfloat16, dev)
+    order = rng.permutation(b * pps) if permute else np.arange(b * pps)
+    table = torch.from_numpy(order.reshape(b, pps).astype(np.int32)).to(dev)
+    return q, kp, vp, table, torch.tensor(seqs, dtype=torch.int32,
+                                          device=dev)
+
+
+#: chip_smoke.py's bar for bf16 paged rows beside TOL: the error within
+#: this share of the plain version's largest |value|
+REL_TOL_BF16 = 1e-2
+
+
+def _assert_close(out, ref):
+    err = (out.float() - ref.float()).abs().max().item()
+    scale = ref.float().abs().max().item()
+    assert err <= TOL[torch.bfloat16], err
+    assert err <= REL_TOL_BF16 * scale, (err, scale)
+
+
+@pytest.mark.parametrize("permute", [False, True])
+@pytest.mark.parametrize("shape", sorted(TC_SHAPES))
+def test_paged_tensor_core_one_query_matches_plain(dev, shape, permute):
+    """The bf16 one-query mode on tensor cores against the plain version:
+    seq_len 0 (the mean of V over the table) and 1, lengths around the
+    route's split, the full table."""
+    hk = TC_SHAPES[shape]
+    assert pa.route(torch.bfloat16, hk["h"] // hk["kvh"], hk["d"]) == "mma"
+    split = pa.split_tokens(torch.bfloat16, hk["h"] // hk["kvh"], hk["d"])
+    args = _tc_table(np.random.default_rng(80), 8,
+                     [0, 1, split - 1, split, split + 1, 3 * split + 5, 1060,
+                      1104], dev, permute=permute, **hk)
+    n0 = pa.paged_attention.launches
+    out = pa.paged_attention(*args)
+    torch.cuda.synchronize()
+    assert pa.paged_attention.launches == n0 + 1
+    _assert_close(out, pa.paged_attention_plain(*args))
+
+
+@pytest.mark.parametrize("permute", [False, True])
+@pytest.mark.parametrize("case", ["ring", "compacted", "window", "own_key",
+                                  "ahead"])
+@pytest.mark.parametrize("shape", sorted(TC_SHAPES))
+def test_paged_tensor_core_masked_matches_plain(dev, shape, case, permute):
+    """The bf16 masked mode on tensor cores against the plain version on
+    every masked case, two requests cut to seq_len 0 and 1."""
+    hk = TC_SHAPES[shape]
+    args, kw = _masked_inputs(np.random.default_rng(81), case, 6,
+                              torch.bfloat16, dev, permute, length=640, **hk)
+    args[4][:2] = torch.tensor([0, 1], dtype=torch.int32, device=dev)
+    out = pa.paged_attention(*args, **kw)
+    torch.cuda.synchronize()
+    _assert_close(out, pa.paged_attention_plain(*args, **kw))
+
+
+@pytest.mark.parametrize("split,page", [(32, 16), (33, 16), (64, 16),
+                                        (96, 16), (128, 16), (256, 16),
+                                        (33, 1)])
+@pytest.mark.parametrize("shape", sorted(TC_SHAPES))
+def test_paged_tensor_core_one_query_at_any_split(dev, shape, split, page):
+    """The route at splits of one to eight chunks (the sweep's and more):
+    the two cp.async stages and the rescale of acc and l across chunks, in
+    both modes; and 33 tokens, whose last chunk runs past the split (its
+    table entries in shared memory end with the split), on pages of 16
+    and of 1."""
+    hk = TC_SHAPES[shape]
+    rng = np.random.default_rng(82)
+    args = _tc_table(rng, 8, _MIXED, dev, page=page, **hk)
+    _assert_close(pa._launch(*args, split),
+                  pa.paged_attention_plain(*args))
+    args, kw = _masked_inputs(rng, "compacted", 4, torch.bfloat16, dev, True,
+                              length=640, **hk)
+    _assert_close(pa._launch(*args, split, **kw),
+                  pa.paged_attention_plain(*args, **kw))
+
+
+@pytest.mark.parametrize("shape", sorted(TC_SHAPES))
+def test_paged_tensor_core_s1_and_every_key_give_one_query_bits(dev, shape):
+    """Multi-query S = 1 at q_pos = seq_len - 1, and the masked mode with
+    every read token a key, take the one-query route and split: the same
+    bits, as at G 6 on the FMA kernel."""
+    hk = TC_SHAPES[shape]
+    q, kp, vp, table, seq = args = _tc_table(
+        np.random.default_rng(83), 8, [40, 360, 1104, 1, 97, 1060, 700, 32],
+        dev, **hk)
+    want = pa.paged_attention(*args)
+    got = pa.paged_attention(q[:, None].contiguous(), kp, vp, table, seq,
+                             q_pos=(seq - 1)[:, None].contiguous())
+    assert torch.equal(got[:, 0], want)
+    k_pos = torch.empty(kp.shape[:2], dtype=torch.int32, device=dev)
+    k_pos[table.flatten().long()] = torch.arange(
+        table.numel() * 16, dtype=torch.int32, device=dev).view(-1, 16) \
+        % (table.shape[1] * 16)
+    assert torch.equal(pa.paged_attention(*args, k_pos=k_pos, q_pos=seq - 1),
+                       want)
+    torch.cuda.synchronize()
+
+
+def test_paged_fma_route_on_request_matches_plain(dev):
+    """``_launch(..., kernel="fma")`` runs the FMA kernel at a tensor-core
+    shape (chip_smoke.py times it there): within TOL too. The tensor-core
+    kernel takes bf16 only: float32 asked for it is refused."""
+    args = _tc_table(np.random.default_rng(84), 4, [0, 33, 700, 1104], dev,
+                     **TC_SHAPES["g48"])
+    _assert_close(pa._launch(*args, pa.CHUNK, kernel="fma"),
+                  pa.paged_attention_plain(*args))
+    f32 = tuple(x.float() if x.is_floating_point() else x for x in args)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        pa._launch(*f32, pa.CHUNK, kernel="mma")
+
+
 # ---------------------------------------------------------------- MLA --
 
 #: the latent kernel is float32 arithmetic in both cache dtypes: within

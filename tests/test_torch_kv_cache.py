@@ -321,8 +321,19 @@ def _masked_case(case, rng, b=3, length=48, kvh=2, g=3, d=16):
 
 @pytest.mark.parametrize("case", ["ring", "compacted", "window", "ahead"])
 def test_masked_paged_plain_matches_reference_sdpa(case):
+    """At 6 / 2 heads over 48 slots, then at granite-34b's G 48 (48 / 1
+    heads) over 160: the wrapper's plain version and the split algorithm
+    at 1, 7 and 32 tokens and at each split the tensor-core route takes
+    (``TC_SPLIT``) against ``simple_sdpa``, identity and permuted
+    tables."""
     rng = np.random.default_rng(11)
-    q, k, v, sp, q_pos, seq_lens, window = _masked_case(case, rng)
+    splits = sorted({1, 7, 32, *tpa.TC_SPLIT.values()})
+    for kw_case in (dict(), dict(length=160, kvh=1, g=48)):
+        _check_masked_paged(case, rng, splits, **kw_case)
+
+
+def _check_masked_paged(case, rng, splits, **kw_case):
+    q, k, v, sp, q_pos, seq_lens, window = _masked_case(case, rng, **kw_case)
     b, length, kvh, d = k.shape
     g = q.shape[1] // kvh
     k_pos = sp if sp is not None else np.broadcast_to(
@@ -353,7 +364,7 @@ def test_masked_paged_plain_matches_reference_sdpa(case):
                 seq_lens)
         outs = [tpa.paged_attention(*args, **kw)] + [
             tpa.paged_attention_split_plain(*args, split, **kw)
-            for split in (1, 7, 32)]
+            for split in splits]
         for got in outs:
             np.testing.assert_allclose(_np(got),
                                        np.asarray(want).reshape(b, -1, d),
