@@ -381,11 +381,17 @@ PROFILE_CLOSE_CALLS = ("site_end",)
 PROFILE_SCOPES = [
     SpanScope("core/serving/engine.py", False,
               "profiler sites (prefill_forward, decode launch, compress, "
-              "kv transfer, prefix tier) open and close inside one "
-              "method on every path"),
+              "kv transfer, prefix tier, engine.step, model calls, "
+              "sampling) open and close inside one method on every path"),
     SpanScope("control/controller.py", False,
               "the control_step site opens and closes inside "
               "Controller.on_step on every path"),
+    SpanScope("models/transformer.py", False,
+              "the model.head site opens and closes inside Model._head "
+              "on every path (the layer sites are laps: no pair)"),
+    SpanScope("serving/server.py", False,
+              "the server.fan_out site opens and closes inside "
+              "AsyncLVLMServer._drain on every path"),
 ]
 
 # ---------------------------------------------------------- A: async tables --

@@ -53,7 +53,14 @@ every site the reference instruments emits the same events with the same
 names, fields and virtual times, each guarded on ``.enabled``, so an
 untraced, unprofiled engine makes no hook call. Sites only read clocks;
 on CUDA a site's wall time reaches device work only up to the host's last
-synchronisation inside it (sampling's read of the logits). The runtime
+synchronisation inside it (sampling's read of the logits). Beyond the
+reference's sites the port records ``engine.step`` (all of ``step``),
+``model.prefill`` / ``model.extend`` (``rid``, ``q``, ``ctx``, ``nv``) and
+``model.decode`` (``rows_live``: the rows the decoder was given;
+``rows_launched``: ``max_batch``, the rows the fixed-shape step runs)
+around each model call, and ``engine.sample`` (sampling and its host read,
+where the host waits on the device); the engine hands its profiler to the
+model (``Model.profiler``) for the layer sites. The runtime
 sanitizer (``EngineConfig.sanitize``, else ``REPRO_SANITIZE``) asserts the
 conservation laws of ``repro_torch.analysis.sanitizer`` at every step and
 abort boundary.
@@ -145,12 +152,21 @@ class SamplingEngineDecoder:
         for r in reqs:
             toks[r._slot, 0] = eng.slot_last_tok[r._slot]
             pos[r._slot] = eng.slot_pos[r._slot]
+        prof = eng.profiler
+        if prof.enabled:
+            prof.site_begin("model.decode")
         logits, eng.pool = eng.model.decode_step(
             eng.params, eng.pool, torch.from_numpy(toks).to(eng.device),
             torch.from_numpy(pos).to(eng.device), windowed=eng.windowed)
+        if prof.enabled:
+            prof.site_end("model.decode", rows_live=len(reqs),
+                          rows_launched=ec.max_batch)
+            prof.site_begin("engine.sample")
         temp = 0.0 if self.greedy else ec.temperature
         nxt = sample_token(eng.gen, logits, temperature=temp, top_k=ec.top_k,
                            top_p=ec.top_p).cpu().numpy()
+        if prof.enabled:
+            prof.site_end("engine.sample")
         emitted: Dict[int, List[int]] = {}
         for r in reqs:
             s = r._slot
@@ -313,6 +329,9 @@ class Engine:
         self.tracer = tracer if tracer is not None else NULL_TRACER
         self.trace_replica = 0
         self.profiler = profiler if profiler is not None else NULL_PROFILER
+        # the layer and head sites record into the profiler of the engine
+        # built last on this model (a fleet shares one profiler)
+        self.model.profiler = self.profiler
         # runtime sanitizer: resolved once (config wins over env)
         self.sanitize = (bool(ec.sanitize) if ec.sanitize is not None
                          else sanitize_enabled())
@@ -889,6 +908,10 @@ class Engine:
         nv = int(self.slot_nv[slot])
         start, end = req.prefill_done, req.prefill_done + n
 
+        # the model call: a prefill of the prompt's first ``end`` tokens
+        # (and its visual tokens), or an extend of the slot's cache at
+        # ``at`` by tokens[lo:end] -- past a prefix hit or a chunk
+        at = lo = None
         if req.prefill_done == 0:
             # dim 2b: prefix reuse (text-token prompts), keyed by the
             # request's compression variant
@@ -906,24 +929,33 @@ class Engine:
                 self._install_snap(slot, _tree_map(lambda a: a[:, :, :use],
                                                    hit[0]))
                 self.prefix_hit_tokens += use
-                logits, _ = self.model.extend(
-                    self.params, _slot_get(self.pool, slot),
-                    self._tokens(req.tokens[use:end]), use)
-            else:
-                batch = {"tokens": self._tokens(req.tokens[:end])}
-                if req._ve is not None:
-                    batch["visual_embeds"] = req._ve[None]
-                # only the last position's logits are read (the reference
-                # unembeds every position and slices the last)
-                logits, one = self.model.prefill(
-                    self.params, batch, cache_len=ec.cache_len,
-                    windowed=self.windowed, last_only=True)
-                _slot_set(self.pool, slot, one)
+                at, lo = use, use
+        else:
+            at, lo = nv + start, start
+        call = "model.prefill" if at is None else "model.extend"
+        if self.profiler.enabled:
+            self.profiler.site_begin(call)
+        if at is None:
+            batch = {"tokens": self._tokens(req.tokens[:end])}
+            if req._ve is not None:
+                batch["visual_embeds"] = req._ve[None]
+            # only the last position's logits are read (the reference
+            # unembeds every position and slices the last)
+            logits, one = self.model.prefill(
+                self.params, batch, cache_len=ec.cache_len,
+                windowed=self.windowed, last_only=True)
         else:
             # the batch-1 slot view is extended in place: no copy back
             logits, _ = self.model.extend(
                 self.params, _slot_get(self.pool, slot),
-                self._tokens(req.tokens[start:end]), nv + start)
+                self._tokens(req.tokens[lo:end]), at)
+        if self.profiler.enabled:
+            q = end + nv if at is None else end - lo
+            self.profiler.site_end(call, rid=req.rid, q=q,
+                                   ctx=q if at is None else at + q,
+                                   nv=nv if at is None else 0)
+        if at is None:
+            _slot_set(self.pool, slot, one)
 
         req.prefill_done = end
         self.slot_pos[slot] = nv + end
@@ -948,8 +980,12 @@ class Engine:
                         budget)
             _, dec = self._resolve_decoder(req.decoder)
             temp = 0.0 if getattr(dec, "greedy", False) else ec.temperature
+            if self.profiler.enabled:
+                self.profiler.site_begin("engine.sample")
             tok = int(sample_token(self.gen, logits[:, -1], temperature=temp,
                                    top_k=ec.top_k, top_p=ec.top_p)[0])
+            if self.profiler.enabled:
+                self.profiler.site_end("engine.sample", rid=req.rid)
             req.generated.append(tok)
             req._needs_ttft = True
             self.slot_last_tok[slot] = tok
@@ -1064,6 +1100,8 @@ class Engine:
     # --------------------------------------------------------------- step --
     def step(self) -> bool:
         """One scheduler iteration. Returns False when fully idle."""
+        if self.profiler.enabled:
+            self.profiler.site_begin("engine.step")
         self.running = [r for r in self.running if r.state != State.DONE]
         visible = [r for r in self.waiting if r.arrival <= self.clock]
         plan = self.sched.plan(visible, self.running)
@@ -1080,8 +1118,9 @@ class Engine:
                        and getattr(r, "_ready_at", 0.0) > self.clock]
             if future:                  # idle until arrival / KV readiness
                 self.clock = min(future)
-                return True
-            return False
+            if self.profiler.enabled:
+                self.profiler.site_end("engine.step")
+            return bool(future)
         self._iter_visual_tokens = 0
         self._iter_transfer_cost = 0.0    # shared-prefix-tier installs
         for req, n in plan.prefill:
@@ -1131,6 +1170,10 @@ class Engine:
         self.running = [r for r in self.running if r.state != State.DONE]
         if self.sanitize:
             self._sanitize_check(f"Engine.step (iter {self.iters})")
+        if self.profiler.enabled:
+            self.profiler.site_end("engine.step",
+                                   prefill_tokens=plan.prefill_tokens,
+                                   decode_batch=len(decode_reqs))
         return True
 
     def run(self, max_iters: int = 100000) -> Dict:

@@ -145,10 +145,11 @@ def main(argv=None) -> int:
                     metavar="S", help="abort streams whose consumer "
                     "stopped reading for S wall seconds")
     ap.add_argument("--trace-out", default=None, metavar="PATH",
-                    help="enable repro_torch.obs tracing and write the run "
-                         "as Chrome-trace/Perfetto JSON (open in ui.perfetto"
-                         ".dev; validate with python -m "
-                         "repro_torch.obs.validate)")
+                    help="enable repro_torch.obs tracing and profiling and "
+                         "write the run as Chrome-trace/Perfetto JSON, the "
+                         "profiler's host sites on a wall-clock track in "
+                         "epoch microseconds (open in ui.perfetto.dev; "
+                         "validate with python -m repro_torch.obs.validate)")
     ap.add_argument("--trace-events", default=None, metavar="PATH",
                     help="enable tracing and stream raw events as JSONL "
                          "(input for scripts/trace_report.py)")
@@ -205,22 +206,25 @@ def main(argv=None) -> int:
     roles = parse_roles(args.roles) if args.roles else None
     if roles:
         args.replicas = len(roles)
-    tracer = None
+    tracer = profiler = None
     if args.trace_out or args.trace_events:
         from repro_torch.obs import Tracer
         tracer = Tracer()
+    if args.trace_out:
+        from repro_torch.obs import Profiler
+        profiler = Profiler()
     if args.open_loop > 0 or args.replicas > 1:
         front = lvlm.serve_cluster(
             args.replicas, ec, gen=gen, routing=args.routing,
             roles=roles, admission=adm, pacing=args.pacing,
             pacing_scale=args.pacing_scale,
             disconnect_timeout_s=args.disconnect_timeout,
-            obs=tracer, control=args.control) \
+            obs=tracer, profile=profiler, control=args.control) \
             if args.replicas > 1 else lvlm.serve_async(
                 ec, gen=gen, admission=adm, pacing=args.pacing,
                 pacing_scale=args.pacing_scale,
                 disconnect_timeout_s=args.disconnect_timeout,
-                obs=tracer, control=args.control)
+                obs=tracer, profile=profiler, control=args.control)
 
         async def drive():
             async with front:
@@ -241,11 +245,12 @@ def main(argv=None) -> int:
             ap.error("--metrics-out requires the async path "
                      "(--open-loop or --replicas > 1)")
         stats = lvlm.serve(reqs, engine_cfg=ec, gen=gen, obs=tracer,
-                           control=args.control).stats
+                           profile=profiler, control=args.control).stats
     if tracer is not None:
         if args.trace_out:
             from repro_torch.obs import write_chrome_trace
-            write_chrome_trace(tracer.events, args.trace_out)
+            write_chrome_trace(tracer.events, args.trace_out,
+                               sites=profiler.intervals())
         if args.trace_events:
             tracer.write_jsonl(args.trace_events)
     print(json.dumps({k: v for k, v in stats.items()

@@ -22,6 +22,13 @@ the sort dispatch and the combine run on each rank's local groups
 -> "model", groups -> batch axes (``_constrain``). The expert products are
 plain batched matmuls (``torch.matmul`` over the expert axis), as the
 reference leaves its einsums to XLA: no kernel of the port is involved.
+
+``apply_moe(profiler=)`` times the layer as the ``model.moe`` site, a lap
+of the profiler (``Profiler.laps``, filed by the model after its layer
+loop), with ``pairs`` (the (token, choice) pairs dispatched) and
+``buffer_rows`` (the dispatch buffers' rows, E * (C + 1) a group), host
+ints of the shapes it used: their ratio is how full the expert buffers
+ran.
 """
 from __future__ import annotations
 
@@ -31,6 +38,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.layers import ParamSpec, apply_mlp, mlp_specs, spec
+from repro_torch.obs.profile import NULL_PROFILER
 from repro_torch.sharding.context import (Arg, batch_groups, constrain,
                                           local, matmul)
 
@@ -128,7 +136,8 @@ def _combine(y_buf, se, dest_c, st, flat_g, tg: int):
     return torch.stack(outs)
 
 
-def apply_moe(p, x, cfg, *, capacity_factor: Optional[float] = 1.25
+def apply_moe(p, x, cfg, *, capacity_factor: Optional[float] = 1.25,
+              profiler=NULL_PROFILER
               ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """x [B,S,d] -> (y [B,S,d], aux with ``lb_loss``, ``z_loss``, ``load``
     [E] and ``dropped_frac``).
@@ -136,8 +145,11 @@ def apply_moe(p, x, cfg, *, capacity_factor: Optional[float] = 1.25
     ``capacity_factor=None`` is dropless (C = Tg * k, the serving
     setting); otherwise C = max(1, int(factor * Tg * k / E)) over a
     group's Tg tokens (all T without a mesh), and the pairs past an
-    expert's C (in token order) are dropped.
+    expert's C (in token order) are dropped. ``profiler``: the
+    ``model.moe`` site (see the module docstring).
     """
+    if profiler.enabled:
+        t_begin = profiler.clock()
     b, s, d = x.shape
     t = b * s
     k, e = cfg.experts_per_token, cfg.num_experts
@@ -193,4 +205,8 @@ def apply_moe(p, x, cfg, *, capacity_factor: Optional[float] = 1.25
            "z_loss": torch.logsumexp(logits, -1).square().mean(),
            "load": load,
            "dropped_frac": 1.0 - keep.float().mean()}
+    if profiler.enabled:
+        profiler.laps.append(("model.moe", t_begin, profiler.clock(),
+                              {"pairs": g * tg * k,
+                               "buffer_rows": g * e * (cap + 1)}))
     return out.reshape(b, s, d), aux

@@ -39,6 +39,16 @@ Entry points (as the reference):
   decode_step(params, cache, tokens, pos)     -> (logits [B,V], cache)
 ``extend`` takes the attention-cache families (dense, vlm, moe) only, as
 the reference's.
+
+Profiler sites (``Model.profiler``, which the serving ``Engine`` sets to
+its own; ``NULL_PROFILER`` otherwise): in ``prefill``, ``extend`` and
+``decode_step`` of the dense / vlm / moe families each layer's attention
+call is a ``model.attn`` site and its FFN call a ``model.ffn`` site
+(``model.moe``, from ``apply_moe``, in an expert layer), timed here and
+appended to ``Profiler.laps``, filed after the layer loop
+(``close_laps``); the norms and residual adds between them lie in the
+caller's site. ``model.head`` is the final norm and the unembedding, in
+every family.
 """
 from __future__ import annotations
 
@@ -58,6 +68,7 @@ from repro_torch.models import moe as MOE
 from repro_torch.models import rwkv as R
 from repro_torch.models.resampler import apply_resampler, resampler_specs
 from repro_torch.models.layers import ParamSpec, spec
+from repro_torch.obs.profile import NULL_PROFILER
 from repro_torch.sharding.context import (distribute_cache, is_dtensor,
                                           matmul)
 
@@ -113,15 +124,21 @@ def _dense_layer_specs(cfg: ModelConfig) -> Dict[str, Any]:
     return out
 
 
-def _ffn(cfg, p, x, a, moe_cap):
+def _ffn(cfg, p, x, a, moe_cap, prof=NULL_PROFILER):
     """The residual around attention output ``a``, then the FFN residual
     (the MoE layer where the layer has one). Returns (x, aux)."""
     x = x + a
     h = L.apply_norm(p["ln2"], x, cfg.norm)
     if cfg.num_experts and "moe" in p:
-        f, aux = MOE.apply_moe(p["moe"], h, cfg, capacity_factor=moe_cap)
+        f, aux = MOE.apply_moe(p["moe"], h, cfg, capacity_factor=moe_cap,
+                               profiler=prof)
         return x + f, aux
-    return x + L.apply_mlp(p["mlp"], h, cfg.activation), {}
+    if prof.enabled:
+        t0 = prof.clock()
+    f = L.apply_mlp(p["mlp"], h, cfg.activation)
+    if prof.enabled:
+        prof.laps.append(("model.ffn", t0, prof.clock(), None))
+    return x + f, {}
 
 
 def _dense_layer_fwd(cfg, p, x, cos, sin, *, positions, window, causal=True,
@@ -138,8 +155,10 @@ def _dense_layer_fwd(cfg, p, x, cos, sin, *, positions, window, causal=True,
 
 
 def _dense_layer_prefill(cfg, p, x, cos, sin, cache, *, positions, window,
-                         moe_cap=1.25):
+                         moe_cap=1.25, prof=NULL_PROFILER):
     h = L.apply_norm(p["ln1"], x, cfg.norm)
+    if prof.enabled:
+        t0 = prof.clock()
     if cfg.use_mla:
         a, cache = attn.mla_full_attention(p["attn"], h, cos, sin, cfg,
                                            window=window, positions=positions,
@@ -148,28 +167,39 @@ def _dense_layer_prefill(cfg, p, x, cos, sin, cache, *, positions, window,
         a, cache = attn.prefill_into_cache(p["attn"], h, cos, sin, cfg,
                                            cache, window=window,
                                            positions=positions)
-    return _ffn(cfg, p, x, a, moe_cap)[0], cache
+    if prof.enabled:
+        prof.laps.append(("model.attn", t0, prof.clock(), None))
+    return _ffn(cfg, p, x, a, moe_cap, prof)[0], cache
 
 
 def _dense_layer_extend(cfg, p, x, cos, sin, cache, start, *, window,
-                        moe_cap=1.25):
+                        moe_cap=1.25, prof=NULL_PROFILER):
     h = L.apply_norm(p["ln1"], x, cfg.norm)
     append = attn.mla_append_attention if cfg.use_mla \
         else attn.append_attention
+    if prof.enabled:
+        t0 = prof.clock()
     a, cache = append(p["attn"], h, cos, sin, cfg, cache, start,
                       window=window)
-    return _ffn(cfg, p, x, a, moe_cap)[0], cache
+    if prof.enabled:
+        prof.laps.append(("model.attn", t0, prof.clock(), None))
+    return _ffn(cfg, p, x, a, moe_cap, prof)[0], cache
 
 
 def _dense_layer_decode(cfg, p, x, cos, sin, cache, pos, *, window,
-                        moe_cap=None, weight_stationary=False):
+                        moe_cap=None, weight_stationary=False,
+                        prof=NULL_PROFILER):
     if weight_stationary:
         x = L.constrain_replicated(x)
     h = L.apply_norm(p["ln1"], x, cfg.norm)
     decode = attn.mla_decode_attention if cfg.use_mla \
         else attn.decode_attention
+    if prof.enabled:
+        t0 = prof.clock()
     a, cache = decode(p["attn"], h, cos, sin, cfg, cache, pos, window=window)
-    return _ffn(cfg, p, x, a, moe_cap)[0], cache
+    if prof.enabled:
+        prof.laps.append(("model.attn", t0, prof.clock(), None))
+    return _ffn(cfg, p, x, a, moe_cap, prof)[0], cache
 
 
 # --------------------------------------------------------------------------
@@ -184,6 +214,9 @@ _KV_FAMILIES = ("dense", "vlm", "moe")
 @dataclasses.dataclass
 class Model:
     cfg: ModelConfig
+    # the recorder of the layer and head sites (not a field: the serving
+    # Engine sets its own profiler here)
+    profiler = NULL_PROFILER
 
     def __post_init__(self):
         if self.cfg.family not in _FAMILIES:
@@ -342,8 +375,14 @@ class Model:
         return positions[0, 0] if positions.ndim == 3 else positions[0]
 
     def _head(self, params, x):
+        prof = self.profiler
+        if prof.enabled:
+            prof.site_begin("model.head")
         x = L.apply_norm(params["final_norm"], x, self.cfg.norm)
-        return L.unembed(params["embed"], x, self.cfg.logits_softcap)
+        logits = L.unembed(params["embed"], x, self.cfg.logits_softcap)
+        if prof.enabled:
+            prof.site_end("model.head")
+        return logits
 
     # ------------------------------------------------ ssm / hybrid layers --
     def _rwkv_layer(self, p, x, state=None):
@@ -556,7 +595,10 @@ class Model:
                         x, _ = _dense_layer_prefill(
                             lcfg, _layer(params[key], i), x, cos, sin,
                             _layer(cache[key], i), positions=pos_1d,
-                            window=window, moe_cap=moe_cap)
+                            window=window, moe_cap=moe_cap,
+                            prof=self.profiler)
+                if self.profiler.enabled:
+                    self.profiler.close_laps()
         if last_only:
             x = x[:, -1:]
         return self._head(params, x), cache
@@ -621,7 +663,9 @@ class Model:
                 x, _ = _dense_layer_extend(
                     lcfg, _layer(params[key], i), x, cos, sin,
                     _layer(cache[key], i), start, window=window,
-                    moe_cap=moe_cap)
+                    moe_cap=moe_cap, prof=self.profiler)
+        if self.profiler.enabled:
+            self.profiler.close_laps()
         return self._head(params, x), cache
 
     # ------------------------------------------------------------ decode --
@@ -660,7 +704,10 @@ class Model:
                     x, _ = _dense_layer_decode(
                         lcfg, _layer(params[key], i), x, cos, sin,
                         _layer(cache[key], i), pos, window=window,
-                        moe_cap=moe_cap, weight_stationary=weight_stationary)
+                        moe_cap=moe_cap, weight_stationary=weight_stationary,
+                        prof=self.profiler)
+            if self.profiler.enabled:
+                self.profiler.close_laps()
         return self._head(params, x)[:, 0], cache
 
     def _hybrid_decode(self, params, x, cache, cos, sin, pos):

@@ -22,14 +22,21 @@ Timestamps: Perfetto wants microseconds. The **virtual clock** is the
 primary timeline (deterministic; what the cost model charged) --
 ``vt * 1e6``. Wall time rides along in ``args.wall_s`` on every event
 so per-stage wall attribution survives the export.
+
+``sites=`` (a ``Profiler``'s ``intervals()``) adds the profiler's host
+sites as complete events on a process of their own (``pid``
+``SITES_PID``, "host sites (wall clock)"), at their epoch microseconds:
+the clock of a ``torch.profiler`` ``export_chrome_trace``, so the two
+files open on one timeline. A site's attributes are its ``args``.
 """
 from __future__ import annotations
 
 import json
-from typing import Dict, Iterable, List
+from typing import Dict, Iterable, List, Optional
 
 ENGINE_LANE = 0                 # tid of the engine pump lane
 SLOT_LANE_BASE = 1              # tid of slot s is SLOT_LANE_BASE + s
+SITES_PID = 1 << 20             # pid of the host sites' wall-clock track
 
 _PH = {"B": "b", "E": "e", "i": "i", "X": "X", "C": "C"}
 
@@ -38,9 +45,11 @@ def _us(vt) -> float:
     return float(vt or 0.0) * 1e6
 
 
-def to_chrome_trace(events: Iterable[Dict]) -> Dict:
-    """Convert tracer events to a ``{"traceEvents": [...]}`` dict
-    (load via chrome://tracing or ui.perfetto.dev)."""
+def to_chrome_trace(events: Iterable[Dict],
+                    sites: Optional[Iterable[Dict]] = None) -> Dict:
+    """Convert tracer events (and profiler ``sites``) to a
+    ``{"traceEvents": [...]}`` dict (load via chrome://tracing or
+    ui.perfetto.dev)."""
     out: List[Dict] = []
     reps = set()
     for ev in events:
@@ -82,12 +91,20 @@ def to_chrome_trace(events: Iterable[Dict]) -> Dict:
                      "args": {"name": f"replica{pid}"}})
         meta.append({"name": "thread_name", "ph": "M", "pid": pid,
                      "tid": ENGINE_LANE, "args": {"name": "engine"}})
+    if sites is not None:
+        meta.append({"name": "process_name", "ph": "M", "pid": SITES_PID,
+                     "args": {"name": "host sites (wall clock)"}})
+        out.extend({"name": s["name"], "ph": "X", "pid": SITES_PID,
+                    "tid": ENGINE_LANE, "ts": s["t0_ns"] * 1e-3,
+                    "dur": (s["t1_ns"] - s["t0_ns"]) * 1e-3,
+                    "args": dict(s["attrs"])} for s in sites)
     return {"traceEvents": meta + out, "displayTimeUnit": "ms"}
 
 
-def write_chrome_trace(events: Iterable[Dict], path: str) -> int:
+def write_chrome_trace(events: Iterable[Dict], path: str,
+                       sites: Optional[Iterable[Dict]] = None) -> int:
     """Write the Chrome-trace JSON; returns the traceEvents count."""
-    doc = to_chrome_trace(events)
+    doc = to_chrome_trace(events, sites)
     with open(path, "w", encoding="utf-8") as f:
         json.dump(doc, f)
     return len(doc["traceEvents"])

@@ -17,30 +17,50 @@ discipline:
     mirroring the NullTracer test).
   * ``Profiler`` accumulates streaming log2-bucket histograms of wall time
     (``time.perf_counter`` around the site) and virtual time (the engine's
-    modeled cost, passed by the site) per named *site* -- prefill forward,
-    per-decoder-group decode launch, compression, KV-migration transfer,
-    prefix-tier probe/install.
+    modeled cost, passed by the site) per named *site* -- the reference's
+    (prefill forward, per-decoder-group decode launch, compression,
+    KV-migration transfer, prefix-tier probe/install) and the port's own
+    (``engine.step``, ``model.prefill`` / ``extend`` / ``decode``,
+    ``model.attn`` / ``ffn`` / ``moe`` per layer, ``model.head``,
+    ``engine.sample``, ``server.fan_out``; their virtual time is 0).
   * Sites nest (``compress`` runs inside ``prefill_forward``), and the
     profiler attributes wall time both ways: *total* (site entry to exit)
-    and *self* (total minus enclosed child sites). Nesting paths feed the
-    collapsed-stack (flamegraph-compatible) export.
+    and *self* (total minus enclosed child sites).
+  * Every closed site is also kept as an interval: name, start and end on
+    the host's clock, the enclosing site, and the small dict of
+    attributes its ``site_end`` passed (shapes, ``rid``). A site that
+    serves one request carries ``rid``, the key that joins it to the
+    ``Tracer``'s lifecycle events. ``intervals()`` exports them in the
+    epoch nanoseconds that ``torch.profiler``'s events use, through an
+    anchor pair (``time.time_ns()``, the profiler's clock) read when the
+    profiler is made, so host sites and device operations share one axis.
+    Nothing is written out on the hot path.
+  * A caller may also time a region itself and append ``(site, t0, t1,
+    attrs)`` to ``Profiler.laps`` (``t0`` / ``t1`` read from
+    ``Profiler.clock``): no call into the profiler per region.
+    ``close_laps()`` then files them as closed sites inside the innermost
+    open site, histograms and self time included. The model's layer sites
+    are laps: in a host-bound decode step two profiler calls a layer half
+    cost a few percent of the step, an append a tenth of that (PERF.md).
 
 Profiling only ever READS clocks -- it never touches the PRNG key, the
 scheduler, or the virtual clock -- so profiled runs stay bit-identical at
 temperature 0 (locked by test).
 
 Exports: ``profile_families`` renders Prometheus histogram families into a
-``PromText`` (picked up by ``metrics_snapshot()``), ``Profiler.write_json``
-writes the full document (histograms + collapsed stacks), and
-``Profiler.bench_record`` is the schema-v1 scalar block a benchmark
-record embeds.
+``PromText`` (picked up by ``metrics_snapshot()``); ``intervals()`` gives
+the sites one by one (``obs.perfetto.to_chrome_trace(sites=)`` draws them
+on a wall-clock track).
 """
 from __future__ import annotations
 
-import json
 import math
 import time
-from typing import Callable, Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional
+
+# intervals a profiler keeps before it stops recording new ones (the
+# histograms go on): a few hundred MB of host memory at most
+MAX_INTERVALS = 1 << 20
 
 # log2 histogram upper bounds in seconds: 1us * 2**i -- 30 buckets cover
 # 1us .. ~537s, far beyond any single hot-path site on any hardware
@@ -72,18 +92,18 @@ class NullProfiler:
     def site_begin(self, site: str) -> None:
         pass
 
-    def site_end(self, site: str, vt: float = 0.0) -> None:
+    def site_end(self, site: str, vt: float = 0.0, **attrs) -> None:
+        pass
+
+    def close_laps(self) -> None:
         pass
 
     # read-side surface (safe on the null profiler: empty results)
     def snapshot(self) -> Dict[str, Dict]:
         return {}
 
-    def collapsed(self) -> List[str]:
+    def intervals(self) -> List[Dict]:
         return []
-
-    def bench_record(self) -> Dict:
-        return {"schema_version": 1, "sites": {}}
 
 
 NULL_PROFILER = NullProfiler()
@@ -121,8 +141,23 @@ def _trim_buckets(counts: List[int]) -> List[List[float]]:
     return [[bounds[i], counts[i]] for i in range(last + 1)]
 
 
+def _anchor(clock: Callable[[], float], reads: int = 5):
+    """(epoch ns, clock reading) at one instant: ``time.time_ns()``
+    bracketed by two readings of ``clock``, the tightest of ``reads``
+    tries, its midpoint paired with the epoch reading."""
+    best = None
+    for _ in range(reads):
+        a = clock()
+        e = time.time_ns()
+        b = clock()
+        if best is None or b - a < best[0]:
+            best = (b - a, e, 0.5 * (a + b))
+    return best[1], best[2]
+
+
 class Profiler(NullProfiler):
-    """Enabled profiler: streaming log-bucket histograms per site.
+    """Enabled profiler: streaming log-bucket histograms per site, and
+    every closed site as an interval (see the module docstring).
 
     One instance is shared by a whole fleet (like the Tracer): engine
     steps are synchronous, so begin/end pairs never interleave across
@@ -133,42 +168,88 @@ class Profiler(NullProfiler):
     enabled = True
 
     def __init__(self, clock: Callable[[], float] = time.perf_counter):
-        self._clock = clock
+        # the host's clock: the sites' and the caller-timed laps'
+        self.clock = clock
         self._sites: Dict[str, _Site] = {}
-        # open-site stack: [site, t0, child_wall_total] frames
+        # open-site stack: [site, t0, child_wall_total, interval index]
         self._stack: List[List] = []
-        # collapsed stacks: "outer;inner" -> self wall seconds
-        self._paths: Dict[str, float] = {}
+        # intervals in begin order: (site, t0, t1, parent index, attrs);
+        # t1 stays None for a site that was never closed. Tuples: those of
+        # atoms alone (most) the garbage collector stops tracking, so a
+        # long recording lengthens its full collections little
+        self._spans: List[tuple] = []
+        self.max_intervals = MAX_INTERVALS
+        self.intervals_dropped = 0
+        # regions the caller timed itself (see the module docstring)
+        self.laps: List[tuple] = []
+        self.anchor_epoch_ns, self.anchor_clock = _anchor(clock)
 
     # ------------------------------------------------------ recording --
     def site_begin(self, site: str) -> None:
-        self._stack.append([site, self._clock(), 0.0])
+        t = self.clock()
+        stack, spans = self._stack, self._spans
+        idx = len(spans)
+        if idx < self.max_intervals:
+            spans.append((site, t, None, stack[-1][3] if stack else -1,
+                          None))
+        else:
+            idx = -1
+            self.intervals_dropped += 1
+        stack.append([site, t, 0.0, idx])
 
-    def site_end(self, site: str, vt: float = 0.0) -> None:
-        # unwind to the matching frame (defensive: a site that leaked an
-        # inner begin is discarded rather than corrupting attribution)
-        frame = None
-        while self._stack:
-            top = self._stack.pop()
-            if top[0] == site:
-                frame = top
-                break
-        if frame is None:
-            return
-        total = self._clock() - frame[1]
+    def site_end(self, site: str, vt: float = 0.0, **attrs) -> None:
+        """Close the innermost open ``site``; ``attrs`` (host numbers:
+        shapes, ``rid``) ride on its interval."""
+        stack = self._stack
+        if stack and stack[-1][0] == site:
+            frame = stack.pop()
+        else:
+            # unwind to the matching frame (defensive: a site that leaked
+            # an inner begin is discarded rather than corrupting
+            # attribution)
+            frame = None
+            while stack:
+                top = stack.pop()
+                if top[0] == site:
+                    frame = top
+                    break
+            if frame is None:
+                return
+        now = self.clock()
+        total = now - frame[1]
         self_w = total - frame[2]
         if self_w < 0.0:
             self_w = 0.0
-        if self._stack:
-            self._stack[-1][2] += total
-            path = ";".join(f[0] for f in self._stack) + ";" + site
-        else:
-            path = site
+        if stack:
+            stack[-1][2] += total
         rec = self._sites.get(site)
         if rec is None:
             rec = self._sites[site] = _Site()
         rec.add(total, self_w, vt)
-        self._paths[path] = self._paths.get(path, 0.0) + self_w
+        if frame[3] >= 0:
+            span = self._spans[frame[3]]
+            self._spans[frame[3]] = (site, span[1], now, span[3],
+                                     attrs or None)
+
+    def close_laps(self) -> None:
+        """File ``laps`` as closed sites inside the innermost open site."""
+        stack, spans = self._stack, self._spans
+        parent = stack[-1][3] if stack else -1
+        inside = 0.0
+        for site, t0, t1, attrs in self.laps:
+            total = t1 - t0
+            inside += total
+            rec = self._sites.get(site)
+            if rec is None:
+                rec = self._sites[site] = _Site()
+            rec.add(total, total, 0.0)
+            if len(spans) < self.max_intervals:
+                spans.append((site, t0, t1, parent, attrs))
+            else:
+                self.intervals_dropped += 1
+        if stack:
+            stack[-1][2] += inside
+        self.laps.clear()
 
     # ------------------------------------------------------- exports --
     def snapshot(self) -> Dict[str, Dict]:
@@ -186,37 +267,31 @@ class Profiler(NullProfiler):
             }
         return out
 
-    def collapsed(self) -> List[str]:
-        """Collapsed-stack lines (``outer;inner <self_usec>``) -- feed to
-        any flamegraph renderer (e.g. flamegraph.pl, speedscope)."""
-        return [f"{path} {max(1, int(round(us * 1e6)))}"
-                for path, us in sorted(self._paths.items())]
+    def epoch_ns(self, t: float) -> int:
+        """A reading of this profiler's clock (the ``Tracer``'s ``wt``
+        too, when both keep the default ``time.perf_counter``) in the
+        epoch nanoseconds of ``torch.profiler``'s events."""
+        return self.anchor_epoch_ns + int(round(
+            (t - self.anchor_clock) * 1e9))
 
-    def bench_record(self) -> Dict:
-        """The schema-v1 profile block for ``--emit-bench`` records:
-        scalar per-site attribution only (histograms stay in
-        ``write_json``; bench records are for regression gating)."""
-        sites = {}
-        for site, s in sorted(self._sites.items()):
-            sites[site] = {
-                "count": s.count,
-                "wall_total_s": s.wall_total,
-                "wall_self_s": s.wall_self,
-                "virtual_s": s.virtual,
-            }
-        return {"schema_version": 1, "sites": sites}
-
-    def write_json(self, path: str) -> None:
-        """Full profile document: per-site histograms and collapsed stacks."""
-        doc = {
-            "schema_version": 1,
-            "kind": "profile",
-            "sites": self.snapshot(),
-            "collapsed": {p: v for p, v in sorted(self._paths.items())},
-        }
-        with open(path, "w") as f:
-            json.dump(doc, f, indent=1, sort_keys=True)
-            f.write("\n")
+    def intervals(self) -> List[Dict]:
+        """The closed sites in begin order: ``name``, ``t0_ns`` /
+        ``t1_ns`` (epoch ns), ``parent`` (index in this list of the
+        innermost enclosing closed site, -1 at the top) and ``attrs``."""
+        out: List[Dict] = []
+        index: List[int] = []          # self._spans index -> out index
+        for name, t0, t1, parent, attrs in self._spans:
+            while parent >= 0 and index[parent] < 0:
+                parent = self._spans[parent][3]      # skip an unclosed one
+            if t1 is None:
+                index.append(-1)
+                continue
+            index.append(len(out))
+            out.append({"name": name, "t0_ns": self.epoch_ns(t0),
+                        "t1_ns": self.epoch_ns(t1),
+                        "parent": index[parent] if parent >= 0 else -1,
+                        "attrs": dict(attrs or {})})
+        return out
 
 
 def profile_families(prom, profiler, *,

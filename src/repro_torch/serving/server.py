@@ -584,6 +584,10 @@ class AsyncLVLMServer:
                              decoder=name, aborted=aborted)
 
     def _drain(self) -> None:
+        """Fan each stream's new tokens out, finish the done ones (the
+        ``server.fan_out`` profiler site)."""
+        if self.profiler.enabled:
+            self.profiler.site_begin("server.fan_out")
         for rid, stream in list(self._streams.items()):
             self._fan_out(stream)
             if stream.request.state is State.DONE:
@@ -595,6 +599,8 @@ class AsyncLVLMServer:
                 # -- to run the migration protocol from its own task
                 stream._migrate_signaled = True
                 stream._q.put_nowait(MigrateSignal(rid))
+        if self.profiler.enabled:
+            self.profiler.site_end("server.fan_out")
 
     # ---------------------------------------------------------- reports --
     def metrics_snapshot(self, *, replica: Optional[int] = None) -> str:

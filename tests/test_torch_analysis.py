@@ -8,7 +8,11 @@
 (b) The reference tests' real-source mutants (a release action
     neutralized, the span or profiler closes renamed, a core import
     appended to an example), made on the port's engine, controller and
-    server, trip the same rules and actions as on the reference's files.
+    server, trip the same rules and actions as on the reference's files;
+    the port's own profiler sites (``engine.step``, the model calls,
+    sampling) trip O003 besides, one finding each. The files whose only
+    sites are the port's (the model's head, the server's fan-out) trip
+    O003 on a leaked begin, in a fixture and in a mutant of each.
 (c) The framework: waivers, the baseline, the CFG, E000 and the CLI.
 (d) The K-rules on the committed kernel wrappers and ``.cu`` sources
     (clean), and one mutant per concern, built under ``tmp_path``, that
@@ -345,6 +349,29 @@ MUTANTS = [
 ]
 
 
+def _guarded_begins(src):
+    """(lines, site argument's source) of every profiler site opened under
+    an ``if ...enabled:`` guard: the guard's line and the call's, where a
+    leaked begin is flagged."""
+    out = []
+    for node in ast.walk(ast.parse(src)):
+        if isinstance(node, ast.If) and "enabled" in ast.unparse(node.test):
+            for stmt in node.body:
+                for call in ast.walk(stmt):
+                    if isinstance(call, ast.Call) and \
+                            getattr(call.func, "attr", "") == "site_begin":
+                        out.append(((node.lineno, stmt.lineno),
+                                    ast.unparse(call.args[0])))
+    return out
+
+
+def _port_only_site_lines(ref_src, port_src):
+    """The lines of the port's sites that the reference's file lacks."""
+    ref_args = {a for _, a in _guarded_begins(ref_src)}
+    return {ln for lns, a in _guarded_begins(port_src) if a not in ref_args
+            for ln in lns}
+
+
 def _actions(findings):
     """(rule, severity, message) of each finding, the name of the function
     a leak path leaves masked: the port's engine opens its ``compress``
@@ -368,8 +395,60 @@ def test_mutant_parity_on_real_sources(name, rel, ops, rules, trip):
                               rules=rules)
     got = analyze_source(_mutate(port_src, port_ops), port_path,
                          rules=rules)
-    assert _actions(got) == _actions(want)
+    own = _port_only_site_lines(ref_src, port_src) if "O003" in rules \
+        else set()
+    assert {f.line for f in got if f.line in own} == own
+    assert _actions([f for f in got if f.line not in own]) == _actions(want)
     assert any(f.rule == trip[0] and trip[1] in f.message for f in got), got
+
+
+PORT_SITE_FIXTURE = """
+    def _layer(p, x, prof):
+        if prof.enabled:
+            prof.site_begin("model.attn")
+        a = attend(p, x)
+        if a is None:
+            if prof.enabled:
+                prof.site_end("model.attn")
+            return x
+        if prof.enabled:
+            prof.site_end("model.attn")
+        return x + a
+    """
+PORT_SITE_FILES = ["models/transformer.py", SERVER]
+
+
+@pytest.mark.parametrize("rel", PORT_SITE_FILES)
+def test_o003_flags_a_leaked_begin_in_the_port_only_scopes(rel):
+    """A site closed on every path is clean in each file that gained one;
+    the same site left open on the early return is flagged there."""
+    path = f"src/repro_torch/{rel}"
+    src = textwrap.dedent(PORT_SITE_FIXTURE)
+    assert analyze_source(src, path, rules=["O003"]) == []
+    leaky = textwrap.dedent(PORT_SITE_FIXTURE.replace("""        if a is None:
+            if prof.enabled:
+                prof.site_end("model.attn")
+            return x""", """        if a is None:
+            return x"""))
+    assert leaky != src
+    got = analyze_source(leaky, path, rules=["O003"])
+    assert [(f.rule, f.line) for f in got] == [("O003", 3), ("O003", 4)]
+    assert analyze_source(leaky, "src/repro_torch/models/mamba.py",
+                          rules=["O003"]) == []
+
+
+@pytest.mark.parametrize("rel", PORT_SITE_FILES)
+def test_port_only_site_closes_renamed_trip_o003(rel):
+    """Each file that gained a site is clean as committed; with its
+    ``site_end`` calls renamed, every one of its sites is flagged."""
+    path = f"src/repro_torch/{rel}"
+    src = (ROOT / path).read_text()
+    assert analyze_source(src, path, rules=["O003"]) == []
+    got = analyze_source(src.replace("site_end(", "site_noop("), path,
+                         rules=["O003"])
+    assert sorted(f.line for f in got) == \
+        sorted(ln for lns, _ in _guarded_begins(src) for ln in lns)
+    assert got and all(f.rule == "O003" for f in got)
 
 
 def test_core_import_appended_to_an_example_trips_l001():

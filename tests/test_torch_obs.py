@@ -15,7 +15,14 @@ Same weights through the bridge, same requests through both packages:
     port trace passes the reference's ``validate_trace``;
   * the profiler sees the reference's sites with the reference's counts
     and virtual times; ``metrics_snapshot()`` is the reference's text once
-    the wall-time families are removed;
+    the wall-time families are removed (both with the port's own sites,
+    ``PORT_SITES``, left out: the reference has none of them);
+  * the port's own sites form a well-formed tree (every site closed, each
+    inside its parent, the model's under ``engine.step``, one attention and
+    one FFN site a layer a call) whose shapes are the engine's and
+    ``apply_moe``'s; the profiler's epoch clock holds ``torch.profiler``'s
+    events of a site inside the site, and the sites export to a
+    Chrome-trace track of their own;
   * the unit contracts of ``tests/test_obs.py`` and ``tests/test_profile.py``
     (span pairing, Chrome-trace shape, validation, JSONL sink, stats
     helper, profiler attribution and buckets, Prometheus histograms),
@@ -23,9 +30,11 @@ Same weights through the bridge, same requests through both packages:
 """
 import asyncio
 import json
+import time
 
 import numpy as np
 import pytest
+import torch
 
 import repro.api as japi
 from repro.obs import Profiler as JProfiler
@@ -35,6 +44,9 @@ from repro.obs import validate_trace as j_validate_trace
 from repro.training.checkpoint import _flatten
 import repro_torch.api as tapi
 from repro_torch.analysis.sanitizer import SanitizerError
+from repro_torch.configs import get_config
+from repro_torch.models import moe as MOE
+from repro_torch.models.registry import build
 from repro_torch.models.convert import params_from_flat
 from repro_torch.obs import (NULL_PROFILER, NULL_TRACER, JsonlSink,
                              NullProfiler, NullTracer, Profiler, Tracer,
@@ -42,6 +54,7 @@ from repro_torch.obs import (NULL_PROFILER, NULL_TRACER, JsonlSink,
                              profile_families, summarize_records,
                              to_chrome_trace, validate_trace,
                              write_chrome_trace)
+from repro_torch.obs.perfetto import SITES_PID
 from repro_torch.obs.profile import bucket_bounds
 from repro_torch.obs.prom import PromText
 from repro_torch.serving import MetricsRegistry
@@ -66,6 +79,22 @@ def phi():
 def vlm():
     j = japi.LVLM.from_pretrained("qwen2-vl-2b", smoke=True)
     return j, _bridge(j, "qwen2-vl-2b")
+
+
+@pytest.fixture(scope="module")
+def moe():
+    """deepseek-v3's smoke model (a dense layer, then an expert layer):
+    the port alone, for its ``model.moe`` site."""
+    model = build(get_config("deepseek-v3-671b", smoke=True))
+    return model, model.init(0, "cpu")
+
+
+def _moe_calls(model, params, s=24):
+    """A capacity-1.25 prefill of ``s`` tokens, then one decode step."""
+    _, cache = model.prefill(params, {"tokens": torch.arange(s)[None] + 1},
+                             cache_len=s + 8, last_only=True)
+    model.decode_step(params, cache, torch.ones(1, 1, dtype=torch.long),
+                      torch.tensor([s]))
 
 
 def _gen(api, **kw):
@@ -119,21 +148,30 @@ def _no_wall(events):
     return [{k: v for k, v in ev.items() if k != "wt"} for ev in events]
 
 
+# the port's own profiler sites, which the reference does not have
+PORT_SITES = ("engine.step", "model.prefill", "model.extend", "model.decode",
+              "model.attn", "model.ffn", "model.moe", "model.head",
+              "engine.sample", "server.fan_out")
+
+
 def _virtual_sites(prof):
-    """Per-site count, virtual time and virtual histogram (wall excluded)."""
+    """Per-site count, virtual time and virtual histogram (wall excluded)
+    of the reference's sites."""
     return {site: (s["count"], s["virtual_s"], s["virtual_buckets"])
-            for site, s in prof.snapshot().items()}
+            for site, s in prof.snapshot().items() if site not in PORT_SITES}
 
 
 def _no_wall_families(text):
-    """A Prometheus snapshot without its wall-time families."""
+    """A Prometheus snapshot without its wall-time families and the port's
+    own sites."""
     return [line for line in text.splitlines()
-            if "profile_wall_" not in line]
+            if "profile_wall_" not in line
+            and not any(f'site="{n}"' in line for n in PORT_SITES)]
 
 
 # ------------------------------------------------- zero overhead when off --
 
-def test_untraced_unprofiled_hot_path_makes_no_hook_calls(phi, vlm,
+def test_untraced_unprofiled_hot_path_makes_no_hook_calls(phi, vlm, moe,
                                                           monkeypatch):
     """With tracing and profiling off, no hook runs: every NullTracer and
     NullProfiler method is patched to raise, and a sync serve (mixed
@@ -145,8 +183,9 @@ def test_untraced_unprofiled_hot_path_makes_no_hook_calls(phi, vlm,
     for name in ("span_begin", "span_end", "span_abort", "instant",
                  "slice", "counter"):
         monkeypatch.setattr(NullTracer, name, boom)
-    for name in ("site_begin", "site_end"):
+    for name in ("site_begin", "site_end", "close_laps"):
         monkeypatch.setattr(NullProfiler, name, boom)
+    _moe_calls(*moe)                  # the expert layer's site, unprofiled
     t = phi[1]
     res = t.serve(_reqs(tapi, _prompts(4, seed=1), decoders=MIXED),
                   _ec(tapi, scheduler="chunked", chunk_size=4), gen=_gen(tapi))
@@ -169,6 +208,8 @@ def test_traced_profiled_run_is_bit_identical_at_temp0(phi):
                   obs=True, profile=True)
     assert _tokens(got.requests) == _tokens(ref.requests)
     assert got.engine.tracer.events and got.engine.profiler.snapshot()
+    assert {"engine.step", "model.extend", "model.attn", "model.head",
+            "engine.sample"} <= set(got.engine.profiler.snapshot())
     a = _drive_all(t.serve_async(_ec(tapi), gen=_gen(tapi)),
                    _reqs(tapi, prompts, decoders=MIXED))
     b = _drive_all(t.serve_async(_ec(tapi), gen=_gen(tapi), obs=True,
@@ -530,10 +571,7 @@ def test_profiler_self_total_nesting_equals_reference():
     assert snap["outer"]["wall_self_s"] == pytest.approx(2.0)
     assert snap["inner"]["wall_self_s"] == pytest.approx(2.0)
     assert snap["outer"]["virtual_s"] == pytest.approx(1.5)
-    assert "outer;inner 2000000" in prof.collapsed()
-    assert prof.bench_record()["sites"]["outer"]["count"] == 1
-    assert (snap, prof.collapsed(), prof.bench_record()) == \
-        (ref.snapshot(), ref.collapsed(), ref.bench_record())
+    assert snap == ref.snapshot()
 
 
 def test_profiler_log_buckets_and_mismatched_end():
@@ -559,21 +597,103 @@ def test_profiler_log_buckets_and_mismatched_end():
     assert "leaked" not in snap and snap["outer"]["count"] == 1
 
 
-def test_profiler_write_json(tmp_path):
+def test_profiler_intervals_nest_and_carry_attrs():
+    """Every closed site is an interval in begin order with its parent's
+    index and its attributes, on the epoch clock of the anchor pair; a
+    leaked site is left out (its children move to its parent), and past
+    ``max_intervals`` only the histograms go on."""
     prof, t = _manual_profiler()
-    prof.site_begin("prefill_forward")
+    prof.anchor_epoch_ns, prof.anchor_clock = 10**18, 0.0
+    prof.site_begin("engine.step")
     t[0] = 1.0
-    prof.site_begin("compress")
+    prof.site_begin("model.decode")
+    prof.site_begin("leaked")
+    prof.site_begin("model.attn")
+    t[0] = 1.5
+    prof.site_end("model.attn")
+    t[0] = 2.0
+    prof.site_end("model.decode", rows_live=3, rows_launched=4)
+    prof.site_begin("engine.sample")
+    t[0] = 2.25
+    prof.site_end("engine.sample", rid=7)
     t[0] = 3.0
-    prof.site_end("compress")
-    t[0] = 4.0
-    prof.site_end("prefill_forward", vt=0.125)
-    p = str(tmp_path / "profile.json")
-    prof.write_json(p)
-    doc = json.load(open(p))
-    assert doc["schema_version"] == 1 and doc["kind"] == "profile"
-    assert doc["collapsed"]["prefill_forward;compress"] == pytest.approx(2.0)
-    assert doc["sites"]["prefill_forward"]["virtual_s"] == 0.125
+    prof.site_end("engine.step")
+    got = [(s["name"], s["t0_ns"] - 10**18, s["t1_ns"] - 10**18,
+            s["parent"], s["attrs"]) for s in prof.intervals()]
+    assert got == [
+        ("engine.step", 0, 3 * 10**9, -1, {}),
+        ("model.decode", 10**9, 2 * 10**9, 0,
+         {"rows_live": 3, "rows_launched": 4}),
+        ("model.attn", 10**9, 15 * 10**8, 1, {}),
+        ("engine.sample", 2 * 10**9, 225 * 10**7, 0, {"rid": 7})]
+    assert prof.epoch_ns(2.0) == 10**18 + 2 * 10**9
+    assert prof.snapshot()["model.attn"]["count"] == 1
+    # laps: regions timed by the caller, filed inside the open site
+    prof.site_begin("model.decode")
+    prof.laps += [("model.attn", 3.0, 3.5, None),
+                  ("model.moe", 3.5, 4.0, {"pairs": 8})]
+    prof.close_laps()
+    t[0] = 5.0
+    prof.site_end("model.decode")
+    got = [(s["name"], s["t0_ns"] - 10**18, s["parent"], s["attrs"])
+           for s in prof.intervals()[4:]]
+    assert got == [("model.decode", 3 * 10**9, -1, {}),
+                   ("model.attn", 3 * 10**9, 4, {}),
+                   ("model.moe", 35 * 10**8, 4, {"pairs": 8})]
+    assert prof.laps == []
+    snap = prof.snapshot()
+    assert snap["model.attn"]["count"] == 2
+    assert snap["model.decode"]["wall_self_s"] == pytest.approx(1.0 + 1.0)
+    capped = Profiler()
+    capped.max_intervals = 2
+    for _ in range(3):
+        capped.site_begin("s")
+        capped.site_end("s")
+    assert len(capped.intervals()) == 2 and capped.intervals_dropped == 1
+    assert capped.snapshot()["s"]["count"] == 3
+    assert NULL_PROFILER.intervals() == []
+
+
+def test_profiler_epoch_clock_holds_torch_profiler_events():
+    """Host work inside a site: ``torch.profiler``'s CPU events (epoch ns)
+    lie inside the site's exported interval, within 50 us."""
+    from torch.profiler import ProfilerActivity, profile
+    prof = Profiler()
+    a = torch.randn(64, 64)
+    with profile(activities=[ProfilerActivity.CPU]) as tp:
+        prof.site_begin("model.attn")
+        for _ in range(3):
+            a = torch.tanh(a @ a)
+        prof.site_end("model.attn")
+    site = prof.intervals()[0]
+    evs = [e for e in tp.profiler.kineto_results.events()
+           if e.name().startswith("aten::")]
+    assert evs
+    for e in evs:
+        assert site["t0_ns"] - 50_000 <= e.start_ns()
+        assert e.start_ns() + e.duration_ns() <= site["t1_ns"] + 50_000
+
+
+def test_chrome_trace_draws_sites_on_a_wall_clock_track(tmp_path):
+    prof, t = _manual_profiler()
+    prof.anchor_epoch_ns, prof.anchor_clock = 1_700_000_000 * 10**9, 0.0
+    prof.site_begin("engine.step")
+    t[0] = 0.002
+    prof.site_end("engine.step", decode_batch=3)
+    tiny = _tiny_trace().events
+    doc = to_chrome_trace(tiny, sites=prof.intervals())
+    ev = [e for e in doc["traceEvents"] if e["pid"] == SITES_PID]
+    assert [e["ph"] for e in ev] == ["M", "X"]
+    assert ev[0]["args"]["name"] == "host sites (wall clock)"
+    assert ev[1]["ts"] == pytest.approx(1.7e15)
+    assert ev[1]["dur"] == pytest.approx(2000.0)
+    assert ev[1]["args"] == {"decode_batch": 3}
+    assert validate_trace(doc) == []
+    p = str(tmp_path / "trace.json")
+    assert write_chrome_trace(tiny, p, sites=prof.intervals()) == \
+        len(doc["traceEvents"])
+    assert validate_trace(load_trace(p)) == []
+    assert to_chrome_trace(tiny) == j_to_chrome_trace(tiny)
 
 
 def test_prom_histogram_rendering():
@@ -610,3 +730,115 @@ def test_profile_families_and_server_snapshot(phi):
     assert 'site="prefill_forward"' in solo and 'site="decode:greedy"' in solo
     assert "repro_profile_wall_self_seconds_total" in solo
     assert "profile_wall_seconds" not in server.metrics_snapshot(replica=0)
+
+
+# ------------------------------------------------- the port's own sites --
+
+def _children(iv, i, name):
+    return [s for s in iv if s["parent"] == i and s["name"] == name]
+
+
+def _ancestors(iv, i):
+    out, p = [], iv[i]["parent"]
+    while p >= 0:
+        out.append(iv[p]["name"])
+        p = iv[p]["parent"]
+    return out
+
+
+def _check_tree(prof, n_layers, max_batch):
+    """Every site closed, each inside its parent, every model call under
+    ``engine.step`` with one attention and one FFN site a layer and one
+    head, and a decode's rows those of its step's decode batch."""
+    iv = prof.intervals()
+    assert prof._stack == [] and len(iv) == len(prof._spans)
+    assert prof.intervals_dropped == 0
+    for s in iv:
+        assert s["t0_ns"] <= s["t1_ns"]
+        if s["parent"] >= 0:
+            p = iv[s["parent"]]
+            assert p["t0_ns"] <= s["t0_ns"] and s["t1_ns"] <= p["t1_ns"]
+    calls = [i for i, s in enumerate(iv) if s["name"] in
+             ("model.prefill", "model.extend", "model.decode")]
+    assert calls
+    for i in calls:
+        assert "engine.step" in _ancestors(iv, i)
+        assert len(_children(iv, i, "model.attn")) == n_layers
+        assert len(_children(iv, i, "model.ffn")) == n_layers
+        assert len(_children(iv, i, "model.head")) == 1
+        a = iv[i]["attrs"]
+        if iv[i]["name"] == "model.decode":
+            step = iv[i]
+            while step["name"] != "engine.step":
+                step = iv[step["parent"]]
+            assert a["rows_live"] == step["attrs"]["decode_batch"]
+            assert a["rows_launched"] == max_batch
+        else:
+            assert a["q"] > 0 and a["ctx"] >= a["q"] and "rid" in a
+    return iv
+
+
+def test_site_tree_is_well_formed(phi, vlm):
+    """Recorded serves of the smoke models: an async greedy serve (decode
+    rows), a chunked one (extends at each chunk's offset) and a VLM one
+    (visual tokens in the prefill's shape)."""
+    layers = phi[1].cfg.num_layers
+    prof = Profiler()
+    server = phi[1].serve_async(_ec(tapi), gen=_gen(tapi), obs=True,
+                                profile=prof)
+    _drive_all(server, _reqs(tapi, _prompts(3, seed=8)))
+    iv = _check_tree(prof, layers, 4)
+    names = {s["name"] for s in iv}
+    assert {"server.fan_out", "engine.sample", "model.decode"} <= names
+    assert any(s["attrs"].get("rows_live", 0) > 1 for s in iv)
+
+    prompts = _prompts(2, seed=9, lo=20, hi=24)
+    res = phi[1].serve(_reqs(tapi, prompts),
+                       _ec(tapi, scheduler="chunked", chunk_size=8),
+                       gen=_gen(tapi), profile=True)
+    iv = _check_tree(res.engine.profiler, layers, 4)
+    for rid, p in enumerate(prompts):
+        ext = [s["attrs"] for s in iv if s["name"] == "model.extend"
+               and s["attrs"]["rid"] == rid]
+        first = next(s["attrs"] for s in iv if s["name"] == "model.prefill"
+                     and s["attrs"]["rid"] == rid)
+        assert first == {"rid": rid, "q": 8, "ctx": 8, "nv": 0}
+        assert [(a["q"], a["ctx"]) for a in ext] == \
+            [(min(8, len(p) - c), min(c + 8, len(p)))
+             for c in range(8, len(p), 8)]
+
+    reqs = _vlm_reqs(tapi, vlm[1].cfg)[:1]
+    res = vlm[1].serve(reqs, _ec(tapi), gen=_gen(tapi), profile=True)
+    iv = _check_tree(res.engine.profiler, vlm[1].cfg.num_layers, 4)
+    nv = vlm[1].cfg.num_visual_tokens
+    assert next(s["attrs"] for s in iv if s["name"] == "model.prefill") \
+        == {"rid": 0, "q": 10 + nv, "ctx": 10 + nv, "nv": nv}
+
+
+def test_moe_sites_carry_apply_moe_shapes(moe, monkeypatch):
+    """In the expert layer ``model.moe`` takes ``model.ffn``'s place, and
+    its ``pairs`` / ``buffer_rows`` are the (token, choice) pairs and the
+    E * (C + 1) buffer rows of ``apply_moe``'s own dispatch, for a
+    capacity-1.25 prefill and a dropless decode."""
+    model, params = moe
+    seen = []
+    real = MOE._dispatch
+
+    def spy(xg, idx, gates, cap, e):
+        seen.append((idx.numel(), e * idx.shape[0] * (cap + 1)))
+        return real(xg, idx, gates, cap, e)
+
+    monkeypatch.setattr(MOE, "_dispatch", spy)
+    prof = Profiler()
+    monkeypatch.setattr(model, "profiler", prof)
+    _moe_calls(model, params, s=24)
+    iv = prof.intervals()
+    sites = [s for s in iv if s["name"] == "model.moe"]
+    assert [(s["attrs"]["pairs"], s["attrs"]["buffer_rows"])
+            for s in sites] == seen
+    k, e = model.cfg.experts_per_token, model.cfg.num_experts
+    cap = max(1, int(1.25 * 24 * k / e))
+    assert seen == [(24 * k, e * (cap + 1)), (k, e * (k + 1))]
+    assert [s["name"] for s in iv] == 2 * [
+        "model.attn", "model.ffn", "model.attn", "model.moe", "model.head"]
+
